@@ -6,18 +6,27 @@
 Phases, each of which exits non-zero on failure:
 
   1. the card (nvidia-smi name and power limit) and the build of every
-     kernel from its CUDA source with nvcc (sm_90a);
+     kernel from its CUDA source with nvcc (sm_90a), with ptxas's register
+     and spill report of each kernel;
   2. every kernel against its plain PyTorch version on the card, bit for
-     bit, over the cases its callers give it;
-  3. the main path: 64 IMDB requests (6 words x 10 frames, sparsity 0.85,
-     random weights from a seed) served by `SNNServeEngine(backend="cuda")`
-     at full width, launch counts taken over that drain alone, every request
-     equal to an `int_ref` engine on the card, and a few equal to the plain
-     version on the CPU; then one more drain under torch.profiler for the
-     device's busy time, its idle share and the time of each kernel;
-  4. each kernel's device time at the serving shape and at B = 4096, beside
-     its plain version's device time, the host time of one wrapper call, and
-     its bound, printed as one `kernels` JSON line.
+     bit (V, rasters and every gate or event counter), over the cases its
+     callers give it: the dense kernel as before, the gated kernel at
+     G in {1, 2, 4, 8}, the event-list kernel at crossover in
+     {0, 0.15, 0.5, 1}, each over neuron x clamp x v_init at IMDB widths,
+     the all-silent and all-ones rasters, ragged batches, block_b = 64 and
+     a 130-wide first layer;
+  3. the main paths: 64 IMDB requests (6 words x 10 frames, sparsity 0.85,
+     random weights from a seed) served at full width by
+     `SNNServeEngine` on the `cuda`, `cuda_sparse` (G = 8) and
+     `cuda_events` (crossover 1.0) backends, each drain's launch counts
+     taken over that drain alone; every request equal to an `int_ref`
+     engine on the card (and the first few to `int_ref` on the CPU); the
+     `cuda_events` device ledger equal to a `ref_events` engine's and to
+     the per-request raster tally; then one profiled drain per backend for
+     the device's busy time, its idle share and the time of each kernel;
+  4. each kernel's device time at the serving shape (K = 10, B = 32) and at
+     B = 4096, beside its plain version's device time, the host time of
+     one wrapper call, and its bound, printed as one `kernels` JSON line.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it prints no
@@ -35,7 +44,23 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core rate
 IMDB_WIDTHS = (100, 128, 128, 1)
+WIDE_WIDTHS = (130, 24, 3)        # a fan-in spanning two macro row tiles
 SEED = 0
+GATE_G = 8                        # the cuda_sparse drain's granularity
+CROSSOVER = 1.0                   # the cuda_events drain's crossover
+KERNEL_SOURCE = "src/repro_torch/kernels/fused_snn_net/csrc/fused_snn_net.cu"
+REPLACES = {"fused_snn_net": "src/repro/kernels/fused_snn_net/kernel.py:149",
+            "fused_snn_net_gated":
+                "src/repro/kernels/fused_snn_net/kernel.py:294",
+            "fused_snn_net_events":
+                "src/repro/kernels/fused_snn_net/kernel.py:222"}
+BACKEND_OF = {"fused_snn_net": "cuda", "fused_snn_net_gated": "cuda_sparse",
+              "fused_snn_net_events": "cuda_events"}
+MODE_KW = {"fused_snn_net": {},
+           "fused_snn_net_gated": {"use_sparse": True,
+                                   "gate_granularity": GATE_G},
+           "fused_snn_net_events": {"use_events": True,
+                                    "event_crossover": CROSSOVER}}
 
 
 def fail(msg: str) -> int:
@@ -81,26 +106,95 @@ def device_ms(fn, iters: int) -> tuple:
 
 
 def net_bound_ms(T: int, B: int, widths: tuple, *, readout: bool,
-                 v_init: bool, emit_rasters: bool) -> tuple:
+                 v_init: bool, emit_rasters: bool, macs: float = None,
+                 counter_bytes: int = 0) -> tuple:
     """Least time the card could take for one fused-network call: input
-    raster, weights, V in and out, rasters each moved once, against the
-    2*T*B*sum(N_i*N_{i+1}) int8 operations. Returns (ms, bound_by)."""
+    raster, weights, V in and out, rasters and counters each moved once,
+    against 2 int8 operations per multiply-accumulate: ``macs`` (the ones
+    this call's data needs) or the dense T*B*sum(N_i*N_{i+1}).
+    Returns (ms, bound_by)."""
     n_spiking = len(widths) - 2 if readout else len(widths) - 1
     weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     moved = (T * B * widths[0] + weights
              + 4 * B * sum(widths[1:]) * (2 if v_init else 1)
-             + (T * B * sum(widths[1:n_spiking + 1]) if emit_rasters else 0))
+             + (T * B * sum(widths[1:n_spiking + 1]) if emit_rasters else 0)
+             + counter_bytes)
+    if macs is None:
+        macs = T * B * weights
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * T * B * weights / PEAK_INT8_OPS_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_INT8_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def net_case(widths, T, B, readout, v_init, seed, dev):
-    """Seeded raster at 30% density, weights biased positive so V reaches
-    the 11-bit limits, thresholds and leaks, optional carried V."""
+def needed_macs(name: str, counters, T: int, B: int, widths: tuple,
+                block_b: int) -> float:
+    """Multiply-accumulates the data of one call needs under the kernel's
+    own rule: the dense product; the occupied gate blocks' rows for the
+    real lanes of each tile (from the skip counts); one weight row per
+    event (from the row counts)."""
+    outs = widths[1:]
+    if name == "fused_snn_net":
+        return T * B * sum(a * b for a, b in zip(widths[:-1], outs))
+    if name == "fused_snn_net_events":
+        return sum(int(rc.sum()) * n for rc, n in
+                   zip(counters["row_events"], outs))
+    skips = counters if isinstance(counters, list) else [counters]
+    lanes = [min(block_b, B - t * block_b) for t in range(-(-B // block_b))]
+    bw = 128 // GATE_G
+    macs = 0
+    for i, (n_in, n_out) in enumerate(zip(widths[:-1], outs)):
+        sk = skips[i].cpu().numpy()                    # (tiles, blocks)
+        width = [min(bw, n_in - lo) for lo in range(0, n_in, bw)]
+        for tile, nb in enumerate(lanes):
+            macs += nb * n_out * sum((T - int(sk[tile, g])) * w
+                                     for g, w in enumerate(width))
+    return macs
+
+
+def skipped_share(name: str, counters, T: int, B: int, widths: tuple):
+    """Share of the gate sites a call skipped: silent (tile, block) gates of
+    the gated kernel, silent (frame, row) sites of the event-list kernel;
+    None for the dense kernel."""
+    if name == "fused_snn_net_gated":
+        skips = counters if isinstance(counters, list) else [counters]
+        sites = sum(s.numel() for s in skips) * T
+        return sum(int(s.sum()) for s in skips) / sites
+    if name == "fused_snn_net_events":
+        events = sum(int(rc.sum()) for rc in counters["row_events"])
+        return 1.0 - events / (T * B * sum(widths[:-1]))
+    return None
+
+
+def counter_bytes(name: str, B: int, widths: tuple, block_b: int) -> int:
+    tiles = -(-B // block_b)
+    if name == "fused_snn_net_gated":
+        return 4 * tiles * sum(-(-n // (128 // GATE_G)) for n in widths[:-1])
+    if name == "fused_snn_net_events":
+        return 4 * tiles * (sum(widths[:-1]) + len(widths) - 1)
+    return 0
+
+
+def raster(rng, shape, density: float, structured: bool) -> np.ndarray:
+    """{0, 1} int8 raster: iid at ``density``, or (``structured``) with
+    silent 16-row chunks per lane and whole silent frames on top, so gate
+    blocks at every granularity are sometimes silent."""
+    spikes = rng.random(shape) < density
+    if structured:
+        T, B, n = shape
+        spikes &= np.repeat(rng.random((T, B, -(-n // 16))) < 0.4, 16,
+                            axis=2)[:, :, :n]
+        spikes &= rng.random((T, 1, 1)) < 0.7
+    return spikes.astype(np.int8)
+
+
+def net_case(widths, T, B, readout, v_init, seed, dev, density=0.3,
+             structured=False, fill=None):
+    """Seeded raster (or a constant ``fill``), weights biased positive so V
+    reaches the 11-bit limits, thresholds and leaks, optional carried V."""
     rng = np.random.default_rng(seed)
-    spikes = torch.from_numpy(
-        (rng.random((T, B, widths[0])) < 0.3).astype(np.int8)).to(dev)
+    spikes = (np.full((T, B, widths[0]), fill, np.int8) if fill is not None
+              else raster(rng, (T, B, widths[0]), density, structured))
+    spikes = torch.from_numpy(spikes).to(dev)
     ws = [torch.from_numpy(rng.integers(-20, 32, (a, b)).astype(np.int8)).to(dev)
           for a, b in zip(widths[:-1], widths[1:])]
     n_spiking = len(ws) - 1 if readout else len(ws)
@@ -111,45 +205,102 @@ def net_case(widths, T, B, readout, v_init, seed, dev):
     return spikes, ws, ths, lks, vi
 
 
-def phase_kernel_vs_plain(ops, dev) -> tuple:
-    """Phase 2: (cases, max |kernel - plain|) over every case."""
-    cases = []
-    for neuron in ("if", "lif", "rmp"):
-        for clamp in ("saturate", "wrap"):
-            for v_init in (False, True):
-                for emit in (False, True):
-                    cases.append((IMDB_WIDTHS, 10, 256, True, v_init, emit,
-                                  neuron, clamp, 8))
-    cases += [(IMDB_WIDTHS, 10, 37, True, True, True, "rmp", "wrap", 8),
-              (IMDB_WIDTHS, 7, 1, True, False, True, "lif", "saturate", 8),
-              (IMDB_WIDTHS, 10, 300, True, True, True, "rmp", "saturate", 64),
-              ((126, 14), 10, 784, False, True, True, "lif", "wrap", 8),
-              ((126, 14), 3, 785, False, False, True, "rmp", "saturate", 32)]
-    worst = 0
-    for n, (widths, T, B, readout, v_init, emit, neuron, clamp,
-            block_b) in enumerate(cases):
-        spikes, ws, ths, lks, vi = net_case(widths, T, B, readout, v_init,
-                                            seed=100 + n, dev=dev)
-        kw = dict(neuron=neuron, clamp_mode=clamp, readout=readout,
-                  emit_rasters=emit, v_init=vi)
-        got_r, got_v = ops.fused_snn_net(spikes, ws, thresholds=ths,
-                                         leaks=lks, block_b=block_b, **kw)
-        want_r, want_v = ops.fused_snn_net_ref(spikes, ws, ths, lks, **kw)
-        torch.cuda.synchronize()
-        if len(got_r) != len(want_r) or len(got_v) != len(want_v):
-            raise AssertionError(f"case {n}: output counts differ")
-        for g, w in zip(got_r + got_v, want_r + want_v):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise AssertionError(f"case {n}: {g.dtype}{tuple(g.shape)} != "
-                                     f"{w.dtype}{tuple(w.shape)}")
-            worst = max(worst, int((g.long() - w.long()).abs().max())
-                        if g.numel() else 0)
-        if worst:
-            raise AssertionError(
-                f"case {n} ({widths}, T={T}, B={B}, {neuron}/{clamp}, "
-                f"v_init={v_init}, rasters={emit}, block_b={block_b}): "
-                f"kernel differs from the plain version by {worst}")
-    return len(cases), worst
+def flat_outputs(out) -> list:
+    """Rasters, V and every counter tensor of one wrapper result."""
+    rasters, vs, counters = out
+    if isinstance(counters, dict):
+        counters = counters["row_events"] + [counters["dense_fallbacks"]]
+    elif torch.is_tensor(counters):
+        counters = [counters]
+    return list(rasters) + list(vs) + list(counters or [])
+
+
+def kernel_cases() -> dict:
+    """Phase-2 cases per kernel: (widths, T, B, readout, v_init, emit,
+    neuron, clamp, block_b, mode kwargs, raster kwargs)."""
+    grid = [(n, c, vi) for n in ("if", "lif", "rmp")
+            for c in ("saturate", "wrap") for vi in (False, True)]
+    dense = [(IMDB_WIDTHS, 10, 256, True, vi, emit, n, c, 8, {}, {})
+             for n, c, vi in grid for emit in (False, True)]
+    dense += [(IMDB_WIDTHS, 10, 37, True, True, True, "rmp", "wrap", 8, {}, {}),
+              (IMDB_WIDTHS, 7, 1, True, False, True, "lif", "saturate", 8, {},
+               {}),
+              (IMDB_WIDTHS, 10, 300, True, True, True, "rmp", "saturate", 64,
+               {}, {}),
+              ((126, 14), 10, 784, False, True, True, "lif", "wrap", 8, {}, {}),
+              ((126, 14), 3, 785, False, False, True, "rmp", "saturate", 32,
+               {}, {})]
+    sparse = {"density": 0.15, "structured": True}
+    iid85 = {"density": 0.15}
+    gated, events = [], []
+    for k, (n, c, vi) in enumerate(grid):
+        for g in (1, 2, 4, 8):
+            gated.append((IMDB_WIDTHS, 10, 256, True, vi, k % 2 == 0, n, c, 8,
+                          {"use_sparse": True, "gate_granularity": g}, sparse))
+        for x in (0.0, 0.15, 0.5, 1.0):
+            events.append((IMDB_WIDTHS, 10, 256, True, vi, k % 2 == 0, n, c,
+                           8, {"use_events": True, "event_crossover": x},
+                           iid85))
+    edge = [(IMDB_WIDTHS, 10, 256, True, False, True, "rmp", "saturate", 8,
+             {"fill": 0}),
+            (IMDB_WIDTHS, 10, 256, True, True, True, "lif", "wrap", 8,
+             {"fill": 1}),
+            (IMDB_WIDTHS, 10, 1, True, True, True, "rmp", "wrap", 8, sparse),
+            (IMDB_WIDTHS, 10, 37, True, True, True, "if", "saturate", 8,
+             sparse),
+            (IMDB_WIDTHS, 10, 300, True, True, True, "rmp", "saturate", 8,
+             sparse),
+            (IMDB_WIDTHS, 10, 300, True, True, True, "lif", "wrap", 64,
+             sparse),
+            (WIDE_WIDTHS, 10, 300, True, True, True, "rmp", "wrap", 8,
+             sparse),
+            (WIDE_WIDTHS, 10, 37, True, False, True, "lif", "saturate", 64,
+             sparse)]
+    for widths, T, B, ro, vi, emit, n, c, bb, rk in edge:
+        for g in (1, 2, 4, 8):
+            gated.append((widths, T, B, ro, vi, emit, n, c, bb,
+                          {"use_sparse": True, "gate_granularity": g}, rk))
+        for x in (0.0, 0.15, 0.5, 1.0):
+            events.append((widths, T, B, ro, vi, emit, n, c, bb,
+                           {"use_events": True, "event_crossover": x}, rk))
+    return {"fused_snn_net": dense, "fused_snn_net_gated": gated,
+            "fused_snn_net_events": events}
+
+
+def phase_kernel_vs_plain(ops, dev) -> dict:
+    """Phase 2: per kernel, (cases, max |kernel - plain|) over its cases."""
+    result = {}
+    for name, cases in kernel_cases().items():
+        worst = 0
+        for n, (widths, T, B, readout, v_init, emit, neuron, clamp, block_b,
+                mode_kw, raster_kw) in enumerate(cases):
+            spikes, ws, ths, lks, vi = net_case(widths, T, B, readout, v_init,
+                                                seed=100 + n, dev=dev,
+                                                **raster_kw)
+            kw = dict(neuron=neuron, clamp_mode=clamp, readout=readout,
+                      emit_rasters=emit, v_init=vi, block_b=block_b, **mode_kw)
+            got = flat_outputs(ops.fused_snn_net(spikes, ws, thresholds=ths,
+                                                 leaks=lks, **kw))
+            want = flat_outputs(ops.fused_snn_net_ref(spikes, ws, ths, lks,
+                                                      **kw))
+            torch.cuda.synchronize()
+            if len(got) != len(want):
+                raise AssertionError(f"{name} case {n}: output counts differ")
+            for g, w in zip(got, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(
+                        f"{name} case {n}: {g.dtype}{tuple(g.shape)} != "
+                        f"{w.dtype}{tuple(w.shape)}")
+                worst = max(worst, int((g.long() - w.long()).abs().max())
+                            if g.numel() else 0)
+            if worst:
+                raise AssertionError(
+                    f"{name} case {n} ({widths}, T={T}, B={B}, "
+                    f"{neuron}/{clamp}, v_init={v_init}, rasters={emit}, "
+                    f"block_b={block_b}, {mode_kw}, {raster_kw}): kernel "
+                    f"differs from the plain version by {worst}")
+        result[name] = (len(cases), worst)
+    return result
 
 
 def same_request(a, b) -> bool:
@@ -160,7 +311,8 @@ def same_request(a, b) -> bool:
 
 
 def phase_serving(dev) -> dict:
-    """Phase 3: the main path, 64 IMDB requests through the cuda engine."""
+    """Phase 3: the main paths, 64 IMDB requests through the cuda,
+    cuda_sparse and cuda_events engines."""
     from repro_torch import kernels
     from repro_torch.configs.impulse_snn import IMDB
     from repro_torch.core import pipeline, snn
@@ -170,12 +322,15 @@ def phase_serving(dev) -> dict:
     program = pipeline.compile_network(IMDB, snn.init_fc_snn(SEED, IMDB),
                                        domain="int", device=dev)
     cfg = dict(batch_slots=32, pages=2, megastep=10, device=dev)
+    step_kw = {"cuda_sparse": {"gate_granularity": GATE_G},
+               "cuda_events": {"event_crossover": CROSSOVER}}
 
     def requests():
         return make_requests(program, 64, 6, IMDB.timesteps, 0.85, SEED)
 
     def drain(backend):
-        eng = SNNServeEngine(program, backend=backend, **cfg)
+        eng = SNNServeEngine(program, backend=backend,
+                             step_kw=step_kw.get(backend), **cfg)
         for r in requests():
             eng.submit(r)
         torch.cuda.synchronize()
@@ -184,21 +339,9 @@ def phase_serving(dev) -> dict:
         torch.cuda.synchronize()
         return sorted(done, key=lambda r: r.rid), time.perf_counter() - t0, eng
 
-    drain("cuda")                                  # warm-up, not counted
-    kernels.reset_launch_counts()
-    served, dt, eng = drain("cuda")
-    launches = dict(kernels.LAUNCH_COUNTS)
     ref, dt_ref, _ = drain("int_ref")
-    if len(served) != 64 or any(r.ticks != 60 for r in served):
-        raise AssertionError("the cuda engine did not serve 64 x 60 frames")
-    for r in served:
-        if (r.v_out.shape != (1,) or r.logits.shape != (1,)
-                or not np.isfinite(r.logits).all()):
-            raise AssertionError(f"request {r.rid}: bad readout {r.logits}")
-    bad = [a.rid for a, b in zip(served, ref) if not same_request(a, b)]
-    if bad:
-        raise AssertionError(f"requests {bad}: cuda engine != int_ref engine "
-                             "on the card")
+    if len(ref) != 64 or any(r.ticks != 60 for r in ref):
+        raise AssertionError("the int_ref engine did not serve 64 x 60 frames")
     host = pipeline.program_from_arrays(
         [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
           "w": None if ly.w is None else ly.w.cpu().numpy(),
@@ -213,20 +356,63 @@ def phase_serving(dev) -> dict:
     for r in requests()[:6]:
         cpu_eng.submit(r)
     cpu = sorted(cpu_eng.run_until_drained(), key=lambda r: r.rid)
-    bad = [a.rid for a, b in zip(served, cpu) if not same_request(a, b)]
+    bad = [a.rid for a, b in zip(ref, cpu) if not same_request(a, b)]
     if bad:
-        raise AssertionError(f"requests {bad}: cuda engine != int_ref on CPU")
-    if launches["fused_snn_net"] < 1:
-        raise AssertionError("the served drain never launched fused_snn_net")
-    frames = sum(r.ticks for r in served)
-    return {"frames": frames, "cuda_s": dt, "int_ref_s": dt_ref,
-            "frames_per_s": frames / dt, "int_ref_frames_per_s": frames / dt_ref,
-            "skipped_row_fraction": eng.aggregate_report().skipped_row_fraction,
-            "launches": launches, "profile": profile_drain(drain)}
+        raise AssertionError(f"requests {bad}: int_ref on the card != int_ref "
+                             "on the CPU")
+    out = {"frames": sum(r.ticks for r in ref), "int_ref_s": dt_ref,
+           "int_ref_frames_per_s": sum(r.ticks for r in ref) / dt_ref,
+           "engines": {}}
+    for backend in ("cuda", "cuda_sparse", "cuda_events"):
+        drain(backend)                             # warm-up, not counted
+        kernels.reset_launch_counts()
+        served, dt, eng = drain(backend)
+        launches = dict(kernels.LAUNCH_COUNTS)
+        for r in served:
+            if (r.v_out.shape != (1,) or r.logits.shape != (1,)
+                    or not np.isfinite(r.logits).all()):
+                raise AssertionError(f"{backend} request {r.rid}: bad readout "
+                                     f"{r.logits}")
+        bad = [a.rid for a, b in zip(served, ref) if not same_request(a, b)]
+        if len(served) != 64 or bad:
+            raise AssertionError(f"{backend} engine != int_ref engine on the "
+                                 f"card (requests {bad})")
+        name = [k for k, b in BACKEND_OF.items() if b == backend][0]
+        if launches[name] < 1:
+            raise AssertionError(f"the {backend} drain never launched {name}")
+        row = {"s": dt, "frames_per_s": out["frames"] / dt,
+               "launches": launches,
+               "skipped_row_fraction":
+                   eng.aggregate_report().skipped_row_fraction}
+        if backend == "cuda_events":
+            row.update(event_ledger(drain, eng))
+        row["profile"] = profile_drain(drain, backend)
+        out["engines"][backend] = row
+    return out
 
 
-def profile_drain(drain) -> dict:
-    """One more cuda drain under torch.profiler: the drain's wall time, the
+def event_ledger(drain, eng) -> dict:
+    """The cuda_events engine's device ledger against a ref_events engine's
+    and against the per-request raster tally (exact: every lane is full
+    and 60 frames is a multiple of K, so no lane runs ghost ticks)."""
+    _, _, host_eng = drain("ref_events")
+    got, want = eng.device_event_stats(), host_eng.device_event_stats()
+    tally = eng.aggregate_report().row_events
+    if got.frames != want.frames or not all(
+            np.array_equal(a, b) and np.array_equal(a, c)
+            for a, b, c in zip(got.row_events, want.row_events, tally)):
+        raise AssertionError("the cuda_events device ledger differs from the "
+                             "ref_events engine's or from the raster tally")
+    return {"device_skipped_row_fraction": eng.device_skipped_row_fraction(),
+            "ref_events_device_skipped_row_fraction":
+                host_eng.device_skipped_row_fraction(),
+            "device_row_events": [int(r.sum()) for r in got.row_events],
+            "dense_fallbacks": list(got.dense_fallbacks),
+            "device_ticks": eng.device_ticks}
+
+
+def profile_drain(drain, backend: str) -> dict:
+    """One more drain under torch.profiler: the drain's wall time, the
     device time of every kernel and copy it ran, and the share of the wall
     time the device was idle. The profiler slows the host, so the wall
     time here is not the phase-3 throughput."""
@@ -234,7 +420,7 @@ def profile_drain(drain) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_s, _ = drain("cuda")
+        _, wall_s, _ = drain(backend)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -248,18 +434,20 @@ def profile_drain(drain) -> dict:
                     for k, (ms, n) in top]}
 
 
-def phase_timing(ops, dev, B: int) -> dict:
-    """Phase 4: the kernel at the main path's shape (K = 10 frames, IMDB
-    widths, carried V, rasters on) and batch ``B``."""
+def phase_timing(ops, dev, name: str, B: int) -> dict:
+    """Phase 4: kernel ``name`` at the main path's shape (K = 10 frames,
+    IMDB widths, carried V, rasters on, 85 % input sparsity, its drain's
+    mode options) and batch ``B``."""
     rng = np.random.default_rng(SEED)
-    T = 10
+    T, block_b = 10, 8
     spikes = torch.from_numpy(
         (rng.random((T, B, 100)) > 0.85).astype(np.int8)).to(dev)
     ws = [torch.from_numpy(rng.integers(-31, 32, (a, b)).astype(np.int8)).to(dev)
           for a, b in zip(IMDB_WIDTHS[:-1], IMDB_WIDTHS[1:])]
     vi = [torch.zeros((B, n), dtype=torch.int32, device=dev)
           for n in IMDB_WIDTHS[1:]]
-    kw = dict(neuron="rmp", clamp_mode="saturate", v_init=vi)
+    kw = dict(neuron="rmp", clamp_mode="saturate", v_init=vi, block_b=block_b,
+              **MODE_KW[name])
     ths, lks = (53, 61), (3, 3)
 
     def kernel():
@@ -268,13 +456,17 @@ def phase_timing(ops, dev, B: int) -> dict:
     def plain():
         return ops.fused_snn_net_ref(spikes, ws, ths, lks, **kw)
 
+    counters = kernel()[2]
     ms, wrapper_ms = device_ms(kernel, 200)
     plain_ms, _ = device_ms(plain, 20)
-    bound_ms, bound_by = net_bound_ms(T, B, IMDB_WIDTHS, readout=True,
-                                      v_init=True, emit_rasters=True)
+    bound_ms, bound_by = net_bound_ms(
+        T, B, IMDB_WIDTHS, readout=True, v_init=True, emit_rasters=True,
+        macs=needed_macs(name, counters, T, B, IMDB_WIDTHS, block_b),
+        counter_bytes=counter_bytes(name, B, IMDB_WIDTHS, block_b))
     return {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms,
             "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by,
+            "skipped_share": skipped_share(name, counters, T, B, IMDB_WIDTHS)}
 
 
 def main() -> int:
@@ -293,42 +485,51 @@ def main() -> int:
           f"{torch.version.cuda}; {torch.cuda.get_device_name(dev)}")
     t0 = time.perf_counter()
     kernel._lib()
-    print(f"[phase 1] built fused_snn_net from {_build.source_path('fused_snn_net')} "
-          f"in {time.perf_counter() - t0:.2f} s")
+    print(f"[phase 1] built {', '.join(REPLACES)} from "
+          f"{_build.source_path('fused_snn_net')} in "
+          f"{time.perf_counter() - t0:.2f} s")
     log = _build.build("fused_snn_net").with_suffix(".log")
     for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"[phase 1] ptxas: {line.strip()}")
 
-    n_cases, worst = phase_kernel_vs_plain(ops, dev)
-    print(f"[phase 2] fused_snn_net == plain version on the card in {n_cases} "
-          f"cases (max |diff| {worst})")
+    checked = phase_kernel_vs_plain(ops, dev)
+    for name, (n_cases, worst) in checked.items():
+        print(f"[phase 2] {name} == plain version on the card in {n_cases} "
+              f"cases (max |diff| {worst})")
 
     serving = phase_serving(dev)
-    print(f"[phase 3] served 64 IMDB requests x 60 frames: cuda "
-          f"{serving['frames_per_s']:.1f} frames/s ({serving['cuda_s']:.4f} s), "
-          f"int_ref on the card {serving['int_ref_frames_per_s']:.1f} frames/s; "
-          f"every request equal to int_ref on the card, the first 6 to "
-          f"int_ref on the CPU; skipped_row_fraction "
-          f"{serving['skipped_row_fraction']}; launches {serving['launches']}")
-    print(f"[phase 3] profiled drain: {json.dumps(serving['profile'])}")
+    print(f"[phase 3] int_ref engine on the card: "
+          f"{serving['int_ref_frames_per_s']:.1f} frames/s; its first 6 "
+          "requests equal int_ref on the CPU")
+    for backend, row in serving["engines"].items():
+        profile = row.pop("profile")
+        print(f"[phase 3] {backend}: served 64 IMDB requests x 60 frames at "
+              f"{row['frames_per_s']:.1f} frames/s ({row['s']:.4f} s), every "
+              f"request equal to the int_ref engine; {json.dumps(row)}")
+        print(f"[phase 3] {backend} profiled drain: {json.dumps(profile)}")
 
-    serve_t = phase_timing(ops, dev, 32)
-    big_t = phase_timing(ops, dev, 4096)
-    print(f"[phase 4] fused_snn_net at K=10, B=32: {serve_t}")
-    print(f"[phase 4] fused_snn_net at K=10, B=4096: {big_t}")
-    entry = {"name": "fused_snn_net", "route": "cuda",
-             "source": "src/repro_torch/kernels/fused_snn_net/csrc/fused_snn_net.cu",
-             "replaces": "src/repro/kernels/fused_snn_net/kernel.py:149",
-             "launches": serving["launches"]["fused_snn_net"],
-             "max_abs_err": worst, "bit_identical": worst == 0,
-             "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
-             "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
-             "library_ms": None, "wrapper_ms": serve_t["wrapper_ms"],
-             "shape": {"T": 10, "B": 32, "widths": list(IMDB_WIDTHS)},
-             "at_b4096": big_t,
-             "serving_frames_per_s": serving["frames_per_s"]}
-    print(json.dumps({"kernels": [entry]}))
+    entries = []
+    for name in REPLACES:
+        serve_t = phase_timing(ops, dev, name, 32)
+        big_t = phase_timing(ops, dev, name, 4096)
+        print(f"[phase 4] {name} at K=10, B=32: {serve_t}")
+        print(f"[phase 4] {name} at K=10, B=4096: {big_t}")
+        engine = serving["engines"][BACKEND_OF[name]]
+        n_cases, worst = checked[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": engine["launches"][name],
+            "max_abs_err": worst, "bit_identical": worst == 0,
+            "ms": serve_t["ms"], "plain_ms": serve_t["plain_ms"],
+            "bound_ms": serve_t["bound_ms"], "bound_by": serve_t["bound_by"],
+            "library_ms": None, "wrapper_ms": serve_t["wrapper_ms"],
+            "shape": {"T": 10, "B": 32, "widths": list(IMDB_WIDTHS),
+                      **MODE_KW[name]},
+            "at_b4096": big_t, "backend": BACKEND_OF[name],
+            "serving_frames_per_s": engine["frames_per_s"]})
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

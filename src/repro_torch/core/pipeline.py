@@ -3,24 +3,35 @@ in PyTorch.
 
 An `SNNProgram` describes the deployed stack: the off-macro f32 spike
 encoder, the on-macro spiking FC layers (int8 weights, 11-bit V) and the
-accumulate-only int32 readout. Two backends execute it and are tested to
-agree bit for bit with each other and with the JAX package's ``int_ref``:
+accumulate-only int32 readout. Five backends execute it and are tested to
+agree bit for bit with each other and with the JAX package's backends:
 
-  int_ref -- word-level ISA semantics in plain torch ops
-             (`kernels.fused_snn_net.ops.fused_snn_net_ref`), on any device;
-  cuda    -- the fused-network CUDA kernel: the whole fc stack over all
-             timesteps in one launch, V and inter-layer spikes kept in
-             shared memory (`kernels.fused_snn_net.ops.fused_snn_net`; on
-             CPU tensors that wrapper runs the plain version).
+  int_ref     -- word-level ISA semantics in plain torch ops
+                 (`kernels.fused_snn_net.ops.fused_snn_net_ref`), on any
+                 device; ``use_sparse`` adds the gate counters, with the
+                 whole batch as one tile;
+  cuda        -- the fused-network CUDA kernel: the whole fc stack over all
+                 timesteps in one launch, V and inter-layer spikes kept in
+                 shared memory (`kernels.fused_snn_net.ops.fused_snn_net`;
+                 on CPU tensors that wrapper runs the plain version);
+  cuda_sparse -- the row-block gated kernel: a silent block of 128/G fan-in
+                 rows issues no product (aux: skip counts per tile);
+  ref_events  -- the host spike-list executor (`kernels.fused_snn_net.
+                 events`): work proportional to events, the per-row
+                 accounting contract (aux: row events);
+  cuda_events -- the event-list kernel: each lane's active rows compacted
+                 on the card and their weight rows gathered, with a dense
+                 fallback above ``event_crossover`` (aux: row events equal
+                 to ``ref_events``', plus fallback counts).
 
 The same backends stream: `stream_step` advances every lane one tick and
 `stream_megastep` K ticks in one fc-stack dispatch, carrying every layer's
-V as a `StreamState`. Conv programs, the float (QAT) domain and the
-event-gated backends are not part of this package yet.
+V as a `StreamState`. Conv programs and the float (QAT) domain are not part
+of this package yet.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -32,8 +43,10 @@ from repro_torch.core.isa import int_matmul
 from repro_torch.core.neuron import neuron_step
 from repro_torch.core.quant import (CLAMP_MODES, quantize_neuron_const,
                                     quantize_w)
-from repro_torch.kernels.fused_snn_net.ops import (fused_snn_net,
-                                                   fused_snn_net_ref)
+from repro_torch.kernels.fused_snn_net.events import (EventStats,
+                                                      fused_snn_net_events)
+from repro_torch.kernels.fused_snn_net.ops import (
+    fused_snn_net, fused_snn_net_device_events, fused_snn_net_ref)
 
 # ---------------------------------------------------------------------------
 # Program representation
@@ -80,11 +93,14 @@ class NetResult:
     """What one backend run produces. ``rasters[i]`` is the *input* spike
     raster (T_total, B, n) int8 of fc-stack layer i (so rasters[0] is the
     encoder output); ``v_final`` lists the final V of every layer, encoder
-    first and readout last."""
+    first and readout last. ``aux`` holds the gate or event counters of the
+    gated and event backends (`_attach_skips`, `_attach_event_stats`), as
+    host numpy values."""
     v_out: torch.Tensor
     logits: torch.Tensor
     v_final: list
     rasters: Optional[list] = None
+    aux: dict = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -234,48 +250,145 @@ def encode(program: SNNProgram, xs: torch.Tensor
     return spikes, v
 
 
+def _host_events(spikes: torch.Tensor, ws: list, *, v_init=None, **kw):
+    """`events.fused_snn_net_events` on device tensors: the inputs come off
+    the device explicitly and the rasters and V go back onto it."""
+    dev = spikes.device
+    rasters, vs, stats = fused_snn_net_events(
+        _host(spikes), [_host(w) for w in ws],
+        v_init=None if v_init is None else [_host(v) for v in v_init], **kw)
+    return ([torch.from_numpy(r).to(dev) for r in rasters],
+            [torch.from_numpy(v).to(dev) for v in vs], stats)
+
+
 def _run_fc_stack(program: SNNProgram, spikes: torch.Tensor, *,
                   use_kernel: bool, emit_rasters: bool,
-                  v_init: Optional[list] = None) -> tuple[list, list]:
-    """The fc stack on a (T, B, d) encoder raster: through the public
-    kernel wrapper (``use_kernel``) or its plain version. Returns
-    (per-spiking-layer rasters, per-layer final V)."""
+                  v_init: Optional[list] = None, use_sparse: bool = False,
+                  gate_granularity: int = 1, use_events: bool = False,
+                  event_crossover: float = 1.0, block_b: int = 8) -> tuple:
+    """The fc stack on a (T, B, d) encoder raster. ``use_events`` runs the
+    event-list kernel (``use_kernel``) or the host executor, and returns an
+    `events.EventStats`; otherwise the kernel wrapper (``use_kernel``) or
+    its plain version, gated with ``use_sparse``. The plain version's tile
+    is the whole batch (the JAX reference's layout), the kernel's
+    ``block_b`` lanes. Returns (per-spiking-layer rasters, per-layer final
+    V, counters)."""
     stack = program.fc_stack
     ws = [spec.w for spec in stack]
-    thresholds = tuple(spec.threshold for spec in stack[:-1])
-    leaks = tuple(spec.leak for spec in stack[:-1])
+    kw = dict(thresholds=tuple(spec.threshold for spec in stack[:-1]),
+              leaks=tuple(spec.leak for spec in stack[:-1]),
+              neuron=program.neuron, clamp_mode=program.clamp_mode,
+              emit_rasters=emit_rasters, v_init=v_init)
+    if use_events and use_kernel:
+        return fused_snn_net_device_events(
+            spikes, ws, block_b=block_b, event_crossover=event_crossover,
+            **kw)
+    if use_events:
+        return _host_events(spikes, ws, **kw)
     if use_kernel:
-        return fused_snn_net(spikes, ws, thresholds=thresholds, leaks=leaks,
-                             neuron=program.neuron,
-                             clamp_mode=program.clamp_mode,
-                             emit_rasters=emit_rasters, v_init=v_init)
-    return fused_snn_net_ref(spikes, ws, thresholds, leaks,
-                             neuron=program.neuron,
-                             clamp_mode=program.clamp_mode,
-                             emit_rasters=emit_rasters, v_init=v_init)
+        return fused_snn_net(spikes, ws, use_sparse=use_sparse,
+                             gate_granularity=gate_granularity,
+                             block_b=block_b, **kw)
+    th, lk = kw.pop("thresholds"), kw.pop("leaks")
+    return fused_snn_net_ref(spikes, ws, th, lk, use_sparse=use_sparse,
+                             gate_granularity=gate_granularity,
+                             block_b=max(int(spikes.shape[1]), 1), **kw)
+
+
+def run_stack_from_raster(program: SNNProgram, spikes_enc: torch.Tensor, *,
+                          use_kernel: bool = False, use_sparse: bool = False,
+                          block_b: int = 8, gate_granularity: int = 1
+                          ) -> tuple:
+    """Run only the program's fc stack on a supplied (T, B, d) int8 encoder
+    raster ``spikes_enc``, through the kernel wrapper (``use_kernel``) or
+    its plain version, gated with ``use_sparse`` at ``gate_granularity``.
+    Returns (rasters, v_stack, skips) with ``rasters[0]`` the input raster
+    itself, as `sparsity_report` takes."""
+    rasters, v_stack, skips = _run_fc_stack(
+        program, spikes_enc, use_kernel=use_kernel, use_sparse=use_sparse,
+        gate_granularity=gate_granularity, block_b=block_b,
+        emit_rasters=True)
+    return [spikes_enc] + list(rasters), list(v_stack), skips
 
 
 def _run_macro_stack(program: SNNProgram, xs: torch.Tensor, *,
-                     use_kernel: bool) -> NetResult:
-    """Shared int_ref/cuda executor: the f32 encoder pass, then the fc
-    stack."""
+                     use_kernel: bool, **flags) -> NetResult:
+    """Shared executor of every backend: the f32 encoder pass, then the fc
+    stack (``flags``: the mode options of `_run_fc_stack`), with the gate
+    or event counters attached to ``aux``."""
     spikes_enc, v_enc = encode(program, xs)
-    rasters_fc, v_stack = _run_fc_stack(program, spikes_enc,
-                                        use_kernel=use_kernel,
-                                        emit_rasters=True)
+    rasters_fc, v_stack, skips = _run_fc_stack(
+        program, spikes_enc, use_kernel=use_kernel, emit_rasters=True,
+        **flags)
     v_out = v_stack[-1]
-    return NetResult(v_out=v_out, logits=program.logits(v_out),
-                     v_final=[v_enc] + list(v_stack),
-                     rasters=[spikes_enc] + list(rasters_fc))
+    res = NetResult(v_out=v_out, logits=program.logits(v_out),
+                    v_final=[v_enc] + list(v_stack),
+                    rasters=[spikes_enc] + list(rasters_fc))
+    if flags.get("use_events"):
+        return _attach_event_stats(res, skips)
+    return _attach_skips(res, skips, xs.shape[0],
+                         flags.get("gate_granularity", 1))
+
+
+def _site_count(s: np.ndarray) -> int:
+    """Gate sites per timestep of one skip-count array: tiles x columns."""
+    return s.shape[0] * s.shape[1]
+
+
+def _attach_skips(res: NetResult, skips, timesteps: int,
+                  granularity: int = 1) -> NetResult:
+    """Put the gate counters on a result: the skip counts (host arrays) and
+    the share of gate sites skipped (every site gates once per timestep).
+    At granularity 1 a site is a (tile, layer) pair and the share is
+    ``skipped_tile_fraction``; at finer granularities a (tile, layer,
+    block) triple, the counts a per-layer list, and the share
+    ``skipped_block_fraction``."""
+    if skips is None:
+        return res
+    if granularity == 1:
+        skips = _host(skips)
+        res.aux["skip_counts"] = skips
+        res.aux["skipped_tile_fraction"] = float(skips.sum()) / float(
+            timesteps * _site_count(skips))
+        return res
+    skips = [_host(s) for s in skips]
+    res.aux["skip_counts"] = skips
+    sites = sum(_site_count(s) for s in skips)
+    res.aux["skipped_block_fraction"] = float(
+        sum(int(s.sum()) for s in skips)) / float(timesteps * sites)
+    return res
+
+
+def _attach_event_stats(res: NetResult, stats: EventStats) -> NetResult:
+    """Put an `events.EventStats` on a result: per-row event counts, the
+    frames each layer ran, silent-row counts, the share of (frame, row)
+    sites that were silent, and (event kernel only) the per-layer dense
+    fallback counts."""
+    row_events = list(stats.row_events)
+    frames = [stats.frames] * len(row_events)
+    skipped = [f * len(r) - int(r.sum()) for f, r in zip(frames, row_events)]
+    possible = sum(f * len(r) for f, r in zip(frames, row_events))
+    res.aux["row_events"] = row_events
+    res.aux["row_event_frames"] = frames
+    res.aux["row_skip_counts"] = skipped
+    res.aux["skipped_row_fraction"] = (sum(skipped) / possible
+                                       if possible else 0.0)
+    if stats.dense_fallbacks:
+        res.aux["event_dense_fallbacks"] = list(stats.dense_fallbacks)
+    return res
 
 
 # ---------------------------------------------------------------------------
 # Backends
 # ---------------------------------------------------------------------------
 
-def run_int_ref(program: SNNProgram, xs: torch.Tensor) -> NetResult:
-    """Word-level ISA semantics in plain torch ops, on any device."""
-    return _run_macro_stack(program, xs, use_kernel=False)
+def run_int_ref(program: SNNProgram, xs: torch.Tensor, *,
+                use_sparse: bool = False) -> NetResult:
+    """Word-level ISA semantics in plain torch ops, on any device.
+    ``use_sparse`` adds the gate counters at granularity 1, the whole
+    batch one tile."""
+    return _run_macro_stack(program, xs, use_kernel=False,
+                            use_sparse=use_sparse)
 
 
 def run_cuda(program: SNNProgram, xs: torch.Tensor) -> NetResult:
@@ -284,17 +397,56 @@ def run_cuda(program: SNNProgram, xs: torch.Tensor) -> NetResult:
     return _run_macro_stack(program, xs, use_kernel=True)
 
 
-BACKENDS: dict[str, Callable] = {"int_ref": run_int_ref, "cuda": run_cuda}
+def run_cuda_sparse(program: SNNProgram, xs: torch.Tensor, *,
+                    block_b: int = 8, gate_granularity: int = 1
+                    ) -> NetResult:
+    """The row-block gated kernel: per (timestep, layer, tile of
+    ``block_b`` lanes, block of 128/G fan-in rows) the product runs only if
+    the block holds a spike; the neuron update runs every timestep, so
+    results equal every dense backend. aux: ``skip_counts`` ((tiles,
+    n_layers) at G = 1, a per-layer list of (tiles, n_blocks) at G in
+    {2, 4, 8}) and ``skipped_tile_fraction`` / ``skipped_block_fraction``."""
+    return _run_macro_stack(program, xs, use_kernel=True, use_sparse=True,
+                            block_b=block_b,
+                            gate_granularity=gate_granularity)
+
+
+def run_ref_events(program: SNNProgram, xs: torch.Tensor) -> NetResult:
+    """The host spike-list executor: every (timestep, example) frame is
+    compacted to its active rows and AccW2V gathers their weight rows, so
+    the work is proportional to events. aux: ``row_events`` (per layer,
+    per input row), ``row_event_frames``, ``row_skip_counts`` and
+    ``skipped_row_fraction``."""
+    return _run_macro_stack(program, xs, use_kernel=False, use_events=True)
+
+
+def run_cuda_events(program: SNNProgram, xs: torch.Tensor, *,
+                    block_b: int = 8, event_crossover: float = 1.0
+                    ) -> NetResult:
+    """The event-list kernel: each lane's active rows are compacted on the
+    card and their weight rows gathered; a tile of ``block_b`` lanes whose
+    event count is above ``event_crossover`` of its capacity takes the
+    dense product (the same values either way; 1.0 never does). aux: as
+    ``ref_events`` (the kernel's row counters equal its executor's) plus
+    ``event_dense_fallbacks`` per layer."""
+    return _run_macro_stack(program, xs, use_kernel=True, use_events=True,
+                            block_b=block_b, event_crossover=event_crossover)
+
+
+BACKENDS: dict[str, Callable] = {
+    "int_ref": run_int_ref, "cuda": run_cuda, "cuda_sparse": run_cuda_sparse,
+    "ref_events": run_ref_events, "cuda_events": run_cuda_events}
 
 
 def run_network(program: SNNProgram, xs: torch.Tensor,
-                backend: str = "int_ref") -> NetResult:
+                backend: str = "int_ref", **kw) -> NetResult:
     """Execute ``program`` on per-timestep input currents ``xs``
-    (T_total, B, d) f32 on the program's device, through ``backend``;
-    every layer's input raster comes back in `NetResult.rasters`."""
+    (T_total, B, d) f32 on the program's device, through ``backend``
+    (``kw``: that backend's options); every layer's input raster comes
+    back in `NetResult.rasters`."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown backend {backend!r}; have {sorted(BACKENDS)}")
-    return BACKENDS[backend](program, xs)
+    return BACKENDS[backend](program, xs, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +461,8 @@ def run_network(program: SNNProgram, xs: torch.Tensor,
 # `run_network` bit for bit. Lanes never interact.
 # ---------------------------------------------------------------------------
 
-STREAM_BACKENDS = ("int_ref", "cuda")
+STREAM_BACKENDS = ("int_ref", "cuda", "cuda_sparse", "ref_events",
+                   "cuda_events")
 
 
 class StreamState(NamedTuple):
@@ -324,10 +477,14 @@ class StreamState(NamedTuple):
 class StreamOut:
     """What one `stream_step` tick produces. ``rasters[i]`` is fc-stack
     layer i's input raster of this tick, (B, n) (None without
-    ``emit_rasters``)."""
+    ``emit_rasters``). ``skips`` holds the tick's counters in the layout
+    `run_network` puts in aux: the gate counts of the gated paths (summed
+    over ticks they equal a batch run's), an `events.EventStats` on the
+    event paths, else None."""
     v_out: Any
     logits: Any
     rasters: Optional[list] = None
+    skips: Any = None
 
 
 @dataclass
@@ -337,19 +494,34 @@ class MegastepOut:
     per-tick readout trajectory within the block, what a server needs to
     finalize a request that finishes mid-block with the values a
     tick-by-tick drain gives; ``frames_consumed`` is the per-lane count of
-    real (unmasked) frames."""
+    real (unmasked) frames; ``skips`` the block's counters, as in
+    `StreamOut`."""
     v_out: Any                    # (B, n_out) readout V after the block
     logits: Any                   # (B, n_out)
     v_out_traj: Any               # (K, B, n_out) per-tick readout V
     logits_traj: Any              # (K, B, n_out)
     frames_consumed: Any          # (B,) int32
     rasters: Optional[list] = None
+    skips: Any = None
 
 
 def _check_stream_backend(backend: str) -> None:
     if backend not in STREAM_BACKENDS:
         raise KeyError(f"unknown streaming backend {backend!r}; have "
                        f"{STREAM_BACKENDS}")
+
+
+def _stream_flags(backend: str, use_sparse: bool, block_b: int,
+                  gate_granularity: int, event_crossover: float) -> dict:
+    """`_run_fc_stack` options of a streaming ``backend`` and its kwargs:
+    the kernel on the cuda* backends, the event list on the *events ones,
+    gating on cuda_sparse (or wherever ``use_sparse`` asks for it)."""
+    _check_stream_backend(backend)
+    return dict(use_kernel=backend.startswith("cuda"),
+                use_events=backend.endswith("events"),
+                use_sparse=use_sparse or backend == "cuda_sparse",
+                block_b=block_b, gate_granularity=gate_granularity,
+                event_crossover=event_crossover)
 
 
 def init_stream_state(program: SNNProgram, batch: int,
@@ -365,28 +537,36 @@ def init_stream_state(program: SNNProgram, batch: int,
 
 
 def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
-                backend: str = "int_ref", *, emit_rasters: bool = True
+                backend: str = "int_ref", *, emit_rasters: bool = True,
+                use_sparse: bool = False, block_b: int = 8,
+                gate_granularity: int = 1, event_crossover: float = 1.0
                 ) -> tuple[StreamState, StreamOut]:
     """Advance every stream one tick on a (B, d) current ``frame``:
     (state, frame) -> (new state, StreamOut). The fc stack resumes from
-    the carried V through the kernel's ``v_init`` entry."""
-    _check_stream_backend(backend)
+    the carried V through the kernels' ``v_init`` entry. The backend
+    options mirror `run_network`: ``use_sparse`` gates the int_ref tick,
+    ``block_b`` sets the kernels' tile, ``gate_granularity`` the gated
+    blocks and ``event_crossover`` the event kernel's dense fallback."""
+    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
+                          event_crossover)
     v_enc, spikes_enc = encoder_step(program, state.vs[0], frame)
-    rasters_fc, v_stack = _run_fc_stack(
-        program, spikes_enc[None], use_kernel=backend == "cuda",
-        emit_rasters=emit_rasters, v_init=list(state.vs[1:]))
+    rasters_fc, v_stack, skips = _run_fc_stack(
+        program, spikes_enc[None], emit_rasters=emit_rasters,
+        v_init=list(state.vs[1:]), **flags)
     rasters = None
     if emit_rasters:
         rasters = [spikes_enc] + [r[0] for r in rasters_fc]
     v_out = v_stack[-1]
     return (StreamState(vs=(v_enc,) + tuple(v_stack), t=state.t + 1),
             StreamOut(v_out=v_out, logits=program.logits(v_out),
-                      rasters=rasters))
+                      rasters=rasters, skips=skips))
 
 
 def stream_megastep(program: SNNProgram, state: StreamState,
                     frames, backend: str = "int_ref", *, active=None,
-                    emit_rasters: bool = True
+                    emit_rasters: bool = True, use_sparse: bool = False,
+                    block_b: int = 8, gate_granularity: int = 1,
+                    event_crossover: float = 1.0
                     ) -> tuple[StreamState, MegastepOut]:
     """Advance every stream K ticks with one fc-stack dispatch: (state,
     (K, B, d) current block) -> (new state, MegastepOut). Integer
@@ -403,8 +583,10 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     trajectory is recovered exactly as ``v_init + cumsum(raster @ W_ro)``
     (int32 addition is associative). This makes the fc stack emit its
     rasters even when ``emit_rasters=False``. The product goes through
-    `isa.int_matmul`, since CUDA has no int32 matmul."""
-    _check_stream_backend(backend)
+    `isa.int_matmul`, since CUDA has no int32 matmul. The backend options
+    are `stream_step`'s."""
+    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
+                          event_crossover)
     frames = torch.as_tensor(frames, device=program.device)
     if frames.dim() < 3:
         raise ValueError(f"stream_megastep takes a (K, B, *in_shape) frame "
@@ -427,9 +609,9 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                              device=frames.device)
     for t in range(k):
         v_enc, spikes_enc[t] = encoder_step(program, v_enc, frames[t])
-    rasters_fc, v_stack = _run_fc_stack(
-        program, spikes_enc, use_kernel=backend == "cuda", emit_rasters=True,
-        v_init=list(state.vs[1:]))
+    rasters_fc, v_stack, skips = _run_fc_stack(
+        program, spikes_enc, emit_rasters=True, v_init=list(state.vs[1:]),
+        **flags)
     ro_in = rasters_fc[-1] if rasters_fc else spikes_enc
     v_traj = state.vs[-1][None] + torch.cumsum(
         int_matmul(ro_in, program.fc_stack[-1].w), dim=0, dtype=torch.int32)
@@ -440,7 +622,8 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                         logits_traj=program.logits(v_traj),
                         frames_consumed=consumed,
                         rasters=([spikes_enc] + list(rasters_fc)
-                                 if emit_rasters else None)))
+                                 if emit_rasters else None),
+                        skips=skips))
 
 
 # ---------------------------------------------------------------------------

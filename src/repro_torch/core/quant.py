@@ -12,9 +12,12 @@ leaks are quantized on the same grid.
 
 Rounding is half to even (`torch.round`), and the wrap clamp is a *floored*
 modulo (`torch.remainder`, never `torch.fmod`, which truncates toward zero).
+`clamp_v_np`/`spike_compare_np` are the numpy twins the host event executor
+(`kernels/fused_snn_net/events.py`) runs on.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 W_BITS = 6
@@ -60,6 +63,24 @@ def spike_compare(v: torch.Tensor, threshold, mode: str = "saturate"
     wraps; ``saturate`` is a true comparison."""
     if mode == "wrap":
         return clamp_v(v - threshold, "wrap") >= 0
+    return v >= threshold
+
+
+def clamp_v_np(v: np.ndarray, mode: str = "saturate") -> np.ndarray:
+    """Numpy twin of `clamp_v` for host-side executors (numpy's ``%`` is
+    already the floored modulo)."""
+    if mode == "saturate":
+        return np.clip(v, V_MIN, V_MAX)
+    if mode == "wrap":
+        return ((v - V_MIN) % V_SPAN) + V_MIN
+    raise ValueError(f"unknown clamp mode {mode!r}")
+
+
+def spike_compare_np(v: np.ndarray, threshold, mode: str = "saturate"
+                     ) -> np.ndarray:
+    """Numpy twin of `spike_compare`."""
+    if mode == "wrap":
+        return clamp_v_np(v - threshold, "wrap") >= 0
     return v >= threshold
 
 

@@ -1,14 +1,17 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one folder each:
 ``<name>/csrc/<name>.cu`` is the source, ``<name>/kernel.py`` its ctypes
 binding, ``<name>/ops.py`` the public wrapper beside its plain PyTorch
-version. `_build.build` compiles a source with nvcc at first use.
+version. One source may hold several kernels (``fused_snn_net.cu`` holds
+the dense, gated and event-list kernels), each with its own count.
+`_build.build` compiles a source with nvcc at first use.
 
 ``LAUNCH_COUNTS[name]`` counts the launches of kernel ``name``: its binding
 adds one each time it launches the kernel and nowhere else, so a caller can
 show that a run went through the kernel (reset with `reset_launch_counts`).
 """
 
-LAUNCH_COUNTS: dict = {"fused_snn_net": 0}
+LAUNCH_COUNTS: dict = {"fused_snn_net": 0, "fused_snn_net_gated": 0,
+                        "fused_snn_net_events": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,14 @@
 // fused_snn_net: the whole integer SNN fc stack over T timesteps in one
-// launch, for Hopper (sm_90a).
+// launch, for Hopper (sm_90a), in three modes, one __global__ kernel each.
 //
-// Replaces `repro/kernels/fused_snn_net/kernel.py::_net_kernel` in dense
-// mode (the Pallas TPU kernel dispatched by `fused_snn_net_pallas`). Per
-// timestep t and per layer i of the stack:
+// Replaces `repro/kernels/fused_snn_net/kernel.py::_net_kernel` (the Pallas
+// TPU kernel dispatched by `fused_snn_net_pallas`):
+//   fused_snn_net_kernel  -- dense mode (`accumulate`, kernel.py:289-293);
+//   fused_snn_net_gated   -- row-block gated mode (`sparse=True`,
+//                            kernel.py:294-317);
+//   fused_snn_net_events  -- event-list mode (`events=True`,
+//                            `accumulate_events`, kernel.py:222-274).
+// All three compute the same function. Per timestep t and per layer i:
 //   acc = sum_k s[b, k] * W_i[k, j]          (AccW2V, int32)
 //   spiking layer: v = clamp(v + acc); LIF: v = clamp(v - leak);
 //                  fired = SpikeCheck(v, th);
@@ -22,23 +27,53 @@
 // Every layer's V tile and the two ping-pong spike buffers also sit in
 // shared memory, so membrane potentials and inter-layer spikes never touch
 // device memory: device memory sees the input raster, the weights once per
-// CTA, V in (when streaming) and out, and the rasters when asked for. The
-// shared-memory layout (offsets, strides, total bytes) is computed and
-// checked once, by the Python binding, and passed in `NetArgs`.
+// CTA, V in (when streaming) and out, the rasters when asked for, and the
+// gate or event counters once per CTA at the end. The shared-memory layout
+// (offsets, strides, total bytes) is computed and checked once, by the
+// Python binding, and passed in `NetArgs`.
+//
+// Gated mode. A layer's fan-in splits into blocks of `gate_bw` rows (128/G
+// for G in {2, 4, 8}, the macro's 128-row fan-in cut in G; the whole layer
+// at G = 1). Per (t, layer, block) one CTA-wide __syncthreads_or over the
+// block's block_b x width spike bytes decides whether its __dp4a words run.
+// Partials add into the V tile unclamped and the one clamp follows the last
+// block, exactly the dense clamp-after-accumulate; a silent block adds its
+// skip to shared column skip_off[i] + g, written to the CTA's own row of
+// the skip output at the end. Block starts are multiples of 4 rows at every
+// G, so the word layout of the transposed weights serves unchanged.
+//
+// Event-list mode. Per (t, layer), every lane's masked frame is compacted
+// into an ascending active-row list in shared memory (one warp per lane:
+// __ballot_sync over 32-row chunks, __popc prefix for each hit's slot), and
+// each (lane, column) thread sums the weight bytes of its lane's list. A
+// CTA whose event total is above the layer's `dense_thr` (strict >) runs
+// the dense __dp4a loop instead, in the same launch. Per-row event counts
+// (the readout's input rows included) and per-layer fallback counts add up
+// unconditionally in shared memory and are written once at the end. The
+// gather reads single bytes of the transposed weights (consecutive columns
+// sit an odd number of words apart, so a warp's reads hit 32 banks); no
+// second, untransposed copy is kept.
+//
+// In both new modes the ragged tile's missing lanes (b >= nb) are written
+// as silent before any occupancy test, count or list is taken (the TPU
+// kernel's `mask_pad`); the dense mode leaves their junk spikes, which no
+// output reads.
 //
 // Bound. One call moves T*B*N0 input bytes, sum N_i*N_{i+1} weight bytes,
 // 4*B*sum N_{i+1} bytes of V out (and in, with v_init) and T*B*sum N_i
-// raster bytes, and does 2*T*B*sum N_i*N_{i+1} int8 operations. At IMDB
-// widths (100-128-128-1, T = 10) that is 100 to 200 operations per byte,
-// below the H100's ridge of 1,979 int8 TOP/s over 3.35 TB/s (~590
+// raster bytes, and does 2*T*B*sum N_i*N_{i+1} int8 operations (the gated
+// and event modes fewer, in proportion to the occupied blocks or events).
+// At IMDB widths (100-128-128-1, T = 10) that is 100 to 200 operations per
+// byte, below the H100's ridge of 1,979 int8 TOP/s over 3.35 TB/s (~590
 // operations per byte), so the function is bound by memory. At serving
 // batch sizes (a few CTAs) the kernel is in fact bound by the latency of
-// its serial T x L loop. Tensor-core MMA, TMA and persistent CTAs are
-// later work.
+// its serial T x L loop and its barriers. Tensor-core MMA, TMA and
+// persistent CTAs are later work.
 //
 // Signed overflow is undefined in C++ while the reference wraps, so every
 // V addition goes through uint32_t. The wrap clamp uses a mask, not C's
-// truncating %.
+// truncating %. Integer addition commutes, so the gathered and the gated
+// sums equal the dense sum exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +82,7 @@
 #define THREADS 256
 
 enum { NEURON_IF = 0, NEURON_LIF = 1, NEURON_RMP = 2 };
+enum { MODE_DENSE = 0, MODE_GATED = 1, MODE_EVENTS = 2 };
 
 struct NetArgs {
   const int8_t* spikes;                 // (T, B, N0) {0, 1}
@@ -71,6 +107,24 @@ struct NetArgs {
   int wrap;                             // 0 saturate, 1 wrap
   int emit_rasters;
   int has_v_init;
+  // gated and event-list modes
+  int cnt_off;                          // smem byte offset of the int32 counters
+  int n_counters;                       // int32 counters in shared memory
+  // gated mode: skip counters are columns 0 .. n_skip_cols - 1
+  int gate_bw;                          // fan-in rows per gate block
+  int skip_off[MAX_LAYERS];             // column of layer i's first block
+  int n_skip_cols;
+  int32_t* skips;                       // (B / block_b tiles, n_skip_cols)
+  // event-list mode: row counters of layer i at counter row_off[i], then
+  // one fallback counter per layer at fb_off
+  int row_off[MAX_LAYERS];
+  int fb_off;
+  int dense_thr[MAX_LAYERS];            // dense fallback when events > this
+  int list_off;                         // smem byte offset of the active lists
+  int list_ld;                          // uint16 entries per lane's list
+  int lcount_off;                       // smem byte offset of the list lengths
+  int32_t* row_counts[MAX_LAYERS];      // (tiles, N_i)
+  int32_t* fallbacks;                   // (tiles, n_layers)
 };
 
 __device__ __forceinline__ int add_wrap(int a, int b) {
@@ -86,12 +140,86 @@ __device__ __forceinline__ int clamp_v(int v, int wrap) {
   return min(max(v, -1024), 1023);
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_snn_net_kernel(const NetArgs a) {
+// Gated AccW2V of layer i: each occupied block's partial product adds into
+// the V tile unclamped; each silent block counts a skip.
+__device__ __forceinline__ void gated_accumulate(
+    const NetArgs& a, int i, const int32_t* in_w, const int32_t* wt,
+    int32_t* v, int32_t* cnt) {
+  const int tid = threadIdx.x;
+  const int n_in = a.width[i], n_out = a.width[i + 1];
+  const int spk_row_bytes = a.spk_ld * 4;
+  const int ldw = a.wt_ld[i];
+  const int8_t* in = reinterpret_cast<const int8_t*>(in_w);
+  const int bw = a.gate_bw > 0 ? a.gate_bw : n_in;
+  const int n_blocks = (n_in + bw - 1) / bw;
+  for (int g = 0; g < n_blocks; ++g) {
+    const int lo = g * bw, width = min(bw, n_in - lo);
+    int any = 0;
+    for (int e = tid; e < a.block_b * width; e += THREADS) {
+      const int b = e / width;
+      any |= in[b * spk_row_bytes + lo + (e - b * width)];
+    }
+    if (!__syncthreads_or(any)) {
+      if (tid == 0) cnt[a.skip_off[i] + g] += 1;
+      continue;
+    }
+    const int q0 = lo >> 2, q1 = (lo + width + 3) >> 2;
+    for (int e = tid; e < a.block_b * n_out; e += THREADS) {
+      const int b = e / n_out, j = e - b * n_out;
+      const int32_t* srow = in_w + b * a.spk_ld;
+      const int32_t* wrow = wt + j * ldw;
+      int acc = 0;
+      for (int q = q0; q < q1; ++q) acc = __dp4a(srow[q], wrow[q], acc);
+      v[e] = add_wrap(v[e], acc);
+    }
+  }
+}
+
+// Event-list bookkeeping of layer i: per-row counts, one ascending active
+// list per lane, and the dense-fallback decision (returned, CTA-uniform).
+__device__ __forceinline__ bool events_prepare(
+    const NetArgs& a, int i, const int8_t* in, unsigned short* lists,
+    int* lcount, int32_t* cnt) {
+  const int tid = threadIdx.x;
+  const int n_in = a.width[i];
+  const int spk_row_bytes = a.spk_ld * 4;
+  int32_t* rows = cnt + a.row_off[i];
+  for (int k = tid; k < n_in; k += THREADS) {
+    int c = 0;
+    for (int b = 0; b < a.block_b; ++b) c += in[b * spk_row_bytes + k];
+    rows[k] += c;
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int b = warp; b < a.block_b; b += THREADS / 32) {
+    unsigned short* list = lists + b * a.list_ld;
+    const int8_t* srow = in + b * spk_row_bytes;
+    int base = 0;
+    for (int k0 = 0; k0 < n_in; k0 += 32) {
+      const int k = k0 + lane;
+      const bool hit = k < n_in && srow[k] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (hit) list[base + __popc(m & ((1u << lane) - 1u))] = (unsigned short)k;
+      base += __popc(m);
+    }
+    if (lane == 0) lcount[b] = base;
+  }
+  __syncthreads();
+  int total = 0;
+  for (int b = 0; b < a.block_b; ++b) total += lcount[b];
+  const bool go_dense = total > a.dense_thr[i];
+  if (go_dense && tid == 0) cnt[a.fb_off + i] += 1;
+  return go_dense;
+}
+
+template <int MODE>
+__device__ __forceinline__ void net_body(const NetArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * a.block_b;
   const int nb = min(a.block_b, a.batch - b0);   // real lanes of this tile
+  int32_t* cnt = reinterpret_cast<int32_t*>(smem + a.cnt_off);
+  unsigned short* lists = reinterpret_cast<unsigned short*>(smem + a.list_off);
+  int* lcount = reinterpret_cast<int*>(smem + a.lcount_off);
 
   // weights, transposed: byte k of W^T row j is W[k, j]; fan-in padding is 0
   for (int i = 0; i < a.n_layers; ++i) {
@@ -117,6 +245,8 @@ fused_snn_net_kernel(const NetArgs a) {
       v[e] = (a.has_v_init && real) ? a.v_init[i][(size_t)b0 * n_out + e] : 0;
     }
   }
+  if (MODE != MODE_DENSE)
+    for (int e = tid; e < a.n_counters; e += THREADS) cnt[e] = 0;
 
   const int n0 = a.width[0];
   const int spk_row_bytes = a.spk_ld * 4;
@@ -137,17 +267,29 @@ fused_snn_net_kernel(const NetArgs a) {
       const int ldw = a.wt_ld[i];
       const int32_t* wt = reinterpret_cast<const int32_t*>(smem + a.wt_off[i]);
       const int32_t* in = reinterpret_cast<const int32_t*>(smem + a.spk_off[cur]);
+      const int8_t* in_b = reinterpret_cast<const int8_t*>(in);
       int8_t* out = reinterpret_cast<int8_t*>(smem + a.spk_off[cur ^ 1]);
       int32_t* v = reinterpret_cast<int32_t*>(smem + a.v_off[i]);
       const bool spiking = i < a.n_spiking;
       const int th = spiking ? a.threshold[i] : 0;
       const int leak = spiking ? a.leak[i] : 0;
+      bool dense = MODE == MODE_DENSE;
+      if (MODE == MODE_GATED) gated_accumulate(a, i, in, wt, v, cnt);
+      if (MODE == MODE_EVENTS)
+        dense = events_prepare(a, i, in_b, lists, lcount, cnt);
       for (int e = tid; e < a.block_b * n_out; e += THREADS) {
         const int b = e / n_out, j = e - b * n_out;
-        const int32_t* srow = in + b * a.spk_ld;
-        const int32_t* wrow = wt + j * ldw;
-        int acc = 0;
-        for (int q = 0; q < n_words; ++q) acc = __dp4a(srow[q], wrow[q], acc);
+        int acc = 0;                          // gated: partials already in v
+        if (dense) {
+          const int32_t* srow = in + b * a.spk_ld;
+          const int32_t* wrow = wt + j * ldw;
+          for (int q = 0; q < n_words; ++q) acc = __dp4a(srow[q], wrow[q], acc);
+        } else if (MODE == MODE_EVENTS) {
+          const unsigned short* list = lists + b * a.list_ld;
+          const int8_t* wrow = reinterpret_cast<const int8_t*>(wt + j * ldw);
+          const int n_ev = lcount[b];
+          for (int p = 0; p < n_ev; ++p) acc += wrow[list[p]];
+        }
         if (!spiking) {                               // readout: no clamp
           v[e] = add_wrap(v[e], acc);
           continue;
@@ -157,7 +299,7 @@ fused_snn_net_kernel(const NetArgs a) {
         const bool fired = a.wrap ? clamp_v(sub_wrap(vv, th), 1) >= 0 : vv >= th;
         if (fired) vv = (a.neuron == NEURON_RMP) ? clamp_v(sub_wrap(vv, th), a.wrap) : 0;
         v[e] = vv;
-        out[b * spk_row_bytes + j] = fired ? 1 : 0;
+        out[b * spk_row_bytes + j] = (fired && (MODE == MODE_DENSE || b < nb)) ? 1 : 0;
         if (a.emit_rasters && b < nb)
           a.raster[i][((size_t)t * a.batch + b0 + b) * n_out + j] = fired ? 1 : 0;
       }
@@ -172,7 +314,28 @@ fused_snn_net_kernel(const NetArgs a) {
     for (int e = tid; e < nb * n_out; e += THREADS)
       a.v_out[i][(size_t)b0 * n_out + e] = v[e];
   }
+  if (MODE == MODE_GATED)
+    for (int c = tid; c < a.n_skip_cols; c += THREADS)
+      a.skips[(size_t)blockIdx.x * a.n_skip_cols + c] = cnt[c];
+  if (MODE == MODE_EVENTS) {
+    for (int i = 0; i < a.n_layers; ++i) {
+      const int n_in = a.width[i];
+      for (int k = tid; k < n_in; k += THREADS)
+        a.row_counts[i][(size_t)blockIdx.x * n_in + k] = cnt[a.row_off[i] + k];
+    }
+    for (int i = tid; i < a.n_layers; i += THREADS)
+      a.fallbacks[(size_t)blockIdx.x * a.n_layers + i] = cnt[a.fb_off + i];
+  }
 }
+
+__global__ void __launch_bounds__(THREADS)
+fused_snn_net_kernel(const NetArgs a) { net_body<MODE_DENSE>(a); }
+
+__global__ void __launch_bounds__(THREADS)
+fused_snn_net_gated(const NetArgs a) { net_body<MODE_GATED>(a); }
+
+__global__ void __launch_bounds__(THREADS)
+fused_snn_net_events(const NetArgs a) { net_body<MODE_EVENTS>(a); }
 
 extern "C" {
 
@@ -186,17 +349,22 @@ const char* fused_snn_net_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launch on `stream` with `smem_bytes` of dynamic shared memory (computed
-// and checked by the caller). Returns the CUDA error code of the launch.
-int fused_snn_net_launch(const NetArgs* args, int grid, int smem_bytes,
-                         void* stream) {
+// Launch the kernel of `mode` (MODE_*) on `stream` with `smem_bytes` of
+// dynamic shared memory (computed and checked by the caller). Returns the
+// CUDA error code of the launch.
+int fused_snn_net_launch(const NetArgs* args, int mode, int grid,
+                         int smem_bytes, void* stream) {
+  void (*kernel)(const NetArgs);
+  if (mode == MODE_DENSE) kernel = fused_snn_net_kernel;
+  else if (mode == MODE_GATED) kernel = fused_snn_net_gated;
+  else if (mode == MODE_EVENTS) kernel = fused_snn_net_events;
+  else return (int)cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_snn_net_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_snn_net_kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(*args);
+  kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 

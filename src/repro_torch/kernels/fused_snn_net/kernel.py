@@ -1,6 +1,6 @@
-"""ctypes binding of the CUDA fused-network kernel (``csrc/fused_snn_net.cu``),
-the Hopper counterpart of `repro.kernels.fused_snn_net.kernel._net_kernel`
-in dense mode.
+"""ctypes binding of the CUDA fused-network kernels (``csrc/fused_snn_net.cu``),
+the Hopper counterparts of `repro.kernels.fused_snn_net.kernel._net_kernel`
+in its dense, row-block gated and event-list modes.
 
 `fused_snn_net_cuda` checks every tensor (device, dtype, shape,
 contiguity), lays out and checks the kernel's shared memory, allocates the
@@ -8,6 +8,10 @@ outputs, and launches one CTA per ``block_b`` batch lanes on the current
 stream of the tensors' device. The library is built with nvcc on first use
 (`repro_torch.kernels._build`). Nothing here runs on the CPU: the public
 wrapper `ops.fused_snn_net` sends CPU tensors to the plain version.
+
+`skip_layout` and its constants are shared with the plain version: the
+gate sites are blocks of 128/G logical fan-in rows (``LANE`` is the macro's
+128-row fan-in here, not a hardware tile; the kernel pads no lanes).
 """
 from __future__ import annotations
 
@@ -19,6 +23,12 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 
 NAME = "fused_snn_net"
+KERNEL_NAMES = {"dense": "fused_snn_net", "gated": "fused_snn_net_gated",
+                "events": "fused_snn_net_events"}
+MODE_CODES = {"dense": 0, "gated": 1, "events": 2}
+LANE = 128                  # the macro's fan-in rows, the unit G divides
+GATE_GRANULARITIES = (1, 2, 4, 8)
+MAX_SKIP_COLS = 1024        # gate-site columns the skip output may carry
 MAX_LAYERS = 16
 THREADS = 256
 SMEM_LIMIT = 232_448        # bytes of shared memory a Hopper block can use
@@ -42,6 +52,13 @@ class NetArgs(ctypes.Structure):
         ("block_b", ctypes.c_int), ("neuron", ctypes.c_int),
         ("wrap", ctypes.c_int), ("emit_rasters", ctypes.c_int),
         ("has_v_init", ctypes.c_int),
+        ("cnt_off", ctypes.c_int), ("n_counters", ctypes.c_int),
+        ("gate_bw", ctypes.c_int), ("skip_off", _INTS),
+        ("n_skip_cols", ctypes.c_int), ("skips", ctypes.c_void_p),
+        ("row_off", _INTS), ("fb_off", ctypes.c_int), ("dense_thr", _INTS),
+        ("list_off", ctypes.c_int), ("list_ld", ctypes.c_int),
+        ("lcount_off", ctypes.c_int), ("row_counts", _PTRS),
+        ("fallbacks", ctypes.c_void_p),
     ]
 
 
@@ -54,7 +71,7 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build.build(NAME)))
         lib.fused_snn_net_launch.argtypes = [ctypes.POINTER(NetArgs),
                                              ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p]
+                                             ctypes.c_int, ctypes.c_void_p]
         lib.fused_snn_net_launch.restype = ctypes.c_int
         lib.fused_snn_net_error_string.argtypes = [ctypes.c_int]
         lib.fused_snn_net_error_string.restype = ctypes.c_char_p
@@ -83,12 +100,62 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def smem_layout(widths: tuple, block_b: int) -> dict:
+def skip_layout(in_widths: tuple, granularity: int
+                ) -> tuple[tuple, tuple, int]:
+    """Column map of the gated mode's skip counts: gate site (layer i,
+    block g) reports in column ``offsets[i] + g``.
+
+    ``in_widths``: per-layer logical input widths. At granularity 1 every
+    layer is one gate (one column per layer); at G in {2, 4, 8} layer i has
+    ceil(width / (128/G)) blocks of 128/G fan-in rows, the last one ragged.
+    Returns (columns per layer, column offsets per layer, total columns).
+    Raises `ValueError` for a granularity outside `GATE_GRANULARITIES` or a
+    layout above ``MAX_SKIP_COLS`` columns."""
+    if granularity not in GATE_GRANULARITIES:
+        raise ValueError(f"gate granularity must be one of "
+                         f"{GATE_GRANULARITIES}, got {granularity}")
+    if granularity == 1:
+        n_cols = tuple(1 for _ in in_widths)
+    else:
+        bw = LANE // granularity
+        n_cols = tuple(-(-w // bw) for w in in_widths)
+    total = sum(n_cols)
+    if total > MAX_SKIP_COLS:
+        raise ValueError(
+            f"skip-count layout needs {total} gate columns "
+            f"({len(in_widths)} layers at granularity {granularity}) but the "
+            f"output carries at most MAX_SKIP_COLS={MAX_SKIP_COLS}; lower "
+            "the granularity or split the stack")
+    offsets, off = [], 0
+    for n in n_cols:
+        offsets.append(off)
+        off += n
+    return n_cols, tuple(offsets), total
+
+
+def dense_thresholds(in_widths: tuple, block_b: int,
+                     event_crossover: float) -> tuple:
+    """Per-layer event count of a tile above which the event-list mode
+    takes the dense product: ``int(crossover * block_b * width)``, or -1 at
+    crossover 0 (the test is strict ``>``, so 1.0 never trips and 0.0
+    always does). A ragged tile keeps the full ``block_b`` capacity."""
+    return tuple(int(event_crossover * block_b * w) if event_crossover > 0.0
+                 else -1 for w in in_widths)
+
+
+def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
+                n_skip_cols: int = 0) -> dict:
     """Shared-memory layout of one CTA for logical layer ``widths``
-    (N_0 .. N_L) and ``block_b`` lanes: each layer's transposed weights
-    (``wt_off``/``wt_ld``), each layer's int32 V tile (``v_off``), the two
-    int8 spike buffers (``spk_off``/``spk_ld``), and the total ``bytes``.
-    The one place the kernel's shared memory is computed."""
+    (N_0 .. N_L), ``block_b`` lanes and kernel ``mode``: each layer's
+    transposed weights (``wt_off``/``wt_ld``), each layer's int32 V tile
+    (``v_off``), the two int8 spike buffers (``spk_off``/``spk_ld``), the
+    int32 counters (``cnt_off``, ``n_counters``: the ``n_skip_cols`` skip
+    columns in gated mode; in event-list mode each layer's input-row
+    counts from ``row_off[i]`` and one fallback count per layer from
+    ``fb_off``), the event-list mode's uint16 active-row lists
+    (``list_off``, ``list_ld`` entries per lane) and their int32 lengths
+    (``lcount_off``), and the total ``bytes``. The one place the kernels'
+    shared memory is computed."""
     off = 0
     wt_off, wt_ld, v_off = [], [], []
     for n_in, n_out in zip(widths[:-1], widths[1:]):
@@ -100,9 +167,31 @@ def smem_layout(widths: tuple, block_b: int) -> dict:
         off += _align16(block_b * n_out * 4)
     spk_ld = _odd_words(max(widths))
     spk_bytes = _align16(block_b * spk_ld * 4)
+    spk_off = [off, off + spk_bytes]
+    off += 2 * spk_bytes
+    in_widths = widths[:-1]
+    row_off, fb_off, list_ld = [], 0, 0
+    if mode == "gated":
+        n_counters = n_skip_cols
+    elif mode == "events":
+        for n_in in in_widths:
+            row_off.append(fb_off)
+            fb_off += n_in
+        n_counters = fb_off + len(in_widths)
+        list_ld = max(in_widths)
+    else:
+        n_counters = 0
+    cnt_off = off
+    off += _align16(4 * n_counters)
+    list_off = off
+    off += _align16(2 * block_b * list_ld)
+    lcount_off = off
+    off += _align16(4 * block_b) if mode == "events" else 0
     return {"wt_off": wt_off, "wt_ld": wt_ld, "v_off": v_off,
-            "spk_off": [off, off + spk_bytes], "spk_ld": spk_ld,
-            "bytes": off + 2 * spk_bytes}
+            "spk_off": spk_off, "spk_ld": spk_ld, "cnt_off": cnt_off,
+            "n_counters": n_counters, "row_off": row_off, "fb_off": fb_off,
+            "list_off": list_off, "list_ld": list_ld,
+            "lcount_off": lcount_off, "bytes": off}
 
 
 def _check_tensor(x: torch.Tensor, what: str, dtype: torch.dtype,
@@ -121,23 +210,36 @@ def _check_tensor(x: torch.Tensor, what: str, dtype: torch.dtype,
 def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
                        leaks: tuple, *, neuron: str, clamp_mode: str,
                        readout: bool, emit_rasters: bool, v_init: list = None,
-                       block_b: int = 8) -> tuple[list, list]:
-    """Launch the kernel on CUDA tensors: spikes (T, B, N0) int8 {0, 1};
-    ``ws[i]`` (N_i, N_{i+1}) int8, spiking layers first and the readout
-    last when ``readout``; one int threshold and leak per spiking layer;
-    optional ``v_init[i]`` (B, N_{i+1}) int32 carried state. Returns
-    (rasters, v_finals): (T, B, N_{i+1}) int8 per spiking layer ([] without
-    ``emit_rasters``) and (B, N_{i+1}) int32 per layer.
+                       block_b: int = 8, mode: str = "dense",
+                       gate_granularity: int = 1,
+                       event_crossover: float = 1.0) -> tuple:
+    """Launch the kernel of ``mode`` ("dense", "gated" or "events") on CUDA
+    tensors: spikes (T, B, N0) int8 {0, 1}; ``ws[i]`` (N_i, N_{i+1}) int8,
+    spiking layers first and the readout last when ``readout``; one int
+    threshold and leak per spiking layer; optional ``v_init[i]``
+    (B, N_{i+1}) int32 carried state. ``gate_granularity`` sets the gated
+    mode's blocks (`skip_layout`) and ``event_crossover`` the event-list
+    mode's dense fallback (`dense_thresholds`).
 
-    Raises `ValueError` on a tensor the kernel does not take or a stack
-    whose shared memory exceeds a Hopper block's, and `RuntimeError` when
-    the launch returns a CUDA error."""
+    Returns (rasters, v_finals, counters): (T, B, N_{i+1}) int8 per spiking
+    layer ([] without ``emit_rasters``), (B, N_{i+1}) int32 per layer, and
+    None in dense mode; in gated mode the (tiles, total columns) int32 skip
+    counts; in event-list mode the pair (per-layer (tiles, N_i) int32 row
+    event counts, (tiles, n_layers) int32 fallback counts). A tile is
+    ``block_b`` lanes.
+
+    Raises `ValueError` on a tensor or option the kernel does not take or a
+    stack whose shared memory exceeds a Hopper block's, and `RuntimeError`
+    when the launch returns a CUDA error."""
     device = spikes.device
     if device.type != "cuda":
         raise ValueError(f"the {NAME} kernel needs CUDA tensors, got spikes "
                          f"on {device}")
     if spikes.dim() != 3:
         raise ValueError(f"spikes must be (T, B, N0), got {tuple(spikes.shape)}")
+    if mode not in MODE_CODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; have "
+                         f"{tuple(MODE_CODES)}")
     T, B, N0 = spikes.shape
     widths = (N0,) + tuple(w.shape[1] for w in ws)
     n_layers = len(ws)
@@ -152,6 +254,9 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     if neuron not in NEURON_CODES or clamp_mode not in ("saturate", "wrap"):
         raise ValueError(f"unknown neuron {neuron!r} or clamp mode "
                          f"{clamp_mode!r}")
+    if mode == "events" and max(widths[:-1]) > 65535:
+        raise ValueError("the event-list kernel indexes fan-in rows with "
+                         "16 bits")
     _check_tensor(spikes, "spikes", torch.int8, (T, B, N0), device)
     for i, w in enumerate(ws):
         _check_tensor(w, f"ws[{i}]", torch.int8, (widths[i], widths[i + 1]),
@@ -160,13 +265,18 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         for i, v in enumerate(v_init):
             _check_tensor(v, f"v_init[{i}]", torch.int32,
                           (B, widths[i + 1]), device)
-    layout = smem_layout(widths, block_b)
+    n_skip_cols = 0
+    if mode == "gated":
+        _, skip_off, n_skip_cols = skip_layout(widths[:-1], gate_granularity)
+    layout = smem_layout(widths, block_b, mode, n_skip_cols)
     if layout["bytes"] > SMEM_LIMIT:
         raise ValueError(
             f"the {NAME} kernel needs {layout['bytes']} bytes of shared "
-            f"memory for widths {widths} at block_b={block_b}, above the "
-            f"{SMEM_LIMIT} a Hopper block can use; lower block_b")
+            f"memory for widths {widths} at block_b={block_b} in {mode} "
+            f"mode, above the {SMEM_LIMIT} a Hopper block can use; lower "
+            "block_b")
 
+    grid = -(-B // block_b)
     v_out = [torch.empty((B, n), dtype=torch.int32, device=device)
              for n in widths[1:]]
     rasters = ([torch.empty((T, B, n), dtype=torch.int8, device=device)
@@ -196,15 +306,41 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     args.wrap = int(clamp_mode == "wrap")
     args.emit_rasters = int(emit_rasters)
     args.has_v_init = int(v_init is not None)
+    args.cnt_off, args.n_counters = layout["cnt_off"], layout["n_counters"]
+    args.list_off, args.list_ld = layout["list_off"], layout["list_ld"]
+    args.lcount_off = layout["lcount_off"]
+    counters = None
+    if mode == "gated":
+        skips = torch.empty((grid, n_skip_cols), dtype=torch.int32,
+                            device=device)
+        args.gate_bw = 0 if gate_granularity == 1 else LANE // gate_granularity
+        for i, off in enumerate(skip_off):
+            args.skip_off[i] = off
+        args.n_skip_cols = n_skip_cols
+        args.skips = skips.data_ptr()
+        counters = skips
+    elif mode == "events":
+        row_counts = [torch.empty((grid, n), dtype=torch.int32, device=device)
+                      for n in widths[:-1]]
+        fallbacks = torch.empty((grid, n_layers), dtype=torch.int32,
+                                device=device)
+        thr = dense_thresholds(widths[:-1], block_b, event_crossover)
+        for i in range(n_layers):
+            args.row_off[i] = layout["row_off"][i]
+            args.dense_thr[i] = thr[i]
+            args.row_counts[i] = row_counts[i].data_ptr()
+        args.fb_off = layout["fb_off"]
+        args.fallbacks = fallbacks.data_ptr()
+        counters = (row_counts, fallbacks)
 
     lib = _lib()
-    grid = -(-B // block_b)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_snn_net_launch(ctypes.byref(args), grid,
-                                       layout["bytes"], stream)
+        err = lib.fused_snn_net_launch(ctypes.byref(args), MODE_CODES[mode],
+                                       grid, layout["bytes"], stream)
+    name = KERNEL_NAMES[mode]
     if err != 0:
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {err} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.fused_snn_net_error_string(err).decode()})")
-    kernels.LAUNCH_COUNTS[NAME] += 1
-    return rasters, v_out
+    kernels.LAUNCH_COUNTS[name] += 1
+    return rasters, v_out, counters

@@ -2,15 +2,19 @@
 continuous-batching engine (`repro_torch.serve.SNNServeEngine`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_snn --requests 64 \
-        --slots 32 --pages 2 --megastep 10 --backend cuda
+        --slots 32 --pages 2 --megastep 10 --backend cuda_events
 
 Each request is a synthetic word stream for the IMDB network: a seeded
 spike raster at the offered sparsity, scaled by the encoder threshold so the
 off-macro encoder reproduces it exactly (the offered sparsity is then exact,
 not approximate). The network's weights are random, made from ``--seed``.
 The launcher reports throughput (frames/s, words/s) and the skipped-row
-fraction of the pooled per-request accounting. ``--device`` defaults to
-``cuda``; ``--device cpu`` runs the plain versions on the CPU.
+fraction of the pooled per-request accounting, and on the event backends
+the device ledger's. ``--backend`` is any streaming backend (``cuda``,
+``cuda_sparse``, ``cuda_events``, ``int_ref``, ``ref_events``);
+``--granularity`` sets ``cuda_sparse``'s gate blocks and ``--crossover``
+``cuda_events``' dense fallback. ``--device`` defaults to ``cuda``;
+``--device cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -70,16 +74,25 @@ def main(argv=None) -> list:
     ap.add_argument("--sparsity", type=float, default=0.85)
     ap.add_argument("--backend", default="cuda",
                     choices=list(pipeline.STREAM_BACKENDS))
+    ap.add_argument("--granularity", type=int, default=1,
+                    help="gate blocks of 128/G fan-in rows (cuda_sparse)")
+    ap.add_argument("--crossover", type=float, default=1.0,
+                    help="dense-fallback occupancy (cuda_events)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    step_kw = {}
+    if args.backend == "cuda_sparse":
+        step_kw["gate_granularity"] = args.granularity
+    if args.backend == "cuda_events":
+        step_kw["event_crossover"] = args.crossover
 
     cfg = IMDB
     program = pipeline.compile_network(cfg, snn.init_fc_snn(args.seed, cfg),
                                        domain="int", device=args.device)
     eng = SNNServeEngine(program, batch_slots=args.slots, backend=args.backend,
-                         pages=args.pages, megastep=args.megastep,
-                         device=args.device)
+                         step_kw=step_kw, pages=args.pages,
+                         megastep=args.megastep, device=args.device)
     for req in make_requests(program, args.requests, args.words,
                              cfg.timesteps, args.sparsity, args.seed):
         eng.submit(req)
@@ -96,6 +109,10 @@ def main(argv=None) -> list:
           f"K={args.megastep}, {args.pages} page(s) x {args.slots} lanes)")
     print(f"offered sparsity {args.sparsity:.2f} -> skipped-row fraction "
           f"{rep.skipped_row_fraction:.4f}")
+    if args.backend.endswith("events"):
+        print(f"device ledger: skipped-row fraction "
+              f"{eng.device_skipped_row_fraction():.4f}, dense fallbacks "
+              f"{eng.device_event_stats().dense_fallbacks}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {r.ticks} ticks, logits {np.round(r.logits, 3)}")
     return done

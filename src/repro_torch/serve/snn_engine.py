@@ -23,7 +23,14 @@ SNN's counterpart of an LM's KV-cache lane). The engine keeps:
   * a vacated lane is re-seeded with zero state, so idle lanes are silent;
   * per-slot event accounting: each block's input rasters are credited to
     a request only up to the tick it actually served, and finalize into a
-    per-request `pipeline.SparsityReport`.
+    per-request `pipeline.SparsityReport`;
+  * on the event backends (``ref_events``, ``cuda_events``) a pooled
+    device ledger: the per-row event counters the executor itself reports,
+    over all lanes of every dispatched page (`device_event_stats`). Idle
+    lanes are silent, so the ledger equals the summed per-request tallies
+    whenever no request finishes mid-block (a finished lane's remaining
+    ticks of the block, its ghost ticks, reach the ledger but not the
+    request's report).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import pipeline
 from repro_torch.core.pipeline import SNNProgram, SparsityReport
+from repro_torch.kernels.fused_snn_net.events import EventStats
 from repro_torch.serve.engine import SlotEngine, lane_scatter
 
 
@@ -127,15 +135,20 @@ class SNNServeEngine(SlotEngine):
 
     ``backend`` is a `pipeline.STREAM_BACKENDS` entry: ``"cuda"`` runs the
     fc stack of each megastep in one launch of the fused-network kernel,
-    ``"int_ref"`` runs its plain version. ``pages`` x ``batch_slots`` is the
-    lane pool and ``megastep`` is K, the frames advanced per dispatch.
+    ``"cuda_sparse"`` of the row-block gated kernel, ``"cuda_events"`` of
+    the event-list kernel, ``"int_ref"`` the plain version and
+    ``"ref_events"`` the host event executor. ``step_kw`` passes through to
+    `pipeline.stream_megastep` (``block_b``, ``gate_granularity``,
+    ``use_sparse``, ``event_crossover``). ``pages`` x ``batch_slots`` is
+    the lane pool and ``megastep`` is K, the frames advanced per dispatch.
     ``track_events=False`` turns off raster emission and per-request
     reports. ``device`` defaults to the CUDA device (raises without one)
     and must be the program's device."""
 
     def __init__(self, program: SNNProgram, *, batch_slots: int = 4,
                  backend: str = "int_ref", track_events: bool = True,
-                 pages: int = 1, megastep: int = 1, device=None):
+                 step_kw: Optional[dict] = None, pages: int = 1,
+                 megastep: int = 1, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if pages < 1:
@@ -155,6 +168,7 @@ class SNNServeEngine(SlotEngine):
         self.pages = pages
         self.K = megastep
         self.track_events = track_events
+        self.step_kw = dict(step_kw or {})
         self.states = [pipeline.init_stream_state(program, batch_slots,
                                                   backend)
                        for _ in range(pages)]
@@ -167,6 +181,12 @@ class SNNServeEngine(SlotEngine):
         self._frame_shape = tuple(program.layers[0].state_shape)
         self.ticks = 0                    # engine ticks executed
         self.clock = 0                    # frame clock: K per engine tick
+        # pooled device ledger (event backends only): per-layer row-event
+        # counters as the executor reports them, over all dispatched lanes
+        self._event_backend = backend in ("ref_events", "cuda_events")
+        self.device_row_events: Optional[list] = None
+        self.device_dense_fallbacks: Optional[list] = None
+        self.device_ticks = 0             # frame ticks dispatched, all pages
 
     # -- request intake ------------------------------------------------------
     def submit(self, req: SNNRequest) -> None:
@@ -224,6 +244,47 @@ class SNNServeEngine(SlotEngine):
             for i, lane, n in served:
                 self.slots[i].row_events[li] += counts[:n, lane].sum(axis=0)
 
+    def _account_device(self, stats: EventStats) -> None:
+        """Pool one dispatch's executor-reported `EventStats` (all lanes of
+        the page, K frames each) into the engine-lifetime device ledger."""
+        rows = [np.asarray(r, np.int64) for r in stats.row_events]
+        fbs = [int(f) for f in stats.dense_fallbacks]
+        if self.device_row_events is None:
+            self.device_row_events = rows
+            self.device_dense_fallbacks = fbs if fbs else None
+        else:
+            self.device_row_events = [a + b for a, b in
+                                      zip(self.device_row_events, rows)]
+            if fbs:
+                self.device_dense_fallbacks = [
+                    a + b for a, b in zip(self.device_dense_fallbacks, fbs)]
+        self.device_ticks += self.K
+
+    def _check_ledger(self) -> None:
+        if self.device_row_events is None:
+            raise ValueError("no device ledger: the engine has not ticked "
+                             "on an event backend (ref_events/cuda_events)")
+
+    def device_event_stats(self) -> EventStats:
+        """The pooled device ledger as an `events.EventStats`: per-layer
+        row-event counters summed over every dispatch so far, frames =
+        device_ticks x batch_slots lane-frames, and the per-layer dense
+        fallback counts of the event kernel (() on ``ref_events``). Raises
+        `ValueError` before the first dispatch on an event backend."""
+        self._check_ledger()
+        return EventStats(
+            row_events=tuple(self.device_row_events),
+            frames=self.device_ticks * self.B,
+            dense_fallbacks=tuple(self.device_dense_fallbacks or ()))
+
+    def device_skipped_row_fraction(self) -> float:
+        """Share of the device ledger's (lane-frame, input-row) sites that
+        were silent. Raises `ValueError` like `device_event_stats`."""
+        self._check_ledger()
+        possible = sum(self.device_ticks * self.B * n for n in self._n_in)
+        events = sum(int(r.sum()) for r in self.device_row_events)
+        return 1.0 - events / possible if possible else 0.0
+
     def _finalize_report(self, slot: _Slot) -> SparsityReport:
         """The per-request SparsityReport: batch 1, one timestep per served
         tick, as `pipeline.sparsity_report` gives on an isolated run."""
@@ -268,7 +329,8 @@ class SNNServeEngine(SlotEngine):
             block, counts = self._build_block(page)
             self.states[page], outs[page] = pipeline.stream_megastep(
                 self.program, self.states[page], block, self.backend,
-                active=counts, emit_rasters=self.track_events)
+                active=counts, emit_rasters=self.track_events,
+                **self.step_kw)
         self.ticks += 1
         self.clock += self.K
         for page in sorted(by_page):
@@ -306,6 +368,8 @@ class SNNServeEngine(SlotEngine):
                 fins.append((i, lane, fin))
         if self.track_events and out.rasters is not None:
             self._account(out.rasters, served)
+        if self._event_backend and out.skips is not None:
+            self._account_device(out.skips)
         for i, lane, fin in fins:
             slot = self.slots[i]
             req = slot.req

@@ -55,7 +55,8 @@ def run_both(case, neuron, clamp, readout, emit_rasters):
 
 
 def assert_same(got, want):
-    (g_r, g_v), (w_r, w_v, _) = got, want
+    (g_r, g_v, g_s), (w_r, w_v, w_s) = got, want
+    assert g_s is None and w_s is None
     assert len(g_r) == len(w_r) and len(g_v) == len(w_v)
     for g, w in zip(g_r, w_r):
         assert g.dtype == torch.int8
@@ -103,9 +104,9 @@ def test_chunked_calls_equal_one_call():
                                         seed=5, v_init=False)
     s, w = torch.from_numpy(spikes), [torch.from_numpy(x) for x in ws]
     kw = dict(thresholds=ths, leaks=lks, neuron="lif", clamp_mode="wrap")
-    r_full, v_full = fused_snn_net(s, w, **kw)
-    r_a, v_a = fused_snn_net(s[:4], w, **kw)
-    r_b, v_b = fused_snn_net(s[4:], w, v_init=v_a, **kw)
+    r_full, v_full, _ = fused_snn_net(s, w, **kw)
+    r_a, v_a, _ = fused_snn_net(s[:4], w, **kw)
+    r_b, v_b, _ = fused_snn_net(s[4:], w, v_init=v_a, **kw)
     for full, a, b in zip(r_full, r_a, r_b):
         assert torch.equal(full, torch.cat([a, b]))
     for full, b in zip(v_full, v_b):
@@ -173,8 +174,8 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, neuron, clamp):
     w = [torch.from_numpy(x).to(cuda_device) for x in ws]
     v = [torch.from_numpy(x).to(cuda_device) for x in vi]
     kw = dict(neuron=neuron, clamp_mode=clamp, v_init=v)
-    got_r, got_v = fused_snn_net(s, w, thresholds=ths, leaks=lks, **kw)
-    want_r, want_v = fused_snn_net_ref(s, w, ths, lks, **kw)
+    got_r, got_v, _ = fused_snn_net(s, w, thresholds=ths, leaks=lks, **kw)
+    want_r, want_v, _ = fused_snn_net_ref(s, w, ths, lks, **kw)
     torch.cuda.synchronize()
     for g, x in zip(got_r + got_v, want_r + want_v):
         assert torch.equal(g, x)
