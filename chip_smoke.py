@@ -26,16 +26,39 @@ Phases, each of which exits non-zero on failure:
      the device's busy time, its idle share and the time of each kernel;
   4. each kernel's device time at the serving shape (K = 10, B = 32) and at
      B = 4096, beside its plain version's device time, the host time of
-     one wrapper call, and its bound, printed as one `kernels` JSON line.
+     one wrapper call, and its bound;
+  5. the wkv6 kernel against its plain version (`wkv6_sequential`) on the
+     card within 2e-4 relative and absolute: H = 64, K = V = 64 at
+     B in {1, 4} and T in {1, 16, 100, 1024}, and the JAX tests' small
+     shapes (K != V included), each with w drawn from [0.6, 0.999) and with
+     w = exp(-e) on every step (the strongest decay the model allows, where
+     the output must be finite), from a random initial state; and s0
+     continuation (two halves against the whole);
+  6. RWKV6-7B at full width (32 layers x 4096, 64 heads of 64, d_ff 14336,
+     vocab 65536), bf16 weights drawn on the card from seed 0, served by the
+     port's `ServeEngine`: 4 slots, 8 requests (6 prompts of 4 to 16 tokens,
+     2 of 1,024), 16 new tokens each; every logit finite and 32 wkv6
+     launches per prefill; tokens/s and a profiled drain; the kernel held
+     against its plain version on the served model's own activations in
+     every layer of a 1,024-token prefill; kernel and plain prefill of that
+     prompt compared through the whole model (bf16 at full depth reported,
+     bf16 cut to 2 layers and float32 at full depth gated); prefill of the
+     prompt plus one token against prefill and one decode step (float32);
+     the kernel's time at the prefill shapes (B = 1, T = 16 and 1,024).
 
-The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
-without the repository's src/repro_torch beside this file, it prints no
-result and exits 1.
+Then one `kernels` JSON line with all four kernels. The last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or without the
+repository's src/repro_torch beside this file, it prints no result and
+exits 1.
 """
+import contextlib
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +77,23 @@ REPLACES = {"fused_snn_net": "src/repro/kernels/fused_snn_net/kernel.py:149",
                 "src/repro/kernels/fused_snn_net/kernel.py:294",
             "fused_snn_net_events":
                 "src/repro/kernels/fused_snn_net/kernel.py:222"}
+WKV_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
+WKV_REPLACES = "src/repro/kernels/wkv6/kernel.py:24"
+WKV_TOL = 2e-4                    # relative and absolute, the JAX tests' own
+PEAK_F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+STRONG_DECAY = math.exp(-math.e)  # w at the model's decay clip
+WKV_SMALL = [(2, 64, 2, 64, 64), (1, 128, 3, 64, 64), (2, 100, 2, 32, 32),
+             (1, 192, 1, 16, 64)]          # tests/test_kernels.py:82-87
+LONG_PROMPT = 1024
+# Model-level tolerances, relative L2 error of the logits (and, for float32,
+# the largest elementwise error over the largest |logit|). With random
+# weights this stack amplifies a difference through its depth: a one-ulp
+# bf16 rounding difference in one layer grows to order 1 in the logits over
+# 32 bf16 layers, while float32 keeps a float32-order difference small. So
+# bf16 is gated at 2 layers and reported at 32, float32 is gated at 32.
+BF16_CUT_L2 = 2e-2
+F32_L2 = 2e-2
+F32_DECODE_L2 = 5e-2
 BACKEND_OF = {"fused_snn_net": "cuda", "fused_snn_net_gated": "cuda_sparse",
               "fused_snn_net_events": "cuda_events"}
 MODE_KW = {"fused_snn_net": {},
@@ -411,16 +451,17 @@ def event_ledger(drain, eng) -> dict:
             "device_ticks": eng.device_ticks}
 
 
-def profile_drain(drain, backend: str) -> dict:
-    """One more drain under torch.profiler: the drain's wall time, the
-    device time of every kernel and copy it ran, and the share of the wall
-    time the device was idle. The profiler slows the host, so the wall
-    time here is not the phase-3 throughput."""
+def profile_drain(drain, *args) -> dict:
+    """One more drain (``drain(*args)``, returning its wall time second)
+    under torch.profiler: the drain's wall time, the device time of every
+    kernel and copy it ran, and the share of the wall time the device was
+    idle. The profiler slows the host, so the wall time here is not the
+    drain's throughput."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_s, _ = drain(backend)
+        _, wall_s, _ = drain(*args)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -469,6 +510,311 @@ def phase_timing(ops, dev, name: str, B: int) -> dict:
             "skipped_share": skipped_share(name, counters, T, B, IMDB_WIDTHS)}
 
 
+def wkv_case(dev, BH: int, T: int, K: int, V: int, seed: int,
+             strong: bool) -> tuple:
+    """Seeded (B*H, T, K/V) float32 inputs drawn on ``dev`` as the JAX tests
+    draw them (r, k, v ~ N(0, 0.25), u ~ N(0, 0.09)), w ~ U[0.6, 0.999) or
+    exp(-e) on every step (``strong``), and a N(0, 1) initial state."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    r, k = normal((BH, T, K), 0.5), normal((BH, T, K), 0.5)
+    v = normal((BH, T, V), 0.5)
+    w = (torch.full((BH, T, K), STRONG_DECAY, device=dev) if strong else
+         0.6 + 0.399 * torch.rand((BH, T, K), generator=gen, device=dev))
+    return r, k, v, w, normal((BH, K), 0.3), normal((BH, K, V), 1.0)
+
+
+def wkv_diff(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |got - want|, every element finite and within WKV_TOL relative
+    plus WKV_TOL absolute)."""
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= WKV_TOL + WKV_TOL * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def phase_wkv6_vs_plain(dev, heads: int = 64, head: int = 64,
+                        batches=(1, 4), lengths=(1, 16, 100, 1024),
+                        small=WKV_SMALL) -> dict:
+    """Phase 5: the wkv6 kernel against `wkv6_sequential` on the card, each
+    case from a random initial state. Returns the cases and the worst
+    max |diff| of y and of the state."""
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    cases = [(f"H={heads} B={B}", B * heads, T, head, head, strong)
+             for B in batches for T in lengths for strong in (False, True)]
+    cases += [(f"small H={H} B={B}", B * H, T, K, V, strong)
+              for B, T, H, K, V in small for strong in (False, True)]
+    cont = [c for c in cases if c[2] == max(lengths) or c[3] != c[4]]
+    worst = [0.0, 0.0]
+    rows = []
+    for n, (label, BH, T, K, V, strong) in enumerate(cases + cont):
+        r, k, v, w, u, s0 = wkv_case(dev, BH, T, K, V, 500 + n, strong)
+        halves = n >= len(cases)
+        if halves:                  # the second half from the first's state
+            h = T // 2
+            y1, s1 = wkv_kernel.wkv6_cuda(r[:, :h].contiguous(),
+                                          k[:, :h].contiguous(),
+                                          v[:, :h].contiguous(),
+                                          w[:, :h].contiguous(), u, s0)
+            y2, s = wkv_kernel.wkv6_cuda(r[:, h:].contiguous(),
+                                         k[:, h:].contiguous(),
+                                         v[:, h:].contiguous(),
+                                         w[:, h:].contiguous(), u, s1)
+            y = torch.cat([y1, y2], dim=1)
+        else:
+            y, s = wkv_kernel.wkv6_cuda(r, k, v, w, u, s0)
+        y_p, s_p = wkv_ref.wkv6_sequential(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        (dy, ok_y), (ds, ok_s) = wkv_diff(y, y_p), wkv_diff(s, s_p)
+        row = (f"{label} T={T} K={K} V={V} "
+               f"w={'exp(-e)' if strong else 'U[0.6,0.999)'}"
+               f"{' two halves' if halves else ''}: max|dy| {dy:.3e}, "
+               f"max|ds| {ds:.3e}")
+        if not (ok_y and ok_s):
+            raise AssertionError(f"wkv6 kernel != plain version beyond "
+                                 f"{WKV_TOL} rel + abs (or not finite): {row}")
+        worst = [max(worst[0], dy), max(worst[1], ds)]
+        rows.append(row)
+    return {"rows": rows, "max_abs_err_y": worst[0],
+            "max_abs_err_s": worst[1]}
+
+
+def wkv_bound_ms(BH: int, T: int, K: int, V: int) -> tuple:
+    """Least time for one wkv6 call: r, k, w, v, u and s0 read once, y and
+    the final state written once (float32), against 4 float32 operations
+    per state element per step (a multiply-add into y, a multiply and a
+    multiply-add into S) at the card's non-tensor-core float32 rate.
+    Returns (ms, bound_by)."""
+    moved = 4 * (BH * T * (3 * K + V) + BH * K + 2 * BH * K * V
+                 + BH * T * V)
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * BH * T * K * V / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_wkv6_timing(dev, T: int, B: int = 1, H: int = 64, K: int = 64
+                      ) -> dict:
+    """The wkv6 kernel at a prefill shape (B = 1 prompt, H heads of K),
+    beside its plain version and its bound."""
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    args = wkv_case(dev, B * H, T, K, K, SEED, False)
+    ms, wrapper_ms = device_ms(lambda: wkv_kernel.wkv6_cuda(*args), 50)
+    plain_ms, _ = device_ms(lambda: wkv_ref.wkv6_sequential(*args), 3)
+    bound_ms, bound_by = wkv_bound_ms(B * H, T, K, K)
+    return {"B": B, "T": T, "H": H, "K": K, "ms": ms, "plain_ms": plain_ms,
+            "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def model_wkv6(fn):
+    """Run the RWKV blocks with ``fn`` as their wkv function (a swap made
+    by this script only; the port has no switch for it)."""
+    from repro_torch.models import rwkv
+    orig = rwkv.wkv6
+    rwkv.wkv6 = fn
+    try:
+        yield
+    finally:
+        rwkv.wkv6 = orig
+
+
+def plain_wkv6(r, k, v, w, u, s0=None):
+    """The model-layout wkv6 with `wkv6_sequential` in place of the kernel."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    B, _, H, _ = r.shape
+    return wkv_ops.from_bh_layout(
+        *wkv_ref.wkv6_sequential(*wkv_ops.to_bh_layout(r, k, v, w, u, s0)),
+        B, H)
+
+
+@contextlib.contextmanager
+def recorded_logits():
+    """Wrap `lm.prefill` and `lm.decode_step` (as the engine calls them) to
+    record, per call, its kind, its logits' shape and whether every logit is
+    finite (a device flag, read after the run)."""
+    from repro_torch.models import lm
+    seen = []
+    orig = {"prefill": lm.prefill, "decode_step": lm.decode_step}
+
+    def wrap(kind):
+        def call(*args, **kw):
+            logits, cache = orig[kind](*args, **kw)
+            seen.append((kind, tuple(logits.shape),
+                         torch.isfinite(logits).all()))
+            return logits, cache
+        return call
+    lm.prefill, lm.decode_step = wrap("prefill"), wrap("decode_step")
+    try:
+        yield seen
+    finally:
+        lm.prefill, lm.decode_step = orig["prefill"], orig["decode_step"]
+
+
+def logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Relative L2 error, largest elementwise error over the largest
+    |logit|, and whether the argmax tokens agree."""
+    got, want = got.float(), want.float()
+    return {"rel_l2": float((got - want).norm() / want.norm()),
+            "max_rel": float((got - want).abs().max() / want.abs().max()),
+            "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1)))}
+
+
+def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
+               cut_layers: int = 2) -> dict:
+    """Phase 6: ``cfg`` served by the port's ServeEngine, bf16 weights from
+    seed 0 drawn on ``dev``; then the kernel held against its plain version
+    inside the model, and the float32 model's checks."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(a.numel() for a in leaves(params))}
+    rng = np.random.default_rng(SEED + 1)
+    long_prompts = [rng.integers(0, cfg.vocab_size, long_prompt)
+                    for _ in range(2)]
+
+    def requests():
+        reqs = make_requests(cfg, 6, 16, SEED)
+        return reqs + [Request(rid=6 + i, prompt=p, max_new_tokens=16)
+                       for i, p in enumerate(long_prompts)]
+
+    def drain():
+        eng = ServeEngine(params, cfg, batch_slots=4,
+                          max_len=2 * long_prompt)
+        for r in requests():
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        return sorted(done, key=lambda r: r.rid), time.perf_counter() - t0, eng
+
+    drain()                                        # warm-up, not counted
+    kernels.reset_launch_counts()
+    with recorded_logits() as seen:
+        served, dt = drain()[:2]        # the engine (and its params) not kept
+    launches = dict(kernels.LAUNCH_COUNTS)
+    prefills = sum(kind == "prefill" for kind, _, _ in seen)
+    bad_shape = [(kind, shape) for kind, shape, _ in seen
+                 if shape != ((1 if kind == "prefill" else 4), cfg.vocab_size)]
+    if not all(bool(flag) for _, _, flag in seen) or bad_shape:
+        raise AssertionError(f"non-finite logits or bad shapes {bad_shape}")
+    if len(served) != 8 or any(len(r.out_tokens) != 16 for r in served):
+        raise AssertionError("the engine did not serve 8 requests x 16 "
+                             "tokens")
+    if prefills != 8 or launches["wkv6"] != cfg.n_layers * prefills:
+        raise AssertionError(f"{launches['wkv6']} wkv6 launches for "
+                             f"{prefills} prefills of {cfg.n_layers} layers")
+    tokens = sum(len(r.out_tokens) for r in served)
+    out.update({"drain_s": dt, "tokens": tokens, "tokens_per_s": tokens / dt,
+                "prefills": prefills, "launches": launches,
+                "decode_ticks": sum(k == "decode_step" for k, _, _ in seen),
+                "first_tokens": [r.out_tokens[:4] for r in served]})
+    out["profile"] = profile_drain(drain)
+
+    # The kernel on the served model's own activations, layer by layer. Its
+    # y and S reach thousands and hundreds there (decays up to 0.9997 over
+    # 1,024 steps, activations well above unit scale), and a y element that
+    # cancels to near zero keeps the float32 error of its terms, so each
+    # layer is held by relative L2 error: |dy| / |y| and |dS| / |S| within
+    # WKV_TOL. The median |y| is kept beside it to show the scale.
+    from repro_torch.models import rwkv
+    model_fn, calls = rwkv.wkv6, []
+
+    def recording(*args, **kw):
+        y, s = model_fn(*args, **kw)
+        calls.append((args, kw, y, s))
+        return y, s
+
+    toks = torch.as_tensor(long_prompts[0][None], device=dev)
+    with model_wkv6(recording):
+        logits_k, _ = lm.prefill(params, {"tokens": toks}, cfg, long_prompt)
+    rows = []
+    for n, (args, kw, y, s) in enumerate(calls):
+        y_p, s_p = plain_wkv6(*args, **kw)
+        row = {"layer": n,
+               "rel_l2_y": float((y - y_p).norm() / y_p.norm()),
+               "rel_l2_s": float((s - s_p).norm() / s_p.norm()),
+               "max_abs_err_y": float((y - y_p).abs().max()),
+               "max_abs_err_s": float((s - s_p).abs().max()),
+               "median_abs_y": float(y_p.abs().median()),
+               "max_abs_y": float(y_p.abs().max()),
+               "finite": bool(torch.isfinite(y).all()
+                              and torch.isfinite(s).all())}
+        if not (row["finite"] and row["rel_l2_y"] <= WKV_TOL
+                and row["rel_l2_s"] <= WKV_TOL):
+            raise AssertionError(f"wkv6 kernel != plain version on the "
+                                 f"model's activations beyond {WKV_TOL} "
+                                 f"relative L2: {row}")
+        rows.append(row)
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"{len(calls)} wkv6 calls in one prefill")
+    out["layers"] = {"calls": len(calls), "tolerance_rel_l2": WKV_TOL,
+                     "rows": rows}
+    del calls
+    with model_wkv6(plain_wkv6):
+        logits_p, _ = lm.prefill(params, {"tokens": toks}, cfg, long_prompt)
+    out["bf16_full_depth"] = logit_diff(logits_k, logits_p)
+
+    cut = dict(params, blocks=lm.tree_map(lambda a: a[:cut_layers],
+                                          params["blocks"]))
+    cfg_cut = dataclasses.replace(cfg, n_layers=cut_layers)
+    logits_k, _ = lm.prefill(cut, {"tokens": toks}, cfg_cut, long_prompt)
+    with model_wkv6(plain_wkv6):
+        logits_p, _ = lm.prefill(cut, {"tokens": toks}, cfg_cut, long_prompt)
+    out["bf16_cut"] = d = logit_diff(logits_k, logits_p)
+    d["layers"] = cut_layers
+    if not (d["rel_l2"] <= BF16_CUT_L2 and d["argmax_equal"]):
+        raise AssertionError(f"bf16 {cut_layers}-layer prefill: kernel and "
+                             f"plain differ beyond {BF16_CUT_L2}: {d}")
+    del params, cut
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    params = lm.init_params(SEED, cfg, dtype=torch.float32, device=dev)
+    logits_k, cache = lm.prefill(params, {"tokens": toks}, cfg, long_prompt)
+    with model_wkv6(plain_wkv6):
+        logits_p, _ = lm.prefill(params, {"tokens": toks}, cfg, long_prompt)
+    out["f32_full_depth"] = d = logit_diff(logits_k, logits_p)
+    if not (d["rel_l2"] <= F32_L2 and d["max_rel"] <= F32_L2
+            and d["argmax_equal"]):
+        raise AssertionError(f"float32 prefill: kernel and plain differ "
+                             f"beyond {F32_L2}: {d}")
+    nxt = logits_k.argmax(-1)[:, None]
+    full, _ = lm.prefill(params, {"tokens": torch.cat([toks, nxt], 1)}, cfg,
+                         long_prompt + 1)
+    dec, _ = lm.decode_step(params, nxt, cache, cfg)
+    out["f32_prefill_vs_decode"] = d = logit_diff(dec, full)
+    if not (d["rel_l2"] <= F32_DECODE_L2 and d["max_rel"] <= F32_DECODE_L2):
+        raise AssertionError(f"float32: prefill of prompt + 1 token and "
+                             f"prefill + decode differ beyond "
+                             f"{F32_DECODE_L2}: {d}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device is available")
@@ -476,22 +822,29 @@ def main() -> int:
     if not (src / "repro_torch" / "__init__.py").is_file():
         return fail(f"the port's package is not at {src / 'repro_torch'}")
     sys.path.insert(0, str(src))
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_snn_net import kernel, ops
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
 
     dev = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
     print(f"[phase 1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(dev)}")
     t0 = time.perf_counter()
+    sources = ("fused_snn_net", "wkv6")
+    with ThreadPoolExecutor(len(sources)) as pool:    # one nvcc per source
+        libs = dict(zip(sources, pool.map(_build.build, sources)))
     kernel._lib()
+    wkv_kernel._lib()
     print(f"[phase 1] built {', '.join(REPLACES)} from "
-          f"{_build.source_path('fused_snn_net')} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    log = _build.build("fused_snn_net").with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(f"[phase 1] ptxas: {line.strip()}")
+          f"{_build.source_path('fused_snn_net')} and wkv6 from "
+          f"{_build.source_path('wkv6')} in {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
+                print(f"[phase 1] ptxas ({name}): {line.strip()}")
 
     checked = phase_kernel_vs_plain(ops, dev)
     for name, (n_cases, worst) in checked.items():
@@ -529,6 +882,47 @@ def main() -> int:
                       **MODE_KW[name]},
             "at_b4096": big_t, "backend": BACKEND_OF[name],
             "serving_frames_per_s": engine["frames_per_s"]})
+
+    wkv = phase_wkv6_vs_plain(dev)
+    for row in wkv["rows"]:
+        print(f"[phase 5] {row} (tol {WKV_TOL} rel + {WKV_TOL} abs): ok")
+    print(f"[phase 5] wkv6 == plain version on the card in "
+          f"{len(wkv['rows'])} cases: max|dy| {wkv['max_abs_err_y']:.3e}, "
+          f"max|ds| {wkv['max_abs_err_s']:.3e}")
+
+    cfg = get_config("rwkv6-7b")
+    lmrun = phase_rwkv(dev, cfg)
+    profile = lmrun.pop("profile")
+    print(f"[phase 6] {cfg.arch_id}: {lmrun['params']} params (bf16) drawn "
+          f"on the card in {lmrun['init_s']:.2f} s; served 8 requests "
+          f"({lmrun['prefills']} prefills, 2 of {LONG_PROMPT} tokens) x 16 "
+          f"tokens at {lmrun['tokens_per_s']:.2f} tokens/s "
+          f"({lmrun['drain_s']:.3f} s) on {card}; wkv6 launches "
+          f"{lmrun['launches']['wkv6']} = {cfg.n_layers} x "
+          f"{lmrun['prefills']} prefills; every logit finite")
+    print(f"[phase 6] profiled drain: {json.dumps(profile)}")
+    layers = lmrun.pop("layers")
+    for row in layers["rows"]:
+        print(f"[phase 6] wkv6 kernel vs plain on layer {row['layer']}'s "
+              f"activations (tol {layers['tolerance_rel_l2']} relative L2): "
+              f"{json.dumps(row)}")
+    print(f"[phase 6] checks: {json.dumps(lmrun)}")
+    timing = {T: phase_wkv6_timing(dev, T) for T in (16, LONG_PROMPT)}
+    for T, row in timing.items():
+        print(f"[phase 6] wkv6 at B=1, H=64, K=V=64, T={T}: {row} ({card})")
+    main_t = timing[LONG_PROMPT]
+    entries.append({
+        "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": WKV_REPLACES, "launches": lmrun["launches"]["wkv6"],
+        "max_abs_err": max(wkv["max_abs_err_y"], wkv["max_abs_err_s"]),
+        "tolerance": f"{WKV_TOL} relative + {WKV_TOL} absolute",
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": None, "wrapper_ms": main_t["wrapper_ms"],
+        "shape": {"B": 1, "T": LONG_PROMPT, "H": 64, "K": 64, "V": 64},
+        "at_t16": timing[16], "model": cfg.arch_id,
+        "serving_tokens_per_s": lmrun["tokens_per_s"],
+        "device_idle_share": profile["device_idle_share"]})
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

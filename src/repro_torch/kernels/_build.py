@@ -5,7 +5,8 @@
 hash of the source and flags, and returns the library's path. A build that
 exists is reused; a new one is written to a temporary name and moved into
 place with `os.replace`, so a concurrent or interrupted build never leaves a
-partial library under the final name. The library exposes a plain C
+partial library under the final name. The temporary name carries the process
+and thread, so builds may run in several threads at once. The library exposes a plain C
 interface and is loaded with ctypes; its source includes no PyTorch header,
 so a build takes seconds.
 
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,7 +57,8 @@ def build(name: str) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(
+        f".{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:

@@ -1,0 +1,92 @@
+"""ctypes binding of the CUDA wkv6 kernel (``csrc/wkv6.cu``), the Hopper
+counterpart of `repro.kernels.wkv6.kernel._wkv6_kernel`.
+
+`wkv6_cuda` checks every tensor (device, dtype, shape, contiguity,
+alignment), allocates the outputs, and launches the kernel on the current
+stream of the tensors' device. The library is built with nvcc on first use
+(`repro_torch.kernels._build`). Nothing here runs on the CPU: the public
+wrapper `ops.wkv6` sends CPU tensors to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import _build
+
+NAME = "wkv6"
+HEAD_SIZES = (16, 32, 64)     # the K and V the kernel is instantiated for
+
+_LIB = None                   # the loaded library, built on first use
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(_build.build(NAME)))
+        lib.wkv6_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.wkv6_launch.restype = ctypes.c_int
+        lib.wkv6_error_string.argtypes = [ctypes.c_int]
+        lib.wkv6_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check(x: torch.Tensor, what: str, shape: tuple,
+           device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"{what} is on {x.device}, r on {device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{what} must be float32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+
+
+def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor) -> tuple:
+    """Launch the kernel on CUDA float32 tensors: r, k, w (BH, T, K);
+    v (BH, T, V); u (BH, K); s0 (BH, K, V). Returns (y (BH, T, V),
+    s_out (BH, K, V)), float32.
+
+    Raises `ValueError` on a tensor the kernel does not take (K or V outside
+    `HEAD_SIZES`, T < 1, wrong device, dtype, shape or layout) and
+    `RuntimeError` when the launch returns a CUDA error."""
+    device = r.device
+    if device.type != "cuda":
+        raise ValueError(f"the {NAME} kernel needs CUDA tensors, got r on "
+                         f"{device}")
+    if r.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"r and v must be (BH, T, K/V), got "
+                         f"{tuple(r.shape)} and {tuple(v.shape)}")
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    if K not in HEAD_SIZES or V not in HEAD_SIZES:
+        raise ValueError(f"the {NAME} kernel takes K and V in {HEAD_SIZES}, "
+                         f"got K={K}, V={V}")
+    if BH < 1 or T < 1:
+        raise ValueError(f"the {NAME} kernel needs BH >= 1 and T >= 1, got "
+                         f"BH={BH}, T={T}")
+    for x, what, shape in ((r, "r", (BH, T, K)), (k, "k", (BH, T, K)),
+                           (w, "w", (BH, T, K)), (v, "v", (BH, T, V)),
+                           (u, "u", (BH, K)), (s0, "s0", (BH, K, V))):
+        _check(x, what, shape, device)
+    y = torch.empty((BH, T, V), dtype=torch.float32, device=device)
+    s_out = torch.empty((BH, K, V), dtype=torch.float32, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                              y.data_ptr(), s_out.data_ptr(), BH, T, K, V,
+                              stream)
+    if err != 0:
+        raise RuntimeError(f"{NAME} launch failed: CUDA error {err} "
+                           f"({lib.wkv6_error_string(err).decode()})")
+    kernels.LAUNCH_COUNTS[NAME] += 1
+    return y, s_out

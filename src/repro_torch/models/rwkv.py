@@ -1,0 +1,171 @@
+"""RWKV6 (Finch) blocks — attention-free, data-dependent decay.
+
+The wkv state is the LM-scale analogue of the IMPULSE membrane potential
+(decay == learned leak). Prefill runs the recurrence through
+`kernels.wkv6.ops.wkv6`: the hand-written CUDA kernel on the card, its plain
+version on the CPU. Decode runs the one-step update as plain tensor code.
+
+Block = time-mix (ddlerp token shift -> r, k, v, g, w -> wkv6 ->
+groupnorm * silu(g) -> out proj) + channel-mix (token shift -> relu^2 FFN
+with receptance gate).
+
+Types follow the JAX package's promotion, written out where torch differs:
+the prefill output path is float32 (the float32 wkv output, its group norm,
+times the bf16 gate, then the out projection with bf16 weights promoted to
+float32), while the decode path casts the wkv output back to the
+activations' type first, so its group norm, gate and out projection run in
+that type. Group norm uses the population variance, as ``jnp.var`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.wkv6.ops import wkv6, wkv6_decode_step
+from repro_torch.models.layers import dense_init
+
+LORA_R = 32
+N_MIX = 5  # r, k, v, g, w
+
+
+def init_rwkv_block(gen: torch.Generator, cfg: ModelConfig,
+                    dtype: torch.dtype = torch.bfloat16) -> dict:
+    """One block's parameters, drawn from ``gen`` on its device."""
+    d, ff = cfg.d_model, cfg.d_ff
+    H, K = cfg.n_heads, cfg.rwkv.head_size
+    dev = gen.device
+
+    def const(fill, shape, dt=dtype):
+        return torch.full(shape, fill, dtype=dt, device=dev)
+
+    decay_base = (-np.linspace(0.0, 3.0, d)).astype(np.float32)  # w0, as JAX
+    return {
+        "tm": {  # time mix
+            "mu": const(0.0, (N_MIX, d)),
+            "ddlerp_w1": dense_init(gen, (d, N_MIX * LORA_R), dtype=dtype),
+            "ddlerp_w2": dense_init(gen, (N_MIX, LORA_R, d), dtype=dtype),
+            "decay_base": torch.from_numpy(decay_base).to(dev),  # w0 (fp32)
+            "decay_w1": dense_init(gen, (d, LORA_R * 2), dtype=dtype),
+            "decay_w2": dense_init(gen, (LORA_R * 2, d), dtype=dtype),
+            "bonus": torch.randn((H, K), generator=gen, dtype=torch.float32,
+                                 device=dev) * 0.3,
+            "wr": dense_init(gen, (d, d), dtype=dtype),
+            "wk": dense_init(gen, (d, d), dtype=dtype),
+            "wv": dense_init(gen, (d, d), dtype=dtype),
+            "wg": dense_init(gen, (d, d), dtype=dtype),
+            "wo": dense_init(gen, (d, d), dtype=dtype),
+            "gn_scale": const(1.0, (d,)),
+        },
+        "cm": {  # channel mix
+            "mu_k": const(0.0, (d,)),
+            "mu_r": const(0.0, (d,)),
+            "wk": dense_init(gen, (d, ff), dtype=dtype),
+            "wv": dense_init(gen, (ff, d), dtype=dtype),
+            "wr": dense_init(gen, (d, d), dtype=dtype),
+        },
+    }
+
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """x: (B, T, d) -> previous-token tensor; `last` is the carry from the
+    preceding segment ((B, d)) or None for zeros."""
+    first = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([first.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _group_norm(y: torch.Tensor, scale: torch.Tensor, n_heads: int,
+                eps: float = 1e-5) -> torch.Tensor:
+    B, T, d = y.shape
+    yh = y.reshape(B, T, n_heads, d // n_heads).float()
+    mu = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, keepdim=True, correction=0)
+    yh = (yh - mu) * torch.rsqrt(var + eps)
+    return (yh.reshape(B, T, d) * scale).to(y.dtype)
+
+
+def _mix_inputs(x: torch.Tensor, xx: torch.Tensor, p: dict) -> tuple:
+    """ddlerp: the five token-shift mixes (r, k, v, g, w) of (B, T, d) x."""
+    B, T, _ = x.shape
+    base = x + xx * p["mu"][0]
+    a = torch.tanh(base @ p["ddlerp_w1"]).reshape(B, T, N_MIX, LORA_R)
+    mix = torch.einsum("btnr,nrd->btnd", a, p["ddlerp_w2"]) + p["mu"][None, None]
+    xs = x[:, :, None, :] + xx[:, :, None, :] * mix           # (B, T, 5, d)
+    return xs.unbind(2)
+
+
+def _decay(xw: torch.Tensor, p: dict) -> torch.Tensor:
+    """Data-dependent decay in (0, 1), float32."""
+    dlora = torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+    return torch.exp(-torch.exp(torch.clamp(p["decay_base"] + dlora.float(),
+                                            -8.0, 1.0)))
+
+
+def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
+             state: Optional[dict] = None):
+    """x: (B, T, d). state: {"shift": (B, d), "wkv": (B, H, K, K)} or None.
+    Returns (out (B, T, d) float32, new_state)."""
+    B, T, d = x.shape
+    H, K = cfg.n_heads, cfg.rwkv.head_size
+    prev = _token_shift(x, None if state is None else state["shift"])
+    xr, xk, xv, xg, xw = _mix_inputs(x, prev - x, p)
+    r = (xr @ p["wr"]).reshape(B, T, H, K)
+    k = (xk @ p["wk"]).reshape(B, T, H, K)
+    v = (xv @ p["wv"]).reshape(B, T, H, K)
+    g = F.silu(xg @ p["wg"])
+    w = _decay(xw, p).reshape(B, T, H, K)
+    s0 = None if state is None else state["wkv"]
+    y, s_new = wkv6(r, k, v, w, p["bonus"], s0=s0)
+    y = y.reshape(B, T, d)
+    out = (_group_norm(y, p["gn_scale"], H) * g) @ p["wo"].float()
+    return out, {"shift": x[:, -1], "wkv": s_new}
+
+
+def time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    state: dict):
+    """Single-token decode. x: (B, 1, d). Mirrors time_mix with T == 1 via
+    the O(1) wkv state update (the fused-membrane serving path)."""
+    B, _, d = x.shape
+    H, K = cfg.n_heads, cfg.rwkv.head_size
+    prev = state["shift"][:, None].to(x.dtype)
+    xr, xk, xv, xg, xw = (m[:, 0] for m in _mix_inputs(x, prev - x, p))
+    r = (xr @ p["wr"]).reshape(B, H, K)
+    k = (xk @ p["wk"]).reshape(B, H, K)
+    v = (xv @ p["wv"]).reshape(B, H, K)
+    g = F.silu(xg @ p["wg"])
+    w = _decay(xw, p).reshape(B, H, K)
+    y, s_new = wkv6_decode_step(r.float(), k.float(), v.float(), w,
+                                p["bonus"], state["wkv"])
+    y = y.reshape(B, 1, d).to(x.dtype)
+    out = (_group_norm(y, p["gn_scale"], H) * g[:, None]) @ p["wo"]
+    return out, {"shift": x[:, -1], "wkv": s_new}
+
+
+def channel_mix(x: torch.Tensor, p: dict,
+                state: Optional[torch.Tensor] = None):
+    """ReLU^2 channel mix with receptance gate. state: (B, d) last token."""
+    prev = _token_shift(x, state)
+    xk = x + (prev - x) * p["mu_k"]
+    xr = x + (prev - x) * p["mu_r"]
+    k = torch.square(torch.relu(xk @ p["wk"]))
+    r = torch.sigmoid(xr @ p["wr"])
+    return r * (k @ p["wv"]), x[:, -1]
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int,
+                    dtype: torch.dtype = torch.float32, device=None) -> dict:
+    """Zero recurrent state of ``batch`` lanes on ``device`` (the CUDA
+    device unless given)."""
+    device = resolve_device(device)
+    H, K = cfg.n_heads, cfg.rwkv.head_size
+    return {"shift_tm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                    device=device),
+            "shift_cm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                    device=device),
+            "wkv": torch.zeros((batch, H, K, K), dtype=torch.float32,
+                               device=device)}

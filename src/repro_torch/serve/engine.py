@@ -1,8 +1,16 @@
 """Slot-based continuous batching: the shared drain loop, its undrained
-contract, paged-slot addressing, and the admit-by-lane-copy primitive."""
+contract, paged-slot addressing, the admit-by-lane-copy primitives, and the
+language-model engine (`ServeEngine`)."""
 from __future__ import annotations
 
+import queue
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
 import torch
+
+from repro_torch.models import lm
 
 
 class EngineUndrained(RuntimeError):
@@ -71,3 +79,143 @@ class SlotEngine:
         pending = self.queue.qsize() + sum(
             1 for s in self.slots if s.req is not None)
         raise EngineUndrained(self.finished, pending, max_ticks)
+
+
+# ---------------------------------------------------------------------------
+# language-model serving
+# ---------------------------------------------------------------------------
+
+def probe_batch_axes(state, probe):
+    """Per-leaf batch axis of a state tree, determined structurally: the
+    unique axis whose extent follows the batch argument, found by comparing
+    against a B+1 probe tree (made cheaply on the ``meta`` device). Probing
+    stays unambiguous when B coincides with another dimension. Leaves
+    without a batch axis map to None."""
+    return lm.tree_map(
+        lambda full, grown: next((ax for ax in range(full.dim())
+                                  if full.shape[ax] != grown.shape[ax]), None),
+        state, probe)
+
+
+def tree_lane_scatter(lane_tree, full_tree, axes, i: int):
+    """Copy a single-lane state tree into batch lane ``i`` of the full tree
+    along each leaf's batch axis (``axes`` from `probe_batch_axes`; leaves
+    with axis None are shared and left untouched). The lane is cast to the
+    full leaf's type, as the JAX package's ``lane_scatter`` does: a bf16
+    leaf rounds a float32 lane.
+
+    Works in place on the leaves of ``full_tree``; returns it."""
+    def put(lane, full, ax):
+        if ax is not None:
+            with torch.no_grad():
+                full.narrow(ax, i, 1).copy_(lane)
+        return full
+    lm.tree_map(put, lane_tree, full_tree, axes)
+    return full_tree
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray              # (T,) int
+    max_new_tokens: int = 16
+    eos_id: int = -1                # -1: run to max_new_tokens
+    out_tokens: list = field(default_factory=list)
+
+
+@dataclass
+class _Slot:
+    req: Optional[Request] = None
+    remaining: int = 0
+
+
+class ServeEngine(SlotEngine):
+    """Slot-based continuous batching of a language model over a fixed
+    decode batch with a pre-allocated cache, on the params' device.
+
+    FIFO admission: a free slot takes the next request, prefills it at its
+    exact length (a recurrent state would integrate padding, so no length
+    buckets), takes its first token from the prefill logits, and copies the
+    single-lane cache into its lane (`tree_lane_scatter`). Each tick then
+    runs one batched `lm.decode_step` for all slots (empty ones decode
+    garbage that is dropped) and one device-to-host copy of the argmax
+    tokens; per-slot stops are ``max_new_tokens`` and ``eos_id``.
+
+    The cache starts as `lm.init_cache` makes it, with bf16 token-shift
+    leaves whatever the params' type, and is replaced by what each decode
+    tick returns (the compute type): as in the JAX package, a request
+    admitted before the first tick has its token-shift carry rounded to
+    bf16 and one admitted later does not."""
+
+    def __init__(self, params, cfg, *, batch_slots: int = 4,
+                 max_len: int = 256):
+        lm.check_family(cfg)
+        self.params = params
+        self.cfg = cfg
+        self.B = batch_slots
+        self.max_len = max_len
+        self.device = params["embed"].device
+        self.slots = [_Slot() for _ in range(batch_slots)]
+        self.queue: "queue.Queue[Request]" = queue.Queue()
+        self.finished: list = []
+        self.cache = lm.init_cache(cfg, batch_slots, max_len,
+                                   device=self.device)
+        # host-resident token buffer; uploaded once per tick
+        self.last_tokens = np.zeros((batch_slots, 1), np.int64)
+        probe = lm.init_cache(cfg, batch_slots + 1, max_len, device="meta")
+        self._batch_axes = probe_batch_axes(self.cache, probe)
+
+    def submit(self, req: Request) -> None:
+        """Enqueue ``req`` for FIFO admission into a free decode lane."""
+        self.queue.put(req)
+
+    def _prefill(self, prompt: np.ndarray):
+        toks = torch.as_tensor(np.asarray(prompt, np.int64)[None],
+                               device=self.device)
+        return lm.prefill(self.params, {"tokens": toks}, self.cfg,
+                          self.max_len)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.req is not None:
+                continue
+            # a request can finish at prefill (max_new_tokens=1, or the
+            # prefill token is eos); keep draining the queue until one
+            # needs decode ticks
+            while not self.queue.empty():
+                req = self.queue.get()
+                if req.max_new_tokens <= 0:      # nothing to generate
+                    self.finished.append(req)
+                    continue
+                logits, cache1 = self._prefill(req.prompt)
+                tok = int(torch.argmax(logits[0]))
+                req.out_tokens.append(tok)
+                if req.max_new_tokens <= 1 or tok == req.eos_id:
+                    self.finished.append(req)
+                    continue
+                tree_lane_scatter(cache1, self.cache, self._batch_axes, i)
+                self.last_tokens[i, 0] = tok     # host write, no dispatch
+                slot.req = req
+                slot.remaining = req.max_new_tokens - 1
+                break
+
+    def step(self) -> int:
+        """One engine tick: admit + batched decode. Returns #active slots."""
+        self._admit()
+        if all(s.req is None for s in self.slots):
+            return 0
+        tokens = torch.from_numpy(self.last_tokens).to(self.device)
+        logits, self.cache = lm.decode_step(self.params, tokens, self.cache,
+                                            self.cfg)
+        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i, slot in enumerate(self.slots):
+            if slot.req is None:
+                continue
+            tok = int(next_tokens[i])
+            slot.req.out_tokens.append(tok)
+            slot.remaining -= 1
+            self.last_tokens[i, 0] = tok         # host write, no dispatch
+            if slot.remaining <= 0 or tok == slot.req.eos_id:
+                self.finished.append(slot.req)
+                self.slots[i] = _Slot()
+        return sum(1 for s in self.slots if s.req is not None)

@@ -12,14 +12,18 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.configs.base import get_config, reduced_config  # noqa: E402
 from repro_torch.configs.impulse_snn import IMDB  # noqa: E402
 from repro_torch.core import pipeline, snn  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import SNNServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-WRAPPERS = [ROOT / "src" / "repro_torch" / "kernels" / "fused_snn_net" / name
+WRAPPERS = [ROOT / "src" / "repro_torch" / "kernels" / kernel / name
+            for kernel in ("fused_snn_net", "wkv6")
             for name in ("ops.py", "kernel.py")]
 
 
@@ -39,7 +43,13 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not top & {"jax", "jaxlib", "repro"}, (path, top)
 
 
-@pytest.mark.parametrize("path", WRAPPERS, ids=lambda p: p.name)
+def wrapper_id(path: Path) -> str:
+    """The fused-network files keep their bare names as ids."""
+    kernel = path.parent.name
+    return path.name if kernel == "fused_snn_net" else f"{kernel}/{path.name}"
+
+
+@pytest.mark.parametrize("path", WRAPPERS, ids=wrapper_id)
 def test_cuda_wrapper_has_no_try(path):
     """A CUDA tensor launches the kernel or raises; nothing catches the
     failure and falls back to the plain version."""
@@ -67,6 +77,13 @@ def test_entry_points_without_a_device_raise_on_a_host_without_cuda(
         pipeline.program_from_arrays(layers, neuron="rmp", timesteps=10)
     assert pipeline.program_from_arrays(
         layers, neuron="rmp", timesteps=10, device="cpu").device.type == "cpu"
+    cfg = reduced_config(get_config("rwkv6-7b"))
+    for make in (lambda: lm.init_params(0, cfg),
+                 lambda: lm.init_cache(cfg, 1, 8),
+                 lambda: launch_serve.main(["--requests", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert lm.init_cache(cfg, 1, 8, device="cpu")["len"].device.type == "cpu"
 
 
 def test_init_fc_snn_is_seeded():

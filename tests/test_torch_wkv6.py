@@ -1,0 +1,261 @@
+"""The port's wkv6 recurrence (repro_torch.kernels.wkv6) against the JAX
+package's `wkv6_sequential` (the ground-truth oracle) and its model-layout
+`ops.wkv6(use_pallas=False)` (the chunked jnp form), on seeded numpy inputs.
+
+Tolerance 2e-4 relative and absolute, the JAX package's own for its wkv6
+tests: both sides compute in float32, in different summation orders.
+
+On the CPU the wrapper runs its plain version; the `cuda`-marked tests hold
+the CUDA kernel against it on the card (``pytest -m cuda``). JAX is
+imported inside the tests that need it, so the card-only tests also run
+where JAX is not installed.
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels.wkv6 import kernel, ops, ref  # noqa: E402
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+WKV_SHAPES = [
+    # B, T, H, K, V  (the JAX package's tests/test_kernels.py shapes)
+    (2, 64, 2, 64, 64),
+    (1, 128, 3, 64, 64),
+    (2, 100, 2, 32, 32),     # ragged T
+    (1, 192, 1, 16, 64),     # K != V
+]
+STRONG = math.exp(-math.e)   # the strongest decay the model's clip allows
+
+
+def wkv_inputs(B, T, H, K, V, seed=0, w_lo=0.6, w_const=None):
+    """Model-layout inputs as the JAX tests draw them: r, k, v ~ N(0, 0.25),
+    w ~ U[w_lo, 0.999) (or the constant ``w_const``), u ~ N(0, 0.09)."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, T, H, K)).astype(np.float32) * 0.5
+    k = rng.standard_normal((B, T, H, K)).astype(np.float32) * 0.5
+    v = rng.standard_normal((B, T, H, V)).astype(np.float32) * 0.5
+    w = (np.full((B, T, H, K), w_const, np.float32) if w_const is not None
+         else rng.uniform(w_lo, 0.999, (B, T, H, K)).astype(np.float32))
+    u = rng.standard_normal((H, K)).astype(np.float32) * 0.3
+    return r, k, v, w, u
+
+
+def to_bh(x):
+    """(B, T, H, D) numpy -> (B*H, T, D)."""
+    B, T, H, D = x.shape
+    return np.ascontiguousarray(np.moveaxis(x, 2, 1).reshape(B * H, T, D))
+
+
+def bh_inputs(r, k, v, w, u):
+    B, _, H, K = r.shape
+    ub = np.ascontiguousarray(np.broadcast_to(u[None], (B, H, K))
+                              .reshape(B * H, K))
+    return to_bh(r), to_bh(k), to_bh(v), to_bh(w), ub
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def jax_sequential(r, k, v, w, u, s0=None):
+    """JAX `wkv6_sequential` on model-layout numpy inputs, in the BH layout."""
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ref import wkv6_sequential
+    args = [jnp.asarray(x) for x in bh_inputs(r, k, v, w, u)]
+    y, s = wkv6_sequential(*args, None if s0 is None else jnp.asarray(s0))
+    return np.asarray(y), np.asarray(s)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_wkv6_wrapper_matches_jax(shape):
+    """Model layout, no initial state: the port's `ops.wkv6` against JAX
+    `ops.wkv6(use_pallas=False)` and against JAX `wkv6_sequential`."""
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
+    B, T, H, K, V = shape
+    inputs = wkv_inputs(B, T, H, K, V, seed=sum(shape))
+    y, s = ops.wkv6(*map(t, inputs))
+    assert y.dtype == s.dtype == torch.float32
+    assert y.shape == (B, T, H, V) and s.shape == (B, H, K, V)
+    y_j, s_j = jax_wkv6(*map(jnp.asarray, inputs), use_pallas=False)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), **TOL)
+    y_seq, s_seq = jax_sequential(*inputs)
+    np.testing.assert_allclose(to_bh(y.numpy()), y_seq, **TOL)
+    np.testing.assert_allclose(s.numpy().reshape(B * H, K, V), s_seq, **TOL)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_sequential_matches_jax_sequential(shape):
+    B, T, H, K, V = shape
+    inputs = wkv_inputs(B, T, H, K, V, seed=7 + sum(shape))
+    s0 = np.random.default_rng(1).standard_normal((B * H, K, V)).astype(
+        np.float32)
+    y, s = ref.wkv6_sequential(*map(t, bh_inputs(*inputs)), t(s0))
+    y_j, s_j = jax_sequential(*inputs, s0=s0)
+    np.testing.assert_allclose(y.numpy(), y_j, **TOL)
+    np.testing.assert_allclose(s.numpy(), s_j, **TOL)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_chunked_matches_jax_chunked(shape):
+    """The port's chunked form against JAX `wkv6_chunked` at a chunk that
+    divides T (20 for the ragged T = 100, else 64)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ref import wkv6_chunked as jax_chunked
+    B, T, H, K, V = shape
+    chunk = 64 if T % 64 == 0 else 20
+    bh = bh_inputs(*wkv_inputs(B, T, H, K, V, seed=11 + sum(shape)))
+    y, s = ref.wkv6_chunked(*map(t, bh), chunk=chunk)
+    y_j, s_j = jax_chunked(*map(jnp.asarray, bh), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), **TOL)
+
+
+def test_chunked_refuses_a_ragged_sequence():
+    bh = bh_inputs(*wkv_inputs(1, 10, 1, 16, 16))
+    with pytest.raises(ValueError, match="T % chunk"):
+        ref.wkv6_chunked(*map(t, bh), chunk=4)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_s0_continuation_matches_jax(shape):
+    """Two halves, the second from the first's state, equal the whole, and
+    the second half equals JAX `ops.wkv6` from the same state."""
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
+    B, T, H, K, V = shape
+    r, k, v, w, u = wkv_inputs(B, T, H, K, V, seed=3 + sum(shape))
+    h = T // 2 + 1
+    y_all, s_all = ops.wkv6(*map(t, (r, k, v, w, u)))
+    y1, s1 = ops.wkv6(*map(t, (r[:, :h], k[:, :h], v[:, :h], w[:, :h], u)))
+    y2, s2 = ops.wkv6(*map(t, (r[:, h:], k[:, h:], v[:, h:], w[:, h:], u)),
+                      s0=s1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(),
+                               y_all.numpy(), **TOL)
+    np.testing.assert_allclose(s2.numpy(), s_all.numpy(), **TOL)
+    y2_j, s2_j = jax_wkv6(*(jnp.asarray(x[:, h:]) for x in (r, k, v, w)),
+                          jnp.asarray(u), s0=jnp.asarray(s1.numpy()),
+                          use_pallas=False)
+    np.testing.assert_allclose(y2.numpy(), np.asarray(y2_j), **TOL)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(s2_j), **TOL)
+
+
+@pytest.mark.parametrize("K,V", [(64, 64), (16, 64)])
+def test_decode_step_matches_jax(K, V):
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ops import wkv6_decode_step as jax_step
+    B, H = 3, 2
+    rng = np.random.default_rng(K + V)
+    r, k, w = (rng.standard_normal((B, H, K)).astype(np.float32)
+               for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-w))
+    v = rng.standard_normal((B, H, V)).astype(np.float32)
+    u = rng.standard_normal((H, K)).astype(np.float32) * 0.3
+    s = rng.standard_normal((B, H, K, V)).astype(np.float32)
+    y, s_new = ops.wkv6_decode_step(*map(t, (r, k, v, w, u, s)))
+    y_j, s_j = jax_step(*map(jnp.asarray, (r, k, v, w, u, s)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(s_new.numpy(), np.asarray(s_j), **TOL)
+
+
+def test_decode_step_equals_a_one_step_prefill():
+    B, T, H, K, V = 2, 9, 2, 32, 32
+    r, k, v, w, u = wkv_inputs(B, T, H, K, V, seed=5)
+    y, s = ops.wkv6(*map(t, (r[:, :-1], k[:, :-1], v[:, :-1], w[:, :-1], u)))
+    y1, s1 = ops.wkv6(*map(t, (r[:, -1:], k[:, -1:], v[:, -1:], w[:, -1:],
+                               u)), s0=s)
+    y_d, s_d = ops.wkv6_decode_step(*(t(x[:, -1]) for x in (r, k, v, w)),
+                                    t(u), s)
+    np.testing.assert_allclose(y_d.numpy(), y1[:, 0].numpy(), **TOL)
+    np.testing.assert_allclose(s_d.numpy(), s1.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("B,H", [(1, 2), (2, 1)])
+def test_strong_decay_matches_jax_sequential(B, H):
+    """w = exp(-e) on every step (the model's clip at 1), T = 64, K = 64:
+    the port's wrapper stays finite and equals JAX `wkv6_sequential`."""
+    T, K, V = 64, 64, 64
+    inputs = wkv_inputs(B, T, H, K, V, seed=17, w_const=STRONG)
+    y, s = ops.wkv6(*map(t, inputs))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_j, s_j = jax_sequential(*inputs)
+    np.testing.assert_allclose(to_bh(y.numpy()), y_j, **TOL)
+    np.testing.assert_allclose(s.numpy().reshape(B * H, K, V), s_j, **TOL)
+
+
+def test_chunked_form_overflows_at_strong_decay():
+    """Why nothing on the serving path takes the chunked form: over a
+    64-step chunk at w = exp(-e) its exp(-L) scaling passes float32's range
+    (JAX's `wkv6_chunked` does the same), while the sequential form stays
+    finite."""
+    bh = bh_inputs(*wkv_inputs(1, 64, 1, 64, 64, seed=17, w_const=STRONG))
+    y_c, _ = ref.wkv6_chunked(*map(t, bh), chunk=64)
+    y_s, _ = ref.wkv6_sequential(*map(t, bh))
+    assert not torch.isfinite(y_c).all()
+    assert torch.isfinite(y_s).all()
+
+
+def test_cuda_binding_refuses_cpu_tensors():
+    """The kernel's binding never runs anything on the CPU."""
+    bh = [t(x) for x in bh_inputs(*wkv_inputs(1, 4, 1, 16, 16))]
+    s0 = torch.zeros((1, 16, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.wkv6_cuda(*bh[:4], bh[4], s0)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+CARD_CASES = [
+    # B, T, H, K, V, w_const
+    (1, 1, 64, 64, 64, None),
+    (1, 1024, 64, 64, 64, None),
+    (4, 100, 64, 64, 64, None),
+    (1, 1024, 64, 64, 64, STRONG),
+    (2, 100, 2, 32, 32, None),
+    (1, 192, 1, 16, 64, None),
+    (1, 33, 3, 64, 16, STRONG),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_kernel_matches_plain_version_on_the_card(cuda_device, case):
+    """The kernel against `ref.wkv6_sequential` on the same CUDA tensors,
+    from a random initial state, within 2e-4."""
+    B, T, H, K, V, w_const = case
+    bh = [t(x).to(cuda_device) for x in
+          bh_inputs(*wkv_inputs(B, T, H, K, V, seed=T, w_const=w_const))]
+    s0 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B * H, K, V)).astype(np.float32)).to(cuda_device)
+    y, s = kernel.wkv6_cuda(*bh, s0)
+    y_p, s_p = ref.wkv6_sequential(*bh, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, y_p, **TOL)
+    torch.testing.assert_close(s, s_p, **TOL)
+
+
+@pytest.mark.cuda
+def test_wrapper_launches_the_kernel_on_the_card(cuda_device):
+    from repro_torch import kernels
+    inputs = [t(x).to(cuda_device) for x in wkv_inputs(1, 16, 4, 64, 64)]
+    before = kernels.LAUNCH_COUNTS["wkv6"]
+    ops.wkv6(*inputs)
+    assert kernels.LAUNCH_COUNTS["wkv6"] == before + 1
+    with pytest.raises(ValueError, match="K and V"):
+        ops.wkv6(*[t(x).to(cuda_device) for x in wkv_inputs(1, 4, 1, 8, 8)])
