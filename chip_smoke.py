@@ -44,9 +44,33 @@ Phases, each of which exits non-zero on failure:
      prompt compared through the whole model (bf16 at full depth reported,
      bf16 cut to 2 layers and float32 at full depth gated); prefill of the
      prompt plus one token against prefill and one decode step (float32);
-     the kernel's time at the prefill shapes (B = 1, T = 16 and 1,024).
+     the kernel's time at the prefill shapes (B = 1, T = 16 and 1,024);
+  7. the per-layer kernel (`fused_snn_step`) against its plain version
+     (`fused_snn_layer_ref`) on the card, bit for bit (spikes and V), over
+     every neuron x clamp mode with reset 0 and nonzero, a negative LIF
+     leak, B in {1, 8, 37, 300}, N_in in {100, 128, 686}, N_out in
+     {1, 14, 128}, T in {1, 10, 120}, block_b in {8, 64} and densities 0.1
+     and 0.5; then its time at the Fig. 9 case (T = 10, B = 8, 128 x 128)
+     and at both IMDB layers (T = 120, B = 8), beside its bound and the
+     plain version's time;
+  8. the per-layer path: the IMDB stack at the shapes of
+     `benchmarks/pipeline_fusion.py` (T = 120, B = 8, threshold 60, leak 2,
+     RMP, density 0.1) dispatched layer by layer (two `fused_snn_layer`
+     launches, then the int32 readout) against one fused `fused_snn_net`
+     launch: the same readout V and rasters; both times, the traffic model,
+     and the Fig. 9 row's instruction counts and energy;
+  9. the impulse-mnist conv program at full width (28x28x1 input, convs
+     14/14/14, FC 686-120-84-10, T = 10), weights drawn on the card from a
+     seed, 64 `mnist_like_batch` images through `present_static` on all five
+     backends: every backend equal to `int_ref` on the card (readout V,
+     every raster and final V), the gate counters equal to the ones the
+     `int_ref` rasters give at the same tiles, the event ledgers equal to
+     `ref_events`' and to the raster tally, the encoder's spike maps on the
+     card equal to the CPU's (same port code), equal instruction counts on
+     every backend with the energy per inference, and each backend's
+     `run_network` time.
 
-Then one `kernels` JSON line with all four kernels. The last line is
+Then one `kernels` JSON line with all five kernels. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository's src/repro_torch beside this file, it prints no result and
 exits 1.
@@ -77,6 +101,14 @@ REPLACES = {"fused_snn_net": "src/repro/kernels/fused_snn_net/kernel.py:149",
                 "src/repro/kernels/fused_snn_net/kernel.py:294",
             "fused_snn_net_events":
                 "src/repro/kernels/fused_snn_net/kernel.py:222"}
+STEP_SOURCE = ("src/repro_torch/kernels/fused_snn_step/csrc/"
+               "fused_snn_step.cu")
+STEP_REPLACES = "src/repro/kernels/fused_snn_step/kernel.py:30"
+# benchmarks/pipeline_fusion.py: the IMDB stack, 12 words x 10 steps
+FUSION_LAYERS = [(100, 128), (128, 128), (128, 1)]
+FUSION_T, FUSION_B = 120, 8
+FUSION_TH, FUSION_LEAK = 60, 2
+MNIST_BATCH = 64
 WKV_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
 WKV_REPLACES = "src/repro/kernels/wkv6/kernel.py:24"
 WKV_TOL = 2e-4                    # relative and absolute, the JAX tests' own
@@ -808,6 +840,294 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
     return out
 
 
+def step_cases() -> list:
+    """Phase-7 cases: every (neuron, clamp, reset) combination on every
+    shape row (T, B, N_in, N_out, block_b, density). The rows cover each
+    value of each axis; the first three are the Fig. 9 case and the two
+    IMDB layers of the per-layer path."""
+    shapes = [(10, 8, 128, 128, 8, 0.1), (120, 8, 100, 128, 8, 0.1),
+              (120, 8, 128, 128, 8, 0.1), (1, 1, 100, 1, 8, 0.5),
+              (10, 37, 686, 14, 8, 0.5), (10, 300, 686, 128, 64, 0.1),
+              (1, 300, 128, 14, 64, 0.5), (120, 37, 100, 1, 64, 0.5)]
+    return [(shape, neuron, clamp, reset) for shape in shapes
+            for neuron in ("if", "lif", "rmp")
+            for clamp in ("saturate", "wrap") for reset in (0, 1)]
+
+
+def step_case(dev, T, B, n_in, n_out, density, seed):
+    """Seeded raster and weights biased positive, so V reaches the 11-bit
+    limits."""
+    rng = np.random.default_rng(seed)
+    spikes = torch.from_numpy(
+        (rng.random((T, B, n_in)) < density).astype(np.int8)).to(dev)
+    wq = torch.from_numpy(
+        rng.integers(-20, 32, (n_in, n_out)).astype(np.int8)).to(dev)
+    return spikes, wq, rng
+
+
+def phase_step_vs_plain(dev) -> dict:
+    """Phase 7: the fused_snn_step kernel against `fused_snn_layer_ref` on
+    the card. Returns the cases and the worst max |diff|."""
+    from repro_torch.kernels.fused_snn_step.ops import fused_snn_layer
+    from repro_torch.kernels.fused_snn_step.ref import fused_snn_layer_ref
+    worst = 0
+    cases = step_cases()
+    for n, ((T, B, n_in, n_out, block_b, density), neuron, clamp,
+            reset) in enumerate(cases):
+        spikes, wq, rng = step_case(dev, T, B, n_in, n_out, density, 700 + n)
+        kw = dict(neuron=neuron, clamp_mode=clamp,
+                  threshold=int(rng.integers(20, 1000)),
+                  leak=(-int(rng.integers(1, 60)) if neuron == "lif"
+                        else int(rng.integers(0, 60))),
+                  reset=int(rng.integers(-500, 500)) if reset else 0)
+        got = fused_snn_layer(spikes, wq, block_b=block_b, **kw)
+        want = fused_snn_layer_ref(spikes, wq, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"fused_snn_step case {n}: "
+                                     f"{g.dtype}{tuple(g.shape)} != "
+                                     f"{w.dtype}{tuple(w.shape)}")
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+        if worst:
+            raise AssertionError(
+                f"fused_snn_step case {n} (T={T}, B={B}, {n_in}->{n_out}, "
+                f"block_b={block_b}, density {density}, {kw}): kernel "
+                f"differs from the plain version by {worst}")
+    return {"cases": len(cases), "max_abs_err": worst}
+
+
+def phase_step_timing(dev, label: str, spikes, wq, **kw) -> dict:
+    """The fused_snn_step kernel on one layer call, beside its plain
+    version and its bound (the function moves the input raster, the
+    weights, the output raster and V once)."""
+    from repro_torch.kernels.fused_snn_step.ops import fused_snn_layer
+    from repro_torch.kernels.fused_snn_step.ref import fused_snn_layer_ref
+    T, B, n_in = spikes.shape
+    ms, wrapper_ms = device_ms(lambda: fused_snn_layer(spikes, wq, **kw), 200)
+    plain_ms, _ = device_ms(lambda: fused_snn_layer_ref(spikes, wq, **kw), 5)
+    bound_ms, bound_by = net_bound_ms(T, B, (n_in, wq.shape[1]),
+                                      readout=False, v_init=False,
+                                      emit_rasters=True)
+    return {"case": label, "T": T, "B": B, "n_in": n_in,
+            "n_out": int(wq.shape[1]), "ms": ms, "plain_ms": plain_ms,
+            "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def fusion_hbm_bytes(emit_rasters: bool, fused: bool) -> int:
+    """`benchmarks/pipeline_fusion.py::_hbm_bytes`: int8 spike rasters and
+    int32 V crossing device memory per inference batch. Per-layer dispatch
+    stores each spiking layer's output raster, loads it in the next layer
+    and writes V per layer; the fused network reads the input raster and
+    writes the final V (and the rasters in accounting mode)."""
+    bytes_ = FUSION_T * FUSION_B * FUSION_LAYERS[0][0]
+    for i, (n_in, n_out) in enumerate(FUSION_LAYERS):
+        is_readout = i == len(FUSION_LAYERS) - 1
+        if fused:
+            if emit_rasters and not is_readout:
+                bytes_ += FUSION_T * FUSION_B * n_out
+        else:
+            if not is_readout:
+                bytes_ += 2 * FUSION_T * FUSION_B * n_out
+            bytes_ += 4 * FUSION_B * n_out
+    bytes_ += 4 * FUSION_B * FUSION_LAYERS[-1][1]
+    return bytes_
+
+
+def phase_per_layer(dev) -> tuple:
+    """Phase 8: the per-layer path (two fused_snn_step launches and the
+    int32 readout) against one fused-network launch on the IMDB stack.
+    Returns its results and each spiking layer's (input raster, weights)."""
+    from repro_torch import kernels
+    from repro_torch.core import energy
+    from repro_torch.core.isa import InstrCount, int_matmul
+    from repro_torch.kernels.fused_snn_net.ops import fused_snn_net
+    from repro_torch.kernels.fused_snn_step.ops import fused_snn_layer
+    rng = np.random.default_rng(SEED)
+    spikes = torch.from_numpy(
+        (rng.random((FUSION_T, FUSION_B, FUSION_LAYERS[0][0])) < 0.1)
+        .astype(np.int8)).to(dev)
+    ws = [torch.from_numpy(rng.integers(-31, 32, shp).astype(np.int8)).to(dev)
+          for shp in FUSION_LAYERS]
+
+    def per_layer():
+        cur, rasters = spikes, []
+        for w in ws[:-1]:
+            cur, _ = fused_snn_layer(cur, w, threshold=FUSION_TH,
+                                     leak=FUSION_LEAK, neuron="rmp")
+            rasters.append(cur)
+        ro = int_matmul(cur.reshape(-1, cur.shape[-1]), ws[-1])
+        return rasters, ro.reshape(FUSION_T, FUSION_B, -1).sum(
+            dim=0, dtype=torch.int32)
+
+    def fused(emit_rasters=True):
+        return fused_snn_net(spikes, ws, thresholds=(FUSION_TH,) * 2,
+                             leaks=(FUSION_LEAK,) * 2, neuron="rmp",
+                             emit_rasters=emit_rasters)
+
+    kernels.reset_launch_counts()
+    rasters, v_layer = per_layer()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    if launches["fused_snn_step"] != 2:
+        raise AssertionError(f"the per-layer path launched fused_snn_step "
+                             f"{launches['fused_snn_step']} times, not 2")
+    r_fused, v_fused, _ = fused()
+    torch.cuda.synchronize()
+    if not torch.equal(v_layer, v_fused[-1]) or not all(
+            torch.equal(a, b) for a, b in zip(rasters, r_fused)):
+        raise AssertionError("per-layer dispatch and the fused network "
+                             "differ in readout V or rasters")
+    layer_ms, _ = device_ms(per_layer, 100)
+    fused_ms, _ = device_ms(fused, 100)
+    serving_ms, _ = device_ms(lambda: fused(False), 100)
+    events = int(step_case(dev, 10, 8, 128, 128, 0.15, SEED)[0].sum())
+    cnt = InstrCount(acc_w2v=2 * events, spike_check=2 * 8 * 10,
+                     acc_v2v=2 * 8 * 10)
+    return {
+        "launches": launches, "identical": True,
+        "readout_v": v_layer[:, 0].tolist(),
+        "spike_rates": [float(r.float().mean()) for r in rasters],
+        "per_layer_ms": layer_ms, "fused_accounting_ms": fused_ms,
+        "fused_serving_ms": serving_ms,
+        "hbm_bytes": {"per_layer": fusion_hbm_bytes(True, False),
+                      "fused_accounting": fusion_hbm_bytes(True, True),
+                      "fused_serving": fusion_hbm_bytes(False, True)},
+        "fig9": {"events": events, "instr": cnt._asdict(),
+                 "instr_total": cnt.total,
+                 "macro_energy_nj": energy.sequence_energy_j(cnt) * 1e9}}, [
+        (spikes, ws[0]), (rasters[0], ws[1])]
+
+
+def gate_skip_counts(raster: np.ndarray, block_b: int, granularity: int
+                     ) -> np.ndarray:
+    """(tiles, blocks) gate skips a (T, F, n) input raster gives at
+    ``block_b`` lanes per tile and blocks of 128/G rows: per tile and block,
+    the timesteps whose spikes there are all 0 (missing lanes silent)."""
+    T, F, n = raster.shape
+    tiles = -(-F // block_b)
+    r = np.zeros((T, tiles * block_b, n), np.int64)
+    r[:, :F] = raster
+    r = r.reshape(T, tiles, block_b, n)
+    bw = n if granularity == 1 else 128 // granularity
+    return np.stack([(r[..., lo:lo + bw].sum(axis=(2, 3)) == 0).sum(axis=0)
+                     for lo in range(0, n, bw)], axis=1).astype(np.int32)
+
+
+def phase_conv(dev) -> dict:
+    """Phase 9: impulse-mnist at full width on all five backends."""
+    from repro_torch import kernels
+    from repro_torch.configs.impulse_snn import MNIST
+    from repro_torch.core import energy, mapping, pipeline, snn
+    from repro_torch.data.synthetic import mnist_like_batch
+
+    program = pipeline.compile_network(
+        MNIST, snn.init_lenet_snn(SEED, MNIST, device=dev), domain="int",
+        device=dev)
+    x = torch.from_numpy(mnist_like_batch(MNIST_BATCH, SEED)[0]).to(dev)
+    xs = pipeline.present_static(x, MNIST.timesteps)
+    step_kw = {"cuda_sparse": {"gate_granularity": GATE_G},
+               "cuda_events": {"event_crossover": CROSSOVER}}
+    runs, out = {}, {"backends": {}}
+    for backend in ("int_ref", "cuda", "cuda_sparse", "ref_events",
+                    "cuda_events"):
+        kw = step_kw.get(backend, {})
+        pipeline.run_network(program, xs, backend, **kw)   # warm-up
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.run_network(program, xs, backend, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
+        name = {b: k for k, b in BACKEND_OF.items()}.get(backend)
+        if name and launches.get(name, 0) != len(program.int_conv_stack) + 1:
+            raise AssertionError(f"{backend} launched {launches}, not one "
+                                 f"{name} per conv layer and one for the "
+                                 "fc stack")
+        if name is None and launches:
+            raise AssertionError(f"{backend} launched kernels: {launches}")
+        counts = pipeline.count_network_instructions(program, res.rasters)
+        report = pipeline.sparsity_report(program, res.rasters)
+        if tuple(report.instruction_counts()) != tuple(counts):
+            raise AssertionError(f"{backend}: the report's instruction counts "
+                                 "differ from the raster count")
+        runs[backend] = res
+        out["backends"][backend] = {
+            "run_network_s": dt, "launches": launches,
+            "instr": counts._asdict(), "instr_total": counts.total,
+            "energy_per_inference_nj":
+                energy.energy_per_inference_j(counts, MNIST_BATCH) * 1e9,
+            "layer_sparsity": list(report.layer_sparsity),
+            "skipped_row_fraction": report.skipped_row_fraction}
+    ref = runs["int_ref"]
+    if (tuple(ref.v_out.shape) != (MNIST_BATCH, 10)
+            or not torch.isfinite(ref.logits).all()):
+        raise AssertionError(f"bad readout {tuple(ref.v_out.shape)}")
+    for backend, res in runs.items():
+        same = (torch.equal(res.v_out, ref.v_out)
+                and len(res.rasters) == len(ref.rasters) == 5
+                and all(torch.equal(a, b) for a, b in
+                        zip(res.rasters + res.v_final,
+                            ref.rasters + ref.v_final)))
+        if not same:
+            raise AssertionError(f"{backend} differs from int_ref on the "
+                                 "card")
+        if out["backends"][backend]["instr"] != out["backends"]["int_ref"][
+                "instr"]:
+            raise AssertionError(f"{backend}: instruction counts differ")
+
+    # gate counters: what int_ref's input rasters give at the kernel's tiles
+    inputs = []
+    for spec, r in zip(program.macro_stack, ref.rasters):
+        if spec.kind == "conv":
+            r = mapping.im2col_raster(r, spec.w.shape[0], spec.stride)
+        inputs.append(r.reshape(r.shape[0], -1, spec.n_in).cpu().numpy())
+    want = [gate_skip_counts(r, 8, GATE_G) for r in inputs]
+    aux = runs["cuda_sparse"].aux
+    got = [s[0] for s in aux["conv_skip_counts"]] + list(aux["skip_counts"])
+    if len(got) != len(want) or not all(np.array_equal(a, b)
+                                        for a, b in zip(got, want)):
+        raise AssertionError("cuda_sparse gate counters differ from the "
+                             "int_ref rasters' silent blocks")
+    tally = [r.astype(np.int64).sum(axis=(0, 1)) for r in inputs]
+    for backend in ("ref_events", "cuda_events"):
+        aux = runs[backend].aux
+        frames = [r.shape[0] * r.shape[1] for r in inputs]
+        if aux["row_event_frames"] != frames or not all(
+                np.array_equal(a, b) for a, b in zip(aux["row_events"],
+                                                     tally)):
+            raise AssertionError(f"{backend} row events differ from the "
+                                 "int_ref raster tally")
+    out["skipped_block_fraction"] = runs["cuda_sparse"].aux[
+        "skipped_block_fraction"]
+    out["conv_skipped_blocks"] = [int(s.sum()) for s in want[:2]]
+    out["event_dense_fallbacks"] = runs["cuda_events"].aux.get(
+        "event_dense_fallbacks")
+
+    # the encoder on the CPU, same port code, same program and images
+    host = pipeline.program_from_arrays(
+        [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
+          "w": None if ly.w is None else ly.w.cpu().numpy(),
+          "threshold": (ly.threshold.cpu().numpy() if torch.is_tensor(
+              ly.threshold) else ly.threshold),
+          "leak": (ly.leak.cpu().numpy() if torch.is_tensor(ly.leak)
+                   else ly.leak),
+          "scale": ly.scale, "stride": ly.stride,
+          "state_shape": ly.state_shape} for ly in program.layers],
+        neuron=program.neuron, timesteps=program.timesteps,
+        clamp_mode=program.clamp_mode, device="cpu")
+    spikes_cpu, v_cpu = pipeline.encode(host, xs.cpu())
+    if not (torch.equal(spikes_cpu, ref.rasters[0].cpu()) and torch.equal(
+            v_cpu.view(torch.int32), ref.v_final[0].cpu().view(torch.int32))):
+        raise AssertionError("the encoder's spike maps or V on the card "
+                             "differ from the CPU's")
+    out["encoder_spike_rate"] = float(ref.rasters[0].float().mean())
+    out["predictions"] = ref.v_out.argmax(dim=1)[:16].tolist()
+    return out
+
+
 def leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -825,6 +1145,7 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_snn_net import kernel, ops
+    from repro_torch.kernels.fused_snn_step import kernel as step_kernel
     from repro_torch.kernels.wkv6 import kernel as wkv_kernel
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -832,14 +1153,17 @@ def main() -> int:
     print(f"[phase 1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(dev)}")
     t0 = time.perf_counter()
-    sources = ("fused_snn_net", "wkv6")
+    sources = ("fused_snn_net", "wkv6", "fused_snn_step")
     with ThreadPoolExecutor(len(sources)) as pool:    # one nvcc per source
         libs = dict(zip(sources, pool.map(_build.build, sources)))
     kernel._lib()
     wkv_kernel._lib()
+    step_kernel._lib()
     print(f"[phase 1] built {', '.join(REPLACES)} from "
-          f"{_build.source_path('fused_snn_net')} and wkv6 from "
-          f"{_build.source_path('wkv6')} in {time.perf_counter() - t0:.2f} s")
+          f"{_build.source_path('fused_snn_net')}, wkv6 from "
+          f"{_build.source_path('wkv6')} and fused_snn_step from "
+          f"{_build.source_path('fused_snn_step')} in "
+          f"{time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if ("Compiling entry" in line or "registers" in line
@@ -923,6 +1247,42 @@ def main() -> int:
         "at_t16": timing[16], "model": cfg.arch_id,
         "serving_tokens_per_s": lmrun["tokens_per_s"],
         "device_idle_share": profile["device_idle_share"]})
+
+    step = phase_step_vs_plain(dev)
+    print(f"[phase 7] fused_snn_step == plain version on the card in "
+          f"{step['cases']} cases (max |diff| {step['max_abs_err']})")
+    fusion, layer_inputs = phase_per_layer(dev)
+    print(f"[phase 8] per-layer dispatch (2 fused_snn_step launches + int32 "
+          f"readout) == one fused_snn_net launch on the IMDB stack at "
+          f"T={FUSION_T}, B={FUSION_B}: {json.dumps(fusion)} ({card})")
+    shapes = {"fig9": step_case(dev, 10, 8, 128, 128, 0.15, SEED)[:2],
+              "imdb_layer1": layer_inputs[0], "imdb_layer2": layer_inputs[1]}
+    step_t = {}
+    for label, (spikes, wq) in shapes.items():
+        kw = ({"threshold": 60} if label == "fig9" else
+              {"threshold": FUSION_TH, "leak": FUSION_LEAK})
+        step_t[label] = phase_step_timing(dev, label, spikes, wq,
+                                          neuron="rmp", **kw)
+        print(f"[phase 7] fused_snn_step {label}: {step_t[label]} ({card})")
+    main_t = step_t["imdb_layer1"]
+    entries.append({
+        "name": "fused_snn_step", "route": "cuda", "source": STEP_SOURCE,
+        "replaces": STEP_REPLACES,
+        "launches": fusion["launches"]["fused_snn_step"],
+        "max_abs_err": step["max_abs_err"],
+        "bit_identical": step["max_abs_err"] == 0,
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": None, "wrapper_ms": main_t["wrapper_ms"],
+        "shape": {"T": FUSION_T, "B": FUSION_B, "n_in": 100, "n_out": 128},
+        "at_imdb_layer2": step_t["imdb_layer2"], "at_fig9": step_t["fig9"],
+        "path": "per-layer dispatch of the IMDB stack"})
+
+    conv = phase_conv(dev)
+    print(f"[phase 9] impulse-mnist, {MNIST_BATCH} images x 10 steps, every "
+          f"backend equal to int_ref on the card (V, rasters, counters, "
+          f"instruction counts); encoder on the card == CPU: "
+          f"{json.dumps(conv)} ({card})")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

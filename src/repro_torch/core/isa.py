@@ -1,16 +1,48 @@
 """Word-level integer semantics of one macro timestep, vectorized over a
-layer tile: the plain PyTorch contract the CUDA kernel is held against.
+layer tile: the plain PyTorch contract the CUDA kernels are held against,
+and the instruction accounting of the energy model.
 
 The macro's instruction sequence per timestep is AccW2V (accumulate the
 weight rows of firing inputs into V), then the neuron update: the LIF leak
 (AccV2V with the negative leak row), SpikeCheck, and the reset (RMP
 subtracts the threshold, IF/LIF reset V to ``reset``).
+
+Macro geometry (the fabricated 65nm instance):
+  W_MEM: 128 rows x 12 six-bit signed weights (one row per input neuron)
+  V_MEM: 32 rows x 6 twelve-bit slots; a neuron set (12 neurons) spans 2
+         staggered rows (odd-parity slots + even-parity slots). 6 constant
+         rows (threshold/reset/leak, odd+even each) leave 13 neuron sets.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from repro_torch.core.quant import clamp_v, spike_compare
+
+MACRO_IN = 128          # input rows
+MACRO_OUT = 12          # weights (output neurons) per row
+V_ROWS = 32
+V_SLOTS_PER_ROW = 6
+N_CONST_ROWS = 6        # threshold_o/e, reset_o/e, leak_o/e
+N_NEURON_SETS = (V_ROWS - N_CONST_ROWS) // 2    # 13
+
+
+class InstrCount(NamedTuple):
+    """Executed-cycle counts per instruction type (energy model input)."""
+    acc_w2v: int = 0
+    acc_v2v: int = 0
+    spike_check: int = 0
+    reset_v: int = 0
+
+    def __add__(self, o: "InstrCount") -> "InstrCount":
+        return InstrCount(*(a + b for a, b in zip(self, o)))
+
+    @property
+    def total(self) -> int:
+        return sum(self)
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -57,3 +89,75 @@ def layer_timestep_int(v: torch.Tensor, wq: torch.Tensor,
     v = clamp_v(v + int_matmul(in_spikes, wq), clamp_mode)
     return neuron_dynamics_int(v, neuron=neuron, threshold=threshold,
                                leak=leak, reset=reset, clamp_mode=clamp_mode)
+
+
+def conv_layer_timestep_int(v: torch.Tensor, wq: torch.Tensor,
+                            in_spikes: torch.Tensor, *, stride: int,
+                            neuron: str, threshold, leak, reset=0,
+                            clamp_mode: str = "saturate"
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched integer conv timestep: v (B, H_out, W_out, c_out) int32, wq
+    the HWIO int8 kernel (k, k, c_in, c_out), in_spikes (B, H, W, c_in)
+    {0, 1}. Lowered through im2col (`mapping.im2col`): every output
+    position is a frame whose k*k*c_in patch vector drives
+    `layer_timestep_int` on the packed (k*k*c_in, c_out) weights. Returns
+    (v', out_spikes), both (B, H_out, W_out, c_out)."""
+    from repro_torch.core import mapping
+    patches = mapping.im2col(in_spikes, wq.shape[0], stride)
+    return layer_timestep_int(v, mapping.pack_conv_weights(wq), patches,
+                              neuron=neuron, threshold=threshold, leak=leak,
+                              reset=reset, clamp_mode=clamp_mode)
+
+
+def count_layer_instructions_from_events(total_events: int, batch_t: int,
+                                         n_in: int, n_out: int, neuron: str
+                                         ) -> InstrCount:
+    """Instruction cycles of a (n_in -> n_out) layer from its aggregate
+    event statistics: ``total_events`` input spikes over ``batch_t``
+    (timestep, example) frames, on the multi-macro tiling of
+    `mapping.fc_tiling`. Every event costs 2 AccW2V cycles (odd and even
+    parity) per column tile; each row tile beyond the first adds 2 AccV2V
+    partial-sum reductions per column tile and frame; the neuron update
+    ("none" for the accumulate-only readout) runs per column tile and
+    frame."""
+    from repro_torch.core import mapping
+    tiles = mapping.fc_tiling(n_in, n_out)
+    n_acc_w = 2 * int(total_events) * tiles.col_tiles
+    n_red = 2 * (tiles.row_tiles - 1) * tiles.col_tiles * batch_t
+    cnt = InstrCount(acc_w2v=n_acc_w, acc_v2v=n_red)
+    per_update = {"if": InstrCount(spike_check=2, reset_v=2),
+                  "lif": InstrCount(acc_v2v=2, spike_check=2, reset_v=2),
+                  "rmp": InstrCount(spike_check=2, acc_v2v=2),
+                  "none": InstrCount()}[neuron]
+    upd = InstrCount(*(x * tiles.col_tiles * batch_t for x in per_update))
+    return cnt + upd
+
+
+def count_skipped_instructions_from_events(total_events: int, batch_t: int,
+                                           n_in: int, n_out: int
+                                           ) -> InstrCount:
+    """AccW2V cycles event-driven execution never issues for a
+    (n_in -> n_out) layer: 2 per column tile for every silent (frame,
+    input-row) pair, so executed + skipped is the dense tally at sparsity
+    0. Raises `ValueError` when ``total_events`` exceeds the sites."""
+    from repro_torch.core import mapping
+    silent = batch_t * n_in - int(total_events)
+    if silent < 0:
+        raise ValueError(f"event count {total_events} exceeds the "
+                         f"{batch_t * n_in} (frame, row) sites of a "
+                         f"{n_in}->{n_out} layer over {batch_t} frames")
+    tiles = mapping.fc_tiling(n_in, n_out)
+    return InstrCount(acc_w2v=2 * silent * tiles.col_tiles)
+
+
+def count_layer_instructions(spike_raster, n_in: int, n_out: int,
+                             neuron: str) -> InstrCount:
+    """Instruction cycles of a (n_in -> n_out) layer on a (T, ..., n_in)
+    spike raster (an array or a tensor); see
+    `count_layer_instructions_from_events`."""
+    r = np.asarray(spike_raster.cpu() if torch.is_tensor(spike_raster)
+                   else spike_raster)
+    per_t = r.reshape(r.shape[0], -1, n_in)
+    return count_layer_instructions_from_events(
+        int(per_t.astype(np.int64).sum()), per_t.shape[0] * per_t.shape[1],
+        n_in, n_out, neuron)

@@ -2,7 +2,9 @@
 in PyTorch.
 
 An `SNNProgram` describes the deployed stack: the off-macro f32 spike
-encoder, the on-macro spiking FC layers (int8 weights, 11-bit V) and the
+encoder (an identity-weight input layer, or the first conv of a conv
+program), the on-macro convs (int8 HWIO kernels, lowered through im2col,
+`core/mapping.py`), the spiking FC layers (int8 weights, 11-bit V) and the
 accumulate-only int32 readout. Five backends execute it and are tested to
 agree bit for bit with each other and with the JAX package's backends:
 
@@ -24,10 +26,16 @@ agree bit for bit with each other and with the JAX package's backends:
                  fallback above ``event_crossover`` (aux: row events equal
                  to ``ref_events``', plus fallback counts).
 
-The same backends stream: `stream_step` advances every lane one tick and
-`stream_megastep` K ticks in one fc-stack dispatch, carrying every layer's
-V as a `StreamState`. Conv programs and the float (QAT) domain are not part
-of this package yet.
+Each on-macro conv layer is one call of the same kernels on its
+(T, B*P, k*k*C) patch raster (``readout=False``), so every backend serves
+conv programs. The same backends stream FC programs: `stream_step` advances
+every lane one tick and `stream_megastep` K ticks in one fc-stack dispatch,
+carrying every layer's V as a `StreamState`. Streaming conv programs and
+the float (QAT) domain are not part of this package yet.
+
+Instruction counting is a program-level pass over the spike rasters
+(`count_network_instructions`, `SparsityReport.instruction_counts`), so
+every backend reports the same energy-model inputs by construction.
 """
 from __future__ import annotations
 
@@ -39,12 +47,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.impulse_snn import SNNModelConfig
+from repro_torch.core import isa, mapping
 from repro_torch.core.isa import int_matmul
 from repro_torch.core.neuron import neuron_step
 from repro_torch.core.quant import (CLAMP_MODES, quantize_neuron_const,
                                     quantize_w)
 from repro_torch.kernels.fused_snn_net.events import (EventStats,
                                                       fused_snn_net_events)
+from repro_torch.kernels.fused_snn_net.kernel import GATE_GRANULARITIES, LANE
 from repro_torch.kernels.fused_snn_net.ops import (
     fused_snn_net, fused_snn_net_device_events, fused_snn_net_ref)
 
@@ -56,14 +66,19 @@ from repro_torch.kernels.fused_snn_net.ops import (
 class LayerSpec:
     """One layer of a compiled program."""
     kind: str                     # encoder (off-macro f32, identity weight)
+                                  # | conv (the first is the off-macro f32
+                                  # spike encoder, later ones on-macro)
                                   # | fc (spiking, on-macro) | readout
-    n_in: int
+    n_in: int                     # conv: the im2col fan-in k*k*c_in
     n_out: int
-    w: Any = None                 # int8 (n_in, n_out) tensor on the device
-    threshold: Any = None         # encoder: f32 0-d tensor; fc: int
-    leak: Any = None
+    w: Any = None                 # fc/readout: int8 (n_in, n_out); conv: HWIO
+                                  # (f32 encoder, int8 on-macro); on the device
+    threshold: Any = None         # encoder / encoder conv: f32 0-d tensor;
+    leak: Any = None              # on-macro layers: int
     scale: Any = None             # float <-> grid scale (python float)
-    state_shape: tuple = ()       # per-example V shape
+    stride: int = 1               # conv only
+    quantize: bool = True         # float (QAT) domain: fake-quant this w
+    state_shape: tuple = ()       # per-example V shape ((H, W, C) for convs)
 
 
 @dataclass(frozen=True)
@@ -79,8 +94,26 @@ class SNNProgram:
 
     @property
     def fc_stack(self) -> tuple:
-        """The on-macro stack: spiking FCs + readout."""
+        """The FC part of the on-macro stack: spiking FCs + readout."""
         return tuple(ly for ly in self.layers if ly.kind in ("fc", "readout"))
+
+    @property
+    def int_conv_stack(self) -> tuple:
+        """On-macro conv layers (quantized, scale set). The first conv of a
+        stack is the off-macro encoder and never appears here."""
+        return tuple(ly for ly in self.layers
+                     if ly.kind == "conv" and ly.scale is not None)
+
+    @property
+    def macro_stack(self) -> tuple:
+        """Everything that executes on macros: on-macro convs, spiking FCs,
+        readout; the layers instruction counting iterates over."""
+        return self.int_conv_stack + self.fc_stack
+
+    @property
+    def neuron_layers(self) -> tuple:
+        """Layers with membrane dynamics that emit spikes."""
+        return tuple(ly for ly in self.layers if ly.kind != "readout")
 
     def logits(self, v_out: torch.Tensor) -> torch.Tensor:
         """Readout V ``v_out`` (..., n_out) -> f32 logits of the same shape
@@ -91,11 +124,12 @@ class SNNProgram:
 @dataclass
 class NetResult:
     """What one backend run produces. ``rasters[i]`` is the *input* spike
-    raster (T_total, B, n) int8 of fc-stack layer i (so rasters[0] is the
-    encoder output); ``v_final`` lists the final V of every layer, encoder
-    first and readout last. ``aux`` holds the gate or event counters of the
-    gated and event backends (`_attach_skips`, `_attach_event_stats`), as
-    host numpy values."""
+    raster of macro-stack layer i (so rasters[0] is the encoder output):
+    (T_total, B, n) int8 for FC layers, (T_total, B, H, W, C) spike maps
+    feeding conv layers; ``v_final`` lists the final V of every layer,
+    encoder first and readout last. ``aux`` holds the gate or event
+    counters of the gated and event backends (`_attach_skips`,
+    `_attach_event_stats`), as host numpy values."""
     v_out: torch.Tensor
     logits: torch.Tensor
     v_final: list
@@ -119,45 +153,86 @@ def _host_f32(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32))
 
 
-def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "int",
+def _conv_state_shapes(cfg: SNNModelConfig, convs: list) -> list:
+    """Per-example (H, W, C) output shape of every conv of ``cfg`` (SAME
+    padding, the stride from ``cfg.conv_spec``, the kernel size and
+    channels from the weights)."""
+    hw, shapes = tuple(cfg.in_shape[:2]), []
+    for c, (_, _, stride) in zip(convs, cfg.conv_spec):
+        hw = mapping.conv_out_hw(hw, int(c["w"].shape[0]), stride)
+        shapes.append((*hw, int(c["w"].shape[-1])))
+    return shapes
+
+
+def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
                     clamp_mode: str = "saturate", device=None) -> SNNProgram:
-    """Lower (cfg, params) to the deployed integer program of an FC stack.
+    """Lower (cfg, params) to the deployed integer program (``domain="int"``)
+    of an FC or conv stack.
 
     Every on-macro layer quantizes onto its 6b/11b grid: weights through
     `quant.quantize_w`, thresholds ``softplus(p) + 1e-3`` and leaks
     ``0.1 * softplus(p)`` through `quant.quantize_neuron_const` under
-    ``clamp_mode``. The encoder stays f32 (off-macro input layer, as in the
-    paper). Quantization runs on the CPU; the program's tensors then live
-    on ``device`` (default: the CUDA device; raises without one).
+    ``clamp_mode``. The encoder, the identity input layer of an FC stack or
+    the first conv of a conv stack, stays f32 (off-macro input layer, as in
+    the paper). Later convs keep their HWIO int8 kernel and the im2col
+    fan-in geometry (n_in = k*k*c_in, `mapping.conv_tiling`). Quantization
+    runs on the CPU; the program's tensors then live on ``device``
+    (default: the CUDA device; raises without one).
 
     ``params``: ``{"layers": [{"w": (n_in, n_out)}, ...], "threshold":
-    (n_spiking + 1,), "leak": (n_spiking + 1,)}`` as `snn.init_fc_snn`
-    makes them (tensors or numpy arrays). The float (QAT) domain and conv
-    stacks raise `NotImplementedError`: they come with the training and
-    conv-lowering slices of the port."""
+    (n_neuron_layers,), "leak": (n_neuron_layers,)}`` plus, for a conv
+    program, ``"convs": [{"w": (k, k, c_in, c_out)}, ...]``, as
+    `snn.init_fc_snn` / `snn.init_lenet_snn` make them (tensors or numpy
+    arrays). The default domain is the JAX package's, ``"float"`` (QAT
+    training): it raises `NotImplementedError` until the training slice of
+    the port lands."""
     if domain != "int":
         raise NotImplementedError(
             f"domain={domain!r}: only the deployed integer domain is ported; "
             "the float (QAT training) domain comes with the training slice")
-    if params.get("convs"):
-        raise NotImplementedError(
-            "conv programs need the im2col conv lowering (core/mapping.py), "
-            "which comes with the conv slice of the port")
     if clamp_mode not in CLAMP_MODES:
         raise ValueError(f"unknown clamp mode {clamp_mode!r}")
     device = resolve_device(device)
     th = _softplus(_host_f32(params["threshold"])) + 1e-3
     lk = _softplus(_host_f32(params["leak"])) * 0.1
-    d_in = cfg.layer_sizes[0]
-    layers = [LayerSpec(kind="encoder", n_in=d_in, n_out=d_in,
-                        threshold=th[0].to(device), leak=lk[0].to(device),
-                        state_shape=(d_in,))]
+    layers = []
+    k = 0                                         # neuron-layer index
+    convs = params.get("convs") or []
+    if convs:
+        c_in = cfg.in_shape[-1]
+        for i, (c, shape) in enumerate(zip(convs,
+                                           _conv_state_shapes(cfg, convs))):
+            w = _host_f32(c["w"])
+            n_in = w.shape[0] * w.shape[1] * c_in
+            stride = cfg.conv_spec[i][2]
+            if i > 0:                             # on-macro conv
+                wq, scale = quantize_w(w)
+                layers.append(LayerSpec(
+                    kind="conv", n_in=n_in, n_out=shape[-1], w=wq.to(device),
+                    threshold=quantize_neuron_const(float(th[k]), scale,
+                                                    clamp_mode),
+                    leak=quantize_neuron_const(float(lk[k]), scale,
+                                               clamp_mode),
+                    scale=float(scale), stride=stride, quantize=False,
+                    state_shape=shape))
+            else:                                 # the f32 spike encoder
+                layers.append(LayerSpec(
+                    kind="conv", n_in=n_in, n_out=shape[-1], w=w.to(device),
+                    threshold=th[k].to(device), leak=lk[k].to(device),
+                    stride=stride, quantize=False, state_shape=shape))
+            c_in = shape[-1]
+            k += 1
+    else:
+        d_in = cfg.layer_sizes[0]
+        layers.append(LayerSpec(kind="encoder", n_in=d_in, n_out=d_in,
+                                threshold=th[k].to(device),
+                                leak=lk[k].to(device), state_shape=(d_in,)))
+        k += 1
     sizes = cfg.layer_sizes
     fc_ws = params["layers"]
     for j, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
         is_readout = j == len(fc_ws) - 1
         wq, scale = quantize_w(_host_f32(fc_ws[j]["w"]))
-        k = j + 1                                 # neuron-layer index
         layers.append(LayerSpec(
             kind="readout" if is_readout else "fc", n_in=n_in, n_out=n_out,
             w=wq.to(device),
@@ -166,49 +241,83 @@ def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "int",
             leak=None if is_readout else quantize_neuron_const(
                 float(lk[k]), scale, clamp_mode),
             scale=float(scale), state_shape=(n_out,)))
+        if not is_readout:
+            k += 1
     return SNNProgram(cfg=cfg, neuron=cfg.spiking.neuron,
                       timesteps=cfg.timesteps, layers=tuple(layers),
                       clamp_mode=clamp_mode, device=device)
+
+
+def _check_kinds(kinds: list) -> None:
+    """A program is encoder, fc..., readout, or conv (the encoder),
+    conv..., fc..., readout. Raises `ValueError`."""
+    n_conv = 0
+    if kinds and kinds[0] == "conv":
+        while n_conv < len(kinds) and kinds[n_conv] == "conv":
+            n_conv += 1
+        body = kinds[n_conv:]
+    else:
+        body = kinds[1:]
+    if (len(kinds) < 2 or kinds[0] not in ("encoder", "conv")
+            or not body or body[-1] != "readout"
+            or any(k != "fc" for k in body[:-1])):
+        raise ValueError(f"a program is encoder, fc..., readout or conv, "
+                         f"conv..., fc..., readout; got layer kinds {kinds}")
 
 
 def program_from_arrays(layers: list, *, neuron: str, timesteps: int,
                         clamp_mode: str = "saturate", device=None
                         ) -> SNNProgram:
     """Build an integer `SNNProgram` from plain arrays, one dict per layer
-    with ``kind`` ("encoder", then "fc" layers, then "readout"), ``n_in``,
-    ``n_out``, ``w`` (int8 (n_in, n_out); None for the encoder),
-    ``threshold`` and ``leak`` (f32 for the encoder, ints for fc layers,
-    None for the readout) and ``scale``. Carries a compiled program across
-    from another implementation with its constants unchanged. ``device``
-    defaults to the CUDA device (raises without one)."""
+    with ``kind``, ``n_in``, ``n_out``, ``w``, ``threshold``, ``leak`` and
+    ``scale``: an FC program is "encoder" (``w`` None, f32 threshold and
+    leak), "fc" layers (int8 (n_in, n_out) ``w``, int threshold and leak),
+    then "readout" (threshold and leak None); a conv program starts with
+    "conv" layers instead of the encoder, the first one the f32 encoder
+    (f32 HWIO ``w``, f32 threshold and leak, ``scale`` None), later ones
+    on-macro (int8 HWIO ``w``, int constants, ``scale``), each with its
+    ``stride`` and per-example ``state_shape`` (H, W, C). Carries a
+    compiled program across from another implementation with its constants
+    unchanged. ``device`` defaults to the CUDA device (raises without
+    one)."""
     device = resolve_device(device)
-    kinds = [d["kind"] for d in layers]
-    if (len(kinds) < 2 or kinds[0] != "encoder" or kinds[-1] != "readout"
-            or any(k != "fc" for k in kinds[1:-1])):
-        raise ValueError(f"an FC program is encoder, fc..., readout; got "
-                         f"layer kinds {kinds}")
+    _check_kinds([d["kind"] for d in layers])
     if clamp_mode not in CLAMP_MODES:
         raise ValueError(f"unknown clamp mode {clamp_mode!r}")
     specs = []
-    for d in layers:
-        if d["kind"] == "encoder":
+    for i, d in enumerate(layers):
+        kind = d["kind"]
+        if kind == "encoder" or (kind == "conv" and i == 0):    # off-macro
             th = torch.tensor(np.float32(d["threshold"]), device=device)
             lk = torch.tensor(np.float32(d["leak"]), device=device)
-            w = None
+            w = (None if d["w"] is None else
+                 torch.tensor(np.asarray(d["w"], np.float32), device=device))
         else:
             w = torch.tensor(np.asarray(d["w"], np.int8), device=device)
-            if tuple(w.shape) != (d["n_in"], d["n_out"]):
-                raise ValueError(f"{d['kind']} weight shape "
-                                 f"{tuple(w.shape)} != (n_in, n_out) = "
-                                 f"{(d['n_in'], d['n_out'])}")
-            spiking = d["kind"] == "fc"
+            spiking = kind != "readout"
             th = int(d["threshold"]) if spiking else None
             lk = int(d["leak"]) if spiking else None
+        if kind == "conv":
+            if (w is None or w.dim() != 4 or w.shape[0] != w.shape[1]
+                    or w.shape[0] * w.shape[1] * w.shape[2] != d["n_in"]
+                    or w.shape[3] != d["n_out"]):
+                raise ValueError(f"conv kernel of shape "
+                                 f"{None if w is None else tuple(w.shape)} "
+                                 f"does not give (n_in, n_out) = "
+                                 f"{(d['n_in'], d['n_out'])}")
+            extra = dict(stride=int(d["stride"]), quantize=False,
+                         state_shape=tuple(int(x) for x in d["state_shape"]))
+        else:
+            if w is not None and tuple(w.shape) != (d["n_in"], d["n_out"]):
+                raise ValueError(f"{kind} weight shape {tuple(w.shape)} != "
+                                 f"(n_in, n_out) = "
+                                 f"{(d['n_in'], d['n_out'])}")
+            extra = dict(state_shape=(int(d["n_out"]),))
         specs.append(LayerSpec(
-            kind=d["kind"], n_in=int(d["n_in"]), n_out=int(d["n_out"]), w=w,
+            kind=kind, n_in=int(d["n_in"]), n_out=int(d["n_out"]), w=w,
             threshold=th, leak=lk,
             scale=None if d.get("scale") is None else float(d["scale"]),
-            state_shape=(int(d["n_out"]),)))
+            **extra))
     return SNNProgram(cfg=None, neuron=neuron,
                       timesteps=timesteps, layers=tuple(specs),
                       clamp_mode=clamp_mode, device=device)
@@ -224,27 +333,63 @@ def present_words(x_words: torch.Tensor, timesteps: int) -> torch.Tensor:
     return torch.repeat_interleave(x_words, timesteps, dim=1).movedim(1, 0)
 
 
+def present_static(x: torch.Tensor, timesteps: int) -> torch.Tensor:
+    """``x`` (B, ...) -> (timesteps, B, ...): direct encoding, the same
+    frame presented every step (a broadcast view)."""
+    return x[None].expand(timesteps, *x.shape)
+
+
 # ---------------------------------------------------------------------------
 # The off-macro encoder and the fc stack
 # ---------------------------------------------------------------------------
 
+def conv2d_f32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """SAME-padded 2-D convolution of NHWC f32 ``x`` with the HWIO f32
+    kernel ``w`` at ``stride``, rounded as XLA:CPU rounds the JAX package's
+    conv: each output sums its k*k*C_in terms in (kh, kw, c) order, from 0,
+    with one fused multiply-add per term. The FMA is emulated exactly: the
+    product of two f32 values is exact in float64, and the float64 sum is
+    rounded to f32 after every term. Plain tensor code on every device:
+    `torch.nn.functional.conv2d` sums in another order (and on the card in
+    TF32), which flips encoder spikes, and one flipped spike changes
+    everything after it."""
+    k = w.shape[0]
+    patches = mapping.im2col(x, k, stride).to(torch.float64)
+    wp = mapping.pack_conv_weights(w).to(torch.float64)
+    acc = torch.zeros((*patches.shape[:-1], wp.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for r in range(wp.shape[0]):
+        acc = (acc.to(torch.float64)
+               + patches[..., r:r + 1] * wp[r]).to(torch.float32)
+    return acc
+
+
 def encoder_step(program: SNNProgram, v_enc: torch.Tensor,
                  frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One tick of the off-macro f32 encoder layer: carried membrane V plus
-    a (B, d) current frame -> (new V, (B, d) int8 spikes). `encode` loops
-    exactly this function, so streaming reproduces the batch raster."""
+    a (B, ...) current frame -> (new V, (B, ...) int8 spikes). The identity
+    encoder integrates the frame itself, the conv encoder its `conv2d_f32`.
+    `encode` loops exactly this function, so streaming reproduces the batch
+    raster."""
     enc = program.layers[0]
-    v, s = neuron_step(v_enc, frame, neuron=program.neuron,
+    current = (conv2d_f32(frame, enc.w, enc.stride) if enc.kind == "conv"
+               else frame)
+    v, s = neuron_step(v_enc, current, neuron=program.neuron,
                        threshold=enc.threshold, leak=enc.leak)
     return v, s.to(torch.int8)
 
 
 def encode(program: SNNProgram, xs: torch.Tensor
            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the encoder alone on (T_total, B, d) f32 currents ->
-    ((T_total, B, d) int8 spikes, final (B, d) f32 encoder V)."""
-    v = torch.zeros(xs.shape[1:], dtype=torch.float32, device=xs.device)
-    spikes = torch.empty(xs.shape, dtype=torch.int8, device=xs.device)
+    """Run the encoder alone on (T_total, B, ...) f32 currents ->
+    ((T_total, B, *state_shape) int8 spikes, final (B, *state_shape) f32
+    encoder V); for a conv program the spikes are (H, W, C) maps."""
+    enc = program.layers[0]
+    shape = ((xs.shape[1], *enc.state_shape) if enc.kind == "conv"
+             else tuple(xs.shape[1:]))
+    v = torch.zeros(shape, dtype=torch.float32, device=xs.device)
+    spikes = torch.empty((xs.shape[0], *shape), dtype=torch.int8,
+                         device=xs.device)
     for t in range(xs.shape[0]):
         v, spikes[t] = encoder_step(program, v, xs[t])
     return spikes, v
@@ -261,24 +406,22 @@ def _host_events(spikes: torch.Tensor, ws: list, *, v_init=None, **kw):
             [torch.from_numpy(v).to(dev) for v in vs], stats)
 
 
-def _run_fc_stack(program: SNNProgram, spikes: torch.Tensor, *,
-                  use_kernel: bool, emit_rasters: bool,
-                  v_init: Optional[list] = None, use_sparse: bool = False,
-                  gate_granularity: int = 1, use_events: bool = False,
-                  event_crossover: float = 1.0, block_b: int = 8) -> tuple:
-    """The fc stack on a (T, B, d) encoder raster. ``use_events`` runs the
-    event-list kernel (``use_kernel``) or the host executor, and returns an
-    `events.EventStats`; otherwise the kernel wrapper (``use_kernel``) or
-    its plain version, gated with ``use_sparse``. The plain version's tile
-    is the whole batch (the JAX reference's layout), the kernel's
-    ``block_b`` lanes. Returns (per-spiking-layer rasters, per-layer final
-    V, counters)."""
-    stack = program.fc_stack
-    ws = [spec.w for spec in stack]
-    kw = dict(thresholds=tuple(spec.threshold for spec in stack[:-1]),
-              leaks=tuple(spec.leak for spec in stack[:-1]),
-              neuron=program.neuron, clamp_mode=program.clamp_mode,
-              emit_rasters=emit_rasters, v_init=v_init)
+def _run_layers(program: SNNProgram, spikes: torch.Tensor, ws: list,
+                thresholds: tuple, leaks: tuple, *, readout: bool,
+                use_kernel: bool, emit_rasters: bool,
+                v_init: Optional[list] = None, use_sparse: bool = False,
+                gate_granularity: int = 1, use_events: bool = False,
+                event_crossover: float = 1.0, block_b: int = 8) -> tuple:
+    """One fused-stack dispatch of weights ``ws`` on a (T, B, d) raster.
+    ``use_events`` runs the event-list kernel (``use_kernel``) or the host
+    executor, and returns an `events.EventStats`; otherwise the kernel
+    wrapper (``use_kernel``) or its plain version, gated with
+    ``use_sparse``. The plain version's tile is the whole batch (the JAX
+    reference's layout), the kernel's ``block_b`` lanes. Returns
+    (per-spiking-layer rasters, per-layer final V, counters)."""
+    kw = dict(thresholds=thresholds, leaks=leaks, neuron=program.neuron,
+              clamp_mode=program.clamp_mode, emit_rasters=emit_rasters,
+              readout=readout, v_init=v_init)
     if use_events and use_kernel:
         return fused_snn_net_device_events(
             spikes, ws, block_b=block_b, event_crossover=event_crossover,
@@ -295,6 +438,46 @@ def _run_fc_stack(program: SNNProgram, spikes: torch.Tensor, *,
                              block_b=max(int(spikes.shape[1]), 1), **kw)
 
 
+def _run_fc_stack(program: SNNProgram, spikes: torch.Tensor, **flags
+                  ) -> tuple:
+    """The fc stack (spiking FCs and the readout) on a (T, B, d) raster;
+    ``flags``: the options of `_run_layers`."""
+    stack = program.fc_stack
+    return _run_layers(program, spikes, [spec.w for spec in stack],
+                       tuple(spec.threshold for spec in stack[:-1]),
+                       tuple(spec.leak for spec in stack[:-1]),
+                       readout=True, **flags)
+
+
+def _conv_front_end(program: SNNProgram, spikes_enc: torch.Tensor, **flags
+                    ) -> tuple:
+    """The on-macro conv layers on the encoder's spike maps. Each conv
+    lowers onto the macro grid through im2col: its (T, B, H, W, C) input
+    maps become a (T, B*P, k*k*C) patch raster, one frame per (example,
+    output position), run by the same fused-stack dispatch as the fc stack
+    (one layer, ``readout=False``, rasters on), so every backend serves
+    conv programs. ``flags``: the options of `_run_layers`. Returns (maps,
+    v_convs, conv_skips): per layer the output spike maps
+    (T, B, H_out, W_out, C_out) int8, the final V maps and the counters
+    (None when dense, `events.EventStats` on the event paths)."""
+    maps, v_convs, conv_skips = [], [], []
+    cur = spikes_enc
+    for spec in program.int_conv_stack:
+        t_total, batch = cur.shape[:2]
+        k = spec.w.shape[0]
+        patches = mapping.im2col_raster(cur, k, spec.stride)
+        out_hw = mapping.conv_out_hw(tuple(cur.shape[2:4]), k, spec.stride)
+        rasters, v, skips = _run_layers(
+            program, patches, [mapping.pack_conv_weights(spec.w)],
+            (spec.threshold,), (spec.leak,), readout=False,
+            emit_rasters=True, **flags)
+        cur = rasters[0].reshape(t_total, batch, *out_hw, spec.n_out)
+        maps.append(cur)
+        v_convs.append(v[0].reshape(batch, *out_hw, spec.n_out))
+        conv_skips.append(skips)
+    return maps, v_convs, conv_skips
+
+
 def run_stack_from_raster(program: SNNProgram, spikes_enc: torch.Tensor, *,
                           use_kernel: bool = False, use_sparse: bool = False,
                           block_b: int = 8, gate_granularity: int = 1
@@ -303,7 +486,12 @@ def run_stack_from_raster(program: SNNProgram, spikes_enc: torch.Tensor, *,
     raster ``spikes_enc``, through the kernel wrapper (``use_kernel``) or
     its plain version, gated with ``use_sparse`` at ``gate_granularity``.
     Returns (rasters, v_stack, skips) with ``rasters[0]`` the input raster
-    itself, as `sparsity_report` takes."""
+    itself, as `sparsity_report` takes. A program with on-macro convs runs
+    through `run_network` instead (raises `ValueError`)."""
+    if program.int_conv_stack:
+        raise ValueError("run_stack_from_raster runs the fc stack only; this "
+                         "program has on-macro conv layers: run it through "
+                         "run_network")
     rasters, v_stack, skips = _run_fc_stack(
         program, spikes_enc, use_kernel=use_kernel, use_sparse=use_sparse,
         gate_granularity=gate_granularity, block_b=block_b,
@@ -313,21 +501,33 @@ def run_stack_from_raster(program: SNNProgram, spikes_enc: torch.Tensor, *,
 
 def _run_macro_stack(program: SNNProgram, xs: torch.Tensor, *,
                      use_kernel: bool, **flags) -> NetResult:
-    """Shared executor of every backend: the f32 encoder pass, then the fc
-    stack (``flags``: the mode options of `_run_fc_stack`), with the gate
-    or event counters attached to ``aux``."""
+    """Shared executor of every backend: the f32 encoder pass, the on-macro
+    conv front end (when there is one), then the fc stack (``flags``: the
+    mode options of `_run_layers`), with the gate or event counters
+    attached to ``aux``; a gated run's conv counters go to
+    ``aux["conv_skip_counts"]``, one entry per conv layer."""
     spikes_enc, v_enc = encode(program, xs)
+    conv_maps, v_convs, conv_skips = _conv_front_end(
+        program, spikes_enc, use_kernel=use_kernel, **flags)
+    last = conv_maps[-1] if conv_maps else spikes_enc
+    flat = last.reshape(*last.shape[:2], -1) if last.dim() > 3 else last
     rasters_fc, v_stack, skips = _run_fc_stack(
-        program, spikes_enc, use_kernel=use_kernel, emit_rasters=True,
-        **flags)
+        program, flat, use_kernel=use_kernel, emit_rasters=True, **flags)
     v_out = v_stack[-1]
+    # rasters[i] is the input raster of macro-stack layer i: spike maps for
+    # the convs (the last conv's map, flattened, is the fc stack's input)
     res = NetResult(v_out=v_out, logits=program.logits(v_out),
-                    v_final=[v_enc] + list(v_stack),
-                    rasters=[spikes_enc] + list(rasters_fc))
+                    v_final=[v_enc] + v_convs + list(v_stack),
+                    rasters=[spikes_enc] + conv_maps + list(rasters_fc))
     if flags.get("use_events"):
-        return _attach_event_stats(res, skips)
-    return _attach_skips(res, skips, xs.shape[0],
-                         flags.get("gate_granularity", 1))
+        return _attach_event_stats(res, conv_skips, skips)
+    res = _attach_skips(res, skips, xs.shape[0],
+                        flags.get("gate_granularity", 1))
+    if flags.get("use_sparse") and conv_skips:
+        res.aux["conv_skip_counts"] = [
+            [_host(b) for b in s] if isinstance(s, list) else _host(s)
+            for s in conv_skips]
+    return res
 
 
 def _site_count(s: np.ndarray) -> int:
@@ -359,13 +559,17 @@ def _attach_skips(res: NetResult, skips, timesteps: int,
     return res
 
 
-def _attach_event_stats(res: NetResult, stats: EventStats) -> NetResult:
-    """Put an `events.EventStats` on a result: per-row event counts, the
-    frames each layer ran, silent-row counts, the share of (frame, row)
-    sites that were silent, and (event kernel only) the per-layer dense
-    fallback counts."""
-    row_events = list(stats.row_events)
-    frames = [stats.frames] * len(row_events)
+def _attach_event_stats(res: NetResult, conv_stats: list, stats: EventStats
+                        ) -> NetResult:
+    """Put the `events.EventStats` of the conv layers and the fc stack on a
+    result: per-row event counts, the frames each layer ran (a conv layer
+    one per (timestep, example, output position)), silent-row counts, the
+    share of (frame, row) sites that were silent, and (event kernel only)
+    the per-layer dense fallback counts."""
+    row_events = [r for st in conv_stats for r in st.row_events]
+    row_events += list(stats.row_events)
+    frames = [st.frames for st in conv_stats for _ in st.row_events]
+    frames += [stats.frames] * len(stats.row_events)
     skipped = [f * len(r) - int(r.sum()) for f, r in zip(frames, row_events)]
     possible = sum(f * len(r) for f, r in zip(frames, row_events))
     res.aux["row_events"] = row_events
@@ -373,8 +577,10 @@ def _attach_event_stats(res: NetResult, stats: EventStats) -> NetResult:
     res.aux["row_skip_counts"] = skipped
     res.aux["skipped_row_fraction"] = (sum(skipped) / possible
                                        if possible else 0.0)
-    if stats.dense_fallbacks:
-        res.aux["event_dense_fallbacks"] = list(stats.dense_fallbacks)
+    fallbacks = [f for st in conv_stats for f in st.dense_fallbacks]
+    fallbacks += list(stats.dense_fallbacks)
+    if fallbacks:
+        res.aux["event_dense_fallbacks"] = fallbacks
     return res
 
 
@@ -505,18 +711,26 @@ class MegastepOut:
     skips: Any = None
 
 
-def _check_stream_backend(backend: str) -> None:
+def _check_stream(program: SNNProgram, backend: str) -> None:
+    """Raises `KeyError` for an unknown backend and `NotImplementedError`
+    for a conv program, whose streaming comes with a later slice."""
     if backend not in STREAM_BACKENDS:
         raise KeyError(f"unknown streaming backend {backend!r}; have "
                        f"{STREAM_BACKENDS}")
+    if program.layers[0].kind == "conv":
+        raise NotImplementedError(
+            "streaming a conv program (its conv V leaves in StreamState, "
+            "stream_step, stream_megastep and SNNServeEngine) comes with the "
+            "conv-streaming slice of the port; run it with run_network")
 
 
-def _stream_flags(backend: str, use_sparse: bool, block_b: int,
-                  gate_granularity: int, event_crossover: float) -> dict:
-    """`_run_fc_stack` options of a streaming ``backend`` and its kwargs:
+def _stream_flags(program: SNNProgram, backend: str, use_sparse: bool,
+                  block_b: int, gate_granularity: int,
+                  event_crossover: float) -> dict:
+    """`_run_layers` options of a streaming ``backend`` and its kwargs:
     the kernel on the cuda* backends, the event list on the *events ones,
     gating on cuda_sparse (or wherever ``use_sparse`` asks for it)."""
-    _check_stream_backend(backend)
+    _check_stream(program, backend)
     return dict(use_kernel=backend.startswith("cuda"),
                 use_events=backend.endswith("events"),
                 use_sparse=use_sparse or backend == "cuda_sparse",
@@ -528,7 +742,7 @@ def init_stream_state(program: SNNProgram, batch: int,
                       backend: str = "int_ref") -> StreamState:
     """Fresh (all-zero V) state for ``batch`` streams on the program's
     device."""
-    _check_stream_backend(backend)
+    _check_stream(program, backend)
     vs = tuple(torch.zeros((batch, *spec.state_shape),
                            dtype=torch.float32 if i == 0 else torch.int32,
                            device=program.device)
@@ -547,8 +761,8 @@ def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
     options mirror `run_network`: ``use_sparse`` gates the int_ref tick,
     ``block_b`` sets the kernels' tile, ``gate_granularity`` the gated
     blocks and ``event_crossover`` the event kernel's dense fallback."""
-    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
-                          event_crossover)
+    flags = _stream_flags(program, backend, use_sparse, block_b,
+                          gate_granularity, event_crossover)
     v_enc, spikes_enc = encoder_step(program, state.vs[0], frame)
     rasters_fc, v_stack, skips = _run_fc_stack(
         program, spikes_enc[None], emit_rasters=emit_rasters,
@@ -585,8 +799,8 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     rasters even when ``emit_rasters=False``. The product goes through
     `isa.int_matmul`, since CUDA has no int32 matmul. The backend options
     are `stream_step`'s."""
-    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
-                          event_crossover)
+    flags = _stream_flags(program, backend, use_sparse, block_b,
+                          gate_granularity, event_crossover)
     frames = torch.as_tensor(frames, device=program.device)
     if frames.dim() < 3:
         raise ValueError(f"stream_megastep takes a (K, B, *in_shape) frame "
@@ -632,11 +846,14 @@ def stream_megastep(program: SNNProgram, state: StreamState,
 
 @dataclass(frozen=True)
 class SparsityReport:
-    """Measured event statistics of one execution. Per fc-stack layer i
-    (whose *input* raster is the output of neuron layer i): total input
-    events, per-timestep occupancy, per-row event counts and the frame
-    count."""
-    n_in: tuple                   # fan-in per fc-stack layer
+    """Measured event statistics of one execution, the bridge from spike
+    rasters to the energy model. Per macro-stack layer i (whose *input*
+    raster is the output of neuron layer i): total input events,
+    per-timestep occupancy, per-row event counts and the frame count. Built
+    from rasters (`sparsity_report`) or from per-neuron spike sums
+    (`sparsity_report_from_sums`); both feed `count_network_instructions`
+    and the `energy` model."""
+    n_in: tuple                   # fan-in per macro-stack layer
     n_out: tuple
     neurons: tuple                # per-layer update kind ("rmp"... | "none")
     events: tuple                 # total input spike events per layer
@@ -644,9 +861,12 @@ class SparsityReport:
     timesteps: int
     batch: int
     occupancy_t: Optional[tuple] = None   # per layer: (T_total,) mean input
-                                          # occupancy per timestep
-    layer_frames: Optional[tuple] = None  # per-layer frame counts (None =
-                                          # every layer runs ``frames``)
+                                          # occupancy per timestep (rasters
+                                          # only; None from sums)
+    layer_frames: Optional[tuple] = None  # per-layer frame counts (conv
+                                          # layers run T*B*P frames, one per
+                                          # output position; None = every
+                                          # layer runs ``frames``)
     row_events: Optional[tuple] = None    # per layer: (n_in,) int64 events
                                           # per input row over all frames
 
@@ -673,6 +893,24 @@ class SparsityReport:
         return 1.0 - sum(self.events) / possible if possible else 0.0
 
     @property
+    def silent_timestep_fraction(self) -> tuple:
+        """Per layer: the fraction of timesteps whose whole-batch input
+        raster is silent (None per layer without per-timestep occupancy)."""
+        if self.occupancy_t is None:
+            return tuple(None for _ in self.n_in)
+        return tuple(float(np.mean(np.asarray(o) == 0.0))
+                     for o in self.occupancy_t)
+
+    @property
+    def macro_timesteps(self) -> int:
+        """Macro-timesteps executed: every frame of a layer runs its
+        layer's column tiles of macros once (`energy.
+        measured_edp_per_neuron_timestep` normalizes by this)."""
+        return sum(f * mapping.fc_tiling(ni, no).col_tiles
+                   for ni, no, f in zip(self.n_in, self.n_out,
+                                        self.frames_by_layer))
+
+    @property
     def row_skip_counts(self) -> tuple:
         """Per layer: silent (frame, input-row) pairs, the AccW2V gate
         sites an event-driven executor skips."""
@@ -686,9 +924,53 @@ class SparsityReport:
         (numerically ``overall_sparsity``)."""
         return self.overall_sparsity
 
+    def block_event_counts(self, granularity: int) -> tuple:
+        """Per layer: (n_blocks,) input-event totals per row block at gate
+        ``granularity``, the blocks `kernel.skip_layout` assigns skip
+        columns to (128/G rows each at G > 1, the whole fan-in at 1). Each
+        layer's blocks sum to its event count."""
+        if self.row_events is None:
+            raise ValueError("block_event_counts needs per-row event "
+                             "columns; build the report from rasters or "
+                             "spike sums (row_events=None)")
+        if granularity not in GATE_GRANULARITIES:
+            raise ValueError(f"gate granularity must be one of "
+                             f"{GATE_GRANULARITIES}, got {granularity}")
+        out = []
+        for rows in self.row_events:
+            rows = np.asarray(rows)
+            bw = len(rows) if granularity == 1 else LANE // granularity
+            nb = -(-len(rows) // bw)
+            padded = np.zeros(nb * bw, rows.dtype)
+            padded[:len(rows)] = rows
+            out.append(padded.reshape(nb, bw).sum(axis=1))
+        return tuple(out)
+
+    def instruction_counts(self) -> isa.InstrCount:
+        """Event statistics -> instruction cycles (the same counts as
+        counting the rasters: both go through
+        `isa.count_layer_instructions_from_events`)."""
+        counts = isa.InstrCount()
+        for ni, no, neuron, ev, f in zip(self.n_in, self.n_out, self.neurons,
+                                         self.events, self.frames_by_layer):
+            counts += isa.count_layer_instructions_from_events(
+                ev, f, ni, no, neuron)
+        return counts
+
+    def skipped_instruction_counts(self) -> isa.InstrCount:
+        """AccW2V cycles event-driven execution never issued: those of
+        every silent (frame, input-row) pair (executed + skipped is the
+        dense tally at sparsity 0)."""
+        counts = isa.InstrCount()
+        for ni, no, ev, f in zip(self.n_in, self.n_out, self.events,
+                                 self.frames_by_layer):
+            counts += isa.count_skipped_instructions_from_events(
+                ev, f, ni, no)
+        return counts
+
 
 def _report_geometry(program: SNNProgram) -> tuple:
-    stack = program.fc_stack
+    stack = program.macro_stack
     return (tuple(ly.n_in for ly in stack), tuple(ly.n_out for ly in stack),
             tuple("none" if ly.kind == "readout" else program.neuron
                   for ly in stack))
@@ -699,14 +981,19 @@ def _host(x) -> np.ndarray:
 
 
 def _stack_input_rasters(program: SNNProgram, rasters: list) -> list:
-    """The trailing len(fc_stack) rasters, as (T, frames, n_in) host
-    arrays: the input raster of each fc-stack layer."""
-    stack = program.fc_stack
+    """The trailing len(macro_stack) rasters, as (T, frames, n_in) host
+    arrays: the input raster of each macro-stack layer, a conv layer's
+    (T, B, H, W, C) spike maps lowered to their im2col patch raster (the
+    event stream the macro takes)."""
+    stack = program.macro_stack
     if len(rasters) < len(stack):
-        raise ValueError(f"need one input raster per fc-stack layer "
+        raise ValueError(f"need one input raster per macro-stack layer "
                          f"({len(stack)}), got {len(rasters)}")
     out = []
     for spec, raster in zip(stack, rasters[-len(stack):]):
+        if spec.kind == "conv":
+            raster = mapping.im2col_raster(torch.as_tensor(raster),
+                                           spec.w.shape[0], spec.stride)
         r = _host(raster)
         out.append(r.reshape(r.shape[0], -1, spec.n_in))
     return out
@@ -714,14 +1001,16 @@ def _stack_input_rasters(program: SNNProgram, rasters: list) -> list:
 
 def sparsity_report(program: SNNProgram, rasters: list) -> SparsityReport:
     """Exact report from per-layer input rasters (`NetResult.rasters`):
-    rasters[i] is (T_total, B, n_in_i) for fc-stack layer i."""
+    rasters[i] is (T_total, B, n_in_i) for macro-stack layer i, or the
+    (T_total, B, H, W, C) input spike maps of a conv layer, whose events
+    are counted per output position as the macro issues them."""
     if rasters is None:
         raise ValueError("sparsity_report needs spike rasters; run the "
                          "backend with emit_rasters=True")
     n_in, n_out, neurons = _report_geometry(program)
     rs = _stack_input_rasters(program, rasters)
     T = rs[0].shape[0]
-    B = int(rs[-1].shape[1])
+    B = int(rs[-1].shape[1])                  # fc rasters carry the batch
     return SparsityReport(
         n_in=n_in, n_out=n_out, neurons=neurons,
         events=tuple(int(r.astype(np.int64).sum()) for r in rs),
@@ -729,3 +1018,63 @@ def sparsity_report(program: SNNProgram, rasters: list) -> SparsityReport:
         occupancy_t=tuple(r.mean(axis=(1, 2)) for r in rs),
         layer_frames=tuple(T * r.shape[1] for r in rs),
         row_events=tuple(r.astype(np.int64).sum(axis=(0, 1)) for r in rs))
+
+
+def sparsity_report_from_sums(program: SNNProgram, spike_sums: list,
+                              timesteps: int) -> SparsityReport:
+    """Raster-free report from per-neuron spike counts: spike_sums[i] is
+    the (B, ...) spike-count total of neuron layer i over ``timesteps``;
+    the last len(macro_stack) of them feed the macro stack. A conv-fed
+    layer sees each input pixel once per covering patch, and im2col is
+    linear, so its patch event total is ``im2col(sum map).sum()``, exact.
+    Per-timestep occupancy is not recoverable (occupancy_t=None)."""
+    n_in, n_out, neurons = _report_geometry(program)
+    stack = program.macro_stack
+    sums = spike_sums[-len(stack):]
+    if len(sums) != len(n_in):
+        raise ValueError(f"need one spike-sum per macro-stack layer input "
+                         f"({len(n_in)}), got {len(spike_sums)}")
+    B = int(sums[0].shape[0])
+    events, layer_frames, row_events = [], [], []
+    for spec, s in zip(stack, sums):
+        if spec.kind == "conv":
+            patches = _host(mapping.im2col(torch.as_tensor(s),
+                                           spec.w.shape[0], spec.stride))
+            # int64 per element before summing: the counts are integers,
+            # but float accumulation stops being exact above 2**24
+            rows = patches.astype(np.int64).reshape(-1, spec.n_in).sum(axis=0)
+            layer_frames.append(timesteps * B
+                                * patches.shape[1] * patches.shape[2])
+        else:
+            rows = _host(s).astype(np.int64).reshape(-1, spec.n_in).sum(axis=0)
+            layer_frames.append(timesteps * B)
+        row_events.append(rows)
+        events.append(int(rows.sum()))
+    return SparsityReport(
+        n_in=n_in, n_out=n_out, neurons=neurons, events=tuple(events),
+        frames=timesteps * B, timesteps=timesteps, batch=B,
+        layer_frames=tuple(layer_frames), row_events=tuple(row_events))
+
+
+def count_network_instructions(program: SNNProgram, rasters: list = None, *,
+                               report: Optional[SparsityReport] = None
+                               ) -> isa.InstrCount:
+    """Instruction cycles of a whole execution: ``rasters[i]`` is the input
+    raster of macro-stack layer i (conv layers take their input spike maps,
+    lowered to im2col patch rasters here), so identical rasters give
+    identical counts on every backend; row-tiled layers include the AccV2V
+    partial-sum reduction. Or pass a `SparsityReport` (``report=``), the
+    raster-free route; both share one counting implementation."""
+    if report is not None:
+        return report.instruction_counts()
+    if rasters is None:
+        raise ValueError("instruction counting needs spike rasters (run the "
+                         "backend with emit_rasters=True) or a "
+                         "SparsityReport")
+    counts = isa.InstrCount()
+    for spec, r in zip(program.macro_stack,
+                       _stack_input_rasters(program, rasters)):
+        counts += isa.count_layer_instructions(
+            r, spec.n_in, spec.n_out,
+            "none" if spec.kind == "readout" else program.neuron)
+    return counts

@@ -11,7 +11,8 @@ show that a run went through the kernel (reset with `reset_launch_counts`).
 """
 
 LAUNCH_COUNTS: dict = {"fused_snn_net": 0, "fused_snn_net_gated": 0,
-                        "fused_snn_net_events": 0, "wkv6": 0}
+                        "fused_snn_net_events": 0, "fused_snn_step": 0,
+                        "wkv6": 0}
 
 
 def reset_launch_counts() -> None:

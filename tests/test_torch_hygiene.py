@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs.base import get_config, reduced_config  # noqa: E402
-from repro_torch.configs.impulse_snn import IMDB  # noqa: E402
+from repro_torch.configs.impulse_snn import IMDB, MNIST  # noqa: E402
 from repro_torch.core import pipeline, snn  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -23,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 WRAPPERS = [ROOT / "src" / "repro_torch" / "kernels" / kernel / name
-            for kernel in ("fused_snn_net", "wkv6")
+            for kernel in ("fused_snn_net", "wkv6", "fused_snn_step")
             for name in ("ops.py", "kernel.py")]
 
 
@@ -62,8 +62,9 @@ def test_entry_points_without_a_device_raise_on_a_host_without_cuda(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = snn.init_fc_snn(0, IMDB)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pipeline.compile_network(IMDB, params)
-    program = pipeline.compile_network(IMDB, params, device="cpu")
+        pipeline.compile_network(IMDB, params, domain="int")
+    program = pipeline.compile_network(IMDB, params, domain="int",
+                                       device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SNNServeEngine(program, backend="cuda")
     layers = [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
@@ -77,6 +78,13 @@ def test_entry_points_without_a_device_raise_on_a_host_without_cuda(
         pipeline.program_from_arrays(layers, neuron="rmp", timesteps=10)
     assert pipeline.program_from_arrays(
         layers, neuron="rmp", timesteps=10, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        snn.init_lenet_snn(0, MNIST)
+    conv_params = snn.init_lenet_snn(0, MNIST, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.compile_network(MNIST, conv_params, domain="int")
+    assert pipeline.compile_network(MNIST, conv_params, domain="int",
+                                    device="cpu").device.type == "cpu"
     cfg = reduced_config(get_config("rwkv6-7b"))
     for make in (lambda: lm.init_params(0, cfg),
                  lambda: lm.init_cache(cfg, 1, 8),

@@ -34,7 +34,8 @@ def jax_program_arrays(prog) -> list:
         return None if x is None else np.asarray(x)
     return [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
              "w": arr(ly.w), "threshold": arr(ly.threshold),
-             "leak": arr(ly.leak), "scale": ly.scale} for ly in prog.layers]
+             "leak": arr(ly.leak), "scale": ly.scale, "stride": ly.stride,
+             "state_shape": ly.state_shape} for ly in prog.layers]
 
 
 def carry_across(prog, device="cpu"):
