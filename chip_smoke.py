@@ -7,7 +7,7 @@ Phases, each of which exits non-zero on failure:
 
   1. the card (nvidia-smi name and power limit) and the build of every
      kernel from its CUDA source with nvcc (sm_90a), with ptxas's register
-     and spill report of each kernel;
+     and spill report of each kernel (kept for the `kernels` line);
   2. every kernel against its plain PyTorch version on the card, bit for
      bit (V, rasters and every gate or event counter), over the cases its
      callers give it: the dense kernel as before, the gated kernel at
@@ -26,10 +26,13 @@ Phases, each of which exits non-zero on failure:
      the device's busy time, its idle share and the time of each kernel;
   4. each kernel's device time at the serving shape (K = 10, B = 32) and at
      B = 4096, beside its plain version's device time, the host time of
-     one wrapper call, and its bound;
+     one wrapper call, and its bound; then the dense and gated kernels on
+     one structured raster (silent 16-row chunks and silent frames) at
+     K = 10, B = 32, with the share of gate sites the gated kernel skipped;
   5. the wkv6 kernel against its plain version (`wkv6_sequential`) on the
      card within 2e-4 relative and absolute: H = 64, K = V = 64 at
-     B in {1, 4} and T in {1, 16, 100, 1024}, and the JAX tests' small
+     B in {1, 4} and T in {1, 16, 31, 32, 33, 65, 100, 1024, 2048} (the
+     kernel's 32-step chunk edges among them), and the JAX tests' small
      shapes (K != V included), each with w drawn from [0.6, 0.999) and with
      w = exp(-e) on every step (the strongest decay the model allows, where
      the output must be finite), from a random initial state; and s0
@@ -70,7 +73,9 @@ Phases, each of which exits non-zero on failure:
      every backend with the energy per inference, and each backend's
      `run_network` time.
 
-Then one `kernels` JSON line with all five kernels. The last line is
+Then one `kernels` JSON line with all five kernels; the two redesigned for
+this card (wkv6 and the gated mode) carry `redesigned_in` and their
+registers and spills. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository's src/repro_torch beside this file, it prints no result and
 exits 1.
@@ -116,6 +121,9 @@ PEAK_F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 STRONG_DECAY = math.exp(-math.e)  # w at the model's decay clip
 WKV_SMALL = [(2, 64, 2, 64, 64), (1, 128, 3, 64, 64), (2, 100, 2, 32, 32),
              (1, 192, 1, 16, 64)]          # tests/test_kernels.py:82-87
+WKV_LENGTHS = (1, 16, 31, 32, 33, 65, 100, 1024, 2048)
+REDESIGNED = {"wkv6": "PR 17", "fused_snn_net_gated": "PR 17"}
+PORT_KERNELS = ("fused_snn_net", "fused_snn_step", "wkv6_kernel")
 LONG_PROMPT = 1024
 # Model-level tolerances, relative L2 error of the logits (and, for float32,
 # the largest elementwise error over the largest |logit|). With random
@@ -485,9 +493,9 @@ def event_ledger(drain, eng) -> dict:
 
 def profile_drain(drain, *args) -> dict:
     """One more drain (``drain(*args)``, returning its wall time second)
-    under torch.profiler: the drain's wall time, the device time of every
-    kernel and copy it ran, and the share of the wall time the device was
-    idle. The profiler slows the host, so the wall time here is not the
+    under torch.profiler: the drain's wall time, the device time of the
+    eight largest kernels and copies it ran and of every kernel of the
+    port, and the share of the wall time the device was idle. The profiler slows the host, so the wall time here is not the
     drain's throughput."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -504,17 +512,23 @@ def profile_drain(drain, *args) -> dict:
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
             "top": [{"name": k[:60], "ms": ms, "count": n}
-                    for k, (ms, n) in top]}
+                    for k, (ms, n) in top],
+            "port_kernels": [{"name": k[:60], "ms": ms, "count": n}
+                             for k, (ms, n) in by_name.items()
+                             if any(x in k for x in PORT_KERNELS)]}
 
 
-def phase_timing(ops, dev, name: str, B: int) -> dict:
+def phase_timing(ops, dev, name: str, B: int, structured: bool = False
+                 ) -> dict:
     """Phase 4: kernel ``name`` at the main path's shape (K = 10 frames,
     IMDB widths, carried V, rasters on, 85 % input sparsity, its drain's
-    mode options) and batch ``B``."""
+    mode options) and batch ``B``; iid spikes, or (``structured``) the
+    `raster` with silent 16-row chunks and silent frames."""
     rng = np.random.default_rng(SEED)
     T, block_b = 10, 8
     spikes = torch.from_numpy(
-        (rng.random((T, B, 100)) > 0.85).astype(np.int8)).to(dev)
+        raster(rng, (T, B, 100), 0.15, True) if structured
+        else (rng.random((T, B, 100)) > 0.85).astype(np.int8)).to(dev)
     ws = [torch.from_numpy(rng.integers(-31, 32, (a, b)).astype(np.int8)).to(dev)
           for a, b in zip(IMDB_WIDTHS[:-1], IMDB_WIDTHS[1:])]
     vi = [torch.zeros((B, n), dtype=torch.int32, device=dev)
@@ -536,9 +550,9 @@ def phase_timing(ops, dev, name: str, B: int) -> dict:
         T, B, IMDB_WIDTHS, readout=True, v_init=True, emit_rasters=True,
         macs=needed_macs(name, counters, T, B, IMDB_WIDTHS, block_b),
         counter_bytes=counter_bytes(name, B, IMDB_WIDTHS, block_b))
-    return {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms,
-            "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+    return {"T": T, "B": B, "structured": structured, "ms": ms,
+            "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "skipped_share": skipped_share(name, counters, T, B, IMDB_WIDTHS)}
 
 
@@ -570,7 +584,7 @@ def wkv_diff(got: torch.Tensor, want: torch.Tensor) -> tuple:
 
 
 def phase_wkv6_vs_plain(dev, heads: int = 64, head: int = 64,
-                        batches=(1, 4), lengths=(1, 16, 100, 1024),
+                        batches=(1, 4), lengths=WKV_LENGTHS,
                         small=WKV_SMALL) -> dict:
     """Phase 5: the wkv6 kernel against `wkv6_sequential` on the card, each
     case from a random initial state. Returns the cases and the worst
@@ -1128,6 +1142,25 @@ def phase_conv(dev) -> dict:
     return out
 
 
+def kernel_usage(usage: dict) -> dict:
+    """ptxas registers and spills by kernel name: `fused_snn_net.cu`'s
+    three kernels under their launch-count names, and every wkv6
+    instantiation as ``wkv6<K, COLS>``."""
+    import re
+    out = {}
+    for entry, row in usage.items():
+        m = re.search(r"wkv6_kernelILi(\d+)ELi(\d+)E", entry)
+        if m:
+            out[f"wkv6<{m.group(1)}, {m.group(2)}>"] = row
+        for name in ("fused_snn_net_gated", "fused_snn_net_events",
+                     "fused_snn_step_kernel"):
+            if name in entry:
+                out[name.replace("_kernel", "")] = row
+        if "fused_snn_net_kernel" in entry:
+            out["fused_snn_net"] = row
+    return out
+
+
 def leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -1164,11 +1197,15 @@ def main() -> int:
           f"{_build.source_path('wkv6')} and fused_snn_step from "
           f"{_build.source_path('fused_snn_step')} in "
           f"{time.perf_counter() - t0:.2f} s")
+    usage = {}
     for name, lib in libs.items():
-        for line in lib.with_suffix(".log").read_text().splitlines():
+        log = lib.with_suffix(".log").read_text()
+        for line in log.splitlines():
             if ("Compiling entry" in line or "registers" in line
                     or "spill" in line):
                 print(f"[phase 1] ptxas ({name}): {line.strip()}")
+        usage.update(kernel_usage(_build.ptxas_usage(log)))
+    print(f"[phase 1] registers and spills: {json.dumps(usage)}")
 
     checked = phase_kernel_vs_plain(ops, dev)
     for name, (n_cases, worst) in checked.items():
@@ -1186,10 +1223,11 @@ def main() -> int:
               f"request equal to the int_ref engine; {json.dumps(row)}")
         print(f"[phase 3] {backend} profiled drain: {json.dumps(profile)}")
 
-    entries = []
+    entries, serve_ms = [], {}
     for name in REPLACES:
         serve_t = phase_timing(ops, dev, name, 32)
         big_t = phase_timing(ops, dev, name, 4096)
+        serve_ms[name] = serve_t["ms"]
         print(f"[phase 4] {name} at K=10, B=32: {serve_t}")
         print(f"[phase 4] {name} at K=10, B=4096: {big_t}")
         engine = serving["engines"][BACKEND_OF[name]]
@@ -1206,6 +1244,25 @@ def main() -> int:
                       **MODE_KW[name]},
             "at_b4096": big_t, "backend": BACKEND_OF[name],
             "serving_frames_per_s": engine["frames_per_s"]})
+    structured = {"fused_snn_net": [], "fused_snn_net_gated": []}
+    for name in ("fused_snn_net", "fused_snn_net_gated",
+                 "fused_snn_net_gated", "fused_snn_net"):   # in turns
+        row = phase_timing(ops, dev, name, 32, structured=True)
+        print(f"[phase 4] {name} at K=10, B=32, structured raster: {row}")
+        structured[name].append(row)
+    gated_vs_dense = {
+        "iid": serve_ms["fused_snn_net_gated"] / serve_ms["fused_snn_net"],
+        "structured": (sum(r["ms"] for r in structured["fused_snn_net_gated"])
+                       / sum(r["ms"] for r in structured["fused_snn_net"]))}
+    print(f"[phase 4] gated / dense time at K=10, B=32: "
+          f"{json.dumps(gated_vs_dense)} ({card})")
+    for entry in entries:
+        name = entry["name"]
+        if name in structured:
+            entry["at_structured"] = structured[name]
+        if name in REDESIGNED:
+            entry.update(redesigned_in=REDESIGNED[name],
+                         vs_dense=gated_vs_dense, **usage[name])
 
     wkv = phase_wkv6_vs_plain(dev)
     for row in wkv["rows"]:
@@ -1245,6 +1302,8 @@ def main() -> int:
         "library_ms": None, "wrapper_ms": main_t["wrapper_ms"],
         "shape": {"B": 1, "T": LONG_PROMPT, "H": 64, "K": 64, "V": 64},
         "at_t16": timing[16], "model": cfg.arch_id,
+        "redesigned_in": REDESIGNED["wkv6"], **usage["wkv6<64, 32>"],
+        "ptxas": {k: v for k, v in usage.items() if k.startswith("wkv6")},
         "serving_tokens_per_s": lmrun["tokens_per_s"],
         "device_idle_share": profile["device_idle_share"]})
 

@@ -10,6 +10,9 @@ and thread, so builds may run in several threads at once. The library exposes a 
 interface and is loaded with ctypes; its source includes no PyTorch header,
 so a build takes seconds.
 
+`ptxas_usage` reads the registers and spills of every kernel from a
+build's ``.log`` (nvcc runs with ``-Xptxas -v``).
+
 nvcc is found through ``CUDA_HOME``, then ``PATH``, then the toolkit's
 default install prefix ``/usr/local/cuda``. A missing nvcc or a failed
 build raises `RuntimeError` with the compiler's output.
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -68,3 +72,28 @@ def build(name: str) -> Path:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_usage(log: str) -> dict:
+    """Per kernel entry of a ``-Xptxas -v`` report: ``{"registers": n,
+    "spill_stores": bytes, "spill_loads": bytes}``, keyed by the entry's
+    (mangled) name as ptxas prints it."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {"registers": None, "spill_stores": None,
+                            "spill_loads": None}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[entry]["spill_stores"] = int(m.group(1))
+            usage[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[entry]["registers"] = int(m.group(1))
+    return usage

@@ -34,13 +34,26 @@
 //
 // Gated mode. A layer's fan-in splits into blocks of `gate_bw` rows (128/G
 // for G in {2, 4, 8}, the macro's 128-row fan-in cut in G; the whole layer
-// at G = 1). Per (t, layer, block) one CTA-wide __syncthreads_or over the
-// block's block_b x width spike bytes decides whether its __dp4a words run.
-// Partials add into the V tile unclamped and the one clamp follows the last
-// block, exactly the dense clamp-after-accumulate; a silent block adds its
-// skip to shared column skip_off[i] + g, written to the CTA's own row of
-// the skip output at the end. Block starts are multiples of 4 rows at every
-// G, so the word layout of the transposed weights serves unchanged.
+// at G = 1). Block starts are multiples of 4 rows at every G, so a block is
+// a run of 32-bit words of the transposed weights and of the spike rows, and
+// no block crosses a 128-row (32-word) segment. Per (t, layer) every warp
+// computes the same occupancy masks from the spike buffer, which the barrier
+// before the layer has already published: lane q ORs word q of the tile's
+// block_b lanes (bytes past the fan-in masked off), a __ballot_sync gathers
+// the 32 words of a segment, and a fold and a multiply spread each nonzero
+// word over its block. The first segment's mask stays in registers; the
+// others (fan-in above 128) go to the warp's own words of shared memory,
+// behind a __syncwarp only: no CTA-wide barrier, no atomics. Each (lane,
+// column) thread then runs __dp4a over the runs of occupied words only,
+// four independent words at a time (the masks are CTA-uniform, so nothing
+// diverges; when every block of the layer is occupied, as on most iid
+// frames, it runs the dense loop itself), adds the sum into V once,
+// unclamped, and the one clamp follows, exactly the dense
+// clamp-after-accumulate; integer addition commutes, so this equals adding
+// each occupied block's partial in turn. A thread of the last warps owns
+// each block and adds its skip to shared column skip_off[i] + g when the
+// block is silent, written to the CTA's own row of the skip output at the
+// end.
 //
 // Event-list mode. Per (t, layer), every lane's masked frame is compacted
 // into an ascending active-row list in shared memory (one warp per lane:
@@ -54,10 +67,10 @@
 // sit an odd number of words apart, so a warp's reads hit 32 banks); no
 // second, untransposed copy is kept.
 //
-// In both new modes the ragged tile's missing lanes (b >= nb) are written
-// as silent before any occupancy test, count or list is taken (the TPU
-// kernel's `mask_pad`); the dense mode leaves their junk spikes, which no
-// output reads.
+// In the gated and event-list modes the ragged tile's missing lanes
+// (b >= nb) are written as silent before any occupancy test, count or list
+// is taken (the TPU kernel's `mask_pad`); the dense mode leaves their junk
+// spikes, which no output reads.
 //
 // Bound. One call moves T*B*N0 input bytes, sum N_i*N_{i+1} weight bytes,
 // 4*B*sum N_{i+1} bytes of V out (and in, with v_init) and T*B*sum N_i
@@ -66,9 +79,12 @@
 // At IMDB widths (100-128-128-1, T = 10) that is 100 to 200 operations per
 // byte, below the H100's ridge of 1,979 int8 TOP/s over 3.35 TB/s (~590
 // operations per byte), so the function is bound by memory. At serving
-// batch sizes (a few CTAs) the kernel is in fact bound by the latency of
-// its serial T x L loop and its barriers. Tensor-core MMA, TMA and
-// persistent CTAs are later work.
+// batch sizes (a few CTAs) every mode is in fact bound by the latency of
+// its serial T x L loop: one barrier per layer-step and the chain of
+// shared-memory loads into __dp4a of each (lane, column) thread. The gated
+// mode adds one mask pass a layer-step to the dense mode's work and takes
+// away the words of silent blocks. Tensor-core MMA, TMA and persistent CTAs
+// are later work.
 //
 // Signed overflow is undefined in C++ while the reference wraps, so every
 // V addition goes through uint32_t. The wrap clamp uses a mask, not C's
@@ -114,6 +130,8 @@ struct NetArgs {
   int gate_bw;                          // fan-in rows per gate block
   int skip_off[MAX_LAYERS];             // column of layer i's first block
   int n_skip_cols;
+  int gate_off;                         // smem byte offset of the warps' masks
+  int gate_ld;                          // mask words per warp (128-row segments)
   int32_t* skips;                       // (B / block_b tiles, n_skip_cols)
   // event-list mode: row counters of layer i at counter row_off[i], then
   // one fallback counter per layer at fb_off
@@ -140,39 +158,100 @@ __device__ __forceinline__ int clamp_v(int v, int wrap) {
   return min(max(v, -1024), 1023);
 }
 
-// Gated AccW2V of layer i: each occupied block's partial product adds into
-// the V tile unclamped; each silent block counts a skip.
-__device__ __forceinline__ void gated_accumulate(
-    const NetArgs& a, int i, const int32_t* in_w, const int32_t* wt,
-    int32_t* v, int32_t* cnt) {
-  const int tid = threadIdx.x;
-  const int n_in = a.width[i], n_out = a.width[i + 1];
-  const int spk_row_bytes = a.spk_ld * 4;
-  const int ldw = a.wt_ld[i];
-  const int8_t* in = reinterpret_cast<const int8_t*>(in_w);
-  const int bw = a.gate_bw > 0 ? a.gate_bw : n_in;
-  const int n_blocks = (n_in + bw - 1) / bw;
-  for (int g = 0; g < n_blocks; ++g) {
-    const int lo = g * bw, width = min(bw, n_in - lo);
-    int any = 0;
-    for (int e = tid; e < a.block_b * width; e += THREADS) {
-      const int b = e / width;
-      any |= in[b * spk_row_bytes + lo + (e - b * width)];
+// Gated mode: bit q of a segment's mask set for every word of a gate block
+// of `bwq` words (4, 8 or 16) that holds a nonzero word of `m`. Blocks are
+// aligned to their size within the segment, so a fold to the block's first
+// bit and a multiply by the block's ones fill each one without carries.
+__device__ __forceinline__ unsigned spread_blocks(unsigned m, int bwq) {
+  unsigned x = m | (m >> 1);
+  x |= x >> 2;                                  // bit 4k: OR of bits 4k..4k+3
+  unsigned first = 0x11111111u;
+  if (bwq >= 8) { x |= x >> 4; first = 0x01010101u; }
+  if (bwq >= 16) { x |= x >> 8; first = 0x00010001u; }
+  return (x & first) * ((1u << bwq) - 1u);
+}
+
+// Gated mode, layer i: this warp's occupancy masks of the input buffer
+// `in_w`, one word per 128-row segment: the first returned in `m0`, the
+// others (fan-in above 128) written to the warp's own words `wm`; then the
+// skip counts of the silent blocks, counted by the last warps (the first
+// ones carry the readout's few elements). Returns whether every block is
+// occupied (warp-uniform, and the same in every warp). Needs no barrier:
+// the buffer is already published and `wm` is the warp's own.
+__device__ __forceinline__ bool gate_masks(const NetArgs& a, int i,
+                                           const int32_t* in_w, unsigned* wm,
+                                           unsigned& m0, int32_t* cnt) {
+  const int lane = threadIdx.x & 31;
+  const int n_in = a.width[i];
+  const int n_words = (n_in + 3) >> 2;
+  const int bwq = a.gate_bw >> 2;               // words a block; 0 at G = 1
+  unsigned any = 0;
+  bool full = true;
+  for (int s0 = 0; s0 < n_words; s0 += 32) {
+    const int q = s0 + lane;
+    unsigned word = 0;
+    if (q < n_words) {
+#pragma unroll 8
+      for (int b = 0; b < a.block_b; ++b)
+        word |= (unsigned)in_w[b * a.spk_ld + q];
+      if (4 * q + 4 > n_in)                     // bytes past the fan-in
+        word &= (1u << (8 * (n_in & 3))) - 1u;
     }
-    if (!__syncthreads_or(any)) {
-      if (tid == 0) cnt[a.skip_off[i] + g] += 1;
-      continue;
-    }
-    const int q0 = lo >> 2, q1 = (lo + width + 3) >> 2;
-    for (int e = tid; e < a.block_b * n_out; e += THREADS) {
-      const int b = e / n_out, j = e - b * n_out;
-      const int32_t* srow = in_w + b * a.spk_ld;
-      const int32_t* wrow = wt + j * ldw;
-      int acc = 0;
-      for (int q = q0; q < q1; ++q) acc = __dp4a(srow[q], wrow[q], acc);
-      v[e] = add_wrap(v[e], acc);
+    unsigned m = __ballot_sync(0xffffffffu, word != 0);
+    any |= m;
+    if (bwq) {
+      m = spread_blocks(m, bwq);
+      if (s0 == 0) m0 = m;
+      else if (lane == 0) wm[s0 >> 5] = m;
+      const int nw = min(32, n_words - s0);     // words of this segment
+      full &= (nw == 32 ? m : m & ((1u << nw) - 1u)) ==
+              (nw == 32 ? ~0u : (1u << nw) - 1u);
     }
   }
+  if (!bwq) {                                    // G = 1: one block a layer
+    full = any != 0;
+    m0 = any ? ~0u : 0u;
+    for (int s = 1 + lane; s < (n_words + 31) >> 5; s += 32) wm[s] = m0;
+  }
+  if (n_words > 32) __syncwarp();
+  const int n_blocks = bwq ? (n_words + bwq - 1) / bwq : 1;
+  for (int g = THREADS - 1 - threadIdx.x; g < n_blocks; g += THREADS) {
+    const int q0 = g * bwq;
+    const unsigned m = q0 < 32 ? m0 : wm[q0 >> 5];
+    if (!((m >> (q0 & 31)) & 1u)) cnt[a.skip_off[i] + g] += 1;
+  }
+  return full;
+}
+
+// Gated mode: the AccW2V sum of one (lane, column) over the runs of
+// occupied words in the masks (`m0`, then `wm`).
+__device__ __forceinline__ int gated_dot(const int32_t* srow,
+                                         const int32_t* wrow, unsigned m0,
+                                         const unsigned* wm, int n_words) {
+  int acc = 0;
+  for (int s0 = 0; s0 < n_words; s0 += 32) {
+    unsigned m = s0 == 0 ? m0 : wm[s0 >> 5];
+    while (m) {
+      const int lo = __ffs(m) - 1;              // a run of set bits from lo
+      const unsigned rest = ~(m >> lo);
+      const int hi = rest ? lo + __ffs(rest) - 1 : 32;
+      const int q1 = min(s0 + hi, n_words);
+      int q = s0 + lo;
+      for (; q + 4 <= q1; q += 4) {               // blocks are >= 4 words
+        const int s_0 = srow[q], s_1 = srow[q + 1], s_2 = srow[q + 2],
+                  s_3 = srow[q + 3];
+        const int w_0 = wrow[q], w_1 = wrow[q + 1], w_2 = wrow[q + 2],
+                  w_3 = wrow[q + 3];
+        acc = __dp4a(s_0, w_0, acc);
+        acc = __dp4a(s_1, w_1, acc);
+        acc = __dp4a(s_2, w_2, acc);
+        acc = __dp4a(s_3, w_3, acc);
+      }
+      for (; q < q1; ++q) acc = __dp4a(srow[q], wrow[q], acc);
+      m = hi == 32 ? 0u : m & ~((1u << hi) - 1u);
+    }
+  }
+  return acc;
 }
 
 // Event-list bookkeeping of layer i: per-row counts, one ascending active
@@ -220,6 +299,8 @@ __device__ __forceinline__ void net_body(const NetArgs& a) {
   int32_t* cnt = reinterpret_cast<int32_t*>(smem + a.cnt_off);
   unsigned short* lists = reinterpret_cast<unsigned short*>(smem + a.list_off);
   int* lcount = reinterpret_cast<int*>(smem + a.lcount_off);
+  unsigned* wm = reinterpret_cast<unsigned*>(smem + a.gate_off)
+                 + (tid >> 5) * a.gate_ld;      // this warp's gate masks
 
   // weights, transposed: byte k of W^T row j is W[k, j]; fan-in padding is 0
   for (int i = 0; i < a.n_layers; ++i) {
@@ -274,16 +355,19 @@ __device__ __forceinline__ void net_body(const NetArgs& a) {
       const int th = spiking ? a.threshold[i] : 0;
       const int leak = spiking ? a.leak[i] : 0;
       bool dense = MODE == MODE_DENSE;
-      if (MODE == MODE_GATED) gated_accumulate(a, i, in, wt, v, cnt);
+      unsigned m0 = 0;                            // gated: first segment's mask
+      if (MODE == MODE_GATED) dense = gate_masks(a, i, in, wm, m0, cnt);
       if (MODE == MODE_EVENTS)
         dense = events_prepare(a, i, in_b, lists, lcount, cnt);
       for (int e = tid; e < a.block_b * n_out; e += THREADS) {
         const int b = e / n_out, j = e - b * n_out;
-        int acc = 0;                          // gated: partials already in v
+        int acc = 0;
         if (dense) {
           const int32_t* srow = in + b * a.spk_ld;
           const int32_t* wrow = wt + j * ldw;
           for (int q = 0; q < n_words; ++q) acc = __dp4a(srow[q], wrow[q], acc);
+        } else if (MODE == MODE_GATED) {
+          acc = gated_dot(in + b * a.spk_ld, wt + j * ldw, m0, wm, n_words);
         } else if (MODE == MODE_EVENTS) {
           const unsigned short* list = lists + b * a.list_ld;
           const int8_t* wrow = reinterpret_cast<const int8_t*>(wt + j * ldw);
@@ -331,7 +415,11 @@ __device__ __forceinline__ void net_body(const NetArgs& a) {
 __global__ void __launch_bounds__(THREADS)
 fused_snn_net_kernel(const NetArgs a) { net_body<MODE_DENSE>(a); }
 
-__global__ void __launch_bounds__(THREADS)
+// The gated body needs more than the 32 registers ptxas settles on for
+// the others (it spilled there); asking for two CTAs an SM, not eight,
+// gives it 76 and no spills, at the cost of fewer resident CTAs at very
+// large batch.
+__global__ void __launch_bounds__(THREADS, 2)
 fused_snn_net_gated(const NetArgs a) { net_body<MODE_GATED>(a); }
 
 __global__ void __launch_bounds__(THREADS)

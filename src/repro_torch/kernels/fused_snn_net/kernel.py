@@ -54,7 +54,8 @@ class NetArgs(ctypes.Structure):
         ("has_v_init", ctypes.c_int),
         ("cnt_off", ctypes.c_int), ("n_counters", ctypes.c_int),
         ("gate_bw", ctypes.c_int), ("skip_off", _INTS),
-        ("n_skip_cols", ctypes.c_int), ("skips", ctypes.c_void_p),
+        ("n_skip_cols", ctypes.c_int), ("gate_off", ctypes.c_int),
+        ("gate_ld", ctypes.c_int), ("skips", ctypes.c_void_p),
         ("row_off", _INTS), ("fb_off", ctypes.c_int), ("dense_thr", _INTS),
         ("list_off", ctypes.c_int), ("list_ld", ctypes.c_int),
         ("lcount_off", ctypes.c_int), ("row_counts", _PTRS),
@@ -152,10 +153,12 @@ def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
     int32 counters (``cnt_off``, ``n_counters``: the ``n_skip_cols`` skip
     columns in gated mode; in event-list mode each layer's input-row
     counts from ``row_off[i]`` and one fallback count per layer from
-    ``fb_off``), the event-list mode's uint16 active-row lists
-    (``list_off``, ``list_ld`` entries per lane) and their int32 lengths
-    (``lcount_off``), and the total ``bytes``. The one place the kernels'
-    shared memory is computed."""
+    ``fb_off``), the gated mode's occupancy masks (``gate_off``: one
+    32-bit word per 128 fan-in rows of the widest layer, ``gate_ld``, for
+    each of the block's warps), the event-list mode's uint16 active-row
+    lists (``list_off``, ``list_ld`` entries per lane) and their int32
+    lengths (``lcount_off``), and the total ``bytes``. The one place the
+    kernels' shared memory is computed."""
     off = 0
     wt_off, wt_ld, v_off = [], [], []
     for n_in, n_out in zip(widths[:-1], widths[1:]):
@@ -183,6 +186,9 @@ def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
         n_counters = 0
     cnt_off = off
     off += _align16(4 * n_counters)
+    gate_off = off
+    gate_ld = -(-max(in_widths) // LANE) if mode == "gated" else 0
+    off += _align16(4 * (THREADS // 32) * gate_ld)
     list_off = off
     off += _align16(2 * block_b * list_ld)
     lcount_off = off
@@ -190,6 +196,7 @@ def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
     return {"wt_off": wt_off, "wt_ld": wt_ld, "v_off": v_off,
             "spk_off": spk_off, "spk_ld": spk_ld, "cnt_off": cnt_off,
             "n_counters": n_counters, "row_off": row_off, "fb_off": fb_off,
+            "gate_off": gate_off, "gate_ld": gate_ld,
             "list_off": list_off, "list_ld": list_ld,
             "lcount_off": lcount_off, "bytes": off}
 
@@ -317,6 +324,7 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         for i, off in enumerate(skip_off):
             args.skip_off[i] = off
         args.n_skip_cols = n_skip_cols
+        args.gate_off, args.gate_ld = layout["gate_off"], layout["gate_ld"]
         args.skips = skips.data_ptr()
         counters = skips
     elif mode == "events":

@@ -3,9 +3,12 @@ counterpart of `repro.kernels.wkv6.kernel._wkv6_kernel`.
 
 `wkv6_cuda` checks every tensor (device, dtype, shape, contiguity,
 alignment), allocates the outputs, and launches the kernel on the current
-stream of the tensors' device. The library is built with nvcc on first use
-(`repro_torch.kernels._build`). Nothing here runs on the CPU: the public
-wrapper `ops.wkv6` sends CPU tensors to the plain version.
+stream of the tensors' device. `launch_plan` states the kernel's grid,
+block and shared memory for a shape; the library's own plan is checked
+against it for every (K, V) when the library is loaded. The library is
+built with nvcc on first use (`repro_torch.kernels._build`). Nothing here
+runs on the CPU: the public wrapper `ops.wkv6` sends CPU tensors to the
+plain version.
 """
 from __future__ import annotations
 
@@ -18,8 +21,28 @@ from repro_torch.kernels import _build
 
 NAME = "wkv6"
 HEAD_SIZES = (16, 32, 64)     # the K and V the kernel is instantiated for
+CHUNK = 32                    # steps staged in shared memory at a time
+ROWS = 4                      # state rows of a thread's tile
+CPT = 4                       # state columns of a thread's tile
+SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block can use
 
 _LIB = None                   # the loaded library, built on first use
+
+
+def launch_plan(BH: int, K: int, V: int) -> dict:
+    """The kernel's launch for B*H rows of K x V state: ``cols`` state
+    columns a block, ``K / ROWS`` row groups of ``ROWS`` rows, each thread
+    a tile of ``ROWS`` x ``CPT`` state elements (``threads`` = groups x
+    cols / CPT), ``grid`` = BH x V / cols blocks, ``chunk`` steps staged at
+    a time, and ``smem_bytes`` of dynamic shared memory: two stages of r,
+    k, w (chunk x K each) and the block's v columns, and two partial-y
+    buffers (groups x chunk x cols), float32."""
+    cols = min(V, 32)
+    groups = K // ROWS
+    floats = 2 * (3 * CHUNK * K + CHUNK * cols) + 2 * groups * CHUNK * cols
+    return {"grid": BH * (V // cols), "threads": groups * cols // CPT,
+            "cols": cols, "groups": groups, "chunk": CHUNK,
+            "smem_bytes": 4 * floats}
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,6 +54,21 @@ def _lib() -> ctypes.CDLL:
         lib.wkv6_launch.restype = ctypes.c_int
         lib.wkv6_error_string.argtypes = [ctypes.c_int]
         lib.wkv6_error_string.restype = ctypes.c_char_p
+        lib.wkv6_plan.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)] * 4
+        lib.wkv6_plan.restype = ctypes.c_int
+        for K in HEAD_SIZES:
+            for V in HEAD_SIZES:
+                got = [ctypes.c_int() for _ in range(4)]
+                err = lib.wkv6_plan(K, V, *map(ctypes.byref, got))
+                plan = launch_plan(1, K, V)
+                want = [plan[x] for x in ("threads", "cols", "smem_bytes",
+                                          "chunk")]
+                if err or [x.value for x in got] != want:
+                    raise RuntimeError(
+                        f"{NAME} library disagrees with its binding at K={K}, "
+                        f"V={V}: (threads, cols, smem bytes, chunk) = "
+                        f"{[x.value for x in got]}, expected {want}")
         _LIB = lib
     return _LIB
 

@@ -339,6 +339,53 @@ def test_shared_memory_layout_of_the_new_modes(mode, extra, fits):
     assert (lay["bytes"] <= kernel.SMEM_LIMIT) == fits
 
 
+MASK_WIDTHS = [IMDB_WIDTHS, WIDE_WIDTHS, (686, 120, 84, 10), (126, 14)]
+
+
+@pytest.mark.parametrize("widths", MASK_WIDTHS, ids=str)
+def test_gate_mask_region_of_the_gated_layout(widths):
+    """The gated kernel's per-warp occupancy masks: one 32-bit word per
+    128 fan-in rows of the widest layer for each of the block's warps,
+    after the skip counters; the dense and event-list layouts carry none
+    and keep their size."""
+    n_cols = kernel.skip_layout(widths[:-1], 8)[2]
+    lay = kernel.smem_layout(widths, 8, "gated", n_cols)
+    assert lay["gate_ld"] == -(-max(widths[:-1]) // 128)
+    assert lay["gate_off"] >= lay["cnt_off"] + 4 * n_cols
+    assert lay["gate_off"] % 16 == 0
+    assert lay["list_off"] >= (lay["gate_off"]
+                               + 4 * (kernel.THREADS // 32) * lay["gate_ld"])
+    assert lay["bytes"] <= kernel.SMEM_LIMIT
+    for mode in ("dense", "events"):
+        other = kernel.smem_layout(widths, 8, mode)
+        assert other["gate_ld"] == 0
+        assert other["gate_off"] == other["list_off"]
+
+
+@pytest.mark.parametrize("granularity", GRANULARITIES)
+@pytest.mark.parametrize("widths", MASK_WIDTHS, ids=str)
+def test_gate_blocks_are_word_runs_inside_one_segment(widths, granularity):
+    """What the gated kernel's masks rely on: a gate block of 128/G rows
+    is a run of whole 32-bit words of the spike rows and the transposed
+    weights that never crosses a 128-row (32-word) segment, and counting
+    blocks in words, ceil(ceil(n / 4) / (32 / G)), gives JAX's skip-count
+    columns (`skip_layout`)."""
+    from repro.kernels.fused_snn_net.kernel import skip_layout as jax_layout
+    n_cols = jax_layout(widths[:-1], granularity)[0]
+    assert kernel.skip_layout(widths[:-1], granularity)[0] == tuple(n_cols)
+    for n_in, cols in zip(widths[:-1], n_cols):
+        words = -(-n_in // 4)
+        if granularity == 1:
+            assert cols == 1
+            continue
+        bwq = kernel.LANE // granularity // 4
+        assert 32 % bwq == 0
+        assert -(-words // bwq) == cols
+        for g in range(cols):
+            lo, hi = g * bwq, min((g + 1) * bwq, words)
+            assert lo // 32 == (hi - 1) // 32
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -363,3 +410,55 @@ def test_gated_kernel_matches_plain_version_on_the_card(
         assert torch.equal(g, x)
     for g, x in zip(as_list(got[2]), as_list(want[2])):
         np.testing.assert_array_equal(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", GRANULARITIES)
+@pytest.mark.parametrize("clamp", ["saturate", "wrap"])
+@pytest.mark.parametrize("widths", [IMDB_WIDTHS, (686, 120, 84, 10)],
+                         ids=["imdb", "mnist-fc"])
+def test_gated_kernel_on_structured_rasters_on_the_card(
+        cuda_device, widths, clamp, granularity):
+    """Rasters with silent 16-row chunks and silent frames, so whole gate
+    blocks are silent at every G, on a ragged tile (B = 13, block_b = 8):
+    V, rasters and skip counters equal the plain version's, and the first
+    layer's gates both skip and run."""
+    s, w, ths, lks, vi = torch_args(make_case(widths, T=10, B=13, seed=90),
+                                    cuda_device)
+    kw = dict(neuron="rmp", clamp_mode=clamp, v_init=vi, use_sparse=True,
+              gate_granularity=granularity, block_b=8)
+    got = fused_snn_net(s, w, thresholds=ths, leaks=lks, **kw)
+    want = fused_snn_net_ref(s, w, ths, lks, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, x)
+    skips = as_list(got[2])
+    for g, x in zip(skips, as_list(want[2])):
+        np.testing.assert_array_equal(g, x)
+    first = skips[0] if granularity > 1 else skips[0][:, :1]
+    assert 0 < first.sum() < 10 * first.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", GRANULARITIES)
+@pytest.mark.parametrize("fill", [0, 1])
+def test_gated_kernel_on_silent_and_full_rasters_on_the_card(
+        cuda_device, fill, granularity):
+    """All-silent input skips every first-layer gate on every tile, all-ones
+    input none; both equal the plain version bit for bit."""
+    _, ws, ths, lks, vi = make_case(IMDB_WIDTHS, T=6, B=13, seed=4)
+    s = torch.full((6, 13, 100), fill, dtype=torch.int8, device=cuda_device)
+    w = [torch.from_numpy(x).to(cuda_device) for x in ws]
+    v = [torch.from_numpy(x).to(cuda_device) for x in vi]
+    kw = dict(neuron="lif", clamp_mode="wrap", v_init=v, use_sparse=True,
+              gate_granularity=granularity, block_b=8)
+    got = fused_snn_net(s, w, thresholds=ths, leaks=lks, **kw)
+    want = fused_snn_net_ref(s, w, ths, lks, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, x)
+    skips = as_list(got[2])
+    for g, x in zip(skips, as_list(want[2])):
+        np.testing.assert_array_equal(g, x)
+    first = skips[0] if granularity > 1 else skips[0][:, :1]
+    assert (first == (6 if fill == 0 else 0)).all()

@@ -213,6 +213,36 @@ def test_cuda_binding_refuses_cpu_tensors():
         kernel.wkv6_cuda(*bh[:4], bh[4], s0)
 
 
+@pytest.mark.parametrize("K", kernel.HEAD_SIZES)
+@pytest.mark.parametrize("V", kernel.HEAD_SIZES)
+def test_launch_plan_fits_a_hopper_block(K, V):
+    """Every (K, V) the kernel takes: a tile of ROWS x CPT state elements
+    a thread, row groups that tile K, column blocks that tile V, whole
+    warps (or the one half warp of K = V = 16), and shared memory within a
+    Hopper block's."""
+    for BH in (1, 64, 264):
+        plan = kernel.launch_plan(BH, K, V)
+        assert plan["threads"] % 16 == 0 and plan["threads"] <= 1024
+        assert plan["groups"] * kernel.ROWS == K
+        assert plan["threads"] * kernel.CPT == plan["groups"] * plan["cols"]
+        assert V % plan["cols"] == 0 and plan["cols"] in (16, 32)
+        assert plan["cols"] % kernel.CPT == 0
+        assert plan["grid"] == BH * V // plan["cols"]
+        assert plan["chunk"] == kernel.CHUNK
+        assert plan["smem_bytes"] % 16 == 0
+        assert plan["smem_bytes"] <= kernel.SMEM_LIMIT
+
+
+def test_launch_plan_at_the_served_head():
+    """RWKV6-7B's heads (K = V = 64) at batch 1: 128 blocks of 4 warps,
+    one warp a scheduler of an SM, and 184 KiB of shared memory each (above
+    the 48 KiB default, so the launcher raises the kernel's dynamic
+    shared-memory limit)."""
+    plan = kernel.launch_plan(64, 64, 64)
+    assert (plan["grid"], plan["threads"], plan["smem_bytes"]) == (
+        128, 128, 188_416)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -229,6 +259,17 @@ CARD_CASES = [
     (2, 100, 2, 32, 32, None),
     (1, 192, 1, 16, 64, None),
     (1, 33, 3, 64, 16, STRONG),
+    # the 32-step chunk's edges, a long prompt, more than one wave of
+    # blocks (B*H = 264), K != V both ways
+    (1, 31, 4, 64, 64, None),
+    (1, 32, 4, 64, 64, STRONG),
+    (1, 33, 4, 64, 64, None),
+    (1, 65, 4, 64, 64, None),
+    (1, 2048, 64, 64, 64, None),
+    (4, 40, 66, 64, 64, None),
+    (2, 100, 2, 64, 16, None),
+    (2, 100, 2, 16, 64, STRONG),
+    (1, 50, 3, 16, 16, None),
 ]
 
 
@@ -259,3 +300,31 @@ def test_wrapper_launches_the_kernel_on_the_card(cuda_device):
     assert kernels.LAUNCH_COUNTS["wkv6"] == before + 1
     with pytest.raises(ValueError, match="K and V"):
         ops.wkv6(*[t(x).to(cuda_device) for x in wkv_inputs(1, 4, 1, 8, 8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,h,K,V", [(65, 32, 64, 64), (1024, 513, 64, 64),
+                                     (40, 7, 16, 64), (2048, 1024, 64, 16)])
+def test_two_halves_continue_from_s0_on_the_card(cuda_device, T, h, K, V):
+    """The kernel on steps [0, h) and then [h, T) from the first call's
+    state equals the plain version over all T steps."""
+    B, H = 1, 4
+    bh = [t(x).to(cuda_device) for x in
+          bh_inputs(*wkv_inputs(B, T, H, K, V, seed=h, w_const=None))]
+    s0 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B * H, K, V)).astype(np.float32)).to(cuda_device)
+    first = [x[:, :h].contiguous() for x in bh[:4]]
+    second = [x[:, h:].contiguous() for x in bh[:4]]
+    y1, s1 = kernel.wkv6_cuda(*first, bh[4], s0)
+    y2, s2 = kernel.wkv6_cuda(*second, bh[4], s1)
+    y_p, s_p = ref.wkv6_sequential(*bh, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_p, **TOL)
+    torch.testing.assert_close(s2, s_p, **TOL)
+
+
+@pytest.mark.cuda
+def test_library_plan_matches_the_binding(cuda_device):
+    """Loading the library checks its launch plan against `launch_plan`
+    for every (K, V); it raises on a difference."""
+    assert kernel._lib() is not None
