@@ -26,7 +26,8 @@ Phases, each of which exits non-zero on failure:
      the device's busy time, its idle share and the time of each kernel;
   4. each kernel's device time at the serving shape (K = 10, B = 32) and at
      B = 4096, beside its plain version's device time, the host time of
-     one wrapper call, and its bound; then the dense and gated kernels on
+     one wrapper call, and its bound, and the gated and event-list times
+     over the dense one; then the dense and gated kernels on
      one structured raster (silent 16-row chunks and silent frames) at
      K = 10, B = 32, with the share of gate sites the gated kernel skipped;
   5. the wkv6 kernel against its plain version (`wkv6_sequential`) on the
@@ -60,8 +61,8 @@ Phases, each of which exits non-zero on failure:
      `benchmarks/pipeline_fusion.py` (T = 120, B = 8, threshold 60, leak 2,
      RMP, density 0.1) dispatched layer by layer (two `fused_snn_layer`
      launches, then the int32 readout) against one fused `fused_snn_net`
-     launch: the same readout V and rasters; both times, the traffic model,
-     and the Fig. 9 row's instruction counts and energy;
+     launch: the same readout V and rasters; both times and their ratio,
+     the traffic model, and the Fig. 9 row's instruction counts and energy;
   9. the impulse-mnist conv program at full width (28x28x1 input, convs
      14/14/14, FC 686-120-84-10, T = 10), weights drawn on the card from a
      seed, 64 `mnist_like_batch` images through `present_static` on all five
@@ -73,9 +74,9 @@ Phases, each of which exits non-zero on failure:
      every backend with the energy per inference, and each backend's
      `run_network` time.
 
-Then one `kernels` JSON line with all five kernels; the two redesigned for
-this card (wkv6 and the gated mode) carry `redesigned_in` and their
-registers and spills. The last line is
+Then one `kernels` JSON line with all five kernels; the four redesigned
+for this card (wkv6, the gated and event-list modes and fused_snn_step)
+carry `redesigned_in` and their registers and spills. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository's src/repro_torch beside this file, it prints no result and
 exits 1.
@@ -122,7 +123,8 @@ STRONG_DECAY = math.exp(-math.e)  # w at the model's decay clip
 WKV_SMALL = [(2, 64, 2, 64, 64), (1, 128, 3, 64, 64), (2, 100, 2, 32, 32),
              (1, 192, 1, 16, 64)]          # tests/test_kernels.py:82-87
 WKV_LENGTHS = (1, 16, 31, 32, 33, 65, 100, 1024, 2048)
-REDESIGNED = {"wkv6": "PR 17", "fused_snn_net_gated": "PR 17"}
+REDESIGNED = {"wkv6": "PR 17", "fused_snn_net_gated": "PR 17",
+              "fused_snn_net_events": "PR 18", "fused_snn_step": "PR 18"}
 PORT_KERNELS = ("fused_snn_net", "fused_snn_step", "wkv6_kernel")
 LONG_PROMPT = 1024
 # Model-level tolerances, relative L2 error of the logits (and, for float32,
@@ -1005,6 +1007,7 @@ def phase_per_layer(dev) -> tuple:
         "spike_rates": [float(r.float().mean()) for r in rasters],
         "per_layer_ms": layer_ms, "fused_accounting_ms": fused_ms,
         "fused_serving_ms": serving_ms,
+        "per_layer_over_fused": layer_ms / fused_ms,
         "hbm_bytes": {"per_layer": fusion_hbm_bytes(True, False),
                       "fused_accounting": fusion_hbm_bytes(True, True),
                       "fused_serving": fusion_hbm_bytes(False, True)},
@@ -1144,18 +1147,25 @@ def phase_conv(dev) -> dict:
 
 def kernel_usage(usage: dict) -> dict:
     """ptxas registers and spills by kernel name: `fused_snn_net.cu`'s
-    three kernels under their launch-count names, and every wkv6
-    instantiation as ``wkv6<K, COLS>``."""
+    three kernels under their launch-count names, every wkv6 instantiation
+    as ``wkv6<K, COLS>``, every fused_snn_step instantiation as
+    ``fused_snn_step<NEURON, WRAP>`` and under ``fused_snn_step`` the one
+    that uses the most registers."""
     import re
     out = {}
     for entry, row in usage.items():
         m = re.search(r"wkv6_kernelILi(\d+)ELi(\d+)E", entry)
         if m:
             out[f"wkv6<{m.group(1)}, {m.group(2)}>"] = row
-        for name in ("fused_snn_net_gated", "fused_snn_net_events",
-                     "fused_snn_step_kernel"):
+        m = re.search(r"fused_snn_step_kernelILi(\d+)ELi(\d+)E", entry)
+        if m:
+            out[f"fused_snn_step<{m.group(1)}, {m.group(2)}>"] = row
+            if row["registers"] >= out.get("fused_snn_step",
+                                           {"registers": -1})["registers"]:
+                out["fused_snn_step"] = row
+        for name in ("fused_snn_net_gated", "fused_snn_net_events"):
             if name in entry:
-                out[name.replace("_kernel", "")] = row
+                out[name] = row
         if "fused_snn_net_kernel" in entry:
             out["fused_snn_net"] = row
     return out
@@ -1250,19 +1260,25 @@ def main() -> int:
         row = phase_timing(ops, dev, name, 32, structured=True)
         print(f"[phase 4] {name} at K=10, B=32, structured raster: {row}")
         structured[name].append(row)
-    gated_vs_dense = {
-        "iid": serve_ms["fused_snn_net_gated"] / serve_ms["fused_snn_net"],
-        "structured": (sum(r["ms"] for r in structured["fused_snn_net_gated"])
-                       / sum(r["ms"] for r in structured["fused_snn_net"]))}
-    print(f"[phase 4] gated / dense time at K=10, B=32: "
-          f"{json.dumps(gated_vs_dense)} ({card})")
+    big_ms = {e["name"]: e["at_b4096"]["ms"] for e in entries}
+    vs_dense = {name: {
+        "B32": serve_ms[name] / serve_ms["fused_snn_net"],
+        "B4096": big_ms[name] / big_ms["fused_snn_net"]}
+        for name in ("fused_snn_net_gated", "fused_snn_net_events")}
+    vs_dense["fused_snn_net_gated"]["structured"] = (
+        sum(r["ms"] for r in structured["fused_snn_net_gated"])
+        / sum(r["ms"] for r in structured["fused_snn_net"]))
+    print(f"[phase 4] K=10 ms at B=32 / B=4096: "
+          + "; ".join(f"{n} {serve_ms[n]:.4f} / {big_ms[n]:.4f}"
+                      for n in REPLACES)
+          + f"; time / dense: {json.dumps(vs_dense)} ({card})")
     for entry in entries:
         name = entry["name"]
         if name in structured:
             entry["at_structured"] = structured[name]
         if name in REDESIGNED:
             entry.update(redesigned_in=REDESIGNED[name],
-                         vs_dense=gated_vs_dense, **usage[name])
+                         vs_dense=vs_dense[name], **usage[name])
 
     wkv = phase_wkv6_vs_plain(dev)
     for row in wkv["rows"]:
@@ -1311,6 +1327,9 @@ def main() -> int:
     print(f"[phase 7] fused_snn_step == plain version on the card in "
           f"{step['cases']} cases (max |diff| {step['max_abs_err']})")
     fusion, layer_inputs = phase_per_layer(dev)
+    print(f"[phase 8] per-layer / fused time: "
+          f"{fusion['per_layer_over_fused']:.3f} ({fusion['per_layer_ms']:.4f}"
+          f" / {fusion['fused_accounting_ms']:.4f} ms) ({card})")
     print(f"[phase 8] per-layer dispatch (2 fused_snn_step launches + int32 "
           f"readout) == one fused_snn_net launch on the IMDB stack at "
           f"T={FUSION_T}, B={FUSION_B}: {json.dumps(fusion)} ({card})")
@@ -1322,7 +1341,11 @@ def main() -> int:
               {"threshold": FUSION_TH, "leak": FUSION_LEAK})
         step_t[label] = phase_step_timing(dev, label, spikes, wq,
                                           neuron="rmp", **kw)
-        print(f"[phase 7] fused_snn_step {label}: {step_t[label]} ({card})")
+        row = step_t[label]
+        print(f"[phase 7] fused_snn_step {label} (T={row['T']}, "
+              f"B={row['B']}, {row['n_in']}->{row['n_out']}): "
+              f"{row['ms']:.5f} ms, bound {row['bound_ms']:.3e} ms "
+              f"({row['bound_by']}); {json.dumps(row)} ({card})")
     main_t = step_t["imdb_layer1"]
     entries.append({
         "name": "fused_snn_step", "route": "cuda", "source": STEP_SOURCE,
@@ -1335,7 +1358,11 @@ def main() -> int:
         "library_ms": None, "wrapper_ms": main_t["wrapper_ms"],
         "shape": {"T": FUSION_T, "B": FUSION_B, "n_in": 100, "n_out": 128},
         "at_imdb_layer2": step_t["imdb_layer2"], "at_fig9": step_t["fig9"],
-        "path": "per-layer dispatch of the IMDB stack"})
+        "path": "per-layer dispatch of the IMDB stack",
+        "redesigned_in": REDESIGNED["fused_snn_step"],
+        **usage["fused_snn_step"],
+        "ptxas": {k: v for k, v in usage.items()
+                  if k.startswith("fused_snn_step<")}})
 
     conv = phase_conv(dev)
     print(f"[phase 9] impulse-mnist, {MNIST_BATCH} images x 10 steps, every "

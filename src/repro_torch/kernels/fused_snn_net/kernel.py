@@ -31,6 +31,8 @@ GATE_GRANULARITIES = (1, 2, 4, 8)
 MAX_SKIP_COLS = 1024        # gate-site columns the skip output may carry
 MAX_LAYERS = 16
 THREADS = 256
+EVENT_THREADS = 1024        # the event-list kernel's block
+EVENT_TC_MAX = 16           # the longest event-list chunk, in timesteps
 SMEM_LIMIT = 232_448        # bytes of shared memory a Hopper block can use
 NEURON_CODES = {"if": 0, "lif": 1, "rmp": 2}
 _PTRS = ctypes.c_void_p * MAX_LAYERS
@@ -59,7 +61,9 @@ class NetArgs(ctypes.Structure):
         ("row_off", _INTS), ("fb_off", ctypes.c_int), ("dense_thr", _INTS),
         ("list_off", ctypes.c_int), ("list_ld", ctypes.c_int),
         ("lcount_off", ctypes.c_int), ("row_counts", _PTRS),
-        ("fallbacks", ctypes.c_void_p),
+        ("fallbacks", ctypes.c_void_p), ("tc", ctypes.c_int),
+        ("chunk_off", ctypes.c_int * 2), ("chunk_ld", ctypes.c_int),
+        ("ttot_off", ctypes.c_int),
     ]
 
 
@@ -77,16 +81,18 @@ def _lib() -> ctypes.CDLL:
         lib.fused_snn_net_error_string.argtypes = [ctypes.c_int]
         lib.fused_snn_net_error_string.restype = ctypes.c_char_p
         for fn in ("fused_snn_net_args_size", "fused_snn_net_threads",
-                   "fused_snn_net_max_layers"):
+                   "fused_snn_net_max_layers", "fused_snn_net_event_threads"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ctypes.c_int
         built = (lib.fused_snn_net_args_size(), lib.fused_snn_net_threads(),
-                 lib.fused_snn_net_max_layers())
-        if built != (ctypes.sizeof(NetArgs), THREADS, MAX_LAYERS):
+                 lib.fused_snn_net_max_layers(),
+                 lib.fused_snn_net_event_threads())
+        want = (ctypes.sizeof(NetArgs), THREADS, MAX_LAYERS, EVENT_THREADS)
+        if built != want:
             raise RuntimeError(
                 f"{NAME} library disagrees with its binding: (sizeof NetArgs, "
-                f"threads, max layers) = {built}, expected "
-                f"{(ctypes.sizeof(NetArgs), THREADS, MAX_LAYERS)}")
+                f"threads, max layers, event-list threads) = {built}, expected "
+                f"{want}")
         _LIB = lib
     return _LIB
 
@@ -145,7 +151,7 @@ def dense_thresholds(in_widths: tuple, block_b: int,
 
 
 def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
-                n_skip_cols: int = 0) -> dict:
+                n_skip_cols: int = 0, tc: int = 1) -> dict:
     """Shared-memory layout of one CTA for logical layer ``widths``
     (N_0 .. N_L), ``block_b`` lanes and kernel ``mode``: each layer's
     transposed weights (``wt_off``/``wt_ld``), each layer's int32 V tile
@@ -155,10 +161,15 @@ def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
     counts from ``row_off[i]`` and one fallback count per layer from
     ``fb_off``), the gated mode's occupancy masks (``gate_off``: one
     32-bit word per 128 fan-in rows of the widest layer, ``gate_ld``, for
-    each of the block's warps), the event-list mode's uint16 active-row
-    lists (``list_off``, ``list_ld`` entries per lane) and their int32
-    lengths (``lcount_off``), and the total ``bytes``. The one place the
-    kernels' shared memory is computed."""
+    each of the block's warps), and the event-list mode's chunk of ``tc``
+    timesteps: the uint16 active-row lists of its (t, lane) rows
+    (``list_off``, ``list_ld`` entries each, the widest fan-in rounded up
+    to 8 so that 8 entries are one 16-byte load) and their int32 lengths
+    (``lcount_off``), the two chunk buffers of ``tc`` steps of
+    ``chunk_ld`` bytes (``chunk_off``; at ``tc`` = 1 they are the spike
+    buffers themselves) and two rows of per-step event totals
+    (``ttot_off``); and the total ``bytes``. The one place the kernels'
+    shared memory is computed."""
     off = 0
     wt_off, wt_ld, v_off = [], [], []
     for n_in, n_out in zip(widths[:-1], widths[1:]):
@@ -174,14 +185,15 @@ def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
     off += 2 * spk_bytes
     in_widths = widths[:-1]
     row_off, fb_off, list_ld = [], 0, 0
+    events = mode == "events"
     if mode == "gated":
         n_counters = n_skip_cols
-    elif mode == "events":
+    elif events:
         for n_in in in_widths:
             row_off.append(fb_off)
             fb_off += n_in
         n_counters = fb_off + len(in_widths)
-        list_ld = max(in_widths)
+        list_ld = -(-max(in_widths) // 8) * 8
     else:
         n_counters = 0
     cnt_off = off
@@ -190,15 +202,33 @@ def smem_layout(widths: tuple, block_b: int, mode: str = "dense",
     gate_ld = -(-max(in_widths) // LANE) if mode == "gated" else 0
     off += _align16(4 * (THREADS // 32) * gate_ld)
     list_off = off
-    off += _align16(2 * block_b * list_ld)
+    off += _align16(2 * tc * block_b * list_ld)
     lcount_off = off
-    off += _align16(4 * block_b) if mode == "events" else 0
+    off += _align16(4 * tc * block_b) if events else 0
+    chunk_off = spk_off
+    if events and tc > 1:
+        chunk_off = [off, off + tc * spk_bytes]
+        off += 2 * tc * spk_bytes
+    ttot_off = off
+    off += _align16(4 * 2 * tc) if events else 0
     return {"wt_off": wt_off, "wt_ld": wt_ld, "v_off": v_off,
             "spk_off": spk_off, "spk_ld": spk_ld, "cnt_off": cnt_off,
             "n_counters": n_counters, "row_off": row_off, "fb_off": fb_off,
             "gate_off": gate_off, "gate_ld": gate_ld,
             "list_off": list_off, "list_ld": list_ld,
-            "lcount_off": lcount_off, "bytes": off}
+            "lcount_off": lcount_off, "tc": tc, "chunk_off": chunk_off,
+            "chunk_ld": spk_bytes, "ttot_off": ttot_off, "bytes": off}
+
+
+def event_layout(widths: tuple, block_b: int, timesteps: int) -> dict:
+    """The event-list kernel's layout for ``timesteps`` frames: the longest
+    chunk, at most `EVENT_TC_MAX` and the frames there are, whose
+    `smem_layout` fits a Hopper block, down to one timestep (which may
+    still not fit: the caller checks ``bytes``)."""
+    for tc in range(min(EVENT_TC_MAX, max(timesteps, 1)), 0, -1):
+        lay = smem_layout(widths, block_b, "events", tc=tc)
+        if lay["bytes"] <= SMEM_LIMIT or tc == 1:
+            return lay
 
 
 def _check_tensor(x: torch.Tensor, what: str, dtype: torch.dtype,
@@ -275,7 +305,8 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     n_skip_cols = 0
     if mode == "gated":
         _, skip_off, n_skip_cols = skip_layout(widths[:-1], gate_granularity)
-    layout = smem_layout(widths, block_b, mode, n_skip_cols)
+    layout = (event_layout(widths, block_b, T) if mode == "events" else
+              smem_layout(widths, block_b, mode, n_skip_cols))
     if layout["bytes"] > SMEM_LIMIT:
         raise ValueError(
             f"the {NAME} kernel needs {layout['bytes']} bytes of shared "
@@ -339,6 +370,9 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
             args.row_counts[i] = row_counts[i].data_ptr()
         args.fb_off = layout["fb_off"]
         args.fallbacks = fallbacks.data_ptr()
+        args.tc, args.chunk_ld = layout["tc"], layout["chunk_ld"]
+        args.chunk_off[0], args.chunk_off[1] = layout["chunk_off"]
+        args.ttot_off = layout["ttot_off"]
         counters = (row_counts, fallbacks)
 
     lib = _lib()

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.kernels.fused_snn_net import kernel  # noqa: E402
 from repro_torch.kernels.fused_snn_net.events import (  # noqa: E402
     fused_snn_net_events)
 from repro_torch.kernels.fused_snn_net.ops import (  # noqa: E402
@@ -272,3 +273,133 @@ def test_event_kernel_matches_plain_version_on_the_card(
                     want[0] + want[1] + want[2]["row_events"]):
         assert torch.equal(g, x)
     assert torch.equal(got[2]["dense_fallbacks"], want[2]["dense_fallbacks"])
+
+
+LAYOUT_STACKS = [IMDB_WIDTHS, WIDE_WIDTHS, (686, 120, 84, 10), (126, 14)]
+
+
+def previous_event_bytes(widths, block_b):
+    """Shared memory of the previous, step-by-step event-list kernel: the
+    dense layout, the row and fallback counters, one list of the widest
+    fan-in per lane and the lanes' list lengths."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    dense = kernel.smem_layout(widths, block_b)["bytes"]
+    return (dense + a16(4 * (sum(widths[:-1]) + len(widths) - 1))
+            + a16(2 * block_b * max(widths[:-1])) + a16(4 * block_b))
+
+
+@pytest.mark.parametrize("block_b", [8, 64])
+@pytest.mark.parametrize("widths", LAYOUT_STACKS, ids=str)
+def test_event_chunk_regions(widths, block_b):
+    """The event-list chunk regions at one timestep and at the chunk the
+    budget allows for a K = 10 megastep: the dense layout first, then the
+    counters, the (t, lane) lists (16-byte rows of 8-entry loads), their
+    lengths, the two chunk buffers (the spike buffers themselves at one
+    timestep) and the per-step totals, 16-byte aligned and not
+    overlapping; one timestep fits wherever the previous layout did."""
+    dense = kernel.smem_layout(widths, block_b)
+    fits_before = previous_event_bytes(widths, block_b) <= kernel.SMEM_LIMIT
+    chosen = kernel.event_layout(widths, block_b, 10)
+    for tc in sorted({1, chosen["tc"]}):
+        lay = kernel.smem_layout(widths, block_b, "events", tc=tc)
+        assert lay["tc"] == tc
+        assert lay["cnt_off"] == dense["bytes"]
+        assert max(widths[:-1]) <= lay["list_ld"] < max(widths[:-1]) + 8
+        assert lay["list_ld"] % 8 == 0
+        assert lay["list_off"] >= lay["cnt_off"] + 4 * lay["n_counters"]
+        assert lay["lcount_off"] >= (lay["list_off"]
+                                     + 2 * tc * block_b * lay["list_ld"])
+        assert lay["chunk_ld"] >= block_b * lay["spk_ld"] * 4
+        end = lay["lcount_off"] + 4 * tc * block_b
+        if tc == 1:
+            assert lay["chunk_off"] == lay["spk_off"]
+        else:
+            assert lay["chunk_off"][0] >= end
+            assert lay["chunk_off"][1] >= (lay["chunk_off"][0]
+                                           + tc * lay["chunk_ld"])
+            end = lay["chunk_off"][1] + tc * lay["chunk_ld"]
+        assert lay["ttot_off"] >= end
+        assert lay["bytes"] >= lay["ttot_off"] + 4 * 2 * tc
+        for key in ("list_off", "lcount_off", "chunk_ld", "ttot_off"):
+            assert lay[key] % 16 == 0
+        assert all(off % 16 == 0 for off in lay["chunk_off"])
+        if fits_before:
+            assert lay["bytes"] <= kernel.SMEM_LIMIT
+    assert 1 <= chosen["tc"] <= 10
+    if fits_before:
+        assert chosen["bytes"] <= kernel.SMEM_LIMIT
+
+
+def test_event_chunk_holds_the_megastep():
+    """The serving shape (IMDB, block_b 8, K = 10) runs in one chunk, and
+    the MNIST FC stack, whose weights take about 94 KB, in chunks of 5."""
+    assert kernel.event_layout(IMDB_WIDTHS, 8, 10)["tc"] == 10
+    assert kernel.event_layout((686, 120, 84, 10), 8, 10)["tc"] == 5
+    assert kernel.event_layout(IMDB_WIDTHS, 8, 1)["tc"] == 1
+
+
+def mixed_case(widths, T, B, seed, v_init=True):
+    """A raster whose steps alternate between dense (0.6) and sparse
+    (0.05) frames, so that at crossover 0.15 one chunk holds both steps
+    that fall back and steps that gather."""
+    rng = np.random.default_rng(seed)
+    density = np.where(np.arange(T) % 3 == 1, 0.6, 0.05)[:, None, None]
+    spikes = (rng.random((T, B, widths[0])) < density).astype(np.int8)
+    ws = [rng.integers(-12, 32, (a, b)).astype(np.int8)
+          for a, b in zip(widths[:-1], widths[1:])]
+    ths = tuple(int(t) for t in rng.integers(20, 300, len(ws) - 1))
+    lks = tuple(int(t) for t in rng.integers(0, 20, len(ws) - 1))
+    vi = ([rng.integers(-1024, 1024, (B, n)).astype(np.int32)
+           for n in widths[1:]] if v_init else None)
+    return spikes, ws, ths, lks, vi
+
+
+def assert_kernel_equals_plain(case, device, **kw):
+    s, w, ths, lks, vi = torch_args(case, device)
+    got = fused_snn_net(s, w, thresholds=ths, leaks=lks, v_init=vi,
+                        use_events=True, **kw)
+    want = fused_snn_net_ref(s, w, ths, lks, v_init=vi, use_events=True,
+                             **kw)
+    torch.cuda.synchronize()
+    assert len(got[0]) == len(want[0])
+    for g, x in zip(got[0] + got[1] + got[2]["row_events"],
+                    want[0] + want[1] + want[2]["row_events"]):
+        assert torch.equal(g, x)
+    assert torch.equal(got[2]["dense_fallbacks"], want[2]["dense_fallbacks"])
+    return want[2]["dense_fallbacks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("v_init", [False, True])
+@pytest.mark.parametrize("crossover", [0.0, 0.15, 0.5, 1.0])
+def test_event_kernel_mixes_fallback_and_gathered_steps_on_the_card(
+        cuda_device, crossover, v_init, emit):
+    """One chunk of 10 steps in which, at crossover 0.15, the dense frames
+    fall back and the sparse ones gather: V, rasters, row counts and
+    fallbacks equal the plain version's."""
+    fb = assert_kernel_equals_plain(
+        mixed_case(IMDB_WIDTHS, 10, 37, seed=80, v_init=v_init), cuda_device,
+        neuron="rmp", clamp_mode="saturate", emit_rasters=emit,
+        event_crossover=crossover)
+    if crossover == 0.15:
+        assert (0 < fb[:, 0]).all() and (fb[:, 0] < 10).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neuron,clamp", [(n, c) for n in ("if", "lif", "rmp")
+                                          for c in ("saturate", "wrap")])
+@pytest.mark.parametrize("widths,T,B,block_b", [
+    (IMDB_WIDTHS, 15, 1, 8), (IMDB_WIDTHS, 16, 3, 8),
+    (IMDB_WIDTHS, 17, 37, 8), (IMDB_WIDTHS, 33, 300, 8),
+    (IMDB_WIDTHS, 1, 37, 64), (IMDB_WIDTHS, 120, 3, 8),
+    ((686, 120, 84, 10), 11, 14, 8), (WIDE_WIDTHS, 10, 300, 64)])
+def test_event_kernel_chunk_edges_on_the_card(cuda_device, widths, T, B,
+                                              block_b, neuron, clamp):
+    """Chunk edges (16 steps a chunk at IMDB widths, 5 for the MNIST FC
+    stack), ragged lanes, every neuron and clamp, at crossover 0.15 on the
+    mixed raster."""
+    assert_kernel_equals_plain(
+        mixed_case(widths, T, B, seed=T + B), cuda_device, neuron=neuron,
+        clamp_mode=clamp, emit_rasters=True, event_crossover=0.15,
+        block_b=block_b)

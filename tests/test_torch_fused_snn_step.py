@@ -201,3 +201,121 @@ def test_kernel_tiles_on_the_card(cuda_device, block_b, block_n):
     torch.cuda.synchronize()
     for g, x in zip(got, want):
         assert torch.equal(g, x)
+
+
+# (T, B, N_in, N_out) of chip_smoke.py's phase 7, the IMDB layers and the
+# kernel's chunk edges (16 steps a chunk)
+PLAN_SHAPES = [(10, 8, 128, 128), (120, 8, 100, 128), (120, 8, 128, 128),
+               (1, 1, 100, 1), (10, 37, 686, 14), (10, 300, 686, 128),
+               (1, 300, 128, 14), (120, 37, 100, 1), (15, 3, 686, 14),
+               (16, 1, 100, 1), (17, 37, 100, 14), (33, 300, 686, 1),
+               (4, 301, 686, 120), (2, 2, 100_000, 3)]
+
+
+def pr17_accepts(n_in, n_out, block_b, block_n):
+    """Whether the previous kernel (one CTA per block_b x block_n tile, at
+    most 8,192 elements, its W tile and spike rows in shared memory at odd
+    word strides) took these arguments."""
+    tile_n = min(block_n, n_out)
+    ld = -(-n_in // 4) | 1
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    return (block_b * tile_n <= 8192
+            and a16(tile_n * ld * 4) + a16(block_b * ld * 4) <= 232_448
+            and -(-n_out // tile_n) <= 65_535)
+
+
+@pytest.mark.parametrize("T,B,n_in,n_out", PLAN_SHAPES)
+def test_launch_plan_regions(T, B, n_in, n_out):
+    """The plan fits the budget with at least one timestep a chunk; its
+    regions (W^T tile, the staged steps, the output tile) follow each other
+    without overlap at 16-byte boundaries; the grid covers every lane and
+    column; the CTA is at most 8 lanes by 32 columns, a warp per 8."""
+    plan = kernel.launch_plan(T, B, n_in, n_out)
+    assert plan is not None
+    assert 1 <= plan["tc"] <= min(T, kernel.TC_MAX)
+    assert plan["nbuf"] in (1, 2) and (plan["nbuf"] == 1 or plan["tc"] < T)
+    assert plan["smem_bytes"] == plan["bytes"] <= kernel.SMEM_LIMIT
+    lanes, cols = plan["lanes"], plan["cols"]
+    assert 1 <= lanes <= min(B, kernel.MAX_LANES)
+    assert 1 <= cols <= min(n_out, kernel.MAX_COLS)
+    assert plan["threads"] == 32 * -(-cols // 8)
+    assert plan["grid_b"] * lanes >= B > (plan["grid_b"] - 1) * lanes
+    assert plan["grid_n"] * cols >= n_out > (plan["grid_n"] - 1) * cols
+    assert plan["wt_ld"] % 2 == 1 and plan["wt_ld"] * 4 >= n_in
+    for key in ("spk_off", "seg_ld", "row_ld", "out_off", "out_ld", "bytes"):
+        assert plan[key] % 16 == 0
+    assert plan["spk_off"] >= cols * plan["wt_ld"] * 4
+    assert plan["row_ld"] % 32 == 16 and plan["row_ld"] >= n_in + 31
+    assert plan["seg_ld"] == lanes * plan["row_ld"]
+    assert plan["out_off"] >= (plan["spk_off"] + kernel.SEG_SLACK
+                               + plan["nbuf"] * plan["tc"] * plan["seg_ld"])
+    assert plan["out_ld"] >= cols
+    assert plan["bytes"] >= plan["out_off"] + plan["tc"] * lanes * cols
+
+
+def test_launch_plan_spreads_the_imdb_layer():
+    """IMDB layer 1 (T = 120, B = 8, 100 -> 128) runs on several CTAs, 16
+    steps a chunk, double-buffered."""
+    plan = kernel.launch_plan(120, 8, 100, 128)
+    assert plan["grid_b"] * plan["grid_n"] >= 4
+    assert (plan["tc"], plan["nbuf"], plan["lanes"]) == (16, 2, 8)
+
+
+@pytest.mark.parametrize("n_in", [1, 7, 100, 686, 4096, 20_000, 60_000])
+def test_every_shape_the_previous_kernel_took_is_planned(n_in):
+    """No (N_in, N_out, block_b, block_n) that the previous kernel accepted
+    is refused: the plan falls back to one lane and one column, one
+    timestep, single-buffered."""
+    for n_out in (1, 14, 128, 8192):
+        for block_b in (1, 8, 64, 300):
+            for block_n in (1, 16, 128):
+                if pr17_accepts(n_in, n_out, block_b, block_n):
+                    for T in (1, 120):
+                        assert kernel.launch_plan(T, 300, n_in,
+                                                  n_out) is not None
+
+
+# (T, B, N_in, N_out): the chunk edges around 16 steps (15, 16, 17, 33),
+# T = 1 and 120, ragged lanes (1, 3, 37, 300), fan-ins that are not a
+# multiple of 32 (100, 686) and ragged columns (1, 14)
+EDGE_SHAPES = [(15, 1, 100, 14), (16, 3, 686, 1), (17, 37, 100, 1),
+               (33, 300, 686, 14), (1, 37, 686, 14), (120, 3, 100, 14),
+               (120, 300, 100, 1), (33, 8, 100, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neuron,clamp", [(n, c) for n in NEURONS
+                                          for c in CLAMPS])
+@pytest.mark.parametrize("T,B,n_in,n_out", EDGE_SHAPES)
+def test_kernel_chunk_edges_on_the_card(cuda_device, T, B, n_in, n_out,
+                                        neuron, clamp):
+    """Chunk edges, ragged lanes, fan-ins and columns, every neuron and
+    clamp with a nonzero IF/LIF reset, against the plain version."""
+    spikes, wq = make_case(T, B, n_in, n_out, seed=T * 7 + B + n_in,
+                           density=0.3)
+    s = torch.from_numpy(spikes).to(cuda_device)
+    w = torch.from_numpy(wq).to(cuda_device)
+    kw = dict(threshold=250, leak=-5 if neuron == "lif" else 0, reset=-40,
+              neuron=neuron, clamp_mode=clamp)
+    got = fused_snn_layer(s, w, **kw)
+    want = fused_snn_layer_ref(s, w, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_unaligned_spikes_on_the_card(cuda_device):
+    """A raster that starts at an odd byte of its storage (a slice) is
+    staged exactly: the runs keep their offset modulo 16."""
+    spikes, wq = make_case(T=21, B=5, n_in=100, n_out=20, seed=8)
+    base = torch.zeros(spikes.size + 3, dtype=torch.int8)
+    base[3:] = torch.from_numpy(spikes).reshape(-1)
+    s = base.to(cuda_device)[3:].view(spikes.shape)
+    w = torch.from_numpy(wq).to(cuda_device)
+    kw = dict(threshold=150, neuron="rmp", clamp_mode="saturate")
+    got = fused_snn_layer(s, w, **kw)
+    want = fused_snn_layer_ref(s, w, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
