@@ -10,11 +10,17 @@ Phases, each of which exits non-zero on failure:
      and spill report of each kernel (kept for the `kernels` line);
   2. every kernel against its plain PyTorch version on the card, bit for
      bit (V, rasters and every gate or event counter), over the cases its
-     callers give it: the dense kernel as before, the gated kernel at
-     G in {1, 2, 4, 8}, the event-list kernel at crossover in
-     {0, 0.15, 0.5, 1}, each over neuron x clamp x v_init at IMDB widths,
-     the all-silent and all-ones rasters, ragged batches, block_b = 64 and
-     a 130-wide first layer;
+     callers give it: the dense kernel over neuron x clamp x v_init x
+     rasters at IMDB widths, at the edges of its 16-step chunks (T in
+     {1, 15, 16, 17, 33, 120} x every neuron and clamp), at B in
+     {1, 37, 300, 4096} x block_b in {1, 8, 32, 64}, on the MNIST FC stack
+     (686-120-84-10), the 130-24-3 stack and the conv stack (126, 14) at
+     B = 12,544, and stacks on each lower rung of its plan (compact weight
+     rows, no readout counts, 4, 2 and 1 lanes); the gated kernel at
+     G in {1, 2, 4, 8}, the event-list
+     kernel at crossover in {0, 0.15, 0.5, 1}, each over neuron x clamp x
+     v_init at IMDB widths, the all-silent and all-ones rasters, ragged
+     batches, block_b = 64 and a 130-wide first layer;
   3. the main paths: 64 IMDB requests (6 words x 10 frames, sparsity 0.85,
      random weights from a seed) served at full width by
      `SNNServeEngine` on the `cuda`, `cuda_sparse` (G = 8) and
@@ -26,8 +32,8 @@ Phases, each of which exits non-zero on failure:
      the device's busy time, its idle share and the time of each kernel;
   4. each kernel's device time at the serving shape (K = 10, B = 32) and at
      B = 4096, beside its plain version's device time, the host time of
-     one wrapper call, and its bound, and the gated and event-list times
-     over the dense one; then the dense and gated kernels on
+     one wrapper call, its bound and (dense) its plan, and the gated and
+     event-list times over the dense one; then the dense and gated kernels on
      one structured raster (silent 16-row chunks and silent frames) at
      K = 10, B = 32, with the share of gate sites the gated kernel skipped;
   5. the wkv6 kernel against its plain version (`wkv6_sequential`) on the
@@ -61,7 +67,8 @@ Phases, each of which exits non-zero on failure:
      `benchmarks/pipeline_fusion.py` (T = 120, B = 8, threshold 60, leak 2,
      RMP, density 0.1) dispatched layer by layer (two `fused_snn_layer`
      launches, then the int32 readout) against one fused `fused_snn_net`
-     launch: the same readout V and rasters; both times and their ratio,
+     launch: the same readout V and rasters; both times and the per-layer
+     over fused ratio (with rasters, and without them as serving runs),
      the traffic model, and the Fig. 9 row's instruction counts and energy;
   9. the impulse-mnist conv program at full width (28x28x1 input, convs
      14/14/14, FC 686-120-84-10, T = 10), weights drawn on the card from a
@@ -72,14 +79,15 @@ Phases, each of which exits non-zero on failure:
      `ref_events`' and to the raster tally, the encoder's spike maps on the
      card equal to the CPU's (same port code), equal instruction counts on
      every backend with the energy per inference, and each backend's
-     `run_network` time.
+     `run_network` time; then a profiled `cuda` run for the device time of
+     each of its three dense launches (two convs and the FC stack).
 
-Then one `kernels` JSON line with all five kernels; the four redesigned
-for this card (wkv6, the gated and event-list modes and fused_snn_step)
-carry `redesigned_in` and their registers and spills. The last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-repository's src/repro_torch beside this file, it prints no result and
-exits 1.
+Then one `kernels` JSON line with all five kernels, each redesigned for
+this card (the dense, gated and event-list modes, wkv6 and
+fused_snn_step) with `redesigned_in` and its registers and spills. The
+last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the repository's src/repro_torch beside this file, it prints no
+result and exits 1.
 """
 import contextlib
 import dataclasses
@@ -124,7 +132,10 @@ WKV_SMALL = [(2, 64, 2, 64, 64), (1, 128, 3, 64, 64), (2, 100, 2, 32, 32),
              (1, 192, 1, 16, 64)]          # tests/test_kernels.py:82-87
 WKV_LENGTHS = (1, 16, 31, 32, 33, 65, 100, 1024, 2048)
 REDESIGNED = {"wkv6": "PR 17", "fused_snn_net_gated": "PR 17",
-              "fused_snn_net_events": "PR 18", "fused_snn_step": "PR 18"}
+              "fused_snn_net_events": "PR 18", "fused_snn_step": "PR 18",
+              "fused_snn_net": "PR 19"}
+MNIST_FC = (686, 120, 84, 10)
+CONV_STACK = (126, 14)            # an on-macro conv's im2col patch layer
 PORT_KERNELS = ("fused_snn_net", "fused_snn_step", "wkv6_kernel")
 LONG_PROMPT = 1024
 # Model-level tolerances, relative L2 error of the logits (and, for float32,
@@ -312,6 +323,35 @@ def kernel_cases() -> dict:
               ((126, 14), 10, 784, False, True, True, "lif", "wrap", 8, {}, {}),
               ((126, 14), 3, 785, False, False, True, "rmp", "saturate", 32,
                {}, {})]
+    # the dense plan's chunk edges (16 steps a chunk), its lane tiles
+    # (block_b does not tile it), and every stack it runs
+    dense += [(IMDB_WIDTHS, T, 37, True, T % 2 == 1, k % 2 == 0, n, c, 8, {},
+               {}) for T in (1, 15, 16, 17, 33, 120)
+              for k, (n, c) in enumerate((n, c) for n in ("if", "lif", "rmp")
+                                         for c in ("saturate", "wrap"))]
+    dense += [(IMDB_WIDTHS, 10, B, True, k % 2 == 0, k % 3 != 0, n, c, bb,
+               {}, {"density": 0.15})
+              for k, ((B, bb), (n, c)) in enumerate(zip(
+                  [(B, bb) for B in (1, 37, 300, 4096)
+                   for bb in (1, 8, 32, 64)],
+                  [(n, c) for n in ("if", "lif", "rmp")
+                   for c in ("saturate", "wrap")] * 3))]
+    dense += [(MNIST_FC, 10, 64, True, False, True, "rmp", "saturate", 8, {},
+               {"density": 0.1}),
+              (MNIST_FC, 17, 37, True, True, False, "lif", "wrap", 64, {},
+               {"density": 0.1}),
+              (WIDE_WIDTHS, 10, 300, True, True, True, "if", "wrap", 8, {}, {}),
+              (CONV_STACK, 10, 12_544, False, False, True, "rmp", "saturate",
+               8, {}, {"density": 0.1}),
+              (CONV_STACK, 10, 3136, False, True, True, "rmp", "wrap", 8, {},
+               {"density": 0.1})]
+    # the plan's lower rungs: compact weight rows, no readout counts, and
+    # tiles of 4, 2 and 1 lanes
+    dense += [(widths, 17, 9, True, True, True, "rmp", "saturate", 8, {},
+               {"density": 0.1})
+              for widths in ((100, 1000, 14, 1000, 10), (14, 686, 14, 3000, 1),
+                             (14, 4000, 1), (14, 1500, 14, 4000, 1),
+                             (14, 4000, 14, 2000, 1))]
     sparse = {"density": 0.15, "structured": True}
     iid85 = {"density": 0.15}
     gated, events = [], []
@@ -552,10 +592,15 @@ def phase_timing(ops, dev, name: str, B: int, structured: bool = False
         T, B, IMDB_WIDTHS, readout=True, v_init=True, emit_rasters=True,
         macs=needed_macs(name, counters, T, B, IMDB_WIDTHS, block_b),
         counter_bytes=counter_bytes(name, B, IMDB_WIDTHS, block_b))
-    return {"T": T, "B": B, "structured": structured, "ms": ms,
-            "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "skipped_share": skipped_share(name, counters, T, B, IMDB_WIDTHS)}
+    out = {"T": T, "B": B, "structured": structured, "ms": ms,
+           "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "skipped_share": skipped_share(name, counters, T, B, IMDB_WIDTHS)}
+    if name == "fused_snn_net":
+        from repro_torch.kernels.fused_snn_net.kernel import dense_plan
+        plan = dense_plan(IMDB_WIDTHS, T, B)
+        out["plan"] = {k: plan[k] for k in ("lanes", "tc", "grid", "bytes")}
+    return out
 
 
 def wkv_case(dev, BH: int, T: int, K: int, V: int, seed: int,
@@ -1008,6 +1053,7 @@ def phase_per_layer(dev) -> tuple:
         "per_layer_ms": layer_ms, "fused_accounting_ms": fused_ms,
         "fused_serving_ms": serving_ms,
         "per_layer_over_fused": layer_ms / fused_ms,
+        "per_layer_over_fused_serving": layer_ms / serving_ms,
         "hbm_bytes": {"per_layer": fusion_hbm_bytes(True, False),
                       "fused_accounting": fusion_hbm_bytes(True, True),
                       "fused_serving": fusion_hbm_bytes(False, True)},
@@ -1142,7 +1188,27 @@ def phase_conv(dev) -> dict:
                              "differ from the CPU's")
     out["encoder_spike_rate"] = float(ref.rasters[0].float().mean())
     out["predictions"] = ref.v_out.argmax(dim=1)[:16].tolist()
+    out["cuda_dense_launch_ms"] = dense_launch_ms(
+        lambda: pipeline.run_network(program, xs, "cuda"))
     return out
+
+
+def dense_launch_ms(fn) -> list:
+    """Device ms of each dense fused-network launch of one ``fn()`` under
+    torch.profiler, in launch order (after one call unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "fused_snn_net_kernel" in e.name)
+    return [ms for _, ms in launches]
 
 
 def kernel_usage(usage: dict) -> dict:
@@ -1276,9 +1342,9 @@ def main() -> int:
         name = entry["name"]
         if name in structured:
             entry["at_structured"] = structured[name]
-        if name in REDESIGNED:
-            entry.update(redesigned_in=REDESIGNED[name],
-                         vs_dense=vs_dense[name], **usage[name])
+        entry.update(redesigned_in=REDESIGNED[name], **usage[name])
+        if name in vs_dense:
+            entry["vs_dense"] = vs_dense[name]
 
     wkv = phase_wkv6_vs_plain(dev)
     for row in wkv["rows"]:
@@ -1329,7 +1395,9 @@ def main() -> int:
     fusion, layer_inputs = phase_per_layer(dev)
     print(f"[phase 8] per-layer / fused time: "
           f"{fusion['per_layer_over_fused']:.3f} ({fusion['per_layer_ms']:.4f}"
-          f" / {fusion['fused_accounting_ms']:.4f} ms) ({card})")
+          f" / {fusion['fused_accounting_ms']:.4f} ms), without rasters "
+          f"{fusion['per_layer_over_fused_serving']:.3f} "
+          f"({fusion['fused_serving_ms']:.4f} ms) ({card})")
     print(f"[phase 8] per-layer dispatch (2 fused_snn_step launches + int32 "
           f"readout) == one fused_snn_net launch on the IMDB stack at "
           f"T={FUSION_T}, B={FUSION_B}: {json.dumps(fusion)} ({card})")
@@ -1365,6 +1433,16 @@ def main() -> int:
                   if k.startswith("fused_snn_step<")}})
 
     conv = phase_conv(dev)
+    launch_ms = conv["cuda_dense_launch_ms"]
+    if len(launch_ms) != 3:
+        raise AssertionError(f"the profiled cuda run_network shows "
+                             f"{len(launch_ms)} dense launches, not 3")
+    cuda_s = conv["backends"]["cuda"]["run_network_s"]
+    print(f"[phase 9] cuda run_network: {cuda_s * 1e3:.3f} ms; device ms "
+          f"of its dense launches "
+          f"(conv 1 at B*P = {MNIST_BATCH * 196}, conv 2 at "
+          f"{MNIST_BATCH * 49}, FC {'-'.join(map(str, MNIST_FC))} at "
+          f"{MNIST_BATCH}): {launch_ms} ({card})")
     print(f"[phase 9] impulse-mnist, {MNIST_BATCH} images x 10 steps, every "
           f"backend equal to int_ref on the card (V, rasters, counters, "
           f"instruction counts); encoder on the card == CPU: "

@@ -2,7 +2,8 @@
 
 ``build(name)`` compiles ``kernels/<name>/csrc/<name>.cu`` for Hopper
 (``sm_90a``) into ``build/repro_torch/`` at the repository root, keyed by a
-hash of the source and flags, and returns the library's path. A build that
+hash of the sources in ``csrc/`` (the ``.cu`` and the headers it includes)
+and the flags, and returns the library's path. A build that
 exists is reused; a new one is written to a temporary name and moved into
 place with `os.replace`, so a concurrent or interrupted build never leaves a
 partial library under the final name. The temporary name carries the process
@@ -55,7 +56,9 @@ def build(name: str) -> Path:
     shared library. The compiler's output (ptxas register and spill report
     included) is kept beside it with the suffix ``.log``."""
     src = source_path(name)
-    digest = hashlib.sha256(src.read_bytes()
+    sources = b"".join(f.name.encode() + f.read_bytes()
+                       for f in sorted(src.parent.iterdir()) if f.is_file())
+    digest = hashlib.sha256(sources
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():

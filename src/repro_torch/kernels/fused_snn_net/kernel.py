@@ -4,10 +4,13 @@ in its dense, row-block gated and event-list modes.
 
 `fused_snn_net_cuda` checks every tensor (device, dtype, shape,
 contiguity), lays out and checks the kernel's shared memory, allocates the
-outputs, and launches one CTA per ``block_b`` batch lanes on the current
-stream of the tensors' device. The library is built with nvcc on first use
-(`repro_torch.kernels._build`). Nothing here runs on the CPU: the public
-wrapper `ops.fused_snn_net` sends CPU tensors to the plain version.
+outputs, and launches on the current stream of the tensors' device: in the
+gated and event-list modes one CTA per ``block_b`` batch lanes, in the dense
+mode one CTA per `dense_plan` tile (its own lanes and chunk of timesteps;
+the library's own plan, `csrc/dense_plan.h`, is checked against
+`dense_plan` when it is loaded). The library is built with nvcc on first
+use (`repro_torch.kernels._build`). Nothing here runs on the CPU: the
+public wrapper `ops.fused_snn_net` sends CPU tensors to the plain version.
 
 `skip_layout` and its constants are shared with the plain version: the
 gate sites are blocks of 128/G logical fan-in rows (``LANE`` is the macro's
@@ -30,10 +33,23 @@ LANE = 128                  # the macro's fan-in rows, the unit G divides
 GATE_GRANULARITIES = (1, 2, 4, 8)
 MAX_SKIP_COLS = 1024        # gate-site columns the skip output may carry
 MAX_LAYERS = 16
-THREADS = 256
+THREADS = 256               # the gated kernel's block
 EVENT_THREADS = 1024        # the event-list kernel's block
 EVENT_TC_MAX = 16           # the longest event-list chunk, in timesteps
+DENSE_THREADS = 256         # the dense kernel's block: 8 warps
+DENSE_TC_MAX = 16           # the longest dense chunk, in timesteps
+DENSE_SMS = 132             # CTAs the dense plan spreads lanes over (H100 SMs)
 SMEM_LIMIT = 232_448        # bytes of shared memory a Hopper block can use
+# stacks at which the library's dense plan is checked against `dense_plan`
+# when it loads: (widths, T, B)
+DENSE_PLAN_PROBES = (
+    ((100, 128, 128, 1), 10, 32), ((100, 128, 128, 1), 10, 4096),
+    ((100, 128, 128, 1), 120, 8), ((100, 128, 128, 1), 120, 4096),
+    ((686, 120, 84, 10), 10, 64), ((126, 14), 10, 12_544),
+    ((126, 14), 10, 3136), ((130, 24, 3), 1, 300), ((100,) + (32,) * 16, 33, 37),
+    ((3000, 20), 5, 1), ((12_000, 4), 2, 9), ((100, 1000, 14, 1000, 10), 10, 8),
+    ((14, 686, 14, 3000, 1), 10, 8), ((14, 4000, 1), 10, 8),
+    ((14, 1500, 14, 4000, 1), 17, 37), ((14, 4000, 14, 2000, 1), 10, 8))
 NEURON_CODES = {"if": 0, "lif": 1, "rmp": 2}
 _PTRS = ctypes.c_void_p * MAX_LAYERS
 _INTS = ctypes.c_int * MAX_LAYERS
@@ -63,7 +79,10 @@ class NetArgs(ctypes.Structure):
         ("lcount_off", ctypes.c_int), ("row_counts", _PTRS),
         ("fallbacks", ctypes.c_void_p), ("tc", ctypes.c_int),
         ("chunk_off", ctypes.c_int * 2), ("chunk_ld", ctypes.c_int),
-        ("ttot_off", ctypes.c_int),
+        ("ttot_off", ctypes.c_int), ("in_off", ctypes.c_int),
+        ("in_ld", ctypes.c_int), ("out_off", ctypes.c_int * 2),
+        ("out_ld", ctypes.c_int * 2), ("counts_off", ctypes.c_int),
+        ("counts_ld", ctypes.c_int),
     ]
 
 
@@ -81,20 +100,57 @@ def _lib() -> ctypes.CDLL:
         lib.fused_snn_net_error_string.argtypes = [ctypes.c_int]
         lib.fused_snn_net_error_string.restype = ctypes.c_char_p
         for fn in ("fused_snn_net_args_size", "fused_snn_net_threads",
-                   "fused_snn_net_max_layers", "fused_snn_net_event_threads"):
+                   "fused_snn_net_max_layers", "fused_snn_net_event_threads",
+                   "fused_snn_net_dense_threads"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ctypes.c_int
         built = (lib.fused_snn_net_args_size(), lib.fused_snn_net_threads(),
                  lib.fused_snn_net_max_layers(),
-                 lib.fused_snn_net_event_threads())
-        want = (ctypes.sizeof(NetArgs), THREADS, MAX_LAYERS, EVENT_THREADS)
+                 lib.fused_snn_net_event_threads(),
+                 lib.fused_snn_net_dense_threads())
+        want = (ctypes.sizeof(NetArgs), THREADS, MAX_LAYERS, EVENT_THREADS,
+                DENSE_THREADS)
         if built != want:
             raise RuntimeError(
                 f"{NAME} library disagrees with its binding: (sizeof NetArgs, "
-                f"threads, max layers, event-list threads) = {built}, expected "
-                f"{want}")
+                f"threads, max layers, event-list threads, dense threads) = "
+                f"{built}, expected {want}")
+        check_dense_plan(lib)
         _LIB = lib
     return _LIB
+
+
+def c_dense_plan(lib: ctypes.CDLL, widths: tuple, T: int, B: int):
+    """The library's `fused_snn_net_dense_plan` for a stack, in the layout
+    of `dense_plan` (the keys the kernel takes), or None when it plans
+    nothing. ``lib`` is any library that holds ``csrc/dense_plan.h``."""
+    fn = lib.fused_snn_net_dense_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    L = len(widths) - 1
+    out = (ctypes.c_int * (11 + 3 * MAX_LAYERS))()
+    if fn(L, (ctypes.c_int * len(widths))(*widths), T, B, out) != 0:
+        return None
+    head = dict(zip(("lanes", "tc", "bytes", "in_off", "in_ld"), out[:5]))
+    per = [list(out[11 + k * MAX_LAYERS:11 + k * MAX_LAYERS + L])
+           for k in range(3)]
+    return {**head, "out_off": list(out[5:7]), "out_ld": list(out[7:9]),
+            "counts_off": out[9], "counts_ld": out[10], "wt_off": per[0],
+            "wt_ld": per[1], "v_off": per[2]}
+
+
+def check_dense_plan(lib: ctypes.CDLL) -> None:
+    """Raise `RuntimeError` unless the library's dense plan equals
+    `dense_plan` on every stack of `DENSE_PLAN_PROBES`."""
+    for widths, T, B in DENSE_PLAN_PROBES:
+        got = c_dense_plan(lib, widths, T, B)
+        plan = dense_plan(widths, T, B)
+        if got is None or plan is None or got != {k: plan[k] for k in got}:
+            raise RuntimeError(
+                f"{NAME} library disagrees with its binding on the dense "
+                f"plan of widths {widths} at T={T}, B={B}: {got}, expected "
+                f"{plan}")
 
 
 def _odd_words(n_bytes: int) -> int:
@@ -231,6 +287,101 @@ def event_layout(widths: tuple, block_b: int, timesteps: int) -> dict:
             return lay
 
 
+def _kstep_row(n: int) -> int:
+    """Bytes of a shared-memory row that the MMA k-steps read ``n`` bytes
+    of: whole 16-byte blocks, an odd number of them (16 mod 32 bytes, so
+    the 8 rows of an MMA fragment fall in different banks)."""
+    blocks = -(-n // 16)
+    return 16 * (blocks + (blocks % 2 == 0))
+
+
+def _in_row(n0: int) -> int:
+    """Bytes of a staged input row: N0 and the two ragged 16-byte blocks a
+    row at any offset touches (N0 + 31), rounded up to 16 mod 32."""
+    return (n0 + 46) // 32 * 32 + 16
+
+
+def dense_layout(widths: tuple, lanes: int, tc: int,
+                 compact: bool = False, counts: bool = True) -> dict:
+    """The dense kernel's shared memory for ``lanes`` lanes and chunks of
+    ``tc`` timesteps, in order: every layer's transposed weights
+    (``wt_off``, rows of ``wt_ld`` words: `_kstep_row` of the fan-in, or
+    with ``compact`` the odd word count of the gated layout, whose B loads
+    meet bank conflicts; the bytes past the fan-in are masked where they
+    are read; regions padded to 16 bytes), the input chunk (``in_off``,
+    tc x lanes rows of ``in_ld`` bytes, a row at its global offset modulo
+    16), the two spike chunks (``out_off``, tc x lanes rows each; chunk k
+    holds the outputs of the layers i with i % 2 == k, in rows of
+    ``out_ld[k]`` bytes; the second only with two layers or more), the
+    counts (``counts_off``, lanes rows of ``counts_ld`` bytes with two
+    layers or more and ``counts``: layer L - 2's spike counts over the
+    chunk, a readout's input; else ``counts_ld`` is 0 and a readout sums
+    its input's spike rows) and
+    every layer's int32 V tile (``v_off``, lanes x N_{i+1}) and 16 bytes of
+    slack; and the total ``bytes``. Every offset is a multiple of 16, and
+    the k-steps' reads past a region's last row (up to 16 bytes past a
+    spike or counts row, 28 past a weight row) land in the next region or
+    the slack.
+    `csrc/dense_plan.h` is its mirror."""
+    n_layers = len(widths) - 1
+    off, wt_off, wt_ld = 0, [], []
+    for n_in, n_out in zip(widths[:-1], widths[1:]):
+        wt_off.append(off)
+        wt_ld.append(_odd_words(n_in) if compact else _kstep_row(n_in) // 4)
+        off += _align16(n_out * 4 * wt_ld[-1])
+    in_off, in_ld = off, _in_row(widths[0])
+    off += tc * lanes * in_ld
+    out_off, out_ld = [], []
+    for k in (0, 1):
+        out_off.append(off)
+        out_ld.append(_kstep_row(max(widths[k + 1::2], default=1)))
+        if k == 0 or n_layers > 1:
+            off += tc * lanes * out_ld[-1]
+    counts_off = off
+    counts_ld = _kstep_row(widths[-2]) if n_layers > 1 and counts else 0
+    off += lanes * counts_ld
+    v_off = []
+    for n_out in widths[1:]:
+        v_off.append(off)
+        off += 4 * lanes * n_out
+    off = _align16(off) + 16                    # the slack
+    return {"lanes": lanes, "tc": tc, "compact": compact, "counts": counts,
+            "wt_off": wt_off, "wt_ld": wt_ld, "in_off": in_off,
+            "in_ld": in_ld, "out_off": out_off, "out_ld": out_ld,
+            "counts_off": counts_off, "counts_ld": counts_ld, "v_off": v_off,
+            "bytes": off}
+
+
+def dense_plan(widths: tuple, T: int, B: int) -> dict | None:
+    """The dense kernel's own tile for a (T, B) call of logical layer
+    ``widths``: ceil(B / 8) lane groups of 8 (an MMA row tile is two
+    timesteps of 8 lanes) spread over at most `DENSE_SMS` CTAs, and the
+    longest chunk (16, 8, 4, 2, 1 timesteps, at most T), then the most lane
+    groups, whose `dense_layout` fits a Hopper block; where none does, the
+    same with compact weight rows, then also without the readout's counts,
+    then with 4, 2 or 1 lanes (an MMA tile's rows past them read the last
+    lane and store nothing). Results do not depend on the tile. Returns the
+    layout with ``grid`` and ``threads``, or None when not even one lane
+    and one timestep fit."""
+    groups = -(-B // 8)
+    want = max(1, -(-groups // DENSE_SMS))
+    chunks = []
+    for c in (DENSE_TC_MAX, 8, 4, 2, 1):
+        if min(c, max(T, 1)) not in chunks:
+            chunks.append(min(c, max(T, 1)))
+    tiles = [(8 * groups, tc, compact, counts)
+             for compact, counts in ((False, True), (True, True),
+                                     (True, False))
+             for tc in chunks for groups in range(want, 0, -1)]
+    tiles += [(lanes, tc, True, False) for lanes in (4, 2, 1)
+              for tc in chunks]
+    for lanes, tc, compact, counts in tiles:
+        lay = dense_layout(widths, lanes, tc, compact, counts)
+        if lay["bytes"] <= SMEM_LIMIT:
+            return {**lay, "grid": -(-B // lanes), "threads": DENSE_THREADS}
+    return None
+
+
 def _check_tensor(x: torch.Tensor, what: str, dtype: torch.dtype,
                   shape: tuple, device: torch.device) -> None:
     if x.device != device:
@@ -262,8 +413,9 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     layer ([] without ``emit_rasters``), (B, N_{i+1}) int32 per layer, and
     None in dense mode; in gated mode the (tiles, total columns) int32 skip
     counts; in event-list mode the pair (per-layer (tiles, N_i) int32 row
-    event counts, (tiles, n_layers) int32 fallback counts). A tile is
-    ``block_b`` lanes.
+    event counts, (tiles, n_layers) int32 fallback counts). A tile of the
+    counters is ``block_b`` lanes; the dense mode checks ``block_b`` but
+    takes its CTA tile from `dense_plan`.
 
     Raises `ValueError` on a tensor or option the kernel does not take or a
     stack whose shared memory exceeds a Hopper block's, and `RuntimeError`
@@ -302,19 +454,29 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         for i, v in enumerate(v_init):
             _check_tensor(v, f"v_init[{i}]", torch.int32,
                           (B, widths[i + 1]), device)
-    n_skip_cols = 0
-    if mode == "gated":
-        _, skip_off, n_skip_cols = skip_layout(widths[:-1], gate_granularity)
-    layout = (event_layout(widths, block_b, T) if mode == "events" else
-              smem_layout(widths, block_b, mode, n_skip_cols))
-    if layout["bytes"] > SMEM_LIMIT:
-        raise ValueError(
-            f"the {NAME} kernel needs {layout['bytes']} bytes of shared "
-            f"memory for widths {widths} at block_b={block_b} in {mode} "
-            f"mode, above the {SMEM_LIMIT} a Hopper block can use; lower "
-            "block_b")
+    n_skip_cols, lanes = 0, block_b
+    if mode == "dense":
+        layout = dense_plan(widths, T, B)
+        if layout is None:
+            raise ValueError(
+                f"the {NAME} kernel cannot fit one lane and one timestep of "
+                f"widths {widths} in the {SMEM_LIMIT} bytes of shared memory "
+                "a Hopper block can use")
+        lanes = layout["lanes"]
+    else:
+        if mode == "gated":
+            _, skip_off, n_skip_cols = skip_layout(widths[:-1],
+                                                   gate_granularity)
+        layout = (event_layout(widths, block_b, T) if mode == "events" else
+                  smem_layout(widths, block_b, mode, n_skip_cols))
+        if layout["bytes"] > SMEM_LIMIT:
+            raise ValueError(
+                f"the {NAME} kernel needs {layout['bytes']} bytes of shared "
+                f"memory for widths {widths} at block_b={block_b} in {mode} "
+                f"mode, above the {SMEM_LIMIT} a Hopper block can use; lower "
+                "block_b")
 
-    grid = -(-B // block_b)
+    grid = -(-B // lanes)
     v_out = [torch.empty((B, n), dtype=torch.int32, device=device)
              for n in widths[1:]]
     rasters = ([torch.empty((T, B, n), dtype=torch.int8, device=device)
@@ -336,18 +498,27 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         args.raster[i] = r.data_ptr()
     for i, n in enumerate(widths):
         args.width[i] = n
-    args.spk_off[0], args.spk_off[1] = layout["spk_off"]
-    args.spk_ld = layout["spk_ld"]
     args.n_layers, args.n_spiking = n_layers, n_spiking
-    args.timesteps, args.batch, args.block_b = T, B, block_b
+    args.timesteps, args.batch, args.block_b = T, B, lanes
     args.neuron = NEURON_CODES[neuron]
     args.wrap = int(clamp_mode == "wrap")
     args.emit_rasters = int(emit_rasters)
     args.has_v_init = int(v_init is not None)
-    args.cnt_off, args.n_counters = layout["cnt_off"], layout["n_counters"]
-    args.list_off, args.list_ld = layout["list_off"], layout["list_ld"]
-    args.lcount_off = layout["lcount_off"]
     counters = None
+    if mode == "dense":
+        args.tc, args.in_off, args.in_ld = (layout["tc"], layout["in_off"],
+                                            layout["in_ld"])
+        args.out_off[0], args.out_off[1] = layout["out_off"]
+        args.out_ld[0], args.out_ld[1] = layout["out_ld"]
+        args.counts_off = layout["counts_off"]
+        args.counts_ld = layout["counts_ld"]
+    else:
+        args.spk_off[0], args.spk_off[1] = layout["spk_off"]
+        args.spk_ld = layout["spk_ld"]
+        args.cnt_off = layout["cnt_off"]
+        args.n_counters = layout["n_counters"]
+        args.list_off, args.list_ld = layout["list_off"], layout["list_ld"]
+        args.lcount_off = layout["lcount_off"]
     if mode == "gated":
         skips = torch.empty((grid, n_skip_cols), dtype=torch.int32,
                             device=device)

@@ -131,7 +131,9 @@ def fused_snn_net(spikes: torch.Tensor, ws: list, *, thresholds: tuple,
     ``v_init`` (streaming entry): per-layer (B, n_out) int32 carried V,
     readout last. Integer arithmetic is exact, so chunked calls that thread
     the final V back in equal one whole call bit for bit. ``block_b`` is
-    the kernels' lanes per CTA (a tile of the counters).
+    the gated and event-list kernels' lanes per CTA (a tile of their
+    counters); the dense kernel checks it and takes its own tile
+    (`kernel.dense_plan`), which does not change results.
 
     ``use_sparse`` selects the row-block gated kernel, ``gate_granularity``
     in {1, 2, 4, 8} its blocks (`kernel.skip_layout`); ``use_events`` the
