@@ -80,11 +80,35 @@ Phases, each of which exits non-zero on failure:
      card equal to the CPU's (same port code), equal instruction counts on
      every backend with the energy per inference, and each backend's
      `run_network` time; then a profiled `cuda` run for the device time of
-     each of its three dense launches (two convs and the FC stack).
+     each of its three dense launches (two convs and the FC stack);
+ 10. impulse-mnist streamed and served at full width, weights drawn on the
+     card from a seed, 64 `mnist_like_batch` images of 10 frames: (a) 8
+     images streamed 10 ticks one at a time and in megasteps of 3 + 3 + 4
+     on all five backends, equal to `run_network` (V, every raster, conv
+     maps included); (b) `SNNServeEngine` (validate=True, 32 slots x 2
+     pages, K = 5, arrivals 3 frames apart) on `int_ref`, `cuda`,
+     `cuda_sparse` (G = 8) and `cuda_events` (crossover 1.0): every
+     request equal to the `int_ref` engine's, each `int_ref` request to an
+     isolated `run_network` and `sparsity_report` of its image, three
+     launches per page megastep (two convs and the fc stack), the
+     `cuda_events` ledger equal to a `ref_events` engine's and the pooled
+     tally; (c) a `cuda` engine at K = 4 (finishes inside blocks) equal to
+     `int_ref` at K = 4; (d) each engine's `max_safe_ticks` and frames/s
+     and a profiled `cuda` drain; (e) 40 seeded stacks per CUDA mode whose
+     widths straddle the shared-memory limit: `check_kernel_contracts`
+     accepts exactly the stacks that launch, and the wrapper raises
+     `KernelRefused` naming the same rule for the others;
+ 11. the bit-level macro oracle (`bitmacro`, numpy on the host) against the
+     `cuda` backend on the card, on wrap programs with weights drawn on the
+     card: one impulse-mnist image and one 6-word IMDB request, equal V,
+     rasters and readout, the macro counts equal to the raster count less
+     the readout's, with the host seconds it took.
 
 Then one `kernels` JSON line with all five kernels, each redesigned for
 this card (the dense, gated and event-list modes, wkv6 and
-fused_snn_step) with `redesigned_in` and its registers and spills. The
+fused_snn_step) with `redesigned_in` and its registers and spills; each
+fused-network mode names its paths and its launches in the conv serving
+drain (`conv_serving_launches`). The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it prints no
 result and exits 1.
@@ -432,6 +456,21 @@ def same_request(a, b) -> bool:
                     zip(a.report.row_events, b.report.row_events)))
 
 
+def host_program(program):
+    """``program``'s copy on the CPU (its arrays carried across)."""
+    from repro_torch.core import pipeline
+
+    def arr(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else x
+    return pipeline.program_from_arrays(
+        [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
+          "w": arr(ly.w), "threshold": arr(ly.threshold),
+          "leak": arr(ly.leak), "scale": ly.scale, "stride": ly.stride,
+          "state_shape": ly.state_shape} for ly in program.layers],
+        neuron=program.neuron, timesteps=program.timesteps,
+        clamp_mode=program.clamp_mode, device="cpu", cfg=program.cfg)
+
+
 def phase_serving(dev) -> dict:
     """Phase 3: the main paths, 64 IMDB requests through the cuda,
     cuda_sparse and cuda_events engines."""
@@ -464,17 +503,8 @@ def phase_serving(dev) -> dict:
     ref, dt_ref, _ = drain("int_ref")
     if len(ref) != 64 or any(r.ticks != 60 for r in ref):
         raise AssertionError("the int_ref engine did not serve 64 x 60 frames")
-    host = pipeline.program_from_arrays(
-        [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
-          "w": None if ly.w is None else ly.w.cpu().numpy(),
-          "threshold": (ly.threshold.cpu().numpy() if ly.kind == "encoder"
-                        else ly.threshold),
-          "leak": ly.leak.cpu().numpy() if ly.kind == "encoder" else ly.leak,
-          "scale": ly.scale} for ly in program.layers],
-        neuron=program.neuron, timesteps=program.timesteps,
-        clamp_mode=program.clamp_mode, device="cpu")
-    cpu_eng = SNNServeEngine(host, backend="int_ref", batch_slots=4,
-                             megastep=10, device="cpu")
+    cpu_eng = SNNServeEngine(host_program(program), backend="int_ref",
+                             batch_slots=4, megastep=10, device="cpu")
     for r in requests()[:6]:
         cpu_eng.submit(r)
     cpu = sorted(cpu_eng.run_until_drained(), key=lambda r: r.rid)
@@ -1170,18 +1200,7 @@ def phase_conv(dev) -> dict:
         "event_dense_fallbacks")
 
     # the encoder on the CPU, same port code, same program and images
-    host = pipeline.program_from_arrays(
-        [{"kind": ly.kind, "n_in": ly.n_in, "n_out": ly.n_out,
-          "w": None if ly.w is None else ly.w.cpu().numpy(),
-          "threshold": (ly.threshold.cpu().numpy() if torch.is_tensor(
-              ly.threshold) else ly.threshold),
-          "leak": (ly.leak.cpu().numpy() if torch.is_tensor(ly.leak)
-                   else ly.leak),
-          "scale": ly.scale, "stride": ly.stride,
-          "state_shape": ly.state_shape} for ly in program.layers],
-        neuron=program.neuron, timesteps=program.timesteps,
-        clamp_mode=program.clamp_mode, device="cpu")
-    spikes_cpu, v_cpu = pipeline.encode(host, xs.cpu())
+    spikes_cpu, v_cpu = pipeline.encode(host_program(program), xs.cpu())
     if not (torch.equal(spikes_cpu, ref.rasters[0].cpu()) and torch.equal(
             v_cpu.view(torch.int32), ref.v_final[0].cpu().view(torch.int32))):
         raise AssertionError("the encoder's spike maps or V on the card "
@@ -1190,6 +1209,288 @@ def phase_conv(dev) -> dict:
     out["predictions"] = ref.v_out.argmax(dim=1)[:16].tolist()
     out["cuda_dense_launch_ms"] = dense_launch_ms(
         lambda: pipeline.run_network(program, xs, "cuda"))
+    return out
+
+
+def stream_equals_run(program, xs, backend, kw, ref) -> None:
+    """Phase 10(a): ``xs`` (T, B, ...) streamed tick by tick and in
+    megasteps of 3 + 3 + 4 on ``backend`` equals its `run_network` result
+    ``ref``: readout V, every raster and every final V, conv maps
+    included."""
+    from repro_torch.core import pipeline
+    T, B = xs.shape[:2]
+    for blocks in ([1] * T, [3, 3, 4]):
+        state = pipeline.init_stream_state(program, B, backend)
+        rasters, t = [], 0
+        for k in blocks:
+            if blocks[0] == 1:
+                state, out = pipeline.stream_step(program, state, xs[t],
+                                                  backend, **kw)
+                rasters.append([r[None] for r in out.rasters])
+            else:
+                state, out = pipeline.stream_megastep(program, state,
+                                                      xs[t:t + k], backend,
+                                                      **kw)
+                rasters.append(out.rasters)
+            t += k
+        full = [torch.cat([r[i] for r in rasters])
+                for i in range(len(rasters[0]))]
+        same = (torch.equal(out.v_out, ref.v_out)
+                and len(full) == len(ref.rasters) == 5
+                and all(torch.equal(a, b) for a, b in
+                        zip(list(state.vs) + full, ref.v_final + ref.rasters)))
+        if not same:
+            raise AssertionError(f"{backend}: streaming in blocks {blocks} "
+                                 "differs from run_network on the card")
+
+
+def fc_geometry(widths):
+    """A weightless FC program of logical ``widths`` (its geometry alone,
+    what `check_kernel_contracts` reads)."""
+    from repro_torch.core.pipeline import LayerSpec, SNNProgram
+    layers = [LayerSpec(kind="encoder", n_in=widths[0], n_out=widths[0],
+                        state_shape=(widths[0],))]
+    for j, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+        last = j == len(widths) - 2
+        layers.append(LayerSpec(kind="readout" if last else "fc", n_in=a,
+                                n_out=b, threshold=None if last else 5,
+                                leak=None if last else 0, state_shape=(b,)))
+    return SNNProgram(cfg=None, neuron="rmp", timesteps=10,
+                      layers=tuple(layers))
+
+
+def phase_contracts_vs_launch(ops, dev, n: int = 40) -> dict:
+    """Phase 10(e): ``n`` seeded stacks per CUDA mode, 1 to 18 layers of
+    widths that straddle `SMEM_LIMIT`: `check_kernel_contracts` accepts
+    exactly the stacks whose launch succeeds, and the wrapper raises
+    `KernelRefused` naming the same rule for exactly the refused ones."""
+    from repro_torch.analysis import ContractError, check_kernel_contracts
+    from repro_torch.kernels.fused_snn_net.kernel import KernelRefused
+    rng = np.random.default_rng(SEED + 10)
+    choices = np.array((14, 84, 126, 128, 686, 1000, 2000, 4000, 12_000))
+    out = {}
+    for backend, mode in (("cuda", "dense"), ("cuda_sparse", "gated"),
+                          ("cuda_events", "events")):
+        launched, refused = 0, {}
+        for _ in range(n):
+            L = int(rng.integers(1, 19))
+            top = rng.choice((130, 700, 2000, 12_000))
+            widths = tuple(int(x) for x in rng.choice(choices[choices <= top],
+                                                      L + 1))
+            T = int(rng.choice((5, 10, 17)))
+            B = int(rng.choice((1, 32, 300)))
+            block_b = int(rng.choice((8, 64, 256)))
+            G = int(rng.choice((1, 8))) if mode == "gated" else 1
+            try:
+                check_kernel_contracts(fc_geometry(widths), backend,
+                                       frames=T, batch=B, block_b=block_b,
+                                       gate_granularity=G)
+                want = None
+            except ContractError as e:
+                want = e.contract
+            spikes = torch.from_numpy((rng.random((T, B, widths[0])) < 0.2)
+                                      .astype(np.int8)).to(dev)
+            ws = [torch.ones((a, b), dtype=torch.int8, device=dev)
+                  for a, b in zip(widths[:-1], widths[1:])]
+            k = len(ws) - 1
+            try:
+                ops.fused_snn_net(spikes, ws, thresholds=(5,) * k,
+                                  leaks=(0,) * k, block_b=block_b,
+                                  use_sparse=mode == "gated",
+                                  gate_granularity=G,
+                                  use_events=mode == "events")
+                torch.cuda.synchronize()
+                got = None
+            except KernelRefused as e:
+                got = e.contract
+            if got != want:
+                raise AssertionError(
+                    f"{backend}: widths {widths}, T={T}, B={B}, block_b="
+                    f"{block_b}, G={G}: the contract pass says {want}, the "
+                    f"launch {got}")
+            if got is None:
+                launched += 1
+            else:
+                refused[got] = refused.get(got, 0) + 1
+        if not launched or not refused:
+            raise AssertionError(f"{backend}: the sweep did not both launch "
+                                 f"and refuse ({launched}, {refused})")
+        out[backend] = {"launched": launched, "refused": refused}
+    return out
+
+
+def phase_conv_serving(dev, ops) -> dict:
+    """Phase 10: impulse-mnist streamed and served at full width."""
+    from repro_torch import kernels
+    from repro_torch.configs.impulse_snn import MNIST
+    from repro_torch.core import pipeline, snn
+    from repro_torch.data.synthetic import mnist_like_batch
+    from repro_torch.launch.serve_snn import image_requests
+    from repro_torch.serve import SNNServeEngine
+
+    program = pipeline.compile_network(
+        MNIST, snn.init_lenet_snn(SEED, MNIST, device=dev), domain="int",
+        device=dev)
+    images = mnist_like_batch(MNIST_BATCH, SEED)[0]
+    T = MNIST.timesteps
+    step_kw = {"cuda_sparse": {"gate_granularity": GATE_G},
+               "cuda_events": {"event_crossover": CROSSOVER}}
+    out = {"streaming": {}, "engines": {}}
+
+    # (a) streaming: 8 images, 10 ticks, on every backend
+    xs = pipeline.present_static(torch.from_numpy(images[:8]).to(dev), T)
+    base = pipeline.run_network(program, xs, "int_ref")
+    for backend in pipeline.STREAM_BACKENDS:
+        kw = step_kw.get(backend, {})
+        ref = pipeline.run_network(program, xs, backend, **kw)
+        if not (torch.equal(ref.v_out, base.v_out) and all(
+                torch.equal(a, b) for a, b in zip(ref.rasters, base.rasters))):
+            raise AssertionError(f"{backend} run_network != int_ref")
+        t0 = time.perf_counter()
+        stream_equals_run(program, xs, backend, kw, ref)
+        torch.cuda.synchronize()
+        out["streaming"][backend] = {"s": time.perf_counter() - t0}
+
+    # (b) serving: 64 requests of 10 frames, arrivals 3 frames apart
+    def requests():
+        return image_requests(images, T, stagger=3)
+
+    def drain(backend, K=5):
+        eng = SNNServeEngine(program, backend=backend, batch_slots=32,
+                             pages=2, megastep=K, device=dev,
+                             step_kw=step_kw.get(backend))
+        for r in requests():
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        return sorted(done, key=lambda r: r.rid), time.perf_counter() - t0, eng
+
+    ref, dt_ref, ref_eng = drain("int_ref")
+    if len(ref) != MNIST_BATCH or any(r.ticks != T for r in ref):
+        raise AssertionError("the int_ref engine did not serve 64 x 10 frames")
+    for r in ref:                                   # isolated runs
+        iso = pipeline.run_network(program, pipeline.present_static(
+            torch.from_numpy(images[r.rid:r.rid + 1]).to(dev), T), "int_ref")
+        rep = pipeline.sparsity_report(program, iso.rasters)
+        if (not np.array_equal(r.v_out, iso.v_out[0].cpu().numpy())
+                or not np.array_equal(r.logits, iso.logits[0].cpu().numpy())
+                or r.report.events != rep.events
+                or r.report.layer_frames != rep.layer_frames):
+            raise AssertionError(f"request {r.rid} != its isolated run")
+    frames = sum(r.ticks for r in ref)
+    out["frames"] = frames
+    out["int_ref"] = {"s": dt_ref, "frames_per_s": frames / dt_ref,
+                      "max_safe_ticks": ref_eng.max_safe_ticks}
+    for backend in ("cuda", "cuda_sparse", "cuda_events"):
+        drain(backend)                               # warm-up, not counted
+        kernels.reset_launch_counts()
+        served, dt, eng = drain(backend)
+        launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
+        bad = [a.rid for a, b in zip(served, ref) if not same_request(a, b)]
+        if len(served) != MNIST_BATCH or bad or any(
+                a.report.layer_frames != b.report.layer_frames
+                for a, b in zip(served, ref)):
+            raise AssertionError(f"{backend} conv engine != int_ref engine "
+                                 f"(requests {bad})")
+        name = {b: k for k, b in BACKEND_OF.items()}[backend]
+        if launches.get(name, 0) != 3 * eng.dispatches or set(launches) != {
+                name}:
+            raise AssertionError(f"{backend}: launches {launches} in "
+                                 f"{eng.dispatches} megasteps, not 3 {name} "
+                                 "each")
+        row = {"s": dt, "frames_per_s": frames / dt, "launches": launches,
+               "megasteps": eng.dispatches,
+               "launches_per_megastep": launches[name] / eng.dispatches,
+               "max_safe_ticks": eng.max_safe_ticks,
+               "skipped_row_fraction":
+                   eng.aggregate_report().skipped_row_fraction}
+        if backend == "cuda_events":
+            _, _, host = drain("ref_events")
+            got, want = eng.device_event_stats(), host.device_event_stats()
+            tally = eng.aggregate_report().row_events
+            if got.frames != want.frames or not all(
+                    np.array_equal(a, b) and np.array_equal(a, c)
+                    for a, b, c in zip(got.row_events, want.row_events,
+                                       tally)):
+                raise AssertionError("the conv cuda_events ledger differs "
+                                     "from ref_events' or the raster tally")
+            row["device_skipped_row_fraction"] = \
+                eng.device_skipped_row_fraction()
+            row["dense_fallbacks"] = list(got.dense_fallbacks)
+        if backend == "cuda":
+            row["profile"] = profile_drain(drain, backend)
+        out["engines"][backend] = row
+
+    # (c) finishes inside a block: K = 4 against int_ref at K = 4
+    ref4, _, _ = drain("int_ref", 4)
+    got4, dt4, eng4 = drain("cuda", 4)
+    bad = [a.rid for a, b in zip(got4, ref4) if not same_request(a, b)]
+    if bad or any(a.finish_clock != b.finish_clock
+                  for a, b in zip(got4, ref4)):
+        raise AssertionError(f"cuda at K=4 != int_ref at K=4 (requests {bad})")
+    if any(not np.array_equal(a.v_out, b.v_out) for a, b in zip(got4, ref)):
+        raise AssertionError("the K=4 engine's outputs differ from K=5's")
+    out["cuda_k4"] = {"s": dt4, "frames_per_s": frames / dt4,
+                      "megasteps": eng4.dispatches}
+    out["contracts"] = phase_contracts_vs_launch(ops, dev)
+    out["predictions"] = [int(np.argmax(r.logits)) for r in ref[:16]]
+    return out
+
+
+def phase_macro_oracle(dev) -> dict:
+    """Phase 11: the bit-level macro oracle (`bitmacro`, on the host)
+    against the `cuda` backend on the card, on wrap programs with weights
+    drawn on the card: one impulse-mnist image and one 6-word IMDB
+    request."""
+    from repro_torch import kernels
+    from repro_torch.configs.impulse_snn import IMDB, MNIST
+    from repro_torch.core import isa, pipeline, snn
+    from repro_torch.data.synthetic import mnist_like_batch
+    from repro_torch.launch.serve_snn import make_requests
+    out = {}
+    mnist = pipeline.compile_network(
+        MNIST, snn.init_lenet_snn(SEED, MNIST, device=dev), domain="int",
+        clamp_mode="wrap", device=dev)
+    imdb = pipeline.compile_network(IMDB, snn.init_fc_snn(SEED, IMDB),
+                                    domain="int", clamp_mode="wrap",
+                                    device=dev)
+    x = torch.from_numpy(mnist_like_batch(1, SEED)[0]).to(dev)
+    words = make_requests(imdb, 1, 6, IMDB.timesteps, 0.85, SEED)[0].frames
+    cases = {"impulse-mnist": (mnist, pipeline.present_static(
+                 x, MNIST.timesteps)),
+             "impulse-imdb": (imdb, torch.from_numpy(words[:, None]).to(dev))}
+    for name, (program, xs) in cases.items():
+        kernels.reset_launch_counts()
+        card = pipeline.run_network(program, xs, "cuda")
+        torch.cuda.synchronize()
+        if kernels.LAUNCH_COUNTS["fused_snn_net"] != len(
+                program.int_conv_stack) + 1:
+            raise AssertionError(f"{name}: cuda launched "
+                                 f"{kernels.LAUNCH_COUNTS}")
+        t0 = time.perf_counter()
+        res = pipeline.run_network(program, xs, "bitmacro")
+        dt = time.perf_counter() - t0
+        same = (torch.equal(res.v_out, card.v_out)
+                and torch.equal(res.logits, card.logits)
+                and len(res.rasters) == len(card.rasters)
+                and all(torch.equal(a, b) for a, b in
+                        zip(res.rasters + res.v_final,
+                            card.rasters + card.v_final)))
+        if not same:
+            raise AssertionError(f"{name}: bitmacro != cuda on the card")
+        counts = res.aux["macro_counts"]
+        ro = program.macro_stack[-1]
+        readout = isa.count_layer_instructions(card.rasters[-1], ro.n_in,
+                                               ro.n_out, "none")
+        total = pipeline.count_network_instructions(program, card.rasters)
+        if tuple(counts + readout) != tuple(total):
+            raise AssertionError(f"{name}: macro counts {counts} + readout "
+                                 f"{readout} != raster count {total}")
+        out[name] = {"bitmacro_s": dt, "frames": int(xs.shape[0]),
+                     "macro_counts": counts._asdict(),
+                     "readout_counts": readout._asdict()}
     return out
 
 
@@ -1447,6 +1748,48 @@ def main() -> int:
           f"backend equal to int_ref on the card (V, rasters, counters, "
           f"instruction counts); encoder on the card == CPU: "
           f"{json.dumps(conv)} ({card})")
+
+    serve = phase_conv_serving(dev, ops)
+    for backend, row in serve["streaming"].items():
+        print(f"[phase 10] {backend}: 8 impulse-mnist images streamed 10 "
+              f"ticks one at a time and in megasteps of 3 + 3 + 4 == "
+              f"run_network (V, rasters, conv maps) in {row['s']:.3f} s")
+    print(f"[phase 10] int_ref engine: 64 impulse-mnist requests x 10 frames "
+          f"(arrivals 3 frames apart, 32 slots x 2 pages, K=5, validate=True)"
+          f" at {serve['int_ref']['frames_per_s']:.1f} frames/s; every "
+          f"request == its isolated run_network and sparsity_report; "
+          f"max_safe_ticks {serve['int_ref']['max_safe_ticks']}")
+    for backend, row in serve["engines"].items():
+        profile = row.pop("profile", None)
+        print(f"[phase 10] {backend}: served 64 impulse-mnist requests x 10 "
+              f"frames at {row['frames_per_s']:.1f} frames/s ({row['s']:.4f} "
+              f"s), {row['launches_per_megastep']:.0f} launches per megastep, "
+              f"every request == the int_ref engine; {json.dumps(row)} "
+              f"({card})")
+        if profile is not None:
+            print(f"[phase 10] {backend} profiled drain: "
+                  f"{json.dumps(profile)} ({card})")
+    print(f"[phase 10] cuda at K=4 (finishes inside a block) == int_ref at "
+          f"K=4: {json.dumps(serve['cuda_k4'])}")
+    for backend, row in serve["contracts"].items():
+        print(f"[phase 10] contracts vs launch, {backend}: the contract pass "
+              f"accepted exactly the {row['launched']} stacks that launched "
+              f"and refused {row['refused']}, each as the wrapper did")
+    oracle = phase_macro_oracle(dev)
+    for name, row in oracle.items():
+        print(f"[phase 11] {name} (wrap): bitmacro on the host == cuda on the "
+              f"card (V, rasters, readout), macro counts == raster count less "
+              f"the readout's, in {row['bitmacro_s']:.2f} s of host time: "
+              f"{json.dumps(row)}")
+    for entry in entries:
+        if entry["name"] in BACKEND_OF:
+            entry["paths"] = [
+                "impulse-imdb serving (phase 3, launches)",
+                "impulse-mnist run_network (phase 9)",
+                "impulse-mnist conv streaming and serving (phase 10, "
+                "conv_serving_launches)"]
+            entry["conv_serving_launches"] = serve["engines"][
+                BACKEND_OF[entry["name"]]]["launches"][entry["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

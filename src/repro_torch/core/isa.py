@@ -1,6 +1,9 @@
-"""Word-level integer semantics of one macro timestep, vectorized over a
-layer tile: the plain PyTorch contract the CUDA kernels are held against,
-and the instruction accounting of the energy model.
+"""Word-level integer semantics of the macro: the four instructions on one
+macro's state (`MacroState`, `acc_w2v`, `acc_v2v`, `spike_check`,
+`reset_v`, the neuron-update sequence and `timestep`), the timestep
+vectorized over a layer tile (the plain PyTorch contract the CUDA kernels
+are held against), and the instruction accounting of the energy model.
+The bit-level `macro.BitMacro` is held against the single-macro ops.
 
 The macro's instruction sequence per timestep is AccW2V (accumulate the
 weight rows of firing inputs into V), then the neuron update: the LIF leak
@@ -15,6 +18,7 @@ Macro geometry (the fabricated 65nm instance):
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +47,129 @@ class InstrCount(NamedTuple):
     @property
     def total(self) -> int:
         return sum(self)
+
+
+@dataclass
+class MacroState:
+    """Logical state of one macro (word level), as tensors."""
+    wmem: torch.Tensor                    # (128, 12) int8 in [-31, 31]
+    vmem: torch.Tensor                    # (N_SETS, 12) int32, 11-bit clamped
+    threshold: torch.Tensor               # (12,) int32 (stored negated on-chip)
+    reset: torch.Tensor                   # (12,) int32
+    leak: torch.Tensor                    # (12,) int32 (stored negated on-chip)
+    spike_buf: torch.Tensor               # (N_SETS, 12) bool
+    clamp_mode: str = "saturate"
+
+
+def make_state(wq, threshold: int, reset: int = 0, leak: int = 0,
+               clamp_mode: str = "saturate") -> MacroState:
+    """A macro holding the (128, 12) weight tile ``wq`` (an array or a
+    tensor), V at 0 and the given constants."""
+    wq = torch.as_tensor(np.asarray(wq.cpu() if torch.is_tensor(wq) else wq))
+    if tuple(wq.shape) != (MACRO_IN, MACRO_OUT):
+        raise ValueError(f"macro weight tile must be "
+                         f"{(MACRO_IN, MACRO_OUT)}, got {tuple(wq.shape)}")
+    return MacroState(
+        wmem=wq.to(torch.int8),
+        vmem=torch.zeros((N_NEURON_SETS, MACRO_OUT), dtype=torch.int32),
+        threshold=torch.full((MACRO_OUT,), threshold, dtype=torch.int32),
+        reset=torch.full((MACRO_OUT,), reset, dtype=torch.int32),
+        leak=torch.full((MACRO_OUT,), leak, dtype=torch.int32),
+        spike_buf=torch.zeros((N_NEURON_SETS, MACRO_OUT), dtype=torch.bool),
+        clamp_mode=clamp_mode)
+
+
+# Instructions. ``cycle``: 0 = odd (even-indexed weight groups), 1 = even.
+# Each call models one executed macro cycle and returns a new state.
+
+def _parity_mask(cycle: int) -> torch.Tensor:
+    m = torch.zeros(MACRO_OUT, dtype=torch.bool)
+    m[cycle::2] = True
+    return m
+
+
+def _set_row(x: torch.Tensor, i: int, row: torch.Tensor) -> torch.Tensor:
+    out = x.clone()
+    out[i] = row
+    return out
+
+
+def acc_w2v(st: MacroState, set_idx: int, in_row, cycle: int) -> MacroState:
+    """V[set, parity] += W[in_row, parity] (triple-row decode: RWLo/e + V
+    RWL + WWL)."""
+    w = st.wmem[int(in_row)].to(torch.int32)
+    v = st.vmem[set_idx]
+    v = torch.where(_parity_mask(cycle), clamp_v(v + w, st.clamp_mode), v)
+    return replace(st, vmem=_set_row(st.vmem, set_idx, v))
+
+
+def acc_v2v(st: MacroState, set_idx: int, add: torch.Tensor, cycle: int,
+            conditional: bool = False) -> MacroState:
+    """V[set, parity] += add[parity]; with ``conditional`` only where the
+    spike buffer is set (the conditional write drivers: RMP soft reset)."""
+    mask = _parity_mask(cycle)
+    if conditional:
+        mask = mask & st.spike_buf[set_idx]
+    v = st.vmem[set_idx]
+    v = torch.where(mask, clamp_v(v + add.to(torch.int32), st.clamp_mode), v)
+    return replace(st, vmem=_set_row(st.vmem, set_idx, v))
+
+
+def spike_check(st: MacroState, set_idx: int, cycle: int) -> MacroState:
+    """Compare V against the threshold (adder as comparator) and latch the
+    parity's spike buffers; V is not written. In ``wrap`` mode the
+    comparison wraps (`quant.spike_compare`)."""
+    fired = spike_compare(st.vmem[set_idx], st.threshold, st.clamp_mode)
+    buf = torch.where(_parity_mask(cycle), fired, st.spike_buf[set_idx])
+    return replace(st, spike_buf=_set_row(st.spike_buf, set_idx, buf))
+
+
+def reset_v(st: MacroState, set_idx: int, cycle: int) -> MacroState:
+    """Rewrite V from the reset row where the spike buffer is set (BLFA
+    bypassed: SINV -> CWD direct)."""
+    mask = _parity_mask(cycle) & st.spike_buf[set_idx]
+    v = torch.where(mask, st.reset, st.vmem[set_idx])
+    return replace(st, vmem=_set_row(st.vmem, set_idx, v))
+
+
+def neuron_update(st: MacroState, set_idx: int, neuron: str
+                  ) -> tuple[MacroState, torch.Tensor, InstrCount]:
+    """End-of-timestep neuron update for both parities (Fig. 6). Returns
+    (state, (12,) spikes, cycles)."""
+    cnt = InstrCount()
+    if neuron == "lif":
+        for c in (0, 1):
+            st = acc_v2v(st, set_idx, -st.leak, c)
+        cnt += InstrCount(acc_v2v=2)
+    for c in (0, 1):
+        st = spike_check(st, set_idx, c)
+    cnt += InstrCount(spike_check=2)
+    if neuron == "rmp":                      # soft reset: AccV2V(-th), gated
+        for c in (0, 1):
+            st = acc_v2v(st, set_idx, -st.threshold, c, conditional=True)
+        cnt += InstrCount(acc_v2v=2)
+    elif neuron in ("if", "lif"):
+        for c in (0, 1):
+            st = reset_v(st, set_idx, c)
+        cnt += InstrCount(reset_v=2)
+    else:
+        raise ValueError(neuron)
+    return st, st.spike_buf[set_idx], cnt
+
+
+def timestep(st: MacroState, set_idx: int, in_spikes, neuron: str
+             ) -> tuple[MacroState, torch.Tensor, InstrCount]:
+    """One SNN timestep on one macro: AccW2V (odd and even cycle) per
+    spiking input row of the (128,) event list ``in_spikes``, then the
+    neuron update. Only spiking rows issue instructions."""
+    in_spikes = torch.as_tensor(np.asarray(
+        in_spikes.cpu() if torch.is_tensor(in_spikes) else in_spikes))
+    rows = torch.nonzero(in_spikes.to(torch.bool)).flatten().tolist()
+    for r in rows:
+        st = acc_w2v(st, set_idx, r, cycle=0)
+        st = acc_w2v(st, set_idx, r, cycle=1)
+    st, spikes, c2 = neuron_update(st, set_idx, neuron)
+    return st, spikes, InstrCount(acc_w2v=2 * len(rows)) + c2
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core.isa import MACRO_IN, MACRO_OUT
@@ -62,6 +63,27 @@ def conv_tiling(kernel: int, c_in: int, c_out: int,
     return ConvTiling(fan_in=fan_in, n_out_ch=c_out,
                       out_positions=out_hw[0] * out_hw[1],
                       fc=fc_tiling(fan_in, c_out))
+
+
+def tile_weights(w: np.ndarray) -> np.ndarray:
+    """(n_in, n_out) integer weights -> (row_tiles, col_tiles, 128, 12),
+    each macro's tile, zero padded (host numpy: the bit-level macros'
+    input)."""
+    n_in, n_out = w.shape
+    t = fc_tiling(n_in, n_out)
+    out = np.zeros((t.row_tiles, t.col_tiles, MACRO_IN, MACRO_OUT),
+                   dtype=w.dtype)
+    for r in range(t.row_tiles):
+        for c in range(t.col_tiles):
+            blk = w[r * MACRO_IN:(r + 1) * MACRO_IN,
+                    c * MACRO_OUT:(c + 1) * MACRO_OUT]
+            out[r, c, :blk.shape[0], :blk.shape[1]] = blk
+    return out
+
+
+def untile_outputs(v: np.ndarray, n_out: int) -> np.ndarray:
+    """(col_tiles, 12) per-macro outputs -> (n_out,), padding dropped."""
+    return v.reshape(-1)[:n_out]
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int, int]:

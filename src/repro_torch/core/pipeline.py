@@ -26,12 +26,18 @@ agree bit for bit with each other and with the JAX package's backends:
                  fallback above ``event_crossover`` (aux: row events equal
                  to ``ref_events``', plus fallback counts).
 
+  bitmacro    -- the bit-level silicon oracle (`core.macro.BitMacro` banks,
+                 on the host in numpy by nature; wrap programs only):
+                 aux["macro_counts"] is the cycle tally it executed.
+
 Each on-macro conv layer is one call of the same kernels on its
 (T, B*P, k*k*C) patch raster (``readout=False``), so every backend serves
-conv programs. The same backends stream FC programs: `stream_step` advances
-every lane one tick and `stream_megastep` K ticks in one fc-stack dispatch,
-carrying every layer's V as a `StreamState`. Streaming conv programs and
-the float (QAT) domain are not part of this package yet.
+conv programs. The same five kernel and plain backends stream FC and conv
+programs: `stream_step` advances every lane one tick and `stream_megastep`
+K ticks with one dispatch per on-macro conv and one for the fc stack,
+carrying every layer's V as a `StreamState` (a conv's V map enters its
+call flattened to (B*P, C), in `mapping.im2col_raster`'s frame order). The
+float (QAT) domain is not part of this package yet.
 
 Instruction counting is a program-level pass over the spike rasters
 (`count_network_instructions`, `SparsityReport.instruction_counts`), so
@@ -109,6 +115,18 @@ class SNNProgram:
         """Everything that executes on macros: on-macro convs, spiking FCs,
         readout; the layers instruction counting iterates over."""
         return self.int_conv_stack + self.fc_stack
+
+    @property
+    def in_shape(self) -> tuple:
+        """Per-example shape of one input frame: ``cfg.in_shape`` (H, W, C)
+        for a conv program, the encoder's width for an FC program. Raises
+        `ValueError` for a conv program built without its config."""
+        if self.layers[0].kind != "conv":
+            return tuple(self.layers[0].state_shape)
+        if self.cfg is None:
+            raise ValueError("a conv program's input shape comes from its "
+                             "config; pass cfg= to program_from_arrays")
+        return tuple(self.cfg.in_shape)
 
     @property
     def neuron_layers(self) -> tuple:
@@ -266,8 +284,8 @@ def _check_kinds(kinds: list) -> None:
 
 
 def program_from_arrays(layers: list, *, neuron: str, timesteps: int,
-                        clamp_mode: str = "saturate", device=None
-                        ) -> SNNProgram:
+                        clamp_mode: str = "saturate", device=None,
+                        cfg: Optional[SNNModelConfig] = None) -> SNNProgram:
     """Build an integer `SNNProgram` from plain arrays, one dict per layer
     with ``kind``, ``n_in``, ``n_out``, ``w``, ``threshold``, ``leak`` and
     ``scale``: an FC program is "encoder" (``w`` None, f32 threshold and
@@ -279,7 +297,8 @@ def program_from_arrays(layers: list, *, neuron: str, timesteps: int,
     ``stride`` and per-example ``state_shape`` (H, W, C). Carries a
     compiled program across from another implementation with its constants
     unchanged. ``device`` defaults to the CUDA device (raises without
-    one)."""
+    one); ``cfg``, optional, is kept on the program (a conv program's
+    input shape, `SNNProgram.in_shape`, comes from it)."""
     device = resolve_device(device)
     _check_kinds([d["kind"] for d in layers])
     if clamp_mode not in CLAMP_MODES:
@@ -318,7 +337,7 @@ def program_from_arrays(layers: list, *, neuron: str, timesteps: int,
             threshold=th, leak=lk,
             scale=None if d.get("scale") is None else float(d["scale"]),
             **extra))
-    return SNNProgram(cfg=None, neuron=neuron,
+    return SNNProgram(cfg=cfg, neuron=neuron,
                       timesteps=timesteps, layers=tuple(specs),
                       clamp_mode=clamp_mode, device=device)
 
@@ -449,28 +468,34 @@ def _run_fc_stack(program: SNNProgram, spikes: torch.Tensor, **flags
                        readout=True, **flags)
 
 
-def _conv_front_end(program: SNNProgram, spikes_enc: torch.Tensor, **flags
-                    ) -> tuple:
+def _conv_front_end(program: SNNProgram, spikes_enc: torch.Tensor, *,
+                    v_init: Optional[list] = None, **flags) -> tuple:
     """The on-macro conv layers on the encoder's spike maps. Each conv
     lowers onto the macro grid through im2col: its (T, B, H, W, C) input
     maps become a (T, B*P, k*k*C) patch raster, one frame per (example,
     output position), run by the same fused-stack dispatch as the fc stack
     (one layer, ``readout=False``, rasters on), so every backend serves
-    conv programs. ``flags``: the options of `_run_layers`. Returns (maps,
-    v_convs, conv_skips): per layer the output spike maps
+    conv programs. ``v_init`` (streaming) holds each conv's carried
+    (B, H_out, W_out, C_out) V map, which enters the call flattened to
+    (B*P, C_out): frame b*P + h*W_out + w, the order `mapping.
+    im2col_raster` gives the patch raster. ``flags``: the options of
+    `_run_layers`. Returns (maps, v_convs, conv_skips): per layer the
+    output spike maps
     (T, B, H_out, W_out, C_out) int8, the final V maps and the counters
     (None when dense, `events.EventStats` on the event paths)."""
     maps, v_convs, conv_skips = [], [], []
     cur = spikes_enc
-    for spec in program.int_conv_stack:
+    for ci, spec in enumerate(program.int_conv_stack):
         t_total, batch = cur.shape[:2]
         k = spec.w.shape[0]
         patches = mapping.im2col_raster(cur, k, spec.stride)
         out_hw = mapping.conv_out_hw(tuple(cur.shape[2:4]), k, spec.stride)
+        vi = (None if v_init is None else
+              [v_init[ci].reshape(-1, spec.n_out)])
         rasters, v, skips = _run_layers(
             program, patches, [mapping.pack_conv_weights(spec.w)],
             (spec.threshold,), (spec.leak,), readout=False,
-            emit_rasters=True, **flags)
+            emit_rasters=True, v_init=vi, **flags)
         cur = rasters[0].reshape(t_total, batch, *out_hw, spec.n_out)
         maps.append(cur)
         v_convs.append(v[0].reshape(batch, *out_hw, spec.n_out))
@@ -499,6 +524,31 @@ def run_stack_from_raster(program: SNNProgram, spikes_enc: torch.Tensor, *,
     return [spikes_enc] + list(rasters), list(v_stack), skips
 
 
+def _on_macro(program: SNNProgram, spikes_enc: torch.Tensor,
+              emit_rasters: bool, flags: dict,
+              state: Optional[StreamState] = None
+              ) -> tuple:
+    """Every on-macro call on a (T, B, ...) encoder raster: the conv front
+    end, then the fc stack on the last map, flattened (its rasters per
+    ``emit_rasters``); with a streaming ``state``, each call resumes from
+    its carried V. ``flags``: the options of `_run_layers`. Returns (conv
+    maps, conv V, conv counters, the fc stack's input raster, fc rasters,
+    fc V, fc counters)."""
+    n_convs = len(program.int_conv_stack)
+    conv_maps, v_convs, conv_skips = _conv_front_end(
+        program, spikes_enc,
+        v_init=None if state is None else list(state.vs[1:1 + n_convs]),
+        **flags)
+    last = conv_maps[-1] if conv_maps else spikes_enc
+    flat = last.reshape(*last.shape[:2], -1) if last.dim() > 3 else last
+    rasters_fc, v_stack, skips = _run_fc_stack(
+        program, flat, emit_rasters=emit_rasters,
+        v_init=None if state is None else list(state.vs[1 + n_convs:]),
+        **flags)
+    return (conv_maps, v_convs, conv_skips, flat, rasters_fc, v_stack,
+            skips)
+
+
 def _run_macro_stack(program: SNNProgram, xs: torch.Tensor, *,
                      use_kernel: bool, **flags) -> NetResult:
     """Shared executor of every backend: the f32 encoder pass, the on-macro
@@ -507,12 +557,9 @@ def _run_macro_stack(program: SNNProgram, xs: torch.Tensor, *,
     attached to ``aux``; a gated run's conv counters go to
     ``aux["conv_skip_counts"]``, one entry per conv layer."""
     spikes_enc, v_enc = encode(program, xs)
-    conv_maps, v_convs, conv_skips = _conv_front_end(
-        program, spikes_enc, use_kernel=use_kernel, **flags)
-    last = conv_maps[-1] if conv_maps else spikes_enc
-    flat = last.reshape(*last.shape[:2], -1) if last.dim() > 3 else last
-    rasters_fc, v_stack, skips = _run_fc_stack(
-        program, flat, use_kernel=use_kernel, emit_rasters=True, **flags)
+    conv_maps, v_convs, conv_skips, _, rasters_fc, v_stack, skips = \
+        _on_macro(program, spikes_enc, True, dict(use_kernel=use_kernel,
+                                                  **flags))
     v_out = v_stack[-1]
     # rasters[i] is the input raster of macro-stack layer i: spike maps for
     # the convs (the last conv's map, flattened, is the fc stack's input)
@@ -588,6 +635,19 @@ def _attach_event_stats(res: NetResult, conv_stats: list, stats: EventStats
 # Backends
 # ---------------------------------------------------------------------------
 
+BACKENDS: dict[str, Callable] = {}
+
+
+def register_backend(name: str) -> Callable:
+    """Decorator that registers an execution backend under ``name`` in
+    `BACKENDS`, the `run_network` dispatch table."""
+    def deco(fn: Callable) -> Callable:
+        BACKENDS[name] = fn
+        return fn
+    return deco
+
+
+@register_backend("int_ref")
 def run_int_ref(program: SNNProgram, xs: torch.Tensor, *,
                 use_sparse: bool = False) -> NetResult:
     """Word-level ISA semantics in plain torch ops, on any device.
@@ -597,12 +657,14 @@ def run_int_ref(program: SNNProgram, xs: torch.Tensor, *,
                             use_sparse=use_sparse)
 
 
+@register_backend("cuda")
 def run_cuda(program: SNNProgram, xs: torch.Tensor) -> NetResult:
     """The fused-network CUDA kernel: one launch for the fc stack over all
     timesteps. On CPU tensors its wrapper runs the plain version."""
     return _run_macro_stack(program, xs, use_kernel=True)
 
 
+@register_backend("cuda_sparse")
 def run_cuda_sparse(program: SNNProgram, xs: torch.Tensor, *,
                     block_b: int = 8, gate_granularity: int = 1
                     ) -> NetResult:
@@ -617,6 +679,7 @@ def run_cuda_sparse(program: SNNProgram, xs: torch.Tensor, *,
                             gate_granularity=gate_granularity)
 
 
+@register_backend("ref_events")
 def run_ref_events(program: SNNProgram, xs: torch.Tensor) -> NetResult:
     """The host spike-list executor: every (timestep, example) frame is
     compacted to its active rows and AccW2V gathers their weight rows, so
@@ -626,6 +689,7 @@ def run_ref_events(program: SNNProgram, xs: torch.Tensor) -> NetResult:
     return _run_macro_stack(program, xs, use_kernel=False, use_events=True)
 
 
+@register_backend("cuda_events")
 def run_cuda_events(program: SNNProgram, xs: torch.Tensor, *,
                     block_b: int = 8, event_crossover: float = 1.0
                     ) -> NetResult:
@@ -639,9 +703,111 @@ def run_cuda_events(program: SNNProgram, xs: torch.Tensor, *,
                             block_b=block_b, event_crossover=event_crossover)
 
 
-BACKENDS: dict[str, Callable] = {
-    "int_ref": run_int_ref, "cuda": run_cuda, "cuda_sparse": run_cuda_sparse,
-    "ref_events": run_ref_events, "cuda_events": run_cuda_events}
+def _bitmacro_layer(inp: np.ndarray, wq: np.ndarray, threshold: int,
+                    leak: int, neuron: str) -> tuple:
+    """One spiking layer on banks of bit-level macros: (T, F, n_in) bool
+    input frames -> ((T, F, n_out) int8 spikes, (F, n_out) int32 final V,
+    the executed `isa.InstrCount`).
+
+    Frames (examples, or (example, output position) pairs of a conv) take
+    one V_MEM neuron set each, 13 per macro grid; more frames claim more
+    banks. The fan-in splits over ``row_tiles`` macros
+    (`mapping.tile_weights`): row tile 0 holds V and the constants, the
+    others accumulate the timestep's partial sums, which AccV2V (odd and
+    even cycle per tile) reduces into tile 0 before its neuron update.
+    Wrap arithmetic composes mod 2**11, so the split equals one word-level
+    accumulate. The executed cycles equal `isa.count_layer_instructions`
+    of the input raster."""
+    from repro_torch.core.macro import BitMacro
+    t_total, n_frames, _ = inp.shape
+    n_out = wq.shape[1]
+    tiling = mapping.fc_tiling(wq.shape[0], n_out)
+    tiles = mapping.tile_weights(wq)
+    n_banks = -(-n_frames // isa.N_NEURON_SETS)
+    banks = [[[BitMacro.from_weights(tiles[r, c], threshold=threshold,
+                                     leak=leak)
+               for c in range(tiling.col_tiles)]
+              for r in range(tiling.row_tiles)]
+             for _ in range(n_banks)]
+    out = np.zeros((t_total, n_frames, n_out), np.int8)
+    for t in range(t_total):
+        for f in range(n_frames):
+            bank, set_idx = divmod(f, isa.N_NEURON_SETS)
+            grid = banks[bank]
+            for row in np.nonzero(inp[t, f])[0]:         # event-driven AccW2V
+                r, macro_row = divmod(int(row), isa.MACRO_IN)
+                for c in range(tiling.col_tiles):
+                    grid[r][c].acc_w2v(set_idx, macro_row, cycle=0)
+                    grid[r][c].acc_w2v(set_idx, macro_row, cycle=1)
+            for r in range(1, tiling.row_tiles):         # AccV2V reduction
+                for c in range(tiling.col_tiles):
+                    partial = grid[r][c].transfer_v(set_idx)
+                    for cycle in (0, 1):
+                        grid[0][c].acc_v2v(set_idx, partial, cycle)
+            spikes = np.concatenate(
+                [grid[0][c].neuron_update(set_idx, neuron)
+                 for c in range(tiling.col_tiles)])
+            out[t, f] = spikes[:n_out].astype(np.int8)
+    v = np.stack([
+        mapping.untile_outputs(np.stack(
+            [banks[f // isa.N_NEURON_SETS][0][c]
+             .read_v(f % isa.N_NEURON_SETS)
+             for c in range(tiling.col_tiles)]), n_out)
+        for f in range(n_frames)])
+    counts = sum((m.counts for bank in banks for row in bank for m in row),
+                 isa.InstrCount())
+    return out, v.astype(np.int32), counts
+
+
+@register_backend("bitmacro")
+def run_bitmacro(program: SNNProgram, xs: torch.Tensor) -> NetResult:
+    """The program's on-macro stack on bit-level macros (the silicon
+    oracle): row-tiled fan-in with AccV2V reduction, conv layers through
+    im2col (one neuron set per (example, output position)), extra macro
+    banks beyond 13 frames (`_bitmacro_layer`). The encoder runs on the
+    program's device; the macros run on the host in numpy (their inputs
+    are copied there, the results back onto the device). The readout
+    accumulates word-level, off the bit array, as deployed.
+    aux["macro_counts"]: the executed `isa.InstrCount` (the raster count
+    without the readout's). Raises `ValueError` unless the program is in
+    ``clamp_mode="wrap"``, the silicon's arithmetic."""
+    if program.clamp_mode != "wrap":
+        raise ValueError("bitmacro executes silicon wrap arithmetic; compile "
+                         "the program with clamp_mode='wrap'")
+    dev = program.device
+    spikes_enc, v_enc = encode(program, xs)
+    cur = _host(spikes_enc).astype(np.int8)
+    t_total, batch = cur.shape[:2]
+    stack = program.macro_stack
+    rasters, v_stack = [spikes_enc], []
+    total = isa.InstrCount()
+    for spec in stack[:-1]:
+        wq = _host(spec.w)
+        if spec.kind == "conv":
+            k = wq.shape[0]
+            inp = _host(mapping.im2col_raster(torch.from_numpy(cur), k,
+                                              spec.stride)).astype(bool)
+            out_hw = mapping.conv_out_hw(cur.shape[2:4], k, spec.stride)
+            wq = mapping.pack_conv_weights(wq)
+        else:
+            inp = cur.reshape(t_total, -1, spec.n_in).astype(bool)
+        out, v, counts = _bitmacro_layer(inp, wq, int(spec.threshold),
+                                         int(spec.leak), program.neuron)
+        total += counts
+        if spec.kind == "conv":
+            cur = out.reshape(t_total, batch, *out_hw, spec.n_out)
+            v = v.reshape(batch, *out_hw, spec.n_out)
+        else:
+            cur = out
+        rasters.append(torch.from_numpy(cur).to(dev))
+        v_stack.append(torch.from_numpy(v).to(dev))
+    flat = cur.reshape(t_total, batch, -1).astype(np.int64)
+    v_out = flat.sum(axis=0) @ _host(stack[-1].w).astype(np.int64)
+    v_out = torch.from_numpy(v_out.astype(np.int32)).to(dev)
+    res = NetResult(v_out=v_out, logits=program.logits(v_out),
+                    v_final=[v_enc] + v_stack + [v_out], rasters=rasters)
+    res.aux["macro_counts"] = total
+    return res
 
 
 def run_network(program: SNNProgram, xs: torch.Tensor,
@@ -673,24 +839,28 @@ STREAM_BACKENDS = ("int_ref", "cuda", "cuda_sparse", "ref_events",
 
 class StreamState(NamedTuple):
     """Carried membrane state: one V tensor per program layer (encoder
-    first, readout last), each (B, *state_shape) with the lane on axis 0;
-    f32 for the encoder, int32 for the fc stack."""
+    first, readout last), each (B, *state_shape) with the lane on axis 0:
+    f32 for the encoder ((B, H, W, C) for a conv encoder), int32 for the
+    on-macro convs ((B, H_out, W_out, C)) and the fc stack."""
     vs: tuple
     t: int = 0           # ticks executed (bookkeeping only)
 
 
 @dataclass
 class StreamOut:
-    """What one `stream_step` tick produces. ``rasters[i]`` is fc-stack
-    layer i's input raster of this tick, (B, n) (None without
-    ``emit_rasters``). ``skips`` holds the tick's counters in the layout
-    `run_network` puts in aux: the gate counts of the gated paths (summed
-    over ticks they equal a batch run's), an `events.EventStats` on the
-    event paths, else None."""
+    """What one `stream_step` tick produces. ``rasters[i]`` is macro-stack
+    layer i's input raster of this tick, (B, n), or (B, H, W, C) spike maps
+    feeding a conv (None without ``emit_rasters``). ``skips`` holds the fc
+    stack's counters of the tick in the layout `run_network` puts in aux:
+    the gate counts of the gated paths (summed over ticks they equal a
+    batch run's), an `events.EventStats` on the event paths, else None;
+    ``conv_skips`` one such entry per on-macro conv (None without
+    convs)."""
     v_out: Any
     logits: Any
     rasters: Optional[list] = None
     skips: Any = None
+    conv_skips: Any = None
 
 
 @dataclass
@@ -700,8 +870,8 @@ class MegastepOut:
     per-tick readout trajectory within the block, what a server needs to
     finalize a request that finishes mid-block with the values a
     tick-by-tick drain gives; ``frames_consumed`` is the per-lane count of
-    real (unmasked) frames; ``skips`` the block's counters, as in
-    `StreamOut`."""
+    real (unmasked) frames; ``skips`` and ``conv_skips`` the block's
+    counters, as in `StreamOut`."""
     v_out: Any                    # (B, n_out) readout V after the block
     logits: Any                   # (B, n_out)
     v_out_traj: Any               # (K, B, n_out) per-tick readout V
@@ -709,28 +879,23 @@ class MegastepOut:
     frames_consumed: Any          # (B,) int32
     rasters: Optional[list] = None
     skips: Any = None
+    conv_skips: Any = None
 
 
-def _check_stream(program: SNNProgram, backend: str) -> None:
-    """Raises `KeyError` for an unknown backend and `NotImplementedError`
-    for a conv program, whose streaming comes with a later slice."""
+def _check_stream(backend: str) -> None:
+    """Raises `KeyError` for a backend with no streaming entry (bitmacro's
+    state lives in host `BitMacro` objects, not in tensors)."""
     if backend not in STREAM_BACKENDS:
         raise KeyError(f"unknown streaming backend {backend!r}; have "
                        f"{STREAM_BACKENDS}")
-    if program.layers[0].kind == "conv":
-        raise NotImplementedError(
-            "streaming a conv program (its conv V leaves in StreamState, "
-            "stream_step, stream_megastep and SNNServeEngine) comes with the "
-            "conv-streaming slice of the port; run it with run_network")
 
 
-def _stream_flags(program: SNNProgram, backend: str, use_sparse: bool,
-                  block_b: int, gate_granularity: int,
-                  event_crossover: float) -> dict:
+def _stream_flags(backend: str, use_sparse: bool, block_b: int,
+                  gate_granularity: int, event_crossover: float) -> dict:
     """`_run_layers` options of a streaming ``backend`` and its kwargs:
     the kernel on the cuda* backends, the event list on the *events ones,
     gating on cuda_sparse (or wherever ``use_sparse`` asks for it)."""
-    _check_stream(program, backend)
+    _check_stream(backend)
     return dict(use_kernel=backend.startswith("cuda"),
                 use_events=backend.endswith("events"),
                 use_sparse=use_sparse or backend == "cuda_sparse",
@@ -742,7 +907,7 @@ def init_stream_state(program: SNNProgram, batch: int,
                       backend: str = "int_ref") -> StreamState:
     """Fresh (all-zero V) state for ``batch`` streams on the program's
     device."""
-    _check_stream(program, backend)
+    _check_stream(backend)
     vs = tuple(torch.zeros((batch, *spec.state_shape),
                            dtype=torch.float32 if i == 0 else torch.int32,
                            device=program.device)
@@ -755,25 +920,28 @@ def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
                 use_sparse: bool = False, block_b: int = 8,
                 gate_granularity: int = 1, event_crossover: float = 1.0
                 ) -> tuple[StreamState, StreamOut]:
-    """Advance every stream one tick on a (B, d) current ``frame``:
-    (state, frame) -> (new state, StreamOut). The fc stack resumes from
-    the carried V through the kernels' ``v_init`` entry. The backend
-    options mirror `run_network`: ``use_sparse`` gates the int_ref tick,
+    """Advance every stream one tick on a (B, *in_shape) current ``frame``:
+    (state, frame) -> (new state, StreamOut). Each on-macro conv and the
+    fc stack resume from the carried V through the kernels' ``v_init``
+    entry; the last conv's maps, flattened, are the fc stack's input. The
+    backend options mirror `run_network`: ``use_sparse`` gates the int_ref tick,
     ``block_b`` sets the kernels' tile, ``gate_granularity`` the gated
     blocks and ``event_crossover`` the event kernel's dense fallback."""
-    flags = _stream_flags(program, backend, use_sparse, block_b,
-                          gate_granularity, event_crossover)
+    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
+                          event_crossover)
     v_enc, spikes_enc = encoder_step(program, state.vs[0], frame)
-    rasters_fc, v_stack, skips = _run_fc_stack(
-        program, spikes_enc[None], emit_rasters=emit_rasters,
-        v_init=list(state.vs[1:]), **flags)
+    conv_maps, v_convs, conv_skips, _, rasters_fc, v_stack, skips = \
+        _on_macro(program, spikes_enc[None], emit_rasters, flags, state)
     rasters = None
     if emit_rasters:
-        rasters = [spikes_enc] + [r[0] for r in rasters_fc]
+        rasters = ([spikes_enc] + [m[0] for m in conv_maps]
+                   + [r[0] for r in rasters_fc])
     v_out = v_stack[-1]
-    return (StreamState(vs=(v_enc,) + tuple(v_stack), t=state.t + 1),
+    return (StreamState(vs=(v_enc,) + tuple(v_convs) + tuple(v_stack),
+                        t=state.t + 1),
             StreamOut(v_out=v_out, logits=program.logits(v_out),
-                      rasters=rasters, skips=skips))
+                      rasters=rasters, skips=skips,
+                      conv_skips=conv_skips or None))
 
 
 def stream_megastep(program: SNNProgram, state: StreamState,
@@ -782,10 +950,10 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                     block_b: int = 8, gate_granularity: int = 1,
                     event_crossover: float = 1.0
                     ) -> tuple[StreamState, MegastepOut]:
-    """Advance every stream K ticks with one fc-stack dispatch: (state,
-    (K, B, d) current block) -> (new state, MegastepOut). Integer
-    arithmetic is exact, so one K-frame call equals K chained one-frame
-    calls bit for bit.
+    """Advance every stream K ticks with one dispatch per on-macro conv and
+    one for the fc stack: (state, (K, B, *in_shape) current block) -> (new
+    state, MegastepOut). Integer arithmetic is exact, so one K-frame call
+    equals K chained one-frame calls bit for bit.
 
     ``active`` (optional (B,) ints) is the per-lane active-tick count:
     frames at tick t >= active[lane] are zeroed before integration, so a
@@ -799,8 +967,8 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     rasters even when ``emit_rasters=False``. The product goes through
     `isa.int_matmul`, since CUDA has no int32 matmul. The backend options
     are `stream_step`'s."""
-    flags = _stream_flags(program, backend, use_sparse, block_b,
-                          gate_granularity, event_crossover)
+    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
+                          event_crossover)
     frames = torch.as_tensor(frames, device=program.device)
     if frames.dim() < 3:
         raise ValueError(f"stream_megastep takes a (K, B, *in_shape) frame "
@@ -818,26 +986,27 @@ def stream_megastep(program: SNNProgram, state: StreamState,
         consumed = torch.clamp(act, max=k)
     else:
         consumed = torch.full((b,), k, dtype=torch.int32, device=frames.device)
-    v_enc = state.vs[0]
-    spikes_enc = torch.empty(frames.shape, dtype=torch.int8,
-                             device=frames.device)
+    v_enc, spk = state.vs[0], []
     for t in range(k):
-        v_enc, spikes_enc[t] = encoder_step(program, v_enc, frames[t])
-    rasters_fc, v_stack, skips = _run_fc_stack(
-        program, spikes_enc, emit_rasters=True, v_init=list(state.vs[1:]),
-        **flags)
-    ro_in = rasters_fc[-1] if rasters_fc else spikes_enc
+        v_enc, s = encoder_step(program, v_enc, frames[t])
+        spk.append(s)
+    spikes_enc = torch.stack(spk)
+    conv_maps, v_convs, conv_skips, flat, rasters_fc, v_stack, skips = \
+        _on_macro(program, spikes_enc, True, flags, state)
+    ro_in = rasters_fc[-1] if rasters_fc else flat
     v_traj = state.vs[-1][None] + torch.cumsum(
         int_matmul(ro_in, program.fc_stack[-1].w), dim=0, dtype=torch.int32)
     v_out = v_stack[-1]
-    return (StreamState(vs=(v_enc,) + tuple(v_stack), t=state.t + k),
+    return (StreamState(vs=(v_enc,) + tuple(v_convs) + tuple(v_stack),
+                        t=state.t + k),
             MegastepOut(v_out=v_out, logits=program.logits(v_out),
                         v_out_traj=v_traj,
                         logits_traj=program.logits(v_traj),
                         frames_consumed=consumed,
-                        rasters=([spikes_enc] + list(rasters_fc)
+                        rasters=([spikes_enc] + list(conv_maps)
+                                 + list(rasters_fc)
                                  if emit_rasters else None),
-                        skips=skips))
+                        skips=skips, conv_skips=conv_skips or None))
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ the Hopper counterparts of `repro.kernels.fused_snn_net.kernel._net_kernel`
 in its dense, row-block gated and event-list modes.
 
 `fused_snn_net_cuda` checks every tensor (device, dtype, shape,
-contiguity), lays out and checks the kernel's shared memory, allocates the
+contiguity), takes the kernel's shared-memory layout from `launch_plan`
+(the one function that decides which stacks the kernels refuse, shared
+with `repro_torch.analysis.check_kernel_contracts`), allocates the
 outputs, and launches on the current stream of the tensors' device: in the
 gated and event-list modes one CTA per ``block_b`` batch lanes, in the dense
 mode one CTA per `dense_plan` tile (its own lanes and chunk of timesteps;
@@ -53,6 +55,15 @@ DENSE_PLAN_PROBES = (
 NEURON_CODES = {"if": 0, "lif": 1, "rmp": 2}
 _PTRS = ctypes.c_void_p * MAX_LAYERS
 _INTS = ctypes.c_int * MAX_LAYERS
+
+
+class KernelRefused(ValueError):
+    """A stack or option the kernels do not take; ``contract`` names the
+    rule (`launch_plan`), which `analysis.kernel_contracts` reports."""
+
+    def __init__(self, contract: str, message: str) -> None:
+        super().__init__(message)
+        self.contract = contract
 
 
 class NetArgs(ctypes.Structure):
@@ -172,11 +183,12 @@ def skip_layout(in_widths: tuple, granularity: int
     layer is one gate (one column per layer); at G in {2, 4, 8} layer i has
     ceil(width / (128/G)) blocks of 128/G fan-in rows, the last one ragged.
     Returns (columns per layer, column offsets per layer, total columns).
-    Raises `ValueError` for a granularity outside `GATE_GRANULARITIES` or a
-    layout above ``MAX_SKIP_COLS`` columns."""
+    Raises `KernelRefused` (a `ValueError`) for a granularity outside
+    `GATE_GRANULARITIES` or a layout above ``MAX_SKIP_COLS`` columns."""
     if granularity not in GATE_GRANULARITIES:
-        raise ValueError(f"gate granularity must be one of "
-                         f"{GATE_GRANULARITIES}, got {granularity}")
+        raise KernelRefused("gate_granularity",
+                            f"gate granularity must be one of "
+                            f"{GATE_GRANULARITIES}, got {granularity}")
     if granularity == 1:
         n_cols = tuple(1 for _ in in_widths)
     else:
@@ -184,7 +196,8 @@ def skip_layout(in_widths: tuple, granularity: int
         n_cols = tuple(-(-w // bw) for w in in_widths)
     total = sum(n_cols)
     if total > MAX_SKIP_COLS:
-        raise ValueError(
+        raise KernelRefused(
+            "skip_layout",
             f"skip-count layout needs {total} gate columns "
             f"({len(in_widths)} layers at granularity {granularity}) but the "
             f"output carries at most MAX_SKIP_COLS={MAX_SKIP_COLS}; lower "
@@ -382,6 +395,72 @@ def dense_plan(widths: tuple, T: int, B: int) -> dict | None:
     return None
 
 
+def launch_plan(widths: tuple, T: int, B: int, *, mode: str = "dense",
+                block_b: int = 8, gate_granularity: int = 1,
+                neuron: str = "rmp", clamp_mode: str = "saturate") -> dict:
+    """The launch of a (T, B) call of logical layer ``widths`` (N_0 ..
+    N_L) in kernel ``mode``, or the rule that refuses it: the one place
+    the kernels' refusals are decided. It takes no device and no tensors:
+    `fused_snn_net_cuda` calls it before every launch and
+    `analysis.check_kernel_contracts` before a program runs.
+
+    Returns ``layout`` (`dense_plan`, `smem_layout` or `event_layout`),
+    ``lanes`` (a CTA's lanes: the dense plan's, else ``block_b``),
+    ``grid`` and the gated mode's ``skip_off``/``n_skip_cols``
+    (`skip_layout`; () and 0 in the other modes). Raises `KernelRefused`
+    naming the first rule broken, in this order: ``mode``,
+    ``gate_granularity``/``skip_layout`` (the gated mode's `skip_layout`,
+    which `ops.fused_snn_net` checks before it reaches this function),
+    ``max_layers`` (1 to `MAX_LAYERS` layers), ``batch``, ``block_b`` (1
+    to 1,024), ``neuron``, ``event_index`` (event-list fan-in below 2**16)
+    and ``smem_budget`` (the layout above `SMEM_LIMIT`)."""
+    if mode not in MODE_CODES:
+        raise KernelRefused("mode", f"unknown kernel mode {mode!r}; have "
+                                    f"{tuple(MODE_CODES)}")
+    skip_off, n_skip_cols = (), 0
+    if mode == "gated":     # first, as the public wrapper checks it first
+        _, skip_off, n_skip_cols = skip_layout(widths[:-1], gate_granularity)
+    n_layers = len(widths) - 1
+    if not 1 <= n_layers <= MAX_LAYERS:
+        raise KernelRefused("max_layers", f"the kernel takes 1 to "
+                                          f"{MAX_LAYERS} layers, got "
+                                          f"{n_layers}")
+    if B < 1:
+        raise KernelRefused("batch", "the kernel needs a batch of at least "
+                                     "one lane")
+    if not 1 <= block_b <= 1024:
+        raise KernelRefused("block_b", f"block_b must lie in [1, 1024], got "
+                                       f"{block_b}")
+    if neuron not in NEURON_CODES or clamp_mode not in ("saturate", "wrap"):
+        raise KernelRefused("neuron", f"unknown neuron {neuron!r} or clamp "
+                                      f"mode {clamp_mode!r}")
+    if mode == "events" and max(widths[:-1]) > 65535:
+        raise KernelRefused("event_index", "the event-list kernel indexes "
+                                           "fan-in rows with 16 bits")
+    lanes = block_b
+    if mode == "dense":
+        layout = dense_plan(widths, T, B)
+        if layout is None:
+            raise KernelRefused(
+                "smem_budget",
+                f"the {NAME} kernel cannot fit one lane and one timestep of "
+                f"widths {widths} in the {SMEM_LIMIT} bytes of shared memory "
+                "a Hopper block can use")
+        lanes = layout["lanes"]
+    else:
+        layout = (event_layout(widths, block_b, T) if mode == "events" else
+                  smem_layout(widths, block_b, mode, n_skip_cols))
+        if layout["bytes"] > SMEM_LIMIT:
+            raise KernelRefused(
+                "smem_budget",
+                f"the {NAME} kernel needs {layout['bytes']} bytes of shared "
+                f"memory for widths {widths} at block_b={block_b} in {mode} "
+                f"mode, above the {SMEM_LIMIT} a Hopper block can use; lower "
+                "block_b")
+    return {"layout": layout, "lanes": lanes, "grid": -(-B // lanes),
+            "skip_off": skip_off, "n_skip_cols": n_skip_cols}
+
+
 def _check_tensor(x: torch.Tensor, what: str, dtype: torch.dtype,
                   shape: tuple, device: torch.device) -> None:
     if x.device != device:
@@ -417,35 +496,22 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     counters is ``block_b`` lanes; the dense mode checks ``block_b`` but
     takes its CTA tile from `dense_plan`.
 
-    Raises `ValueError` on a tensor or option the kernel does not take or a
-    stack whose shared memory exceeds a Hopper block's, and `RuntimeError`
-    when the launch returns a CUDA error."""
+    Raises `ValueError` on a tensor the kernel does not take,
+    `KernelRefused` (a `ValueError`) on a stack or option `launch_plan`
+    refuses, and `RuntimeError` when the launch returns a CUDA error."""
     device = spikes.device
     if device.type != "cuda":
         raise ValueError(f"the {NAME} kernel needs CUDA tensors, got spikes "
                          f"on {device}")
     if spikes.dim() != 3:
         raise ValueError(f"spikes must be (T, B, N0), got {tuple(spikes.shape)}")
-    if mode not in MODE_CODES:
-        raise ValueError(f"unknown kernel mode {mode!r}; have "
-                         f"{tuple(MODE_CODES)}")
     T, B, N0 = spikes.shape
     widths = (N0,) + tuple(w.shape[1] for w in ws)
+    plan = launch_plan(widths, T, B, mode=mode, block_b=block_b,
+                       gate_granularity=gate_granularity, neuron=neuron,
+                       clamp_mode=clamp_mode)
     n_layers = len(ws)
     n_spiking = n_layers - 1 if readout else n_layers
-    if not 1 <= n_layers <= MAX_LAYERS:
-        raise ValueError(f"the kernel takes 1 to {MAX_LAYERS} layers, got "
-                         f"{n_layers}")
-    if B < 1:
-        raise ValueError("the kernel needs a batch of at least one lane")
-    if not 1 <= block_b <= 1024:
-        raise ValueError(f"block_b must lie in [1, 1024], got {block_b}")
-    if neuron not in NEURON_CODES or clamp_mode not in ("saturate", "wrap"):
-        raise ValueError(f"unknown neuron {neuron!r} or clamp mode "
-                         f"{clamp_mode!r}")
-    if mode == "events" and max(widths[:-1]) > 65535:
-        raise ValueError("the event-list kernel indexes fan-in rows with "
-                         "16 bits")
     _check_tensor(spikes, "spikes", torch.int8, (T, B, N0), device)
     for i, w in enumerate(ws):
         _check_tensor(w, f"ws[{i}]", torch.int8, (widths[i], widths[i + 1]),
@@ -454,28 +520,8 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         for i, v in enumerate(v_init):
             _check_tensor(v, f"v_init[{i}]", torch.int32,
                           (B, widths[i + 1]), device)
-    n_skip_cols, lanes = 0, block_b
-    if mode == "dense":
-        layout = dense_plan(widths, T, B)
-        if layout is None:
-            raise ValueError(
-                f"the {NAME} kernel cannot fit one lane and one timestep of "
-                f"widths {widths} in the {SMEM_LIMIT} bytes of shared memory "
-                "a Hopper block can use")
-        lanes = layout["lanes"]
-    else:
-        if mode == "gated":
-            _, skip_off, n_skip_cols = skip_layout(widths[:-1],
-                                                   gate_granularity)
-        layout = (event_layout(widths, block_b, T) if mode == "events" else
-                  smem_layout(widths, block_b, mode, n_skip_cols))
-        if layout["bytes"] > SMEM_LIMIT:
-            raise ValueError(
-                f"the {NAME} kernel needs {layout['bytes']} bytes of shared "
-                f"memory for widths {widths} at block_b={block_b} in {mode} "
-                f"mode, above the {SMEM_LIMIT} a Hopper block can use; lower "
-                "block_b")
-
+    layout, lanes = plan["layout"], plan["lanes"]
+    n_skip_cols, skip_off = plan["n_skip_cols"], plan["skip_off"]
     grid = -(-B // lanes)
     v_out = [torch.empty((B, n), dtype=torch.int32, device=device)
              for n in widths[1:]]

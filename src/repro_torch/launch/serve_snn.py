@@ -60,6 +60,17 @@ def make_requests(program, n_requests: int, n_words: int, timesteps: int,
     return reqs
 
 
+def image_requests(images: np.ndarray, timesteps: int, stagger: int = 0,
+                   stop_threshold=None) -> list:
+    """One request per (H, W, C) image of ``images``, each the image held
+    for ``timesteps`` frames (`pipeline.present_static` of one image),
+    request i arriving at frame ``i * stagger`` of the engine clock."""
+    return [SNNRequest(rid=i, frames=np.repeat(
+                np.asarray(img, np.float32)[None], timesteps, axis=0),
+                       arrival_tick=i * stagger, stop_threshold=stop_threshold)
+            for i, img in enumerate(images)]
+
+
 def main(argv=None) -> list:
     """Parse ``argv``, serve the requests, print the summary and return
     the finished requests."""

@@ -17,6 +17,16 @@ SNN's counterpart of an LM's KV-cache lane). The engine keeps:
     bit-identical to serving it alone, at any K;
   * admission by ``arrival_tick`` on the engine's frame clock (``clock``
     advances K per engine tick, idle ticks included);
+  * with ``validate`` (the default), the static analysis of
+    `repro_torch.analysis` when the engine is built: the kernel contracts
+    of its exact dispatch (`check_kernel_contracts`) are checked before
+    the first tick, and `submit` refuses with `RangeError` a request whose
+    K-rounded tick budget passes the readout's proven ``max_safe_frames``,
+    the horizon past which its unclamped int32 accumulator can overflow;
+  * conv programs: a request is (T, H, W, C) images; each on-macro conv
+    runs P = H_out * W_out frames per lane (lane l owns frames
+    [l * P, (l + 1) * P) of its patch raster), which the accounting and the
+    ledger scale by;
   * per-slot stop conditions: the tick budget (the frames run out, or
     ``max_ticks``) or the readout-confidence early exit
     (max |logit| >= ``stop_threshold``);
@@ -30,7 +40,7 @@ SNN's counterpart of an LM's KV-cache lane). The engine keeps:
     lanes are silent, so the ledger equals the summed per-request tallies
     whenever no request finishes mid-block (a finished lane's remaining
     ticks of the block, its ghost ticks, reach the ledger but not the
-    request's report).
+    request's report; a conv layer can fire on them).
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import (RangeError, check_kernel_contracts,
+                                  check_program)
 from repro_torch.core import pipeline
 from repro_torch.core.pipeline import SNNProgram, SparsityReport
 from repro_torch.kernels.fused_snn_net.events import EventStats
@@ -56,7 +68,7 @@ class ReportUnavailable(RuntimeError):
 @dataclass
 class SNNRequest:
     rid: int
-    frames: np.ndarray                    # (T, d) f32 input currents
+    frames: np.ndarray                    # (T, *in_shape) f32 input currents
     max_ticks: Optional[int] = None       # default: len(frames)
     stop_threshold: Optional[float] = None  # early exit when max|logit| >= thr
     arrival_tick: int = 0                 # earliest admission, engine clock
@@ -142,13 +154,15 @@ class SNNServeEngine(SlotEngine):
     ``use_sparse``, ``event_crossover``). ``pages`` x ``batch_slots`` is
     the lane pool and ``megastep`` is K, the frames advanced per dispatch.
     ``track_events=False`` turns off raster emission and per-request
-    reports. ``device`` defaults to the CUDA device (raises without one)
-    and must be the program's device."""
+    reports. ``validate`` (default on) checks the dispatch's kernel
+    contracts now and sets ``max_safe_ticks``, the admission cap of
+    `submit` (None with ``validate=False``). ``device`` defaults to the
+    CUDA device (raises without one) and must be the program's device."""
 
     def __init__(self, program: SNNProgram, *, batch_slots: int = 4,
                  backend: str = "int_ref", track_events: bool = True,
                  step_kw: Optional[dict] = None, pages: int = 1,
-                 megastep: int = 1, device=None):
+                 megastep: int = 1, validate: bool = True, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if pages < 1:
@@ -169,6 +183,13 @@ class SNNServeEngine(SlotEngine):
         self.K = megastep
         self.track_events = track_events
         self.step_kw = dict(step_kw or {})
+        self.max_safe_ticks: Optional[int] = None
+        if validate:
+            check_kernel_contracts(
+                program, backend, frames=megastep, batch=batch_slots,
+                streaming=True, emit_rasters=track_events, **self.step_kw)
+            self.max_safe_ticks = check_program(
+                program, frames=1).max_safe_frames
         self.states = [pipeline.init_stream_state(program, batch_slots,
                                                   backend)
                        for _ in range(pages)]
@@ -178,8 +199,14 @@ class SNNServeEngine(SlotEngine):
         self.finished: list[SNNRequest] = []
         self._n_in, self._n_out, self._neurons = \
             pipeline._report_geometry(program)
-        self._frame_shape = tuple(program.layers[0].state_shape)
+        self._frame_shape = program.in_shape
+        # frames each macro-stack layer runs per lane and tick: P = H_out *
+        # W_out output positions for a conv, 1 for an FC layer
+        self._lane_frames = tuple(
+            int(np.prod(ly.state_shape[:-1])) if ly.kind == "conv" else 1
+            for ly in program.macro_stack)
         self.ticks = 0                    # engine ticks executed
+        self.dispatches = 0               # page megasteps dispatched
         self.clock = 0                    # frame clock: K per engine tick
         # pooled device ledger (event backends only): per-layer row-event
         # counters as the executor reports them, over all dispatched lanes
@@ -190,13 +217,23 @@ class SNNServeEngine(SlotEngine):
 
     # -- request intake ------------------------------------------------------
     def submit(self, req: SNNRequest) -> None:
-        """Enqueue ``req`` (its ``frames`` a (T, d) current block) for
-        arrival-gated FIFO admission. Raises `ValueError` when its frame
-        shape does not match the program input."""
+        """Enqueue ``req`` (its ``frames`` a (T, *in_shape) current block)
+        for arrival-gated FIFO admission. Raises `ValueError` when its
+        frame shape does not match the program input, and `RangeError`
+        when its tick budget, rounded up to whole K-frame blocks (a lane
+        runs to the block's end), passes ``max_safe_ticks``."""
         if tuple(req.frames.shape[1:]) != self._frame_shape:
             raise ValueError(
                 f"request {req.rid}: frame shape {req.frames.shape[1:]} "
                 f"does not match the program input {self._frame_shape}")
+        budget = self._tick_budget(req)
+        horizon = -(-budget // self.K) * self.K
+        if self.max_safe_ticks is not None and horizon > self.max_safe_ticks:
+            raise RangeError(
+                f"request {req.rid} streams {budget} ticks ({horizon} at "
+                f"megastep K={self.K}) but the readout's unclamped int32 "
+                f"accumulator is only proven safe for {self.max_safe_ticks} "
+                "frames; split the stream or cap max_ticks", where="readout")
         self.queue.put(req)
 
     @staticmethod
@@ -235,20 +272,27 @@ class SNNServeEngine(SlotEngine):
 
     # -- per-slot event accounting ------------------------------------------
     def _account(self, rasters: list, served: list) -> None:
-        """Fold one block's fc-stack input rasters into the served slots'
+        """Fold one block's macro-stack input rasters into the served slots'
         per-row event tallies. ``served`` is [(slot, lane, ticks)]: a
-        request is credited only the ticks it actually served."""
+        request is credited only the ticks it actually served. A conv
+        layer's maps count as their patch raster, lane l owning its P
+        frames [l * P, (l + 1) * P)."""
         rs = pipeline._stack_input_rasters(self.program, rasters)
-        for li, r in enumerate(rs):
-            counts = r.astype(np.int64)       # (K, B, n_in_l)
+        for li, (r, p) in enumerate(zip(rs, self._lane_frames)):
+            counts = r.astype(np.int64)       # (K, B * P_l, n_in_l)
             for i, lane, n in served:
-                self.slots[i].row_events[li] += counts[:n, lane].sum(axis=0)
+                self.slots[i].row_events[li] += counts[
+                    :n, lane * p:(lane + 1) * p].sum(axis=(0, 1))
 
-    def _account_device(self, stats: EventStats) -> None:
-        """Pool one dispatch's executor-reported `EventStats` (all lanes of
-        the page, K frames each) into the engine-lifetime device ledger."""
-        rows = [np.asarray(r, np.int64) for r in stats.row_events]
-        fbs = [int(f) for f in stats.dense_fallbacks]
+    def _account_device(self, out) -> None:
+        """Pool one dispatch's executor-reported `EventStats` (one per conv
+        in ``out.conv_skips``, then the fc stack's in ``out.skips``; all
+        lanes of the page, K frames each) into the engine-lifetime device
+        ledger."""
+        stats = list(out.conv_skips or []) + [out.skips]
+        rows = [np.asarray(r, np.int64) for st in stats
+                for r in st.row_events]
+        fbs = [int(f) for st in stats for f in st.dense_fallbacks]
         if self.device_row_events is None:
             self.device_row_events = rows
             self.device_dense_fallbacks = fbs if fbs else None
@@ -268,7 +312,9 @@ class SNNServeEngine(SlotEngine):
     def device_event_stats(self) -> EventStats:
         """The pooled device ledger as an `events.EventStats`: per-layer
         row-event counters summed over every dispatch so far, frames =
-        device_ticks x batch_slots lane-frames, and the per-layer dense
+        device_ticks x batch_slots lane-frames (a conv layer runs P frames
+        a lane-frame, see `device_skipped_row_fraction`), and the per-layer
+        dense
         fallback counts of the event kernel (() on ``ref_events``). Raises
         `ValueError` before the first dispatch on an event backend."""
         self._check_ledger()
@@ -278,10 +324,12 @@ class SNNServeEngine(SlotEngine):
             dense_fallbacks=tuple(self.device_dense_fallbacks or ()))
 
     def device_skipped_row_fraction(self) -> float:
-        """Share of the device ledger's (lane-frame, input-row) sites that
-        were silent. Raises `ValueError` like `device_event_stats`."""
+        """Share of the device ledger's (frame, input-row) sites that were
+        silent, each layer's lane-frames scaled by its P. Raises
+        `ValueError` like `device_event_stats`."""
         self._check_ledger()
-        possible = sum(self.device_ticks * self.B * n for n in self._n_in)
+        possible = sum(self.device_ticks * self.B * p * n
+                       for p, n in zip(self._lane_frames, self._n_in))
         events = sum(int(r.sum()) for r in self.device_row_events)
         return 1.0 - events / possible if possible else 0.0
 
@@ -294,13 +342,13 @@ class SNNServeEngine(SlotEngine):
             n_in=self._n_in, n_out=self._n_out, neurons=self._neurons,
             events=tuple(int(r.sum()) for r in row_events),
             frames=t, timesteps=t, batch=1,
-            layer_frames=tuple(t for _ in self._n_in),
+            layer_frames=tuple(t * p for p in self._lane_frames),
             row_events=row_events)
 
     # -- frame staging -------------------------------------------------------
     def _build_block(self, page: int) -> tuple[torch.Tensor, np.ndarray]:
-        """One page's (K, B, d) frame block on the device and its per-lane
-        active counts, from each lane's cursor."""
+        """One page's (K, B, *in_shape) frame block on the device and its
+        per-lane active counts, from each lane's cursor."""
         block = np.zeros((self.K, self.B, *self._frame_shape), np.float32)
         counts = np.zeros(self.B, np.int32)
         for i in self.page_lanes(page):
@@ -332,6 +380,7 @@ class SNNServeEngine(SlotEngine):
                 active=counts, emit_rasters=self.track_events,
                 **self.step_kw)
         self.ticks += 1
+        self.dispatches += len(by_page)
         self.clock += self.K
         for page in sorted(by_page):
             self._retire_page(page, by_page[page], outs[page])
@@ -369,7 +418,7 @@ class SNNServeEngine(SlotEngine):
         if self.track_events and out.rasters is not None:
             self._account(out.rasters, served)
         if self._event_backend and out.skips is not None:
-            self._account_device(out.skips)
+            self._account_device(out)
         for i, lane, fin in fins:
             slot = self.slots[i]
             req = slot.req

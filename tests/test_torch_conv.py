@@ -307,16 +307,8 @@ def test_kernel_backends_on_the_cpu_equal_int_ref(backend, kw):
         assert len(got.aux["event_dense_fallbacks"]) == 5
 
 
-def test_conv_programs_do_not_stream_yet():
+def test_run_stack_from_raster_refuses_conv_programs():
     _, prog = programs("lenet")
-    with pytest.raises(NotImplementedError, match="conv-streaming slice"):
-        pipeline.init_stream_state(prog, 2)
-    state = pipeline.StreamState(vs=())
-    frame = torch.zeros((2, 12, 12, 1))
-    with pytest.raises(NotImplementedError, match="conv-streaming slice"):
-        pipeline.stream_step(prog, state, frame)
-    with pytest.raises(NotImplementedError, match="conv-streaming slice"):
-        pipeline.stream_megastep(prog, state, frame[None])
     with pytest.raises(ValueError, match="run_network"):
         pipeline.run_stack_from_raster(prog, torch.zeros((1, 2, 432),
                                                          dtype=torch.int8))

@@ -442,3 +442,35 @@ def test_dense_kernel_on_every_stack_on_the_card(cuda_device, widths,
     assert_kernel_is_plain(s, w, ths, lks, neuron="rmp", clamp_mode="wrap",
                            readout=readout, v_init=vi, block_b=block_b,
                            emit_rasters=block_b != 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [6272, 1568])
+@pytest.mark.parametrize("mode_kw", [
+    {}, {"use_sparse": True, "gate_granularity": 8},
+    {"use_events": True, "event_crossover": 1.0},
+    {"use_events": True, "event_crossover": 0.5}], ids=str)
+@pytest.mark.parametrize("clamp", ["saturate", "wrap"])
+def test_conv_v_init_in_each_mode_on_the_card(cuda_device, mode_kw, clamp, B):
+    """An impulse-mnist conv call as a served megastep gives it: the
+    (K = 5, 32 * P, 126) patch raster at conv 1's and conv 2's lanes
+    (P = 196 and 49) with carried V and rasters on, in each mode, equal to
+    the plain version: rasters, V and every counter (the plan's multi-CTA
+    spread and the ragged last tile of 8 lanes)."""
+    s, w, ths, lks, vi = card_case(cuda_device, CONV, 5, B, False, True,
+                                   seed=B, density=0.1)
+    kw = dict(neuron="rmp", clamp_mode=clamp, readout=False, v_init=vi,
+              block_b=8, **mode_kw)
+    got = fused_snn_net(s, w, thresholds=ths, leaks=lks, **kw)
+    want = fused_snn_net_ref(s, w, ths, lks, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(got[0] + got[1], want[0] + want[1]):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+    if mode_kw.get("use_sparse"):
+        for g, x in zip(got[2], want[2]):
+            assert torch.equal(g, x)
+    if mode_kw.get("use_events"):
+        for g, x in zip(got[2]["row_events"], want[2]["row_events"]):
+            assert torch.equal(g, x)
+        assert torch.equal(got[2]["dense_fallbacks"],
+                           want[2]["dense_fallbacks"])
