@@ -102,13 +102,29 @@ Phases, each of which exits non-zero on failure:
      `cuda` backend on the card, on wrap programs with weights drawn on the
      card: one impulse-mnist image and one 6-word IMDB request, equal V,
      rasters and readout, the macro counts equal to the raster count less
-     the readout's, with the host seconds it took.
+     the readout's, with the host seconds it took;
+ 12. training, then deployment: (a) the IMDB net's `sentiment_loss` and
+     gradients at full width (B = 128, 12 words) on the card against the
+     same port code on the CPU (loss within 1e-4 relative, each gradient
+     within 1e-3 relative L2, differing raster sites counted), TF32 off,
+     and the float backend on the int program == `int_ref` == `cuda`; (b)
+     400 steps at `benchmarks/fig9_accuracy.py`'s settings through
+     `make_train_step` and `train_loop` (the loss must fall; cut, and said
+     so, if it would not end inside the time limit), the median step time
+     and a profiled step, then the LSTM baseline and the Fig. 9b row; (c)
+     the trained program on every backend and on `float` equal to
+     `int_ref` on 1,024 eval reviews, its sparsity, instruction counts and
+     energy, and 64 reviews served on `cuda` equal to an `int_ref` engine;
+     (d) a checkpointed `train_loop` stopped at 10 steps and resumed; (e)
+     12 impulse-mnist `lenet_loss` steps, finite, and the trained conv
+     program on `cuda` == `int_ref`.
 
 Then one `kernels` JSON line with all five kernels, each redesigned for
 this card (the dense, gated and event-list modes, wkv6 and
 fused_snn_step) with `redesigned_in` and its registers and spills; each
 fused-network mode names its paths and its launches in the conv serving
-drain (`conv_serving_launches`). The
+drain (`conv_serving_launches`) and in the deployment of the trained
+IMDB net (`train_deploy_launches`). The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it prints no
 result and exits 1.
@@ -158,6 +174,8 @@ WKV_LENGTHS = (1, 16, 31, 32, 33, 65, 100, 1024, 2048)
 REDESIGNED = {"wkv6": "PR 17", "fused_snn_net_gated": "PR 17",
               "fused_snn_net_events": "PR 18", "fused_snn_step": "PR 18",
               "fused_snn_net": "PR 19"}
+INT_BACKENDS = ("int_ref", "cuda", "cuda_sparse", "ref_events",
+                "cuda_events")   # the integer streaming backends
 MNIST_FC = (686, 120, 84, 10)
 CONV_STACK = (126, 14)            # an on-macro conv's im2col patch layer
 PORT_KERNELS = ("fused_snn_net", "fused_snn_step", "wkv6_kernel")
@@ -173,6 +191,15 @@ F32_L2 = 2e-2
 F32_DECODE_L2 = 5e-2
 BACKEND_OF = {"fused_snn_net": "cuda", "fused_snn_net_gated": "cuda_sparse",
               "fused_snn_net_events": "cuda_events"}
+# Phase 12: benchmarks/fig9_accuracy.py's training settings
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_WORDS, TRAIN_LR = 400, 128, 12, 5e-3
+EVAL_BATCH, EVAL_SEED = 1024, 99_991
+SERVE_REVIEWS = 64
+LENET_STEPS, LENET_BATCH = 12, 16
+TRAIN_DEADLINE_S = 600            # seconds after the script starts
+# card against CPU, same port code: cuBLAS and the CPU BLAS sum f32 terms in
+# different orders, and a V within an ulp of its threshold can flip a spike
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RL2 = 1e-4, 1e-3
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -1340,7 +1367,7 @@ def phase_conv_serving(dev, ops) -> dict:
     # (a) streaming: 8 images, 10 ticks, on every backend
     xs = pipeline.present_static(torch.from_numpy(images[:8]).to(dev), T)
     base = pipeline.run_network(program, xs, "int_ref")
-    for backend in pipeline.STREAM_BACKENDS:
+    for backend in INT_BACKENDS:
         kw = step_kw.get(backend, {})
         ref = pipeline.run_network(program, xs, backend, **kw)
         if not (torch.equal(ref.v_out, base.v_out) and all(
@@ -1494,6 +1521,395 @@ def phase_macro_oracle(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: train the paper's IMDB SNN and deploy it
+# ---------------------------------------------------------------------------
+
+def imdb_train_cfg():
+    """`benchmarks/fig9_accuracy.py`'s IMDB config: threshold init 0.5."""
+    from repro_torch.configs.impulse_snn import IMDB
+    return dataclasses.replace(IMDB, spiking=dataclasses.replace(
+        IMDB.spiking, threshold=0.5))
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 on the host (0 when both are 0)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    den = float(b.norm())
+    num = float((a - b).norm())
+    return num / den if den else num
+
+
+def one_train_step(params_np: dict, x, y, cfg, device) -> tuple:
+    """One `make_train_step` step of `sentiment_loss` on ``device`` from
+    the numpy weights, with SGD at lr 1 and no clip, so the step's change
+    of each parameter (old - new) is its gradient: the loss, the step's
+    ``grad_norm``, the gradients, and the float program's rasters on the
+    batch."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import pipeline, snn
+    from repro_torch.optim import sgd
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
+    params = snn.params_from_arrays(params_np, device)
+    opt = sgd(1.0, momentum=0.0)
+    step = make_train_step(
+        RunConfig(model=None, shape=None), opt,
+        lambda p, b: snn.sentiment_loss(p, b["x"], b["y"], cfg,
+                                        device=device),
+        max_grad_norm=math.inf)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device))
+    new, metrics = step(state, {"x": torch.from_numpy(x).to(device),
+                                "y": torch.from_numpy(y).to(device)})
+    grads = [a - b for a, b in zip(tree_leaves(params),
+                                   tree_leaves(new.params))]
+    with torch.no_grad():
+        prog = pipeline.compile_network(cfg, params, device=device)
+        res = pipeline.run_network(prog, pipeline.present_words(
+            torch.as_tensor(x, device=device), cfg.timesteps), "float",
+            collect_rasters=True)
+    return metrics["loss"], metrics["grad_norm"], grads, res.rasters
+
+
+def phase_train_step_vs_cpu(dev, batch: int = 128, words: int = 12) -> dict:
+    """Phase 12(a): one train step of `sentiment_loss` at full width on the
+    card and through the same port code on the CPU, from the same seeded
+    numpy weights (the port's own `init_fc_snn`: the card's machine has no
+    JAX to seed them): the loss, the gradient norm and every gradient;
+    then the float backend on the int program of those weights against
+    `int_ref` and `cuda` on the card."""
+    from repro_torch.core import pipeline, snn
+    from repro_torch.data.synthetic import (make_sentiment_vocab,
+                                            sentiment_batch)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the float path needs f32")
+    cfg = imdb_train_cfg()
+    params_np = {k: ([{"w": ly["w"].numpy()} for ly in v] if k == "layers"
+                     else v.numpy())
+                 for k, v in snn.init_fc_snn(SEED, cfg).items()}
+    x, y = sentiment_batch(make_sentiment_vocab(0), batch, words, seed=0)
+    card = one_train_step(params_np, x, y, cfg, dev)
+    host = one_train_step(params_np, x, y, cfg, torch.device("cpu"))
+    loss_rel = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
+    norm_rel = abs(float(card[1]) - float(host[1])) / abs(float(host[1]))
+    grad_rel = [rel_l2(a, b) for a, b in zip(card[2], host[2])]
+    flips = [int((a.cpu() != b).sum()) for a, b in zip(card[3], host[3])]
+    if (loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_GRAD_RL2
+            or max(grad_rel) > TRAIN_GRAD_RL2):
+        raise AssertionError(
+            f"the card's loss / gradients differ from the CPU's: loss "
+            f"{loss_rel:.3e} (tol {TRAIN_LOSS_RTOL}), grad norm "
+            f"{norm_rel:.3e} and grads {grad_rel} (tol {TRAIN_GRAD_RL2}); "
+            f"raster sites that differ: {flips}")
+    prog = pipeline.compile_network(cfg, params_np, domain="int", device=dev)
+    xs = pipeline.present_words(torch.from_numpy(x).to(dev), cfg.timesteps)
+    f = pipeline.run_network(prog, xs, "float", collect_rasters=True)
+    for backend in ("int_ref", "cuda"):
+        r = pipeline.run_network(prog, xs, backend)
+        same = (torch.equal(f.logits, r.logits) and all(
+            torch.equal(a, b.float()) for a, b in zip(f.rasters, r.rasters))
+            and all(torch.equal(a, b.float())
+                    for a, b in zip(f.v_final, r.v_final)))
+        if not same:
+            raise AssertionError(f"the float backend on the int program != "
+                                 f"{backend} on the card")
+    return {"loss_card": float(card[0]), "loss_cpu": float(host[0]),
+            "loss_rel_diff": loss_rel, "grad_norm_rel_diff": norm_rel,
+            "grad_rel_l2": grad_rel, "raster_sites_differing": flips,
+            "raster_sites": [int(r.numel()) for r in host[3]],
+            "float_on_int_program": "== int_ref == cuda"}
+
+
+def profile_step(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the device's
+    busy ms and idle share, and the number of device operations (kernels
+    and copies) it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_ops": len(ops),
+            "kernels": sum(1 for e in ops if not e.name.startswith("Mem"))}
+
+
+def train_run(dev, loss_fn, params, batch_fn, steps: int, *,
+              log_every: int = 1, ckpt_dir=None, start=None):
+    """``steps`` AdamW steps (lr 5e-3, no decay, no clip: the Fig. 9
+    benchmark's optimizer) through `make_train_step` and `train_loop`,
+    batch s from ``batch_fn(s)``; ``start`` continues a `TrainState`."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.optim import adamw
+    from repro_torch.train import (LoopConfig, TrainState, make_train_step,
+                                   train_loop)
+    opt = adamw(lambda s: TRAIN_LR, weight_decay=0.0)
+    run = RunConfig(model=None, shape=None)
+    step = make_train_step(run, opt, loss_fn, max_grad_norm=math.inf)
+    state = start if start is not None else TrainState(
+        params, opt.init(params), torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+    loader = ShardedLoader(lambda s, i, n: batch_fn(s),
+                           start_step=int(state.step))
+    res = train_loop(step, state, loader,
+                     LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                                ckpt_every=5, log_every=log_every),
+                     device_put_fn=lambda b: {k: torch.from_numpy(v).to(dev)
+                                              for k, v in b.items()})
+    return res, step
+
+
+def accuracy(logits: torch.Tensor, y: torch.Tensor) -> float:
+    return float(((logits > 0) == (y > 0.5)).float().mean())
+
+
+def phase_train(dev, deadline: float) -> dict:
+    """Phase 12(b): the IMDB SNN trained at `benchmarks/fig9_accuracy.py`'s
+    settings (threshold 0.5, batch 128, 12 words, AdamW lr 5e-3 without
+    decay, 400 steps, batch s from seed s), then the LSTM baseline the
+    same way; the Fig. 9b row on the eval batch (1,024 reviews, seed
+    99,991). The steps are cut, and the cut printed, if 400 would not end
+    before ``deadline`` (a `time.perf_counter` value)."""
+    from repro_torch.core import snn
+    from repro_torch.data.synthetic import (make_sentiment_vocab,
+                                            sentiment_batch)
+    from repro_torch.models import lstm_baseline as lstm
+    cfg = imdb_train_cfg()
+    ds = make_sentiment_vocab(0)
+
+    def batch_fn(s):
+        return dict(zip(("x", "y"), sentiment_batch(ds, TRAIN_BATCH,
+                                                    TRAIN_WORDS, seed=s)))
+
+    def snn_loss(p, b):
+        return snn.sentiment_loss(p, b["x"], b["y"], cfg, device=dev)
+
+    params = snn.init_fc_snn(SEED, cfg, device=dev)
+    n_snn = snn.param_count(params)
+    t0 = time.perf_counter()
+    first, step = train_run(dev, snn_loss, params, batch_fn, 10)
+    per_step = float(np.median([m["sec_per_step"]
+                                for m in first.metrics_history]))
+    steps = min(TRAIN_STEPS, 10 + int((deadline - time.perf_counter())
+                                      / per_step))
+    if steps < 50:
+        raise AssertionError(f"only {steps} training steps fit the time left")
+    if steps < TRAIN_STEPS:
+        print(f"[phase 12] training cut to {steps} of {TRAIN_STEPS} steps "
+              f"({per_step * 1e3:.1f} ms a step) to end inside the time "
+              "limit")
+    res, _ = train_run(dev, snn_loss, params, batch_fn, steps,
+                       start=first.state)
+    train_s = time.perf_counter() - t0
+    hist = first.metrics_history + res.metrics_history
+    losses = [m["loss"] for m in hist]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{len(losses)} logged losses of {steps} steps, "
+                             f"finite: {np.isfinite(losses).all()}")
+    head, tail = float(np.mean(losses[:25])), float(np.mean(losses[-25:]))
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: first 25 steps "
+                             f"{head:.4f}, last 25 {tail:.4f}")
+    trained = res.state.params
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
+    prof = profile_step(lambda: step(res.state, batch))
+    xb, yb = sentiment_batch(ds, EVAL_BATCH, TRAIN_WORDS, seed=EVAL_SEED)
+    x, y = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+    with torch.no_grad():
+        logits, _ = snn.sentiment_apply(trained, x, cfg, device=dev)
+    acc_snn = accuracy(logits, y)
+
+    lp = lstm.init_lstm(SEED + 1, device=dev)
+    n_lstm = lstm.param_count(lp)
+    t1 = time.perf_counter()
+    lres, _ = train_run(dev, lambda p, b: lstm.lstm_loss(p, b["x"], b["y"]),
+                        lp, batch_fn, steps, log_every=50)
+    lstm_s = time.perf_counter() - t1
+    with torch.no_grad():
+        acc_lstm = accuracy(lstm.lstm_apply(lres.state.params, x), y)
+    return {
+        "steps": steps, "cut": steps < TRAIN_STEPS,
+        "loss_every_50": {i + 1: losses[i] for i in range(0, steps, 50)},
+        "loss_last": losses[-1], "loss_first25": head, "loss_last25": tail,
+        "median_ms_per_step": 1e3 * float(np.median(
+            [m["sec_per_step"] for m in hist[1:]])),
+        "train_s": train_s, "profiled_step": prof,
+        "fig9b": {"snn_params": n_snn, "lstm_params": n_lstm,
+                  "ratio": n_lstm / n_snn, "snn_acc": acc_snn,
+                  "lstm_acc": acc_lstm,
+                  "gap_pp": 100 * (acc_lstm - acc_snn), "lstm_s": lstm_s,
+                  "lstm_last_loss": lres.metrics_history[-1]["loss"]},
+        "params": trained, "eval": (x, y, logits)}
+
+
+def phase_deploy(dev, params, x, y, float_logits) -> dict:
+    """Phase 12(c): the trained network compiled to the int domain and run
+    on the eval batch through every backend, each equal to `int_ref` bit
+    for bit, with the launch counts of this deployment alone; then 64 eval
+    reviews served on `cuda`, each equal to an `int_ref` engine."""
+    from repro_torch import kernels
+    from repro_torch.core import energy, pipeline
+    from repro_torch.serve import SNNRequest, SNNServeEngine
+    cfg = imdb_train_cfg()
+    prog = pipeline.compile_network(cfg, params, domain="int", device=dev)
+    xs = pipeline.present_words(x, cfg.timesteps)
+    kernels.reset_launch_counts()
+    ref = pipeline.run_network(prog, xs, "int_ref")
+    runs = {"cuda": pipeline.run_network(prog, xs, "cuda"),
+            "cuda_sparse": pipeline.run_network(prog, xs, "cuda_sparse",
+                                                gate_granularity=GATE_G),
+            "ref_events": pipeline.run_network(prog, xs, "ref_events"),
+            "cuda_events": pipeline.run_network(prog, xs, "cuda_events",
+                                                event_crossover=CROSSOVER),
+            "float": pipeline.run_network(prog, xs, "float",
+                                          collect_rasters=True)}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    for name in BACKEND_OF:
+        if launches[name] < 1:
+            raise AssertionError(f"deploying the trained net never launched "
+                                 f"{name}")
+    for backend, r in runs.items():
+        same = (torch.equal(r.logits, ref.logits)
+                and len(r.rasters) == len(ref.rasters) and all(
+                    torch.equal(a.to(b.dtype), b)
+                    for a, b in zip(r.rasters, ref.rasters))
+                and all(torch.equal(a.to(b.dtype), b)
+                        for a, b in zip(r.v_final, ref.v_final)))
+        if not same:
+            raise AssertionError(f"the trained program on {backend} != "
+                                 "int_ref (logits, rasters or final V)")
+    logits = ref.logits[:, 0]
+    counts = pipeline.count_network_instructions(prog, ref.rasters)
+    e = energy.snn_energy_j(counts)
+    n = x.shape[0]
+
+    def requests():
+        frames = xs[:, :SERVE_REVIEWS].cpu().numpy()
+        return [SNNRequest(rid=i, frames=frames[:, i].copy())
+                for i in range(SERVE_REVIEWS)]
+
+    def serve(backend):
+        eng = SNNServeEngine(prog, backend=backend, batch_slots=32, pages=2,
+                             megastep=cfg.timesteps, device=dev)
+        for r in requests():
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0, eng
+
+    want, ref_s, _ = serve("int_ref")
+    serve("cuda")                                  # warm-up
+    got, cuda_s, eng = serve("cuda")
+    bad = [a.rid for a, b in zip(got, want) if not same_request(a, b)]
+    if len(got) != SERVE_REVIEWS or bad:
+        raise AssertionError(f"served trained reviews {bad} on cuda != the "
+                             "int_ref engine")
+    frames = sum(r.ticks for r in got)
+    return {
+        "int_acc": accuracy(logits, y),
+        "agreement_with_float": float(((logits > 0) == (float_logits > 0))
+                                      .float().mean()),
+        "input_sparsity": [1.0 - float(r.float().mean())
+                           for r in ref.rasters],
+        "instructions_per_inference": {
+            k: v / n for k, v in counts._asdict().items()},
+        "nj_per_inference": e / n * 1e9,
+        "backends_equal_int_ref": sorted(runs),
+        "launches": launches,
+        "served": {"reviews": SERVE_REVIEWS, "frames": frames,
+                   "cuda_frames_per_s": frames / cuda_s,
+                   "int_ref_frames_per_s": frames / ref_s,
+                   "max_safe_ticks": eng.max_safe_ticks}}
+
+
+def phase_checkpoint(dev) -> dict:
+    """Phase 12(d): a `train_loop` with a checkpoint directory stopped
+    after 10 steps and restarted to 15 from a fresh state: it resumes from
+    step 10 with the saved parameters bit for bit; an uninterrupted
+    15-step run is compared too."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import snn
+    from repro_torch.data.synthetic import (make_sentiment_vocab,
+                                            sentiment_batch)
+    cfg = imdb_train_cfg()
+    ds = make_sentiment_vocab(0)
+
+    def batch_fn(s):
+        return dict(zip(("x", "y"), sentiment_batch(ds, TRAIN_BATCH,
+                                                    TRAIN_WORDS, seed=s)))
+
+    def loss(p, b):
+        return snn.sentiment_loss(p, b["x"], b["y"], cfg, device=dev)
+
+    def fresh():
+        return snn.init_fc_snn(SEED, cfg, device=dev)
+
+    with tempfile.TemporaryDirectory() as d:
+        first, _ = train_run(dev, loss, fresh(), batch_fn, 10, ckpt_dir=d)
+        _, saved = CheckpointManager(d).restore(like=first.state)
+        second, _ = train_run(dev, loss, fresh(), batch_fn, 15, ckpt_dir=d)
+        steps = CheckpointManager(d).all_steps()
+    whole, _ = train_run(dev, loss, fresh(), batch_fn, 15)
+    from repro_torch.tree import tree_leaves
+    exact = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(saved), tree_leaves(first.state)))
+    if second.resumed_from != 10 or int(second.state.step) != 15 or not exact:
+        raise AssertionError(f"checkpoint restart: resumed_from "
+                             f"{second.resumed_from}, step "
+                             f"{int(second.state.step)}, restored == saved: "
+                             f"{exact}")
+    return {"resumed_from": second.resumed_from, "saved_steps": steps,
+            "restored_equals_saved": exact,
+            "resumed_equals_uninterrupted": all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(second.state.params),
+                    tree_leaves(whole.state.params)))}
+
+
+def phase_lenet_train(dev) -> dict:
+    """Phase 12(e): 12 `lenet_loss` steps of impulse-mnist at batch 16
+    (batch s = `mnist_like_batch(16, s)`), every loss finite; the trained
+    conv program on `cuda` equal to `int_ref` bit for bit."""
+    from repro_torch.configs.impulse_snn import MNIST
+    from repro_torch.core import pipeline, snn
+    from repro_torch.data.synthetic import mnist_like_batch
+
+    def batch_fn(s):
+        return dict(zip(("x", "y"), mnist_like_batch(LENET_BATCH, seed=s)))
+
+    t0 = time.perf_counter()
+    res, _ = train_run(dev, lambda p, b: snn.lenet_loss(
+        p, b["x"], b["y"], MNIST, device=dev),
+        snn.init_lenet_snn(SEED, MNIST, device=dev), batch_fn, LENET_STEPS)
+    losses = [m["loss"] for m in res.metrics_history]
+    if len(losses) != LENET_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"LeNet losses {losses}")
+    prog = pipeline.compile_network(MNIST, res.state.params, domain="int",
+                                    device=dev)
+    xs = pipeline.present_static(torch.from_numpy(
+        batch_fn(1000)["x"]).to(dev), MNIST.timesteps)
+    a = pipeline.run_network(prog, xs, "cuda")
+    b = pipeline.run_network(prog, xs, "int_ref")
+    if not (torch.equal(a.v_out, b.v_out) and all(
+            torch.equal(p, q) for p, q in zip(a.rasters, b.rasters))):
+        raise AssertionError("the trained conv program on cuda != int_ref")
+    return {"losses": losses, "s": time.perf_counter() - t0,
+            "cuda_equals_int_ref": True}
+
+
 def dense_launch_ms(fn) -> list:
     """Device ms of each dense fused-network launch of one ``fn()`` under
     torch.profiler, in launch order (after one call unprofiled)."""
@@ -1546,6 +1962,7 @@ def leaves(tree) -> list:
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         return fail("no CUDA device is available")
     src = Path(__file__).resolve().parent / "src"
@@ -1781,15 +2198,61 @@ def main() -> int:
               f"card (V, rasters, readout), macro counts == raster count less "
               f"the readout's, in {row['bitmacro_s']:.2f} s of host time: "
               f"{json.dumps(row)}")
+    step_vs_cpu = phase_train_step_vs_cpu(dev)
+    print(f"[phase 12] (a) one IMDB train step (make_train_step, SGD lr 1) "
+          f"at full width, B = {TRAIN_BATCH}, {TRAIN_WORDS} words: card vs "
+          f"CPU (same port code) loss {step_vs_cpu['loss_card']:.7f} / "
+          f"{step_vs_cpu['loss_cpu']:.7f} (rel "
+          f"{step_vs_cpu['loss_rel_diff']:.2e}, tol {TRAIN_LOSS_RTOL}), grad "
+          f"norm rel {step_vs_cpu['grad_norm_rel_diff']:.2e}, gradient rel "
+          f"L2 {step_vs_cpu['grad_rel_l2']} (tol "
+          f"{TRAIN_GRAD_RL2}); raster sites that differ "
+          f"{step_vs_cpu['raster_sites_differing']} of "
+          f"{step_vs_cpu['raster_sites']}; the float backend on the int "
+          f"program == int_ref == cuda on the card")
+    # the training phase must leave about 4 minutes of the script's first
+    # 10 for the LSTM baseline, the deployment and the last phases
+    train = phase_train(dev, deadline=start + TRAIN_DEADLINE_S)
+    params, (x_eval, y_eval, float_logits) = (train.pop("params"),
+                                              train.pop("eval"))
+    for i, loss in train["loss_every_50"].items():
+        print(f"[phase 12] (b) step {i}: loss {loss:.4f}")
+    fig9 = train["fig9b"]
+    print(f"[phase 12] (b) {train['steps']} steps, loss first 25 "
+          f"{train['loss_first25']:.4f} -> last 25 {train['loss_last25']:.4f};"
+          f" median {train['median_ms_per_step']:.1f} ms a step; profiled "
+          f"step {json.dumps(train['profiled_step'])} ({card})")
+    print(f"[phase 12] (b) Fig. 9b row: SNN {fig9['snn_params']} params, "
+          f"acc {fig9['snn_acc']:.4f} (float/QAT); LSTM {fig9['lstm_params']}"
+          f" params ({fig9['ratio']:.1f}x), acc {fig9['lstm_acc']:.4f}; gap "
+          f"{fig9['gap_pp']:+.2f} pp (paper: about 1 pp, 8.5x)")
+    print(f"[phase 12] (b) {json.dumps(train)}")
+    deploy = phase_deploy(dev, params, x_eval, y_eval, float_logits)
+    print(f"[phase 12] (c) trained program on int_ref, cuda, cuda_sparse "
+          f"(G={GATE_G}), ref_events, cuda_events and float: all equal "
+          f"bit for bit (logits, rasters, final V) on {EVAL_BATCH} reviews; "
+          f"int acc {deploy['int_acc']:.4f}, agreement with float/QAT "
+          f"{deploy['agreement_with_float']:.4f}; input sparsity per layer "
+          f"{[round(v, 4) for v in deploy['input_sparsity']]}; "
+          f"{deploy['nj_per_inference']:.3f} nJ per inference")
+    print(f"[phase 12] (c) {json.dumps(deploy)} ({card})")
+    ckpt = phase_checkpoint(dev)
+    print(f"[phase 12] (d) checkpoint restart on the card: {json.dumps(ckpt)}")
+    lenet = phase_lenet_train(dev)
+    print(f"[phase 12] (e) impulse-mnist {LENET_STEPS} lenet_loss steps at "
+          f"batch {LENET_BATCH}: {json.dumps(lenet)}")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [
                 "impulse-imdb serving (phase 3, launches)",
                 "impulse-mnist run_network (phase 9)",
                 "impulse-mnist conv streaming and serving (phase 10, "
-                "conv_serving_launches)"]
+                "conv_serving_launches)",
+                "impulse-imdb trained and deployed (phase 12, "
+                "train_deploy_launches)"]
             entry["conv_serving_launches"] = serve["engines"][
                 BACKEND_OF[entry["name"]]]["launches"][entry["name"]]
+            entry["train_deploy_launches"] = deploy["launches"][entry["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

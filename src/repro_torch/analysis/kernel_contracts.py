@@ -175,6 +175,11 @@ def check_kernel_contracts(program, backend: str, *,
         raise ContractError("backend", f"{backend!r} has no streaming entry "
                             "(its state lives in host BitMacro objects)",
                             where="backend")
+    if backend != "float" and program.domain != "int":
+        raise ContractError(
+            "backend", f"backend {backend!r} executes int-domain programs "
+            f"only; this program is domain={program.domain!r} "
+            "(compile_network(..., domain='int'))", where="backend")
     if backend == "bitmacro" and program.clamp_mode != "wrap":
         raise ContractError(
             "backend", "bitmacro executes silicon wrap arithmetic; compile "

@@ -239,12 +239,18 @@ def check_program(program, *, frames: Optional[int] = None) -> RangeReport:
     ``max_safe_frames`` is horizon-independent and is what streaming
     admission control should budget against.
 
-    The port's programs are all integer (``domain="int"``).
+    Float-domain programs carry no word-level semantics to verify: they
+    return an empty (trivially valid) report, whose ``max_safe_frames`` is
+    None.
     """
     if frames is None:
         frames = int(program.timesteps)
     if frames < 0:
         raise ValueError(f"frames must be >= 0, got {frames}")
+    if program.domain != "int":
+        return RangeReport(domain=program.domain,
+                           clamp_mode=program.clamp_mode,
+                           neuron=program.neuron, frames=frames, layers=())
     mode = program.clamp_mode
     if mode not in ("saturate", "wrap"):
         raise AnalysisError(f"unknown clamp mode {mode!r}", where="program")

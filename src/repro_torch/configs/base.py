@@ -1,17 +1,17 @@
-"""Language-model configurations of the port: the model config, the
-registry, and `reduced_config`.
+"""Model, shape, parallelism and run configurations of the port: the model
+config, the registry, `reduced_config`, and the run configs training reads.
 
 The port's own copy of the fields of `repro.configs.base` that the RWKV
-serving path reads (it imports nothing of the JAX package). The other
-families' sub-configs (MoE, MLA, SSM, encoder-decoder, frontends) and the
-parallelism and run configs are not here: the port serves only the RWKV
-family so far, and `models.lm` raises `NotImplementedError` for any other.
+serving path and the train step read (it imports nothing of the JAX
+package). The other families' sub-configs (MoE, MLA, SSM, encoder-decoder,
+frontends) are not here: the port serves only the RWKV family so far, and
+`models.lm` raises `NotImplementedError` for any other.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 
 @dataclass(frozen=True)
@@ -31,6 +31,37 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     rwkv: Optional[RWKVConfig] = None
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The train step's batch policies. The JAX package's sharding and
+    layout policies (fsdp, sequence and expert parallelism, remat, scanned
+    layers, blocked attention) come with multi-GPU execution and LM
+    training."""
+    microbatches: int = 1           # gradient accumulation splits
+    grad_compress: bool = False     # int8 wire format on the gradients
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """What a train step runs: the model, its shape cell and the batch
+    policies (the optimizer is built by the caller and passed beside it;
+    the JAX package's optimizer fields serve its LM `init_train_state`)."""
+    model: Any                      # a ModelConfig, an SNNModelConfig, or None
+    shape: Optional[ShapeConfig]
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
 
 _REGISTRY: dict[str, ModelConfig] = {}

@@ -1,7 +1,11 @@
-"""Compiled network-level SNN programs and their integer execution backends,
-in PyTorch.
+"""Compiled network-level SNN programs and their execution backends, in
+PyTorch.
 
-An `SNNProgram` describes the deployed stack: the off-macro f32 spike
+An `SNNProgram` comes in two domains. The float (QAT training) domain keeps
+the trainable parameterization: softplus'd thresholds and leaks computed on
+the parameter tensors, fake-quantized weights, surrogate-gradient spikes;
+its backend, ``float``, is differentiable end to end. The int domain is the
+deployed stack: the off-macro f32 spike
 encoder (an identity-weight input layer, or the first conv of a conv
 program), the on-macro convs (int8 HWIO kernels, lowered through im2col,
 `core/mapping.py`), the spiking FC layers (int8 weights, 11-bit V) and the
@@ -30,14 +34,20 @@ agree bit for bit with each other and with the JAX package's backends:
                  on the host in numpy by nature; wrap programs only):
                  aux["macro_counts"] is the cycle tally it executed.
 
+  float       -- the float domain's temporal executor (`run_float`, a
+                 Python loop over timesteps through `_float_step`); on an
+                 int program it renders the integer program in f32, exactly
+                 (every value is an integer below 2^24): the bridge from
+                 training to deployment.
+
 Each on-macro conv layer is one call of the same kernels on its
 (T, B*P, k*k*C) patch raster (``readout=False``), so every backend serves
 conv programs. The same five kernel and plain backends stream FC and conv
 programs: `stream_step` advances every lane one tick and `stream_megastep`
 K ticks with one dispatch per on-macro conv and one for the fc stack,
 carrying every layer's V as a `StreamState` (a conv's V map enters its
-call flattened to (B*P, C), in `mapping.im2col_raster`'s frame order). The
-float (QAT) domain is not part of this package yet.
+call flattened to (B*P, C), in `mapping.im2col_raster`'s frame order); the
+float backend streams too, one eager `_float_step` a tick.
 
 Instruction counting is a program-level pass over the spike rasters
 (`count_network_instructions`, `SparsityReport.instruction_counts`), so
@@ -55,9 +65,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.impulse_snn import SNNModelConfig
 from repro_torch.core import isa, mapping
 from repro_torch.core.isa import int_matmul
-from repro_torch.core.neuron import neuron_step
-from repro_torch.core.quant import (CLAMP_MODES, quantize_neuron_const,
-                                    quantize_w)
+from repro_torch.core.neuron import NeuronState, neuron_step
+from repro_torch.core.quant import (CLAMP_MODES, clamp_v, fake_quant_w,
+                                    quantize_neuron_const, quantize_w,
+                                    spike_compare)
 from repro_torch.kernels.fused_snn_net.events import (EventStats,
                                                       fused_snn_net_events)
 from repro_torch.kernels.fused_snn_net.kernel import GATE_GRANULARITIES, LANE
@@ -77,10 +88,11 @@ class LayerSpec:
                                   # | fc (spiking, on-macro) | readout
     n_in: int                     # conv: the im2col fan-in k*k*c_in
     n_out: int
-    w: Any = None                 # fc/readout: int8 (n_in, n_out); conv: HWIO
-                                  # (f32 encoder, int8 on-macro); on the device
-    threshold: Any = None         # encoder / encoder conv: f32 0-d tensor;
-    leak: Any = None              # on-macro layers: int
+    w: Any = None                 # fc/readout: (n_in, n_out); conv: HWIO; on
+                                  # the device. int domain: int8 on-macro, f32
+                                  # encoder conv; float domain: f32
+    threshold: Any = None         # encoder / encoder conv / float domain: f32
+    leak: Any = None              # 0-d tensor; on-macro int layers: int
     scale: Any = None             # float <-> grid scale (python float)
     stride: int = 1               # conv only
     quantize: bool = True         # float (QAT) domain: fake-quant this w
@@ -89,14 +101,18 @@ class LayerSpec:
 
 @dataclass(frozen=True)
 class SNNProgram:
-    """A deployed integer program: encoder, spiking FCs, readout, with its
-    tensors on ``device``."""
+    """A compiled program: encoder (or conv encoder and convs), spiking FCs,
+    readout, with its tensors on ``device``. ``domain`` is "int" (the
+    deployed macro program) or "float" (QAT training, ``quantize`` turning
+    fake-quant on)."""
     cfg: Optional[SNNModelConfig]
     neuron: str                   # if | lif | rmp
     timesteps: int                # presentation steps per input frame
     layers: tuple                 # tuple[LayerSpec, ...]
     clamp_mode: str = "saturate"  # V_MEM policy (see quant.clamp_v)
     device: torch.device = torch.device("cpu")
+    domain: str = "int"           # "int" (deployed) | "float" (QAT training)
+    quantize: bool = True         # float domain: QAT fake-quant on
 
     @property
     def fc_stack(self) -> tuple:
@@ -135,7 +151,10 @@ class SNNProgram:
 
     def logits(self, v_out: torch.Tensor) -> torch.Tensor:
         """Readout V ``v_out`` (..., n_out) -> f32 logits of the same shape
-        (undo the last layer's weight scale)."""
+        (an int program undoes the last layer's weight scale; a float
+        program's V is its logits)."""
+        if self.domain != "int":
+            return v_out
         return v_out.to(torch.float32) * self.layers[-1].scale
 
 
@@ -182,49 +201,72 @@ def _conv_state_shapes(cfg: SNNModelConfig, convs: list) -> list:
     return shapes
 
 
-def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
-                    clamp_mode: str = "saturate", device=None) -> SNNProgram:
-    """Lower (cfg, params) to the deployed integer program (``domain="int"``)
-    of an FC or conv stack.
+def _param_f32(x, device: torch.device) -> torch.Tensor:
+    """A parameter as an f32 tensor on ``device``, still attached to the
+    autograd graph of the tensor it came from (numpy arrays are copied)."""
+    if torch.is_tensor(x):
+        return x.to(device, torch.float32)
+    return torch.tensor(np.asarray(x, np.float32), device=device)
 
-    Every on-macro layer quantizes onto its 6b/11b grid: weights through
-    `quant.quantize_w`, thresholds ``softplus(p) + 1e-3`` and leaks
-    ``0.1 * softplus(p)`` through `quant.quantize_neuron_const` under
+
+def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
+                    clamp_mode: str = "saturate", quantize: bool = True,
+                    device=None) -> SNNProgram:
+    """Lower (cfg, params) to an executable program of an FC or conv stack.
+
+    ``domain="float"`` (the default, as in the JAX package) keeps the
+    trainable parameterization and is differentiable: thresholds
+    ``softplus(p) + 1e-3`` and leaks ``0.1 * softplus(p)`` are computed on
+    the parameter tensors themselves (moved to ``device`` inside the graph),
+    and the float weights are fake-quantized at run time when ``quantize``
+    is on (every layer but the encoder conv). Run it on the ``float``
+    backend.
+
+    ``domain="int"`` is the deployed macro program: every on-macro layer
+    quantizes onto its 6b/11b grid, weights through `quant.quantize_w`,
+    thresholds and leaks through `quant.quantize_neuron_const` under
     ``clamp_mode``. The encoder, the identity input layer of an FC stack or
     the first conv of a conv stack, stays f32 (off-macro input layer, as in
     the paper). Later convs keep their HWIO int8 kernel and the im2col
     fan-in geometry (n_in = k*k*c_in, `mapping.conv_tiling`). Quantization
-    runs on the CPU; the program's tensors then live on ``device``
-    (default: the CUDA device; raises without one).
+    runs on the CPU, detached from any graph.
 
-    ``params``: ``{"layers": [{"w": (n_in, n_out)}, ...], "threshold":
-    (n_neuron_layers,), "leak": (n_neuron_layers,)}`` plus, for a conv
-    program, ``"convs": [{"w": (k, k, c_in, c_out)}, ...]``, as
-    `snn.init_fc_snn` / `snn.init_lenet_snn` make them (tensors or numpy
-    arrays). The default domain is the JAX package's, ``"float"`` (QAT
-    training): it raises `NotImplementedError` until the training slice of
-    the port lands."""
-    if domain != "int":
-        raise NotImplementedError(
-            f"domain={domain!r}: only the deployed integer domain is ported; "
-            "the float (QAT training) domain comes with the training slice")
+    The program's tensors live on ``device`` (default: the CUDA device;
+    raises without one). ``params``: ``{"layers": [{"w": (n_in, n_out)},
+    ...], "threshold": (n_neuron_layers,), "leak": (n_neuron_layers,)}``
+    plus, for a conv program, ``"convs": [{"w": (k, k, c_in, c_out)},
+    ...]``, as `snn.init_fc_snn` / `snn.init_lenet_snn` make them (tensors
+    or numpy arrays). Raises `ValueError` for an unknown domain or clamp
+    mode, or parameters that do not match ``cfg``'s layers."""
+    if domain not in ("float", "int"):
+        raise ValueError(f"unknown domain {domain!r}; have 'float', 'int'")
     if clamp_mode not in CLAMP_MODES:
         raise ValueError(f"unknown clamp mode {clamp_mode!r}")
+    convs = params.get("convs") or []
+    if (len(convs) != len(cfg.conv_spec)
+            or len(params["layers"]) != len(cfg.layer_sizes) - 1):
+        raise ValueError(
+            f"params hold {len(convs)} convs and {len(params['layers'])} FC "
+            f"layers; the config has {len(cfg.conv_spec)} convs and "
+            f"{len(cfg.layer_sizes) - 1} FC layers")
     device = resolve_device(device)
-    th = _softplus(_host_f32(params["threshold"])) + 1e-3
-    lk = _softplus(_host_f32(params["leak"])) * 0.1
+    int_dom = domain == "int"
+    if int_dom:
+        th = _softplus(_host_f32(params["threshold"])) + 1e-3
+        lk = _softplus(_host_f32(params["leak"])) * 0.1
+    else:
+        th = _softplus(_param_f32(params["threshold"], device)) + 1e-3
+        lk = _softplus(_param_f32(params["leak"], device)) * 0.1
     layers = []
     k = 0                                         # neuron-layer index
-    convs = params.get("convs") or []
     if convs:
         c_in = cfg.in_shape[-1]
         for i, (c, shape) in enumerate(zip(convs,
                                            _conv_state_shapes(cfg, convs))):
-            w = _host_f32(c["w"])
-            n_in = w.shape[0] * w.shape[1] * c_in
+            n_in = int(c["w"].shape[0] * c["w"].shape[1]) * c_in
             stride = cfg.conv_spec[i][2]
-            if i > 0:                             # on-macro conv
-                wq, scale = quantize_w(w)
+            if int_dom and i > 0:                 # on-macro conv
+                wq, scale = quantize_w(_host_f32(c["w"]))
                 layers.append(LayerSpec(
                     kind="conv", n_in=n_in, n_out=shape[-1], w=wq.to(device),
                     threshold=quantize_neuron_const(float(th[k]), scale,
@@ -233,11 +275,13 @@ def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
                                                clamp_mode),
                     scale=float(scale), stride=stride, quantize=False,
                     state_shape=shape))
-            else:                                 # the f32 spike encoder
+            else:                                 # f32 encoder / float conv
+                w = (_host_f32(c["w"]).to(device) if int_dom
+                     else _param_f32(c["w"], device))
                 layers.append(LayerSpec(
-                    kind="conv", n_in=n_in, n_out=shape[-1], w=w.to(device),
+                    kind="conv", n_in=n_in, n_out=shape[-1], w=w,
                     threshold=th[k].to(device), leak=lk[k].to(device),
-                    stride=stride, quantize=False, state_shape=shape))
+                    stride=stride, quantize=i > 0, state_shape=shape))
             c_in = shape[-1]
             k += 1
     else:
@@ -250,20 +294,43 @@ def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
     fc_ws = params["layers"]
     for j, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
         is_readout = j == len(fc_ws) - 1
-        wq, scale = quantize_w(_host_f32(fc_ws[j]["w"]))
-        layers.append(LayerSpec(
-            kind="readout" if is_readout else "fc", n_in=n_in, n_out=n_out,
-            w=wq.to(device),
-            threshold=None if is_readout else quantize_neuron_const(
-                float(th[k]), scale, clamp_mode),
-            leak=None if is_readout else quantize_neuron_const(
-                float(lk[k]), scale, clamp_mode),
-            scale=float(scale), state_shape=(n_out,)))
+        kind = "readout" if is_readout else "fc"
+        if int_dom:
+            wq, scale = quantize_w(_host_f32(fc_ws[j]["w"]))
+            layers.append(LayerSpec(
+                kind=kind, n_in=n_in, n_out=n_out, w=wq.to(device),
+                threshold=None if is_readout else quantize_neuron_const(
+                    float(th[k]), scale, clamp_mode),
+                leak=None if is_readout else quantize_neuron_const(
+                    float(lk[k]), scale, clamp_mode),
+                scale=float(scale), state_shape=(n_out,)))
+        else:
+            layers.append(LayerSpec(
+                kind=kind, n_in=n_in, n_out=n_out,
+                w=_param_f32(fc_ws[j]["w"], device),
+                threshold=None if is_readout else th[k],
+                leak=None if is_readout else lk[k], state_shape=(n_out,)))
         if not is_readout:
             k += 1
     return SNNProgram(cfg=cfg, neuron=cfg.spiking.neuron,
                       timesteps=cfg.timesteps, layers=tuple(layers),
-                      clamp_mode=clamp_mode, device=device)
+                      clamp_mode=clamp_mode, device=device, domain=domain,
+                      quantize=quantize)
+
+
+def rate_coded_program(spiking_cfg, state_shape: tuple, device=None
+                       ) -> SNNProgram:
+    """Single-population float program: one encoder layer of per-example V
+    shape ``state_shape`` integrating its input current, threshold and leak
+    taken verbatim from ``spiking_cfg`` (no softplus re-parameterization).
+    ``device`` defaults to the CUDA device (raises without one)."""
+    layer = LayerSpec(kind="encoder", n_in=state_shape[-1],
+                      n_out=state_shape[-1], threshold=spiking_cfg.threshold,
+                      leak=spiking_cfg.leak, state_shape=tuple(state_shape))
+    return SNNProgram(cfg=None, neuron=spiking_cfg.neuron,
+                      timesteps=spiking_cfg.timesteps, layers=(layer,),
+                      device=resolve_device(device), domain="float",
+                      quantize=False)
 
 
 def _check_kinds(kinds: list) -> None:
@@ -393,9 +460,9 @@ def encoder_step(program: SNNProgram, v_enc: torch.Tensor,
     enc = program.layers[0]
     current = (conv2d_f32(frame, enc.w, enc.stride) if enc.kind == "conv"
                else frame)
-    v, s = neuron_step(v_enc, current, neuron=program.neuron,
-                       threshold=enc.threshold, leak=enc.leak)
-    return v, s.to(torch.int8)
+    st, s = neuron_step(NeuronState(v_enc), current, neuron=program.neuron,
+                        threshold=enc.threshold, leak=enc.leak)
+    return st.v, s.to(torch.int8)
 
 
 def encode(program: SNNProgram, xs: torch.Tensor
@@ -647,6 +714,126 @@ def register_backend(name: str) -> Callable:
     return deco
 
 
+def _w_float(program: SNNProgram, spec: LayerSpec) -> torch.Tensor:
+    """The f32 weight a float-backend step multiplies by: an int program's
+    int8 weight as f32, a QAT layer's fake-quantized weight, else the float
+    weight itself."""
+    if program.domain == "int":
+        return spec.w.to(torch.float32)
+    if program.quantize and spec.quantize:
+        return fake_quant_w(spec.w)
+    return spec.w
+
+
+def _float_weights(program: SNNProgram) -> list:
+    """`_w_float` of every layer (None for the identity encoder), computed
+    once per run: the same values a per-step call gives, with one
+    quantization in the graph instead of one per timestep."""
+    return [None if spec.w is None else _w_float(program, spec)
+            for spec in program.layers]
+
+
+def _float_step(program: SNNProgram, vs: list, xt: torch.Tensor,
+                ws: Optional[list] = None) -> tuple[list, list]:
+    """One network timestep of the float backend on a (B, ...) current
+    ``xt``, with the layers' weights ``ws`` (`_float_weights`; computed
+    here when None). Returns (new per-layer V, per-neuron-layer f32
+    spikes). QAT layers run `neuron.neuron_step` (surrogate spikes); an int
+    program's on-macro layers run the f32 rendering of the word-level ISA
+    (clamp, leak, SpikeCheck, soft or hard reset), exact because every
+    value is an integer below 2^24. Convs go through `conv2d_f32`."""
+    if ws is None:
+        ws = _float_weights(program)
+    neuron = program.neuron
+    int_dom = program.domain == "int"
+    mode = program.clamp_mode
+    cur = xt
+    vs_new, spikes = [], []
+    for i, (spec, w) in enumerate(zip(program.layers, ws)):
+        if spec.kind in ("fc", "readout") and cur.dim() > 2:
+            cur = cur.reshape(cur.shape[0], -1)
+        if spec.kind == "readout":
+            vs_new.append(vs[i] + cur @ w)
+            continue
+        if spec.kind == "conv":
+            current = conv2d_f32(cur, w, spec.stride)
+        elif spec.kind == "fc":
+            current = cur @ w
+        else:                                     # encoder: identity weight
+            current = cur
+        if int_dom and spec.scale is not None:    # on-macro (fc or conv)
+            th = float(spec.threshold)
+            v = clamp_v(vs[i] + current, mode)
+            if neuron == "lif":
+                v = clamp_v(v - float(spec.leak), mode)
+            s = spike_compare(v, th, mode).to(torch.float32)
+            if neuron == "rmp":
+                v = clamp_v(torch.where(s > 0, v - th, v), mode)
+            else:
+                v = torch.where(s > 0, 0.0, v)
+        else:
+            st, s = neuron_step(NeuronState(vs[i]), current, neuron=neuron,
+                                threshold=spec.threshold, leak=spec.leak)
+            v = st.v
+        vs_new.append(v)
+        spikes.append(s)
+        cur = s
+    return vs_new, spikes
+
+
+def _init_vs(program: SNNProgram, batch: int) -> list:
+    """All-zero f32 V of every layer for ``batch`` examples."""
+    return [torch.zeros((batch, *spec.state_shape), dtype=torch.float32,
+                        device=program.device) for spec in program.layers]
+
+
+@register_backend("float")
+def run_float(program: SNNProgram, xs: torch.Tensor, *,
+              return_trace: bool = False, collect_rasters: bool = False,
+              collect_sums: bool = False, static_input: bool = False
+              ) -> NetResult:
+    """Differentiable run over the whole presentation, a Python loop of
+    `_float_step` over timesteps. ``aux["spike_rates"]`` is (T, n_neuron
+    layers) mean spike rates; ``aux["v_trace"]`` the (T, B) readout V of
+    output 0 with ``return_trace`` (zeros otherwise); ``collect_rasters``
+    adds the per-neuron-layer (T, B, ...) f32 rasters, ``collect_sums``
+    ``aux["spike_sums"]``, the per-layer spike counts over all steps.
+
+    ``static_input``: ``xs`` is one (B, ...) frame presented
+    ``program.timesteps`` times (direct encoding)."""
+    xs = torch.as_tensor(xs, device=program.device)
+    batch = xs.shape[0] if static_input else xs.shape[1]
+    steps = program.timesteps if static_input else xs.shape[0]
+    ws = _float_weights(program)
+    vs = _init_vs(program, batch)
+    sums = ([torch.zeros((batch, *spec.state_shape), dtype=torch.float32,
+                         device=program.device)
+             for spec in program.neuron_layers] if collect_sums else None)
+    rates, trace, rasters = [], [], []
+    for t in range(steps):
+        vs, spikes = _float_step(program, vs, xs if static_input else xs[t],
+                                 ws)
+        rates.append(torch.stack([s.mean() for s in spikes]))
+        if return_trace:
+            trace.append(vs[-1][:, 0])
+        if collect_sums:
+            sums = [c + s for c, s in zip(sums, spikes)]
+        if collect_rasters:
+            rasters.append(spikes)
+    aux = {"spike_rates": torch.stack(rates),
+           "v_trace": (torch.stack(trace) if return_trace else
+                       torch.zeros((steps, batch), device=program.device))}
+    if collect_sums:
+        aux["spike_sums"] = sums
+    v_out = vs[-1]
+    return NetResult(
+        v_out=v_out, logits=program.logits(v_out), v_final=vs,
+        rasters=([torch.stack([r[i] for r in rasters])
+                  for i in range(len(rasters[0]))]
+                 if collect_rasters else None),
+        aux=aux)
+
+
 @register_backend("int_ref")
 def run_int_ref(program: SNNProgram, xs: torch.Tensor, *,
                 use_sparse: bool = False) -> NetResult:
@@ -815,9 +1002,13 @@ def run_network(program: SNNProgram, xs: torch.Tensor,
     """Execute ``program`` on per-timestep input currents ``xs``
     (T_total, B, d) f32 on the program's device, through ``backend``
     (``kw``: that backend's options); every layer's input raster comes
-    back in `NetResult.rasters`."""
+    back in `NetResult.rasters`. Only the ``float`` backend runs a float
+    program (raises `ValueError` otherwise)."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown backend {backend!r}; have {sorted(BACKENDS)}")
+    if backend != "float" and program.domain != "int":
+        raise ValueError(f"backend {backend!r} needs an int-domain program "
+                         "(compile_network(..., domain='int'))")
     return BACKENDS[backend](program, xs, **kw)
 
 
@@ -833,7 +1024,7 @@ def run_network(program: SNNProgram, xs: torch.Tensor,
 # `run_network` bit for bit. Lanes never interact.
 # ---------------------------------------------------------------------------
 
-STREAM_BACKENDS = ("int_ref", "cuda", "cuda_sparse", "ref_events",
+STREAM_BACKENDS = ("float", "int_ref", "cuda", "cuda_sparse", "ref_events",
                    "cuda_events")
 
 
@@ -841,7 +1032,8 @@ class StreamState(NamedTuple):
     """Carried membrane state: one V tensor per program layer (encoder
     first, readout last), each (B, *state_shape) with the lane on axis 0:
     f32 for the encoder ((B, H, W, C) for a conv encoder), int32 for the
-    on-macro convs ((B, H_out, W_out, C)) and the fc stack."""
+    on-macro convs ((B, H_out, W_out, C)) and the fc stack; f32 for every
+    layer on the ``float`` backend."""
     vs: tuple
     t: int = 0           # ticks executed (bookkeeping only)
 
@@ -882,12 +1074,16 @@ class MegastepOut:
     conv_skips: Any = None
 
 
-def _check_stream(backend: str) -> None:
+def _check_stream(program: SNNProgram, backend: str) -> None:
     """Raises `KeyError` for a backend with no streaming entry (bitmacro's
-    state lives in host `BitMacro` objects, not in tensors)."""
+    state lives in host `BitMacro` objects, not in tensors), and
+    `ValueError` for a float program on any backend but ``float``."""
     if backend not in STREAM_BACKENDS:
         raise KeyError(f"unknown streaming backend {backend!r}; have "
                        f"{STREAM_BACKENDS}")
+    if backend != "float" and program.domain != "int":
+        raise ValueError(f"backend {backend!r} needs an int-domain program "
+                         "(compile_network(..., domain='int'))")
 
 
 def _stream_flags(backend: str, use_sparse: bool, block_b: int,
@@ -895,7 +1091,6 @@ def _stream_flags(backend: str, use_sparse: bool, block_b: int,
     """`_run_layers` options of a streaming ``backend`` and its kwargs:
     the kernel on the cuda* backends, the event list on the *events ones,
     gating on cuda_sparse (or wherever ``use_sparse`` asks for it)."""
-    _check_stream(backend)
     return dict(use_kernel=backend.startswith("cuda"),
                 use_events=backend.endswith("events"),
                 use_sparse=use_sparse or backend == "cuda_sparse",
@@ -907,9 +1102,10 @@ def init_stream_state(program: SNNProgram, batch: int,
                       backend: str = "int_ref") -> StreamState:
     """Fresh (all-zero V) state for ``batch`` streams on the program's
     device."""
-    _check_stream(backend)
+    _check_stream(program, backend)
     vs = tuple(torch.zeros((batch, *spec.state_shape),
-                           dtype=torch.float32 if i == 0 else torch.int32,
+                           dtype=(torch.float32 if i == 0 or backend == "float"
+                                  else torch.int32),
                            device=program.device)
                for i, spec in enumerate(program.layers))
     return StreamState(vs=vs, t=0)
@@ -926,7 +1122,16 @@ def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
     entry; the last conv's maps, flattened, are the fc stack's input. The
     backend options mirror `run_network`: ``use_sparse`` gates the int_ref tick,
     ``block_b`` sets the kernels' tile, ``gate_granularity`` the gated
-    blocks and ``event_crossover`` the event kernel's dense fallback."""
+    blocks and ``event_crossover`` the event kernel's dense fallback. On
+    ``float`` the tick is one `_float_step` and ``rasters`` holds every
+    neuron layer's f32 spikes."""
+    _check_stream(program, backend)
+    if backend == "float":
+        vs, spikes = _float_step(program, list(state.vs), frame)
+        v_out = vs[-1]
+        return (StreamState(vs=tuple(vs), t=state.t + 1),
+                StreamOut(v_out=v_out, logits=program.logits(v_out),
+                          rasters=list(spikes) if emit_rasters else None))
     flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
                           event_crossover)
     v_enc, spikes_enc = encoder_step(program, state.vs[0], frame)
@@ -966,9 +1171,10 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     (int32 addition is associative). This makes the fc stack emit its
     rasters even when ``emit_rasters=False``. The product goes through
     `isa.int_matmul`, since CUDA has no int32 matmul. The backend options
-    are `stream_step`'s."""
-    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
-                          event_crossover)
+    are `stream_step`'s. On ``float`` the block is K eager `_float_step`
+    ticks, equal to K `stream_step` calls bit for bit, and ``rasters``
+    holds every neuron layer's (K, B, ...) f32 spikes."""
+    _check_stream(program, backend)
     frames = torch.as_tensor(frames, device=program.device)
     if frames.dim() < 3:
         raise ValueError(f"stream_megastep takes a (K, B, *in_shape) frame "
@@ -986,6 +1192,11 @@ def stream_megastep(program: SNNProgram, state: StreamState,
         consumed = torch.clamp(act, max=k)
     else:
         consumed = torch.full((b,), k, dtype=torch.int32, device=frames.device)
+    if backend == "float":
+        return _float_megastep(program, state, frames, consumed,
+                               emit_rasters)
+    flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
+                          event_crossover)
     v_enc, spk = state.vs[0], []
     for t in range(k):
         v_enc, s = encoder_step(program, v_enc, frames[t])
@@ -1007,6 +1218,28 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                                  + list(rasters_fc)
                                  if emit_rasters else None),
                         skips=skips, conv_skips=conv_skips or None))
+
+
+def _float_megastep(program: SNNProgram, state: StreamState,
+                    frames: torch.Tensor, consumed: torch.Tensor,
+                    emit_rasters: bool) -> tuple[StreamState, MegastepOut]:
+    """`stream_megastep` on the float backend: K eager `_float_step` ticks
+    over the (masked) frame block."""
+    vs, v_traj, spk = list(state.vs), [], []
+    ws = _float_weights(program)
+    for t in range(frames.shape[0]):
+        vs, spikes = _float_step(program, vs, frames[t], ws)
+        v_traj.append(vs[-1])
+        spk.append(spikes)
+    v_traj = torch.stack(v_traj)
+    return (StreamState(vs=tuple(vs), t=state.t + frames.shape[0]),
+            MegastepOut(v_out=vs[-1], logits=program.logits(vs[-1]),
+                        v_out_traj=v_traj,
+                        logits_traj=program.logits(v_traj),
+                        frames_consumed=consumed,
+                        rasters=([torch.stack([s[i] for s in spk])
+                                  for i in range(len(spk[0]))]
+                                 if emit_rasters else None)))
 
 
 # ---------------------------------------------------------------------------

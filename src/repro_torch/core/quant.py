@@ -10,7 +10,10 @@ W and V share one fixed-point grid: V accumulates raw W integers, so a single
 per-layer scale converts between float and macro domains. Thresholds and
 leaks are quantized on the same grid.
 
-Rounding is half to even (`torch.round`), and the wrap clamp is a *floored*
+`fake_quant_w` is the QAT weight path of the float domain: quantize then
+dequantize in the forward, the straight-through estimator in the backward.
+Rounding is half to even (`torch.round`, like `jnp.round`), and the wrap
+clamp is a *floored*
 modulo (`torch.remainder`, never `torch.fmod`, which truncates toward zero).
 `clamp_v_np`/`spike_compare_np` are the numpy twins the host event executor
 (`kernels/fused_snn_net/events.py`) runs on.
@@ -42,6 +45,30 @@ def quantize_w(w: torch.Tensor, scale: torch.Tensor | None = None
     scale = w_scale(w) if scale is None else scale
     wq = torch.clamp(torch.round(w / scale), W_MIN, W_MAX).to(torch.int8)
     return wq, scale
+
+
+def dequantize_w(wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int weights -> f32 weights on the grid: ``wq * scale``."""
+    return wq.to(torch.float32) * scale
+
+
+class _FakeQuantW(torch.autograd.Function):
+    """Quantize-dequantize forward, straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, w):
+        wq, scale = quantize_w(w)
+        return dequantize_w(wq, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g                        # STE: the gradient passes unchanged
+
+
+def fake_quant_w(w: torch.Tensor) -> torch.Tensor:
+    """``w`` rounded onto its 6-bit grid and back (f32), differentiable with
+    the straight-through estimator (QAT)."""
+    return _FakeQuantW.apply(w)
 
 
 def clamp_v(v: torch.Tensor, mode: str = "saturate") -> torch.Tensor:
@@ -82,6 +109,14 @@ def spike_compare_np(v: np.ndarray, threshold, mode: str = "saturate"
     if mode == "wrap":
         return clamp_v_np(v - threshold, "wrap") >= 0
     return v >= threshold
+
+
+def quantize_const(x: float, scale: torch.Tensor, lo: int = V_MIN,
+                   hi: int = V_MAX) -> torch.Tensor:
+    """Quantize a scalar (threshold / leak / reset) onto the shared grid:
+    ``round(x / scale)`` clipped to [lo, hi], as an int32 tensor."""
+    return torch.clamp(torch.round(torch.as_tensor(x, dtype=torch.float32)
+                                   / scale), lo, hi).to(torch.int32)
 
 
 def quantize_neuron_const(x: float, scale: torch.Tensor,

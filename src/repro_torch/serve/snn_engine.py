@@ -27,6 +27,9 @@ SNN's counterpart of an LM's KV-cache lane). The engine keeps:
     runs P = H_out * W_out frames per lane (lane l owns frames
     [l * P, (l + 1) * P) of its patch raster), which the accounting and the
     ledger scale by;
+  * the ``float`` backend: the float program's (or an int program's f32
+    rendering's) eager per-tick `_float_step`, f32 logits and V; with
+    ``validate`` a float program has no accumulator bound and no cap;
   * per-slot stop conditions: the tick budget (the frames run out, or
     ``max_ticks``) or the readout-confidence early exit
     (max |logit| >= ``stop_threshold``);
@@ -148,8 +151,9 @@ class SNNServeEngine(SlotEngine):
     ``backend`` is a `pipeline.STREAM_BACKENDS` entry: ``"cuda"`` runs the
     fc stack of each megastep in one launch of the fused-network kernel,
     ``"cuda_sparse"`` of the row-block gated kernel, ``"cuda_events"`` of
-    the event-list kernel, ``"int_ref"`` the plain version and
-    ``"ref_events"`` the host event executor. ``step_kw`` passes through to
+    the event-list kernel, ``"int_ref"`` the plain version,
+    ``"ref_events"`` the host event executor and ``"float"`` the float
+    backend (a dispatch runs without autograd). ``step_kw`` passes through to
     `pipeline.stream_megastep` (``block_b``, ``gate_granularity``,
     ``use_sparse``, ``event_crossover``). ``pages`` x ``batch_slots`` is
     the lane pool and ``megastep`` is K, the frames advanced per dispatch.
@@ -256,7 +260,9 @@ class SNNServeEngine(SlotEngine):
                 req = self.queue.get()
                 if self._tick_budget(req) == 0:
                     req.logits = np.zeros(self._n_out[-1], np.float32)
-                    req.v_out = np.zeros(self._n_out[-1], np.int32)
+                    req.v_out = np.zeros(
+                        self._n_out[-1],
+                        np.float32 if self.backend == "float" else np.int32)
                     req.finish_clock = self.clock
                     if self.track_events:
                         req.report = self._finalize_report(_Slot(
@@ -375,10 +381,11 @@ class SNNServeEngine(SlotEngine):
         outs = {}
         for page in sorted(by_page):
             block, counts = self._build_block(page)
-            self.states[page], outs[page] = pipeline.stream_megastep(
-                self.program, self.states[page], block, self.backend,
-                active=counts, emit_rasters=self.track_events,
-                **self.step_kw)
+            with torch.no_grad():
+                self.states[page], outs[page] = pipeline.stream_megastep(
+                    self.program, self.states[page], block, self.backend,
+                    active=counts, emit_rasters=self.track_events,
+                    **self.step_kw)
         self.ticks += 1
         self.dispatches += len(by_page)
         self.clock += self.K

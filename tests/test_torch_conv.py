@@ -95,14 +95,20 @@ def assert_equal(got, want):
 
 def test_compile_network_default_domain_matches_jax():
     """The same call returns the same kind of program: both default to the
-    float (QAT) domain, which the port does not have yet."""
+    float (QAT) domain, and the port's float conv program is
+    differentiable."""
     def default(fn):
         return inspect.signature(fn).parameters["domain"].default
     assert default(pipeline.compile_network) == default(
         jpipe.compile_network) == "float"
-    with pytest.raises(NotImplementedError, match="float"):
-        pipeline.compile_network(MNIST, snn.init_lenet_snn(0, MNIST, "cpu"),
-                                 device="cpu")
+    params = snn.init_lenet_snn(0, MNIST, "cpu")
+    params["convs"][1]["w"].requires_grad_(True)
+    prog = pipeline.compile_network(MNIST, params, device="cpu")
+    assert prog.domain == "float" and prog.quantize
+    v_out = pipeline.run_network(prog, torch.from_numpy(images("mnist", 1, 0)),
+                                 "float", static_input=True).v_out
+    (g,) = torch.autograd.grad(v_out.sum(), [params["convs"][1]["w"]])
+    assert g.shape == (3, 3, 14, 14) and torch.isfinite(g).all()
 
 
 def test_same_pads_and_conv_out_hw_match_jax():

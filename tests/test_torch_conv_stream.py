@@ -190,7 +190,8 @@ def test_conv_state_leaves():
 
 @pytest.mark.parametrize("K", [1, 3])
 def test_every_port_backend_streams_conv_alike(K):
-    """On CPU tensors the five streaming backends give the same V, rasters
+    """On CPU tensors the streaming backends (the float rendering of the
+    int program among them) give the same V, rasters
     and readout; the event backends the same ledger, and the gated ones
     one counter per conv."""
     _, prog = programs("lenet", "lif")

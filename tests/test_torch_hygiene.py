@@ -99,3 +99,25 @@ def test_init_fc_snn_is_seeded():
     assert all(torch.equal(x["w"], y["w"])
                for x, y in zip(a["layers"], b["layers"]))
     assert snn.param_count(a) == 29_312
+
+
+def test_training_entry_points_without_a_device_raise_on_a_host_without_cuda(
+        monkeypatch):
+    """The float program, the training launcher, the LSTM baseline and the
+    SNN losses default to the CUDA device and refuse to fall back."""
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.launch import train_snn
+    from repro_torch.models import lstm_baseline
+    from repro_torch.configs.impulse_snn import SpikingConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = snn.init_fc_snn(0, IMDB)
+    x = np.zeros((1, 2, 100), np.float32)
+    for make in (lambda: pipe.compile_network(IMDB, params),
+                 lambda: pipe.rate_coded_program(SpikingConfig(), (4,)),
+                 lambda: snn.sentiment_loss(params, x, np.zeros(1), IMDB),
+                 lambda: lstm_baseline.init_lstm(0),
+                 lambda: train_snn.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    prog = pipe.compile_network(IMDB, params, device="cpu")
+    assert prog.domain == "float" and prog.device.type == "cpu"

@@ -195,7 +195,18 @@ def test_present_words_matches_jax():
     ({"layers": [], "convs": [{"w": np.zeros((3, 3, 1, 14))}]}, {}),
 ])
 def test_unported_paths_raise(params, kw):
-    with pytest.raises(NotImplementedError):
+    """The float domain is ported: the float program of the IMDB network
+    compiles and runs (the first case); parameters whose layers do not
+    match the config are refused (the second)."""
+    if kw:
+        params = jax.tree_util.tree_map(
+            np.asarray, jsnn.init_fc_snn(jax.random.PRNGKey(0), JAX_IMDB))
+        prog = pipeline.compile_network(IMDB, params, device="cpu", **kw)
+        res = pipeline.run_network(prog, torch.ones((10, 2, 100)), "float")
+        assert prog.domain == "float" and res.logits.shape == (2, 1)
+        assert torch.isfinite(res.logits).all()
+        return
+    with pytest.raises(ValueError, match="config"):
         pipeline.compile_network(IMDB, params, device="cpu", **kw)
 
 
