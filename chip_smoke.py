@@ -24,8 +24,9 @@ Phases, each of which exits non-zero on failure:
   3. the main paths: 64 IMDB requests (6 words x 10 frames, sparsity 0.85,
      random weights from a seed) served at full width by
      `SNNServeEngine` on the `cuda`, `cuda_sparse` (G = 8) and
-     `cuda_events` (crossover 1.0) backends, each drain's launch counts
-     taken over that drain alone; every request equal to an `int_ref`
+     `cuda_events` (crossover 1.0) backends, each page megastep one CUDA
+     graph replay (the engine's compiled dispatch), each drain's launch
+     counts taken over that drain alone (a replay adds its capture's); every request equal to an `int_ref`
      engine on the card (and the first few to `int_ref` on the CPU); the
      `cuda_events` device ledger equal to a `ref_events` engine's and to
      the per-request raster tally; then one profiled drain per backend for
@@ -47,8 +48,11 @@ Phases, each of which exits non-zero on failure:
   6. RWKV6-7B at full width (32 layers x 4096, 64 heads of 64, d_ff 14336,
      vocab 65536), bf16 weights drawn on the card from seed 0, served by the
      port's `ServeEngine`: 4 slots, 8 requests (6 prompts of 4 to 16 tokens,
-     2 of 1,024), 16 new tokens each; every logit finite and 32 wkv6
-     launches per prefill; tokens/s and a profiled drain; the kernel held
+     2 of 1,024), 16 new tokens each, decoded eagerly: every logit finite
+     and 32 wkv6 launches per prefill; tokens/s and a profiled drain; the
+     compiled engine (tick 1 eager, then one CUDA graph replay a tick)
+     serves the same tokens, and both engines' tokens/s (median of 3
+     drains in turns, graph captured) and profiled idle share; the kernel held
      against its plain version on the served model's own activations in
      every layer of a 1,024-token prefill; kernel and plain prefill of that
      prompt compared through the whole model (bf16 at full depth reported,
@@ -117,20 +121,31 @@ Phases, each of which exits non-zero on failure:
      energy, and 64 reviews served on `cuda` equal to an `int_ref` engine;
      (d) a checkpointed `train_loop` stopped at 10 steps and resumed; (e)
      12 impulse-mnist `lenet_loss` steps, finite, and the trained conv
-     program on `cuda` == `int_ref`.
+     program on `cuda` == `int_ref`;
+ 13. the compiled dispatch and the double buffer: phase 3's IMDB drain and
+     phase 10's conv drain on `int_ref`, `cuda`, `cuda_sparse` and
+     `cuda_events`, each eager (`stream_megastep`), graphed (one CUDA
+     graph per page) and graphed with the double-buffered upload: every
+     request (logits, V, ticks, finish clock, report), the device ledger
+     and the launch counts equal the eager drain's; then the `cuda`
+     engine's frames/s in the three modes (median of 5 drains in turns),
+     and a profiled drain each for device busy ms, idle share and device
+     ops a megastep.
 
 Then one `kernels` JSON line with all five kernels, each redesigned for
 this card (the dense, gated and event-list modes, wkv6 and
 fused_snn_step) with `redesigned_in` and its registers and spills; each
 fused-network mode names its paths and its launches in the conv serving
-drain (`conv_serving_launches`) and in the deployment of the trained
-IMDB net (`train_deploy_launches`). The
+drain (`conv_serving_launches`), in the deployment of the trained
+IMDB net (`train_deploy_launches`) and in phase 13's graphed drains
+(`graphed_launches`). The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it prints no
 result and exits 1.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -200,6 +215,12 @@ TRAIN_DEADLINE_S = 600            # seconds after the script starts
 # card against CPU, same port code: cuBLAS and the CPU BLAS sum f32 terms in
 # different orders, and a V within an ulp of its threshold can flip a spike
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RL2 = 1e-4, 1e-3
+# Phase 13: the compiled dispatch and the double buffer
+COMPILED_BACKENDS = ("int_ref", "cuda", "cuda_sparse", "cuda_events")
+DISPATCH_MODES = ("eager", "graphed", "graphed_db")
+COMPILED_REPEATS = 5              # timed drains per mode, alternating
+STEP_KW = {"cuda_sparse": {"gate_granularity": GATE_G},
+           "cuda_events": {"event_crossover": CROSSOVER}}
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -516,16 +537,18 @@ def phase_serving(dev) -> dict:
     def requests():
         return make_requests(program, 64, 6, IMDB.timesteps, 0.85, SEED)
 
-    def drain(backend):
+    def drain(backend, window=None):
         eng = SNNServeEngine(program, backend=backend,
                              step_kw=step_kw.get(backend), **cfg)
         for r in requests():
             eng.submit(r)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        return sorted(done, key=lambda r: r.rid), time.perf_counter() - t0, eng
+        with window or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return sorted(done, key=lambda r: r.rid), dt, eng
 
     ref, dt_ref, _ = drain("int_ref")
     if len(ref) != 64 or any(r.ticks != 60 for r in ref):
@@ -591,16 +614,18 @@ def event_ledger(drain, eng) -> dict:
 
 
 def profile_drain(drain, *args) -> dict:
-    """One more drain (``drain(*args)``, returning its wall time second)
-    under torch.profiler: the drain's wall time, the device time of the
-    eight largest kernels and copies it ran and of every kernel of the
-    port, and the share of the wall time the device was idle. The profiler slows the host, so the wall time here is not the
-    drain's throughput."""
+    """One more drain (``drain(*args, window=...)``, returning its wall
+    time second) under torch.profiler, which the drain turns on around its
+    timed part only (``window``), so an engine's build (a compiled
+    engine's warm-up and capture) stays outside: the drain's wall time,
+    the device time of the eight largest kernels and copies it ran and of
+    every kernel of the port, its device op count, and the share of the
+    wall time the device was idle. The profiler slows the host, so the
+    wall time here is not the drain's throughput."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall_s, _ = drain(*args)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, wall_s, _ = drain(*args, window=prof)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -610,6 +635,7 @@ def profile_drain(drain, *args) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "device_ops": sum(n for _, n in by_name.values()),
             "top": [{"name": k[:60], "ms": ms, "count": n}
                     for k, (ms, n) in top],
             "port_kernels": [{"name": k[:60], "ms": ms, "count": n}
@@ -818,6 +844,46 @@ def logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
                                              want.argmax(-1)))}
 
 
+def compiled_decode(drain, served: list, eager_cls, graphed_cls,
+                    repeats: int = 3) -> dict:
+    """Phase 6's compiled decode: a fresh compiled engine (tick 1 eager,
+    then one graph replay a tick) serves the eager drain's tokens; then
+    each engine, its first drain done (its graph captured), drains again
+    ``repeats`` times in turns for the median tokens/s, and once under the
+    profiler."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    got, dt_fresh, geng = drain(graphed_cls)
+    kernels_launched = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
+    if [r.out_tokens for r in got] != [r.out_tokens for r in served]:
+        raise AssertionError("the graphed rwkv drain served other tokens "
+                             "than the eager drain")
+    if geng._decode is None or geng._decode.graph is None:
+        raise AssertionError("the graphed rwkv drain replayed no graph")
+    fresh_ticks = geng.decode_ticks
+    engines = {"eager": drain(eager_cls)[2], "graphed": geng}
+    tokens = sum(len(r.out_tokens) for r in got)
+    times = {k: [] for k in engines}
+    for i in range(repeats):
+        for k in (("eager", "graphed") if i % 2 == 0
+                  else ("graphed", "eager")):
+            again, dt, _ = drain(eng=engines[k])
+            if len(again) != len(served):
+                raise AssertionError(f"the {k} engine's repeat drain served "
+                                     f"{len(again)} requests")
+            times[k].append(dt)
+    out = {"fresh_graphed_s": dt_fresh, "fresh_decode_ticks": fresh_ticks,
+           "launches": kernels_launched}
+    for k, eng in engines.items():
+        prof = profile_drain(drain, None, eng)
+        out[k] = {"tokens_per_s": tokens / float(np.median(times[k])),
+                  "s": times[k], "device_busy_ms": prof["device_busy_ms"],
+                  "device_idle_share": prof["device_idle_share"],
+                  "device_ops": prof["device_ops"],
+                  "profiled_wall_ms": prof["wall_ms"]}
+    return out
+
+
 def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
                cut_layers: int = 2) -> dict:
     """Phase 6: ``cfg`` served by the port's ServeEngine, bf16 weights from
@@ -842,19 +908,28 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
         return reqs + [Request(rid=6 + i, prompt=p, max_new_tokens=16)
                        for i, p in enumerate(long_prompts)]
 
-    def drain():
-        eng = ServeEngine(params, cfg, batch_slots=4,
-                          max_len=2 * long_prompt)
+    class EagerEngine(ServeEngine):
+        _compiled = False
+
+    def drain(cls=EagerEngine, eng=None, window=None):
+        """Serve the 8 requests on ``eng`` (kept from an earlier drain, its
+        graph captured) or on a new engine of class ``cls``."""
+        if eng is None:
+            eng = cls(params, cfg, batch_slots=4, max_len=2 * long_prompt)
+        eng.finished = []
         for r in requests():
             eng.submit(r)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        return sorted(done, key=lambda r: r.rid), time.perf_counter() - t0, eng
+        with window or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return sorted(done, key=lambda r: r.rid), dt, eng
 
     drain()                                        # warm-up, not counted
     kernels.reset_launch_counts()
+    # the eager drain: its decode_step calls are the ticks, each checked
     with recorded_logits() as seen:
         served, dt = drain()[:2]        # the engine (and its params) not kept
     launches = dict(kernels.LAUNCH_COUNTS)
@@ -875,6 +950,7 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
                 "decode_ticks": sum(k == "decode_step" for k, _, _ in seen),
                 "first_tokens": [r.out_tokens[:4] for r in served]})
     out["profile"] = profile_drain(drain)
+    out["compiled"] = compiled_decode(drain, served, EagerEngine, ServeEngine)
 
     # The kernel on the served model's own activations, layer by layer. Its
     # y and S reach thousands and hundreds there (decays up to 0.9997 over
@@ -932,6 +1008,7 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
         raise AssertionError(f"bf16 {cut_layers}-layer prefill: kernel and "
                              f"plain differ beyond {BF16_CUT_L2}: {d}")
     del params, cut
+    gc.collect()             # the engines and their graphs hold the params
     torch.cuda.empty_cache()
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
@@ -1382,17 +1459,19 @@ def phase_conv_serving(dev, ops) -> dict:
     def requests():
         return image_requests(images, T, stagger=3)
 
-    def drain(backend, K=5):
+    def drain(backend, K=5, window=None):
         eng = SNNServeEngine(program, backend=backend, batch_slots=32,
                              pages=2, megastep=K, device=dev,
                              step_kw=step_kw.get(backend))
         for r in requests():
             eng.submit(r)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        return sorted(done, key=lambda r: r.rid), time.perf_counter() - t0, eng
+        with window or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return sorted(done, key=lambda r: r.rid), dt, eng
 
     ref, dt_ref, ref_eng = drain("int_ref")
     if len(ref) != MNIST_BATCH or any(r.ticks != T for r in ref):
@@ -1910,6 +1989,131 @@ def phase_lenet_train(dev) -> dict:
             "cuda_equals_int_ref": True}
 
 
+def dispatch_engine(mode: str):
+    """The engine class and double-buffer flag of a dispatch mode: the
+    eager `stream_megastep` dispatch, the compiled one (CUDA graphs), or
+    the compiled one with the double-buffered upload."""
+    from repro_torch.serve import SNNServeEngine
+
+    class EagerEngine(SNNServeEngine):
+        _compiled = False
+    return {"eager": (EagerEngine, False), "graphed": (SNNServeEngine, False),
+            "graphed_db": (SNNServeEngine, True)}[mode]
+
+
+def compiled_drains(dev) -> dict:
+    """Phase 13's two drains: phase 3's IMDB drain (64 x 60 frames, 32
+    slots x 2 pages, K = 10) and phase 10's conv drain (64 impulse-mnist
+    images x 10 frames arriving 3 frames apart, K = 5), as (program,
+    requests, engine options)."""
+    from repro_torch.configs.impulse_snn import IMDB, MNIST
+    from repro_torch.core import pipeline, snn
+    from repro_torch.data.synthetic import mnist_like_batch
+    from repro_torch.launch.serve_snn import image_requests, make_requests
+
+    imdb = pipeline.compile_network(IMDB, snn.init_fc_snn(SEED, IMDB),
+                                    domain="int", device=dev)
+    mnist = pipeline.compile_network(
+        MNIST, snn.init_lenet_snn(SEED, MNIST, device=dev), domain="int",
+        device=dev)
+    images = mnist_like_batch(MNIST_BATCH, SEED)[0]
+    return {
+        "imdb": (imdb, lambda: make_requests(imdb, 64, 6, IMDB.timesteps,
+                                             0.85, SEED),
+                 dict(batch_slots=32, pages=2, megastep=10)),
+        "conv": (mnist, lambda: image_requests(images, MNIST.timesteps,
+                                               stagger=3),
+                 dict(batch_slots=32, pages=2, megastep=5))}
+
+
+def same_served(a, b) -> bool:
+    """Two requests served alike: logits, V, ticks, finish clock and the
+    whole per-request report."""
+    return (same_request(a, b) and a.finish_clock == b.finish_clock
+            and a.report.events == b.report.events
+            and a.report.layer_frames == b.report.layer_frames)
+
+
+def phase_compiled(dev) -> dict:
+    """Phase 13: each drain of `compiled_drains` on every compiled backend,
+    eager, graphed and graphed with the double buffer: every request, the
+    device ledger and the launch counts equal the eager drain's; then the
+    `cuda` engine's frames/s in each mode (median of alternating drains)
+    and one profiled drain each."""
+    from repro_torch import kernels
+
+    out = {}
+    for name, (program, requests, kw) in compiled_drains(dev).items():
+        def drain(backend, mode, window=None):
+            cls, db = dispatch_engine(mode)
+            eng = cls(program, backend=backend, step_kw=STEP_KW.get(backend),
+                      double_buffer=db, device=dev, **kw)
+            for r in requests():
+                eng.submit(r)
+            torch.cuda.synchronize()
+            with window or contextlib.nullcontext():
+                t0 = time.perf_counter()
+                done = eng.run_until_drained()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            return sorted(done, key=lambda r: r.rid), dt, eng
+
+        rows = {}
+        for backend in COMPILED_BACKENDS:
+            drain(backend, "eager")                  # warm-up, not counted
+            kernels.reset_launch_counts()
+            ref, _, ref_eng = drain(backend, "eager")
+            want = dict(kernels.LAUNCH_COUNTS)
+            row = {"launches": {k: v for k, v in want.items() if v},
+                   "megasteps": ref_eng.dispatches}
+            for mode in DISPATCH_MODES[1:]:
+                kernels.reset_launch_counts()
+                got, _, eng = drain(backend, mode)
+                launches = dict(kernels.LAUNCH_COUNTS)
+                bad = [a.rid for a, b in zip(got, ref)
+                       if not same_served(a, b)]
+                if len(got) != len(ref) or bad:
+                    raise AssertionError(f"{name} {backend} {mode} != eager "
+                                         f"(requests {bad})")
+                if launches != want:
+                    raise AssertionError(f"{name} {backend} {mode}: launches "
+                                         f"{launches}, eager {want}")
+                if any(d._run.graph is None for d in eng._dispatch):
+                    raise AssertionError(f"{name} {backend} {mode}: a page "
+                                         "dispatched without its graph")
+                if backend == "cuda_events":
+                    a, b = eng.device_event_stats(), \
+                        ref_eng.device_event_stats()
+                    if a.frames != b.frames or a.dense_fallbacks != \
+                            b.dense_fallbacks or not all(
+                                np.array_equal(x, y) for x, y in
+                                zip(a.row_events, b.row_events)):
+                        raise AssertionError(f"{name} {mode}: the device "
+                                             "ledger != the eager drain's")
+                if mode == "graphed_db":
+                    row["staged_used"] = eng._staged_used
+                    row["staged_rebuilt"] = eng._staged_rebuilt
+            rows[backend] = row
+        frames = sum(r.ticks for r in ref)
+        times = {mode: [] for mode in DISPATCH_MODES}
+        for i in range(COMPILED_REPEATS):             # in turns
+            order = DISPATCH_MODES if i % 2 == 0 else DISPATCH_MODES[::-1]
+            for mode in order:
+                times[mode].append(drain("cuda", mode)[1])
+        timing = {}
+        for mode in DISPATCH_MODES:
+            prof = profile_drain(drain, "cuda", mode)
+            timing[mode] = {
+                "frames_per_s": frames / float(np.median(times[mode])),
+                "s": times[mode], "device_busy_ms": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "device_ops_per_megastep":
+                    prof["device_ops"] / rows["cuda"]["megasteps"],
+                "profiled_wall_ms": prof["wall_ms"], "top": prof["top"][:4]}
+        out[name] = {"frames": frames, "backends": rows, "cuda": timing}
+    return out
+
+
 def dense_launch_ms(fn) -> list:
     """Device ms of each dense fused-network launch of one ``fn()`` under
     torch.profiler, in launch order (after one call unprofiled)."""
@@ -2074,6 +2278,10 @@ def main() -> int:
     cfg = get_config("rwkv6-7b")
     lmrun = phase_rwkv(dev, cfg)
     profile = lmrun.pop("profile")
+    lmrun_graphed = lmrun.pop("compiled")
+    print(f"[phase 6] compiled decode (one graph replay a tick after the "
+          f"first): served the eager drain's tokens; "
+          f"{json.dumps(lmrun_graphed)} ({card})")
     print(f"[phase 6] {cfg.arch_id}: {lmrun['params']} params (bf16) drawn "
           f"on the card in {lmrun['init_s']:.2f} s; served 8 requests "
           f"({lmrun['prefills']} prefills, 2 of {LONG_PROMPT} tokens) x 16 "
@@ -2241,6 +2449,31 @@ def main() -> int:
     lenet = phase_lenet_train(dev)
     print(f"[phase 12] (e) impulse-mnist {LENET_STEPS} lenet_loss steps at "
           f"batch {LENET_BATCH}: {json.dumps(lenet)}")
+    compiled = phase_compiled(dev)
+    for name, res in compiled.items():
+        for backend, row in res["backends"].items():
+            print(f"[phase 13] {name} {backend}: graphed and graphed + double "
+                  f"buffer == eager (every request, ledger, launches): "
+                  f"{json.dumps(row)}")
+        t = res["cuda"]
+        print(f"[phase 13] {name} cuda frames/s (median of "
+              f"{COMPILED_REPEATS}): eager {t['eager']['frames_per_s']:.1f}, "
+              f"graphed {t['graphed']['frames_per_s']:.1f}, graphed + double "
+              f"buffer {t['graphed_db']['frames_per_s']:.1f}; device idle "
+              + ", ".join(f"{m} {t[m]['device_idle_share']:.3f}"
+                          for m in DISPATCH_MODES)
+              + "; device ops a megastep "
+              + ", ".join(f"{m} {t[m]['device_ops_per_megastep']:.1f}"
+                          for m in DISPATCH_MODES) + f" ({card})")
+        print(f"[phase 13] {name} cuda timing: {json.dumps(t)} ({card})")
+    lm_cmp = lmrun_graphed
+    print(f"[phase 13] {cfg.arch_id} tokens/s (median of "
+          f"{len(lm_cmp['eager']['s'])}): eager "
+          f"{lm_cmp['eager']['tokens_per_s']:.2f}, graphed "
+          f"{lm_cmp['graphed']['tokens_per_s']:.2f}; device idle eager "
+          f"{lm_cmp['eager']['device_idle_share']:.3f}, graphed "
+          f"{lm_cmp['graphed']['device_idle_share']:.3f}; the graphed drain "
+          f"served the eager drain's tokens ({card})")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [
@@ -2249,7 +2482,12 @@ def main() -> int:
                 "impulse-mnist conv streaming and serving (phase 10, "
                 "conv_serving_launches)",
                 "impulse-imdb trained and deployed (phase 12, "
-                "train_deploy_launches)"]
+                "train_deploy_launches)",
+                "impulse-imdb and impulse-mnist drains as CUDA graph replays "
+                "(phase 13, graphed_launches)"]
+            entry["graphed_launches"] = {
+                name: res["backends"][BACKEND_OF[entry["name"]]]["launches"][
+                    entry["name"]] for name, res in compiled.items()}
             entry["conv_serving_launches"] = serve["engines"][
                 BACKEND_OF[entry["name"]]]["launches"][entry["name"]]
             entry["train_deploy_launches"] = deploy["launches"][entry["name"]]

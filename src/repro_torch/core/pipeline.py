@@ -497,10 +497,13 @@ def _run_layers(program: SNNProgram, spikes: torch.Tensor, ws: list,
                 use_kernel: bool, emit_rasters: bool,
                 v_init: Optional[list] = None, use_sparse: bool = False,
                 gate_granularity: int = 1, use_events: bool = False,
-                event_crossover: float = 1.0, block_b: int = 8) -> tuple:
+                event_crossover: float = 1.0, block_b: int = 8,
+                fold_events: bool = True) -> tuple:
     """One fused-stack dispatch of weights ``ws`` on a (T, B, d) raster.
     ``use_events`` runs the event-list kernel (``use_kernel``) or the host
-    executor, and returns an `events.EventStats`; otherwise the kernel
+    executor, and returns an `events.EventStats` (the kernel's
+    `ops.DeviceEventCounts`, still on the device, with ``fold_events``
+    false); otherwise the kernel
     wrapper (``use_kernel``) or its plain version, gated with
     ``use_sparse``. The plain version's tile is the whole batch (the JAX
     reference's layout), the kernel's ``block_b`` lanes. Returns
@@ -511,7 +514,7 @@ def _run_layers(program: SNNProgram, spikes: torch.Tensor, ws: list,
     if use_events and use_kernel:
         return fused_snn_net_device_events(
             spikes, ws, block_b=block_b, event_crossover=event_crossover,
-            **kw)
+            fold=fold_events, **kw)
     if use_events:
         return _host_events(spikes, ws, **kw)
     if use_kernel:
@@ -1153,7 +1156,7 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                     frames, backend: str = "int_ref", *, active=None,
                     emit_rasters: bool = True, use_sparse: bool = False,
                     block_b: int = 8, gate_granularity: int = 1,
-                    event_crossover: float = 1.0
+                    event_crossover: float = 1.0, fold_events: bool = True
                     ) -> tuple[StreamState, MegastepOut]:
     """Advance every stream K ticks with one dispatch per on-macro conv and
     one for the fc stack: (state, (K, B, *in_shape) current block) -> (new
@@ -1171,9 +1174,12 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     (int32 addition is associative). This makes the fc stack emit its
     rasters even when ``emit_rasters=False``. The product goes through
     `isa.int_matmul`, since CUDA has no int32 matmul. The backend options
-    are `stream_step`'s. On ``float`` the block is K eager `_float_step`
-    ticks, equal to K `stream_step` calls bit for bit, and ``rasters``
-    holds every neuron layer's (K, B, ...) f32 spikes."""
+    are `stream_step`'s. With ``fold_events`` false the ``cuda_events``
+    counters stay on the device as `ops.DeviceEventCounts` (their
+    ``fold()`` gives the `EventStats`), so the block runs without a copy
+    to the host, as a CUDA graph must. On ``float`` the block is K eager
+    `_float_step` ticks, equal to K `stream_step` calls bit for bit, and
+    ``rasters`` holds every neuron layer's (K, B, ...) f32 spikes."""
     _check_stream(program, backend)
     frames = torch.as_tensor(frames, device=program.device)
     if frames.dim() < 3:
@@ -1197,6 +1203,7 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                                emit_rasters)
     flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
                           event_crossover)
+    flags["fold_events"] = fold_events
     v_enc, spk = state.vs[0], []
     for t in range(k):
         v_enc, s = encoder_step(program, v_enc, frames[t])

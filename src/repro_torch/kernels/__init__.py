@@ -8,6 +8,10 @@ the dense, gated and event-list kernels), each with its own count.
 ``LAUNCH_COUNTS[name]`` counts the launches of kernel ``name``: its binding
 adds one each time it launches the kernel and nowhere else, so a caller can
 show that a run went through the kernel (reset with `reset_launch_counts`).
+A CUDA graph (`repro_torch.serve.graphed`) launches kernels without running
+their bindings: the launches of its warm-up and capture are not counted,
+and each replay adds the launches its capture recorded, so a compiled
+dispatch counts what the eager one counts.
 """
 
 LAUNCH_COUNTS: dict = {"fused_snn_net": 0, "fused_snn_net_gated": 0,

@@ -23,6 +23,8 @@ TPU wrapper there is no lane padding to slice off.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -254,29 +256,49 @@ def fused_snn_net_ref(spikes: torch.Tensor, ws: list, thresholds: tuple,
                           use_events))
 
 
+class DeviceEventCounts(NamedTuple):
+    """The event-list kernel's counters as it leaves them, on its device:
+    per layer the (tiles, n_in) int32 row-event counts, the
+    (tiles, n_layers) int32 dense-fallback counts, and the frames the call
+    ran. `fold` turns them into the `events.EventStats` the accounting
+    layer takes; a caller that replays the call as a CUDA graph keeps
+    the fold, a copy to the host, out of the graph."""
+    row_events: list
+    dense_fallbacks: torch.Tensor
+    frames: int
+
+    def fold(self) -> EventStats:
+        """The counters summed over tiles in int64 on the host (per-layer
+        totals over a long stream overflow int32)."""
+        row_events = tuple(rc.to("cpu", torch.int64).sum(dim=0).numpy()
+                           for rc in self.row_events)
+        fallbacks = tuple(int(c) for c in np.asarray(
+            self.dense_fallbacks.to("cpu", torch.int64).sum(dim=0)))
+        return EventStats(row_events=row_events, frames=self.frames,
+                          dense_fallbacks=fallbacks)
+
+
 def fused_snn_net_device_events(spikes: torch.Tensor, ws: list, *,
                                 thresholds: tuple, leaks: tuple,
                                 neuron: str = "rmp",
                                 clamp_mode: str = "saturate",
                                 block_b: int = 8, emit_rasters: bool = True,
                                 readout: bool = True, v_init: list = None,
-                                event_crossover: float = 1.0) -> tuple:
+                                event_crossover: float = 1.0,
+                                fold: bool = True) -> tuple:
     """`fused_snn_net(use_events=True)` with the per-tile counters folded
     into an `events.EventStats`, the third element the host executor
     `events.fused_snn_net_events` returns, so the accounting layer treats
-    both alike. The int32 tile counters come off the device here and sum
-    in int64 on the host (per-layer totals over a long stream overflow
-    int32). Returns (rasters, v_finals, stats)."""
+    both alike; with ``fold=False`` the third element is the
+    `DeviceEventCounts` still on the device. Returns (rasters, v_finals,
+    stats)."""
     rasters, v_finals, skips = fused_snn_net(
         spikes, ws, thresholds=thresholds, leaks=leaks, neuron=neuron,
         clamp_mode=clamp_mode, block_b=block_b, emit_rasters=emit_rasters,
         readout=readout, v_init=v_init, use_events=True,
         event_crossover=event_crossover)
-    row_events = tuple(rc.to("cpu", torch.int64).sum(dim=0).numpy()
-                       for rc in skips["row_events"])
-    fallbacks = tuple(int(c) for c in np.asarray(
-        skips["dense_fallbacks"].to("cpu", torch.int64).sum(dim=0)))
-    stats = EventStats(row_events=row_events,
-                       frames=int(spikes.shape[0]) * int(spikes.shape[1]),
-                       dense_fallbacks=fallbacks)
-    return rasters, v_finals, stats
+    counts = DeviceEventCounts(
+        row_events=list(skips["row_events"]),
+        dense_fallbacks=skips["dense_fallbacks"],
+        frames=int(spikes.shape[0]) * int(spikes.shape[1]))
+    return rasters, v_finals, counts.fold() if fold else counts

@@ -3,18 +3,27 @@ continuous-batching engine (`repro_torch.serve.SNNServeEngine`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_snn --requests 64 \
         --slots 32 --pages 2 --megastep 10 --backend cuda_events
+    PYTHONPATH=src python -m repro_torch.launch.serve_snn --double-buffer \
+        --poisson-gap 4 --stop-threshold 1.0 --megastep 10 --pages 2 \
+        --slots 32 --requests 64
 
 Each request is a synthetic word stream for the IMDB network: a seeded
 spike raster at the offered sparsity, scaled by the encoder threshold so the
 off-macro encoder reproduces it exactly (the offered sparsity is then exact,
 not approximate). The network's weights are random, made from ``--seed``.
-The launcher reports throughput (frames/s, words/s) and the skipped-row
-fraction of the pooled per-request accounting, and on the event backends
-the device ledger's. ``--backend`` is any streaming backend (``cuda``,
+The launcher reports throughput (frames/s, words/s), the p50/p99 latency
+in frame ticks (arrival to finish), the skipped-row fraction of the pooled
+per-request accounting with its instruction count and measured EDP (the
+macro's energy model), and on the event backends the device ledger's
+skipped-row fraction. ``--backend`` is any streaming backend (``cuda``,
 ``cuda_sparse``, ``cuda_events``, ``int_ref``, ``ref_events``);
 ``--granularity`` sets ``cuda_sparse``'s gate blocks and ``--crossover``
-``cuda_events``' dense fallback. ``--device`` defaults to ``cuda``;
-``--device cpu`` runs the plain versions on the CPU.
+``cuda_events``' dense fallback. ``--stop-threshold`` is the
+readout-confidence early exit, ``--poisson-gap`` the mean inter-arrival
+gap in frame ticks (default: every request arrives at once),
+``--double-buffer`` stages the next frame block while this one computes,
+and ``--quick`` serves 3 requests of 2 words on 2 slots. ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.impulse_snn import IMDB
-from repro_torch.core import pipeline, snn
+from repro_torch.core import energy, pipeline, snn
 from repro_torch.serve import SNNRequest, SNNServeEngine
 
 
@@ -89,9 +98,19 @@ def main(argv=None) -> list:
                     help="gate blocks of 128/G fan-in rows (cuda_sparse)")
     ap.add_argument("--crossover", type=float, default=1.0,
                     help="dense-fallback occupancy (cuda_events)")
+    ap.add_argument("--stop-threshold", type=float, default=None)
+    ap.add_argument("--double-buffer", action="store_true",
+                    help="stage the next frame block while this one computes")
+    ap.add_argument("--poisson-gap", type=float, default=None,
+                    help="mean inter-arrival gap in frame ticks (Poisson "
+                         "admission; default: all requests arrive at once)")
+    ap.add_argument("--quick", action="store_true",
+                    help="reduced sizes (3 requests, 2 words, 2 slots)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.quick:
+        args.requests, args.words, args.slots = 3, 2, 2
     step_kw = {}
     if args.backend == "cuda_sparse":
         step_kw["gate_granularity"] = args.granularity
@@ -103,9 +122,12 @@ def main(argv=None) -> list:
                                        domain="int", device=args.device)
     eng = SNNServeEngine(program, batch_slots=args.slots, backend=args.backend,
                          step_kw=step_kw, pages=args.pages,
-                         megastep=args.megastep, device=args.device)
+                         megastep=args.megastep,
+                         double_buffer=args.double_buffer, device=args.device)
     for req in make_requests(program, args.requests, args.words,
-                             cfg.timesteps, args.sparsity, args.seed):
+                             cfg.timesteps, args.sparsity, args.seed,
+                             args.stop_threshold,
+                             poisson_gap=args.poisson_gap):
         eng.submit(req)
     t0 = time.perf_counter()
     done = eng.run_until_drained()
@@ -118,8 +140,16 @@ def main(argv=None) -> list:
           f"({frames / dt:.1f} frames/s, {frames / cfg.timesteps / dt:.1f} "
           f"words/s on {program.device}; backend {args.backend}, "
           f"K={args.megastep}, {args.pages} page(s) x {args.slots} lanes)")
+    lats = [r.latency_ticks for r in done if r.latency_ticks is not None]
+    if lats:
+        print(f"latency (frame ticks, arrival->finish): "
+              f"p50={np.percentile(lats, 50):.0f} "
+              f"p99={np.percentile(lats, 99):.0f} "
+              f"over clock {eng.clock}")
+    counts = rep.instruction_counts()
     print(f"offered sparsity {args.sparsity:.2f} -> skipped-row fraction "
-          f"{rep.skipped_row_fraction:.4f}")
+          f"{rep.skipped_row_fraction:.3f}, instr={counts.total}, "
+          f"measured EDP {energy.measured_edp(counts):.3e} J*s")
     if args.backend.endswith("events"):
         print(f"device ledger: skipped-row fraction "
               f"{eng.device_skipped_row_fraction():.4f}, dense fallbacks "

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
+from repro_torch.serve import graphed
 
 
 class EngineUndrained(RuntimeError):
@@ -97,6 +98,14 @@ def probe_batch_axes(state, probe):
         state, probe)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict (and list) tree, in `lm.tree_map`'s
+    order."""
+    out: list = []
+    lm.tree_map(out.append, tree)
+    return out
+
+
 def tree_lane_scatter(lane_tree, full_tree, axes, i: int):
     """Copy a single-lane state tree into batch lane ``i`` of the full tree
     along each leaf's batch axis (``axes`` from `probe_batch_axes`; leaves
@@ -142,10 +151,21 @@ class ServeEngine(SlotEngine):
     tokens; per-slot stops are ``max_new_tokens`` and ``eos_id``.
 
     The cache starts as `lm.init_cache` makes it, with bf16 token-shift
-    leaves whatever the params' type, and is replaced by what each decode
-    tick returns (the compute type): as in the JAX package, a request
-    admitted before the first tick has its token-shift carry rounded to
-    bf16 and one admitted later does not."""
+    leaves whatever the params' type, and the first decode tick replaces it
+    with what it returns (the compute type): as in the JAX package, a
+    request admitted before the first tick has its token-shift carry
+    rounded to bf16 and one admitted later does not.
+
+    Compiled decode (the counterpart of JAX's ``jax.jit(lm.decode_step)``):
+    the first tick runs eagerly, since it changes the cache's types; the
+    second captures the tick as a CUDA graph (`graphed.Graphed`) whose
+    static inputs are a (B, 1) token buffer and the cache's leaves, which
+    the graph updates in place, with the argmax inside it; every later
+    tick replays it. Prefill stays eager. On the CPU the same static-buffer
+    tick runs without a graph. A subclass that sets the class attribute
+    ``_compiled`` False decodes eagerly every tick."""
+
+    _compiled = True
 
     def __init__(self, params, cfg, *, batch_slots: int = 4,
                  max_len: int = 256):
@@ -162,8 +182,12 @@ class ServeEngine(SlotEngine):
                                    device=self.device)
         # host-resident token buffer; uploaded once per tick
         self.last_tokens = np.zeros((batch_slots, 1), np.int64)
+        self._tokens = torch.zeros((batch_slots, 1), dtype=torch.int64,
+                                   device=self.device)
         probe = lm.init_cache(cfg, batch_slots + 1, max_len, device="meta")
         self._batch_axes = probe_batch_axes(self.cache, probe)
+        self.decode_ticks = 0
+        self._decode = None               # the compiled tick, from tick 2
 
     def submit(self, req: Request) -> None:
         """Enqueue ``req`` for FIFO admission into a free decode lane."""
@@ -199,15 +223,43 @@ class ServeEngine(SlotEngine):
                 slot.remaining = req.max_new_tokens - 1
                 break
 
+    def _decode_in_place(self) -> torch.Tensor:
+        """The compiled tick's body: decode ``_tokens``, write the new
+        cache into the cache's leaves in place, return the argmax tokens."""
+        logits, cache = lm.decode_step(self.params, self._tokens, self.cache,
+                                       self.cfg)
+        for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
+            if dst.dtype != src.dtype:
+                raise TypeError(f"decode changed a cache leaf from "
+                                f"{dst.dtype} to {src.dtype}")
+            dst.copy_(src)
+        return torch.argmax(logits, dim=-1)
+
+    def _decode_tick(self) -> np.ndarray:
+        """One batched decode of ``last_tokens``: eager on the first tick
+        (on every tick when uncompiled), then the compiled tick. Returns
+        the (B,) next tokens on the host."""
+        self._tokens.copy_(torch.from_numpy(self.last_tokens))
+        if not self._compiled or self.decode_ticks == 0:
+            with torch.no_grad():
+                logits, self.cache = lm.decode_step(
+                    self.params, self._tokens, self.cache, self.cfg)
+                next_tokens = torch.argmax(logits, dim=-1)
+        else:
+            if self._decode is None:
+                self._decode = graphed.Graphed(
+                    self._decode_in_place, self.device,
+                    keep=tuple(tree_leaves(self.cache)))
+            next_tokens = self._decode()
+        self.decode_ticks += 1
+        return next_tokens.cpu().numpy()
+
     def step(self) -> int:
         """One engine tick: admit + batched decode. Returns #active slots."""
         self._admit()
         if all(s.req is None for s in self.slots):
             return 0
-        tokens = torch.from_numpy(self.last_tokens).to(self.device)
-        logits, self.cache = lm.decode_step(self.params, tokens, self.cache,
-                                            self.cfg)
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+        next_tokens = self._decode_tick()
         for i, slot in enumerate(self.slots):
             if slot.req is None:
                 continue

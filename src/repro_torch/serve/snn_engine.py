@@ -15,6 +15,19 @@ SNN's counterpart of an LM's KV-cache lane). The engine keeps:
     finish mid-block are finalized from the block's exact per-tick readout
     trajectory. Lanes never interact, so each request's output is
     bit-identical to serving it alone, at any K;
+  * compiled dispatch: on the ``int_ref`` and ``cuda*`` backends each page
+    owns a `graphed.PageMegastep`, one CUDA graph of its megastep captured
+    when the engine is built (the counterpart of JAX's ``jax.jit``), fed
+    through static block and active-count buffers and writing V back into
+    the page's state in place; ``float`` and ``ref_events`` dispatch
+    eagerly, as JAX leaves them unjitted. On the CPU the same static-buffer
+    dispatch runs without a graph;
+  * double-buffered upload (``double_buffer=True``): after dispatching
+    tick t's blocks, tick t+1's are built and uploaded while the device
+    computes (on CUDA into pinned host buffers, two per page used in turn,
+    copied on a side stream that the dispatch waits on). A staged block is
+    keyed by per-lane (admission serial, cursor, frames) and rebuilt on any
+    mismatch (early exit, admission, eviction), so results never change;
   * admission by ``arrival_tick`` on the engine's frame clock (``clock``
     advances K per engine tick, idle ticks included);
   * with ``validate`` (the default), the static analysis of
@@ -60,6 +73,7 @@ from repro_torch.analysis import (RangeError, check_kernel_contracts,
 from repro_torch.core import pipeline
 from repro_torch.core.pipeline import SNNProgram, SparsityReport
 from repro_torch.kernels.fused_snn_net.events import EventStats
+from repro_torch.serve import graphed
 from repro_torch.serve.engine import SlotEngine, lane_scatter
 
 
@@ -95,7 +109,26 @@ class _Slot:
     req: Optional[SNNRequest] = None
     cursor: int = 0                       # next frame index to present
     ticks: int = 0
+    serial: int = -1                      # admission sequence number
     row_events: list = field(default_factory=list)
+
+
+class _Upload:
+    """One of a page's two double-buffer upload buffers on CUDA: a pinned
+    host block and counts, their device copies, an event recorded after the
+    copy (the dispatch waits on it) and one recorded after the dispatch
+    that read the device block. The host rewrites the pinned block only
+    after both have passed, so no copy in flight reads a changing buffer
+    and no dispatch reads a block being overwritten."""
+
+    def __init__(self, shape: tuple, device: torch.device):
+        self.host = torch.zeros(shape, dtype=torch.float32, pin_memory=True)
+        self.host_counts = torch.zeros(shape[1], dtype=torch.int32,
+                                       pin_memory=True)
+        self.block = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.counts = torch.zeros(shape[1], dtype=torch.int32, device=device)
+        self.copied = torch.cuda.Event()
+        self.read = torch.cuda.Event()
 
 
 class _ArrivalQueue:
@@ -156,17 +189,26 @@ class SNNServeEngine(SlotEngine):
     backend (a dispatch runs without autograd). ``step_kw`` passes through to
     `pipeline.stream_megastep` (``block_b``, ``gate_granularity``,
     ``use_sparse``, ``event_crossover``). ``pages`` x ``batch_slots`` is
-    the lane pool and ``megastep`` is K, the frames advanced per dispatch.
+    the lane pool and ``megastep`` is K, the frames advanced per dispatch;
+    ``double_buffer`` stages the next block while this one computes.
     ``track_events=False`` turns off raster emission and per-request
     reports. ``validate`` (default on) checks the dispatch's kernel
     contracts now and sets ``max_safe_ticks``, the admission cap of
     `submit` (None with ``validate=False``). ``device`` defaults to the
-    CUDA device (raises without one) and must be the program's device."""
+    CUDA device (raises without one) and must be the program's device.
+
+    The class attribute ``_compiled`` (True) selects the compiled
+    static-buffer dispatch on the backends of `graphed.GRAPHED_BACKENDS`;
+    a subclass that sets it False dispatches `pipeline.stream_megastep`
+    eagerly, the form the compiled one is held against."""
+
+    _compiled = True
 
     def __init__(self, program: SNNProgram, *, batch_slots: int = 4,
                  backend: str = "int_ref", track_events: bool = True,
                  step_kw: Optional[dict] = None, pages: int = 1,
-                 megastep: int = 1, validate: bool = True, device=None):
+                 megastep: int = 1, double_buffer: bool = False,
+                 validate: bool = True, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if pages < 1:
@@ -185,6 +227,7 @@ class SNNServeEngine(SlotEngine):
         self.B = batch_slots                  # lanes per page
         self.pages = pages
         self.K = megastep
+        self.double_buffer = double_buffer
         self.track_events = track_events
         self.step_kw = dict(step_kw or {})
         self.max_safe_ticks: Optional[int] = None
@@ -218,6 +261,22 @@ class SNNServeEngine(SlotEngine):
         self.device_row_events: Optional[list] = None
         self.device_dense_fallbacks: Optional[list] = None
         self.device_ticks = 0             # frame ticks dispatched, all pages
+        self._dispatch = None             # per page: its compiled megastep
+        if self._compiled and backend in graphed.GRAPHED_BACKENDS:
+            self._dispatch = [graphed.PageMegastep(
+                program, st, backend, megastep, emit_rasters=track_events,
+                step_kw=self.step_kw) for st in self.states]
+        self._admit_seq = 0
+        self._staged: dict = {}           # page -> (meta, block, counts, upload)
+        self._uploads = None              # per page: two `_Upload`s (CUDA)
+        if double_buffer and self.device.type == "cuda":
+            shape = (megastep, batch_slots, *self._frame_shape)
+            self._uploads = [[_Upload(shape, self.device) for _ in range(2)]
+                             for _ in range(pages)]
+            self._upload_turn = [0] * pages
+            self._upload_stream = torch.cuda.Stream(self.device)
+        self._staged_used = 0             # staged blocks dispatched
+        self._staged_rebuilt = 0          # staged blocks dropped and rebuilt
 
     # -- request intake ------------------------------------------------------
     def submit(self, req: SNNRequest) -> None:
@@ -272,8 +331,10 @@ class SNNServeEngine(SlotEngine):
                     continue
                 page, lane = divmod(i, self.B)
                 lane_scatter(self._fresh.vs, self.states[page].vs, lane)
-                self.slots[i] = _Slot(req=req, row_events=[
-                    np.zeros(n, np.int64) for n in self._n_in])
+                self.slots[i] = _Slot(req=req, serial=self._admit_seq,
+                                      row_events=[np.zeros(n, np.int64)
+                                                  for n in self._n_in])
+                self._admit_seq += 1
                 break
 
     # -- per-slot event accounting ------------------------------------------
@@ -294,8 +355,10 @@ class SNNServeEngine(SlotEngine):
         """Pool one dispatch's executor-reported `EventStats` (one per conv
         in ``out.conv_skips``, then the fc stack's in ``out.skips``; all
         lanes of the page, K frames each) into the engine-lifetime device
-        ledger."""
-        stats = list(out.conv_skips or []) + [out.skips]
+        ledger. A compiled dispatch's counters arrive unfolded
+        (`ops.DeviceEventCounts`, on the device) and are folded here."""
+        stats = [s if isinstance(s, EventStats) else s.fold()
+                 for s in list(out.conv_skips or []) + [out.skips]]
         rows = [np.asarray(r, np.int64) for st in stats
                 for r in st.row_events]
         fbs = [int(f) for st in stats for f in st.dense_fallbacks]
@@ -352,24 +415,119 @@ class SNNServeEngine(SlotEngine):
             row_events=row_events)
 
     # -- frame staging -------------------------------------------------------
-    def _build_block(self, page: int) -> tuple[torch.Tensor, np.ndarray]:
-        """One page's (K, B, *in_shape) frame block on the device and its
-        per-lane active counts, from each lane's cursor."""
-        block = np.zeros((self.K, self.B, *self._frame_shape), np.float32)
-        counts = np.zeros(self.B, np.int32)
+    def _block_meta(self, page: int) -> tuple:
+        """Identity of the block a page would dispatch right now: per
+        occupied lane (admission serial, cursor, staged frame count), the
+        key that validates a staged block."""
+        meta = []
         for i in self.page_lanes(page):
             slot = self.slots[i]
             if slot.req is None:
                 continue
             n = min(self._tick_budget(slot.req) - slot.cursor, self.K)
-            block[:n, i % self.B] = slot.req.frames[slot.cursor:slot.cursor + n]
+            meta.append((slot.serial, slot.cursor, n))
+        return tuple(meta)
+
+    def _build_block(self, page: int, at_next: bool = False,
+                     out: Optional[tuple] = None) -> tuple:
+        """One page's (K, B, *in_shape) host frame block and per-lane active
+        counts, from each lane's cursor or (``at_next``) from its cursor
+        after this tick's dispatch, for the double buffer; written into
+        ``out`` (a block and counts pair of numpy arrays) when given.
+        Returns (meta, block, counts); all None when no lane would be
+        active."""
+        if out is None:
+            out = (np.zeros((self.K, self.B, *self._frame_shape), np.float32),
+                   np.zeros(self.B, np.int32))
+        block, counts = out
+        block.fill(0)
+        counts.fill(0)
+        meta = []
+        for i in self.page_lanes(page):
+            slot = self.slots[i]
+            if slot.req is None:
+                continue
+            budget = self._tick_budget(slot.req)
+            cursor = slot.cursor
+            if at_next:
+                cursor += min(budget - cursor, self.K)
+                if cursor >= budget:
+                    continue              # finished by then
+            n = min(budget - cursor, self.K)
+            block[:n, i % self.B] = slot.req.frames[cursor:cursor + n]
             counts[i % self.B] = n
-        return torch.from_numpy(block).to(self.device), counts
+            meta.append((slot.serial, cursor, n))
+        if not meta:
+            return None, None, None
+        return tuple(meta), block, counts
+
+    def _stage_block(self, page: int) -> tuple:
+        """The block a page dispatches this tick: the staged one when its
+        meta still matches the page's lanes (no early exit, admission or
+        eviction since it was staged), else one built now. Returns (block,
+        counts, upload): host arrays and None, or on CUDA the staged
+        device tensors and their `_Upload`."""
+        staged = self._staged.pop(page, None)
+        if staged is not None:
+            if staged[0] == self._block_meta(page):
+                self._staged_used += 1
+                return staged[1:]
+            self._staged_rebuilt += 1
+        _, block, counts = self._build_block(page)
+        return block, counts, None
+
+    def _stage_next(self, pages: list) -> None:
+        """Double buffer: build and upload tick t+1's blocks while tick t's
+        dispatches compute. `_stage_block` checks each against the live
+        meta, so a wrong guess costs one rebuild, never a changed
+        result."""
+        for page in pages:
+            if self._uploads is None:
+                meta, block, counts = self._build_block(page, at_next=True)
+                if meta is not None:
+                    self._staged[page] = (meta, block, counts, None)
+                continue
+            up = self._uploads[page][self._upload_turn[page]]
+            up.copied.synchronize()       # no copy still reads the host block
+            up.read.synchronize()         # no dispatch still reads the device one
+            meta, _, _ = self._build_block(
+                page, at_next=True, out=(up.host.numpy(),
+                                         up.host_counts.numpy()))
+            if meta is None:
+                continue
+            self._upload_turn[page] ^= 1
+            with torch.cuda.stream(self._upload_stream):
+                up.block.copy_(up.host, non_blocking=True)
+                up.counts.copy_(up.host_counts, non_blocking=True)
+                up.copied.record()
+            self._staged[page] = (meta, up.block, up.counts, up)
 
     # -- engine tick ---------------------------------------------------------
+    def _dispatch_page(self, page: int):
+        """Dispatch one page's megastep on its staged or freshly built
+        block: through its compiled `graphed.PageMegastep` (the state
+        advances in place), or eagerly through `pipeline.stream_megastep`.
+        Returns its `MegastepOut`."""
+        block, counts, up = self._stage_block(page)
+        if up is not None:                # wait for the staged upload
+            up.copied.wait(torch.cuda.current_stream(self.device))
+        state = self.states[page]
+        if self._dispatch is not None:
+            out = self._dispatch[page](block, counts)
+            self.states[page] = state._replace(t=state.t + self.K)
+        else:
+            with torch.no_grad():
+                self.states[page], out = pipeline.stream_megastep(
+                    self.program, state, block, self.backend, active=counts,
+                    emit_rasters=self.track_events, **self.step_kw)
+        if up is not None:
+            up.read.record(torch.cuda.current_stream(self.device))
+        return out
+
     def step(self) -> int:
         """One engine tick: admit, then one K-frame megastep per occupied
-        page. Returns the number of active slots after evictions."""
+        page (then, with the double buffer, the next tick's blocks are
+        staged). Returns the number of active slots after evictions."""
         self._admit()
         by_page = self.active_by_page()
         if not by_page:
@@ -378,14 +536,9 @@ class SNNServeEngine(SlotEngine):
                 # frame clock so arrival schedules are reached
                 self.clock += self.K
             return 0
-        outs = {}
-        for page in sorted(by_page):
-            block, counts = self._build_block(page)
-            with torch.no_grad():
-                self.states[page], outs[page] = pipeline.stream_megastep(
-                    self.program, self.states[page], block, self.backend,
-                    active=counts, emit_rasters=self.track_events,
-                    **self.step_kw)
+        outs = {page: self._dispatch_page(page) for page in sorted(by_page)}
+        if self.double_buffer:
+            self._stage_next(sorted(by_page))
         self.ticks += 1
         self.dispatches += len(by_page)
         self.clock += self.K

@@ -185,3 +185,31 @@ def test_launcher_serves_on_the_cpu(capsys):
                               "--max-new", "4", "--slots", "2"])
     assert sorted(len(r.out_tokens) for r in done) == [4, 4, 4]
     assert "tok/s on cpu" in capsys.readouterr().out
+
+
+class EagerEngine(ServeEngine):
+    _compiled = False
+
+
+def test_compiled_decode_matches_jax_and_eager():
+    """The compiled decode (tick 1 eager, then the static-buffer tick that
+    updates the cache in place) serves the JAX engine's tokens and the
+    eager engine's, on both sides of the bf16 first tick, and leaves the
+    eager engine's cache."""
+    jp, p = params()
+    ps = prompts(7, seed=8)
+    want = drain(jax_engine(jp, batch_slots=3, max_len=64),
+                 [JaxRequest(rid=i, prompt=x, max_new_tokens=5)
+                  for i, x in enumerate(ps)])
+    eager = EagerEngine(p, CFG, batch_slots=3, max_len=64)
+    compiled = ServeEngine(p, CFG, batch_slots=3, max_len=64)
+    runs = [drain(eng, [Request(rid=i, prompt=x, max_new_tokens=5)
+                        for i, x in enumerate(ps)])
+            for eng in (eager, compiled)]
+    for got in runs:
+        assert [g.out_tokens for g in got] == [w.out_tokens for w in want]
+    assert compiled._decode is not None and eager._decode is None
+    assert compiled.decode_ticks == eager.decode_ticks
+    for a, b in zip(jax.tree_util.tree_leaves(compiled.cache),
+                    jax.tree_util.tree_leaves(eager.cache)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -133,3 +133,96 @@ def test_engine_contracts():
     assert exc.value.pending == 2 and exc.value.finished == []
     with pytest.raises(ValueError, match="lives on"):
         SNNServeEngine(prog, device="meta")
+
+
+# -- double-buffered upload and the compiled (static-buffer) dispatch -------
+# The JAX engine with double_buffer=True is the oracle: the JAX `int_ref`
+# engine for `int_ref`, `cuda` and `cuda_sparse` (plain versions on the
+# CPU), the JAX `ref_events` engine for `cuda_events` (with its device
+# ledger). Seven requests of 30 frames on 2 slots per page, so admissions
+# land mid-drain: ragged budgets and one early exit (request 3 stops at
+# tick 12, inside a block at K = 4 and K = 10), or Poisson arrivals.
+BUDGETS = [30, 17, 30, None, 9, 30, 23]
+_JAX_DRAINS = {}
+
+
+def scenario_requests(make, program, scenario):
+    if scenario == "poisson":
+        return make(program, 7, 3, 10, 0.85, 0, None, 9.0)
+    reqs = make(program, 7, 3, 10, 0.85, 0)
+    for r, budget in zip(reqs, BUDGETS):
+        r.max_ticks = budget
+    reqs[3].stop_threshold = 8.0
+    return reqs
+
+
+def jax_double_buffer_drain(backend, pages, megastep, scenario):
+    key = (backend, pages, megastep, scenario)
+    if key not in _JAX_DRAINS:
+        jprog, _ = programs()
+        eng = JaxEngine(jprog, batch_slots=2, backend=backend, pages=pages,
+                        megastep=megastep, double_buffer=True, validate=False)
+        _JAX_DRAINS[key] = (drain(eng, scenario_requests(
+            jax_make_requests, jprog, scenario)), eng)
+    return _JAX_DRAINS[key]
+
+
+@pytest.mark.parametrize("scenario", ["early_exit", "poisson"])
+@pytest.mark.parametrize("pages,megastep", [(1, 1), (2, 4), (3, 10)])
+@pytest.mark.parametrize("backend",
+                         ["int_ref", "cuda", "cuda_sparse", "cuda_events"])
+def test_double_buffer_matches_jax(backend, pages, megastep, scenario):
+    """The compiled static-buffer dispatch with double-buffered upload
+    equals the JAX engine with double_buffer=True request for request:
+    logits, V, ticks, finish clock, per-request row events, and on
+    cuda_events the device ledger."""
+    jax_backend = "ref_events" if backend == "cuda_events" else "int_ref"
+    want, jeng = jax_double_buffer_drain(jax_backend, pages, megastep,
+                                         scenario)
+    _, prog = programs()
+    eng = SNNServeEngine(prog, batch_slots=2, backend=backend, pages=pages,
+                         megastep=megastep, double_buffer=True, device="cpu")
+    assert eng._dispatch is not None
+    got = drain(eng, scenario_requests(make_requests, prog, scenario))
+    assert_same_requests(got, want)
+    assert [r.arrival_tick for r in got] == [r.arrival_tick for r in want]
+    assert eng.clock == jeng.clock
+    if scenario == "early_exit":
+        assert got[3].ticks == 12 and [r.ticks for r in got][:3] == [30, 17,
+                                                                     30]
+    assert eng._staged_used > 0
+    if backend == "cuda_events":
+        a, b = eng.device_event_stats(), jeng.device_event_stats()
+        assert a.frames == b.frames
+        for x, y in zip(a.row_events, b.row_events):
+            np.testing.assert_array_equal(x, y)
+        assert set(a.dense_fallbacks) == {0}
+        assert (eng.device_skipped_row_fraction()
+                == jeng.device_skipped_row_fraction())
+
+
+def launcher_lines(main, argv, capsys):
+    main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    return ([ln for ln in lines if ln.startswith("latency")],
+            [ln for ln in lines if ln.startswith("offered sparsity")])
+
+
+def test_launcher_lines_match_jax(monkeypatch, capsys):
+    """`launch/serve_snn.py --quick --poisson-gap 4 --stop-threshold 2
+    --double-buffer`: the latency (p50/p99) and sparsity/instr=/EDP lines
+    equal the JAX launcher's, both serving the same program (the JAX one,
+    carried across)."""
+    from repro.launch import serve_snn as jax_launch
+    from repro_torch.launch import serve_snn as port_launch
+    jprog, prog = programs()
+    monkeypatch.setattr(jax_launch.pipeline, "compile_network",
+                        lambda *a, **k: jprog)
+    monkeypatch.setattr(port_launch.pipeline, "compile_network",
+                        lambda *a, **k: prog)
+    argv = ["--quick", "--poisson-gap", "4", "--stop-threshold", "2",
+            "--double-buffer"]
+    want = launcher_lines(jax_launch.main, argv, capsys)
+    got = launcher_lines(port_launch.main, argv + ["--device", "cpu"], capsys)
+    assert got == want
+    assert len(got[0]) == 1 and "instr=" in got[1][0]
