@@ -130,7 +130,30 @@ Phases, each of which exits non-zero on failure:
      and the launch counts equal the eager drain's; then the `cuda`
      engine's frames/s in the three modes (median of 5 drains in turns),
      and a profiled drain each for device busy ms, idle share and device
-     ops a megastep.
+     ops a megastep;
+ 14. the dense attention family and the spiking FFN: (a) llama3-8b at full
+     width (32 layers x 4096, 32 query and 8 KV heads of 128, SwiGLU d_ff
+     14336, vocab 128256, RoPE theta 500000), bf16 weights drawn on the
+     card from seed 0, served by `ServeEngine` (4 slots, max_len 1,152; 6
+     prompts of 4 to 16 tokens and 2 of 1,000, which fall in bucket 1,024;
+     16 new tokens each): every prefill and decode logit of an eager drain
+     finite, the buckets used and the LRU's contents, the compiled engine
+     (one CUDA graph per prefill bucket, a decode graph from tick 2) equal
+     to the eager engine token for token, both engines' tokens/s (median
+     of 3 drains in turns) and profiled drains, the time to the first
+     token per bucket, the KV cache's bytes and the float32 logits head's
+     time and memory; (b) on the served model: blocked attention (q chunk
+     and kv block 256) against `_sdpa` on layer 0's q, k and v at T =
+     1,024 in float32 (the JAX test's tolerance), and, in float32 at full
+     depth (cut to 8 layers if the card could not hold it, and said so)
+     and reported in bf16, the bucketed prefill (1,000 tokens padded to
+     1,024) against the exact-length one (last logits, K/V at the valid
+     positions) and prefill of the prompt plus one token against prefill
+     and one `decode_step`; (c) llama3.2-1b at full width with the spiking
+     FFN (RMP, 8 steps, threshold 0.5), bf16, served the same way
+     (compiled == eager, tokens/s), the mean spike rate of a prefill, and
+     layer 0's float executor on the card equal to the same port code on
+     the CPU, spike sum for spike sum, on the current it recorded.
 
 Then one `kernels` JSON line with all five kernels, each redesigned for
 this card (the dense, gated and event-list modes, wkv6 and
@@ -195,6 +218,7 @@ MNIST_FC = (686, 120, 84, 10)
 CONV_STACK = (126, 14)            # an on-macro conv's im2col patch layer
 PORT_KERNELS = ("fused_snn_net", "fused_snn_step", "wkv6_kernel")
 LONG_PROMPT = 1024
+LM_NEW = 16                       # new tokens a request, phases 6 and 14
 # Model-level tolerances, relative L2 error of the logits (and, for float32,
 # the largest elementwise error over the largest |logit|). With random
 # weights this stack amplifies a difference through its depth: a one-ulp
@@ -221,6 +245,13 @@ DISPATCH_MODES = ("eager", "graphed", "graphed_db")
 COMPILED_REPEATS = 5              # timed drains per mode, alternating
 STEP_KW = {"cuda_sparse": {"gate_granularity": GATE_G},
            "cuda_events": {"event_crossover": CROSSOVER}}
+# Phase 14: the dense attention family and the spiking FFN
+DENSE_ARCH, SPIKING_ARCH = "llama3-8b", "llama3.2-1b"
+SPIKING = {"neuron": "rmp", "timesteps": 8, "threshold": 0.5}
+DENSE_MAX_LEN, DENSE_LONG, DENSE_BUCKET = 1152, 1000, 1024
+DENSE_F32_CUT = 8                 # float32 depth if 32 layers do not fit
+BLOCKED_CHUNK = 256               # q chunk and kv block
+BLOCKED_RTOL, BLOCKED_ATOL = 2e-5, 2e-5   # tests/test_blocked_attention.py
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -834,32 +865,80 @@ def recorded_logits():
         lm.prefill, lm.decode_step = orig["prefill"], orig["decode_step"]
 
 
-def logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """Relative L2 error, largest elementwise error over the largest
-    |logit|, and whether the argmax tokens agree."""
+def rel_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Relative L2 error and largest elementwise error over the largest
+    |want|."""
     got, want = got.float(), want.float()
     return {"rel_l2": float((got - want).norm() / want.norm()),
-            "max_rel": float((got - want).abs().max() / want.abs().max()),
-            "argmax_equal": bool(torch.equal(got.argmax(-1),
-                                             want.argmax(-1)))}
+            "max_rel": float((got - want).abs().max() / want.abs().max())}
+
+
+def logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """`rel_diff`, and whether the argmax tokens agree."""
+    return {**rel_diff(got, want), "argmax_equal": bool(torch.equal(
+        got.argmax(-1), want.argmax(-1)))}
+
+
+def lm_requests(cfg, long_prompts: list) -> list:
+    """Phases 6 and 14's 8 requests: 6 prompts of 4 to 16 tokens (the
+    launcher's) and the long prompts, LM_NEW new tokens each."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Request
+    reqs = make_requests(cfg, 6, LM_NEW, SEED)
+    return reqs + [Request(rid=6 + i, prompt=p, max_new_tokens=LM_NEW)
+                   for i, p in enumerate(long_prompts)]
+
+
+def lm_drainer(params, cfg, max_len: int, long_prompts: list):
+    """(drain, EagerEngine): ``drain(cls, eng, window)`` serves
+    `lm_requests` on ``eng`` (kept from an earlier drain, its graphs
+    captured) or on a new 4-slot engine of class ``cls`` (the eager engine
+    by default), timed around the drain alone (inside ``window``), and
+    returns (requests by rid, seconds, engine)."""
+    from repro_torch.serve import ServeEngine
+
+    class EagerEngine(ServeEngine):
+        _compiled = False
+
+    def drain(cls=EagerEngine, eng=None, window=None):
+        if eng is None:
+            eng = cls(params, cfg, batch_slots=4, max_len=max_len)
+        eng.finished = []
+        for r in lm_requests(cfg, long_prompts):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        with window or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return sorted(done, key=lambda r: r.rid), dt, eng
+    return drain, EagerEngine
+
+
+def free_cuda() -> None:
+    gc.collect()             # engines and their graphs hold the params
+    torch.cuda.empty_cache()
 
 
 def compiled_decode(drain, served: list, eager_cls, graphed_cls,
-                    repeats: int = 3) -> dict:
-    """Phase 6's compiled decode: a fresh compiled engine (tick 1 eager,
-    then one graph replay a tick) serves the eager drain's tokens; then
-    each engine, its first drain done (its graph captured), drains again
-    ``repeats`` times in turns for the median tokens/s, and once under the
-    profiler."""
+                    repeats: int = 3, label: str = "rwkv",
+                    keep: dict = None, profile: bool = True) -> dict:
+    """Phases 6 and 14's compiled dispatch: a fresh compiled engine (tick 1
+    eager, then one graph replay a tick; phase 14 also one graph per
+    prefill bucket) serves the eager drain's tokens; then each engine, its
+    first drain done (its graphs captured), drains again ``repeats`` times
+    in turns for the median tokens/s, and (``profile``) once under the
+    profiler. The two engines go into ``keep`` when it is given."""
     from repro_torch import kernels
     kernels.reset_launch_counts()
     got, dt_fresh, geng = drain(graphed_cls)
     kernels_launched = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
     if [r.out_tokens for r in got] != [r.out_tokens for r in served]:
-        raise AssertionError("the graphed rwkv drain served other tokens "
+        raise AssertionError(f"the graphed {label} drain served other tokens "
                              "than the eager drain")
     if geng._decode is None or geng._decode.graph is None:
-        raise AssertionError("the graphed rwkv drain replayed no graph")
+        raise AssertionError(f"the graphed {label} drain replayed no graph")
     fresh_ticks = geng.decode_ticks
     engines = {"eager": drain(eager_cls)[2], "graphed": geng}
     tokens = sum(len(r.out_tokens) for r in got)
@@ -875,12 +954,17 @@ def compiled_decode(drain, served: list, eager_cls, graphed_cls,
     out = {"fresh_graphed_s": dt_fresh, "fresh_decode_ticks": fresh_ticks,
            "launches": kernels_launched}
     for k, eng in engines.items():
-        prof = profile_drain(drain, None, eng)
         out[k] = {"tokens_per_s": tokens / float(np.median(times[k])),
-                  "s": times[k], "device_busy_ms": prof["device_busy_ms"],
+                  "s": times[k]}
+        if not profile:
+            continue
+        prof = profile_drain(drain, None, eng)
+        out[k].update({"device_busy_ms": prof["device_busy_ms"],
                   "device_idle_share": prof["device_idle_share"],
                   "device_ops": prof["device_ops"],
-                  "profiled_wall_ms": prof["wall_ms"]}
+                  "profiled_wall_ms": prof["wall_ms"], "top": prof["top"]})
+    if keep is not None:
+        keep.update(engines)
     return out
 
 
@@ -890,9 +974,8 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
     seed 0 drawn on ``dev``; then the kernel held against its plain version
     inside the model, and the float32 model's checks."""
     from repro_torch import kernels
-    from repro_torch.launch.serve import make_requests
     from repro_torch.models import lm
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import ServeEngine
 
     t0 = time.perf_counter()
     params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
@@ -903,29 +986,8 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
     long_prompts = [rng.integers(0, cfg.vocab_size, long_prompt)
                     for _ in range(2)]
 
-    def requests():
-        reqs = make_requests(cfg, 6, 16, SEED)
-        return reqs + [Request(rid=6 + i, prompt=p, max_new_tokens=16)
-                       for i, p in enumerate(long_prompts)]
-
-    class EagerEngine(ServeEngine):
-        _compiled = False
-
-    def drain(cls=EagerEngine, eng=None, window=None):
-        """Serve the 8 requests on ``eng`` (kept from an earlier drain, its
-        graph captured) or on a new engine of class ``cls``."""
-        if eng is None:
-            eng = cls(params, cfg, batch_slots=4, max_len=2 * long_prompt)
-        eng.finished = []
-        for r in requests():
-            eng.submit(r)
-        torch.cuda.synchronize()
-        with window or contextlib.nullcontext():
-            t0 = time.perf_counter()
-            done = eng.run_until_drained()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        return sorted(done, key=lambda r: r.rid), dt, eng
+    drain, EagerEngine = lm_drainer(params, cfg, 2 * long_prompt,
+                                    long_prompts)
 
     drain()                                        # warm-up, not counted
     kernels.reset_launch_counts()
@@ -1008,8 +1070,7 @@ def phase_rwkv(dev, cfg, long_prompt: int = LONG_PROMPT,
         raise AssertionError(f"bf16 {cut_layers}-layer prefill: kernel and "
                              f"plain differ beyond {BF16_CUT_L2}: {d}")
     del params, cut
-    gc.collect()             # the engines and their graphs hold the params
-    torch.cuda.empty_cache()
+    free_cuda()
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
     params = lm.init_params(SEED, cfg, dtype=torch.float32, device=dev)
@@ -2158,6 +2219,334 @@ def kernel_usage(usage: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dense attention family and the spiking FFN
+# ---------------------------------------------------------------------------
+
+def bucket_ttft(eng, prompt, repeats: int = 3) -> float:
+    """Median seconds from a prompt to its first token on the host: the
+    engine's prefill (a graph replay on a compiled engine) and the argmax
+    read."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = eng._prefill(prompt)
+        int(torch.argmax(logits[0]))
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def serve_dense(dev, cfg, params, label: str, long_prompts: list,
+                profile: bool = True) -> dict:
+    """Phase 14(a)/(c): ``cfg`` served by the port's ServeEngine (4 slots,
+    DENSE_MAX_LEN): an eager warm-up drain, then an eager drain with every
+    prefill and decode logit checked finite, then the compiled engine
+    (one graph per prefill bucket, a decode graph from tick 2) against it
+    and both engines' tokens/s and profiled drains, the buckets and the
+    LRU's contents, and the time to the first token per bucket."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.graphed import StaticPrefill
+
+    drain, EagerEngine = lm_drainer(params, cfg, DENSE_MAX_LEN, long_prompts)
+    drain()                                        # warm-up, not counted
+    kernels.reset_launch_counts()
+    with recorded_logits() as seen:
+        served, dt, eager = drain()
+    launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
+    bad_shape = [(kind, shape) for kind, shape, _ in seen
+                 if shape != ((1 if kind == "prefill" else 4), cfg.vocab_size)]
+    if not all(bool(flag) for _, _, flag in seen) or bad_shape:
+        raise AssertionError(f"{label}: non-finite logits or bad shapes "
+                             f"{bad_shape}")
+    if len(served) != 8 or any(len(r.out_tokens) != LM_NEW
+                               for r in served):
+        raise AssertionError(f"{label}: the engine did not serve 8 requests "
+                             f"x {LM_NEW} tokens")
+    reqs = lm_requests(cfg, long_prompts)
+    buckets = sorted({eager._prefill_bucket(len(r.prompt)) for r in reqs})
+    if DENSE_BUCKET not in buckets or sorted(eager._prefill_cache) != buckets:
+        raise AssertionError(f"{label}: buckets {buckets}, LRU "
+                             f"{list(eager._prefill_cache)}")
+    tokens = sum(len(r.out_tokens) for r in served)
+    out = {"drain_s": dt, "tokens": tokens, "tokens_per_s": tokens / dt,
+           "prefills": sum(k == "prefill" for k, _, _ in seen),
+           "decode_ticks": sum(k == "decode_step" for k, _, _ in seen),
+           "logits_checked": len(seen), "port_kernel_launches": launches,
+           "buckets": buckets, "first_tokens": [r.out_tokens[:4]
+                                                for r in served]}
+    engines: dict = {}
+    out["compiled"] = compiled_decode(drain, served, EagerEngine, ServeEngine,
+                                      label=label, keep=engines,
+                                      profile=profile)
+    geng = engines["graphed"]
+    prefills = list(geng._prefill_cache.values())
+    if not (list(geng._prefill_cache) and all(
+            isinstance(f, StaticPrefill) and f._run.graph is not None
+            for f in prefills)):
+        raise AssertionError(f"{label}: a prefill bucket was not graphed")
+    out["lru"] = list(geng._prefill_cache)
+    out["kv_cache_bytes"] = sum(geng.cache["blocks"]["pos0"][leaf].nbytes
+                                for leaf in ("k", "v"))
+    by_bucket = {}
+    for r in reqs:
+        by_bucket.setdefault(geng._prefill_bucket(len(r.prompt)), r.prompt)
+    out["ttft_ms"] = {
+        mode: {b: 1e3 * bucket_ttft(eng, p) for b, p in by_bucket.items()}
+        for mode, eng in (("graphed", geng), ("eager", engines["eager"]))}
+    return out
+
+
+def logits_head_cost(params, cfg, B: int = 4) -> dict:
+    """The float32 head of `lm._logits` (the reference's arithmetic: the
+    bf16 head cast to float32 on every call) at a decode tick's B rows:
+    its device ms (CUDA events, 20 calls) and the memory it allocates."""
+    from repro_torch.models import lm
+    x = torch.randn((B, 1, cfg.d_model), device=params["embed"].device,
+                    dtype=params["embed"].dtype)
+    lm._logits(params, x, cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        lm._logits(params, x, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / 20,
+            "temp_bytes": torch.cuda.max_memory_allocated() - base,
+            "head_f32_bytes": cfg.vocab_size * cfg.d_model * 4}
+
+
+def layer0_qkv(params, cfg, toks: torch.Tensor):
+    """Layer 0's rotated q, k and v on ``toks`` (1, T), as float32."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    p0 = lm.tree_map(lambda a: a[0], params["blocks"])["pos0"]
+    h = lm._norm(params["embed"][toks], p0["norm1"], cfg)
+    T, hd = toks.shape[1], cfg.head_dim
+    pos = torch.arange(T, device=toks.device)[None]
+    q = L.apply_rope((h @ p0["attn"]["wq"]).reshape(1, T, -1, hd), pos,
+                     cfg.rope_theta)
+    k = L.apply_rope((h @ p0["attn"]["wk"]).reshape(1, T, -1, hd), pos,
+                     cfg.rope_theta)
+    v = (h @ p0["attn"]["wv"]).reshape(1, T, -1, hd)
+    return q.float(), k.float(), v.float()
+
+
+def padded_vs_exact(params, cfg, prompt: np.ndarray) -> dict:
+    """A prompt prefilled right-padded to its bucket (with its length)
+    against its exact-length prefill: last-token logits, and K/V at the
+    valid positions of every layer."""
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    n = len(prompt)
+    padded = torch.zeros((1, DENSE_BUCKET), dtype=torch.int64, device=dev)
+    padded[0, :n] = torch.as_tensor(prompt, device=dev)
+    lp, cp = lm.prefill(params, {"tokens": padded}, cfg, DENSE_MAX_LEN,
+                        length=n)
+    le, ce = lm.prefill(params, {"tokens": padded[:, :n]}, cfg,
+                        DENSE_MAX_LEN)
+    out = logit_diff(lp, le)
+    for leaf in ("k", "v"):
+        out[leaf] = rel_diff(cp["blocks"]["pos0"][leaf][:, :, :n],
+                             ce["blocks"]["pos0"][leaf][:, :, :n])
+    out["len_equal"] = bool(torch.equal(cp["len"], ce["len"]))
+    return out
+
+
+def prefill_vs_decode(params, cfg, prompt: np.ndarray) -> dict:
+    """Prefill of the prompt plus one token against prefill then one
+    decode step: the last logits."""
+    from repro_torch.models import lm
+    toks = torch.as_tensor(prompt[None], device=params["embed"].device)
+    logits, cache = lm.prefill(params, {"tokens": toks}, cfg, DENSE_MAX_LEN)
+    nxt = logits.argmax(-1)[:, None]
+    full, _ = lm.prefill(params, {"tokens": torch.cat([toks, nxt], 1)}, cfg,
+                         DENSE_MAX_LEN)
+    dec, _ = lm.decode_step(params, nxt, cache, cfg)
+    return logit_diff(dec, full)
+
+
+def phase_dense(dev, cfg) -> dict:
+    """Phase 14(a)-(b): ``cfg`` at full width, bf16 weights from seed 0
+    drawn on ``dev``, served; then the numerics on the served model, and
+    in float32 (full depth if the card holds it, else DENSE_F32_CUT
+    layers)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    free_cuda()
+    t0 = time.perf_counter()
+    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(a.numel() for a in leaves(params)),
+           "param_count": cfg.param_count()}
+    rng = np.random.default_rng(SEED + 1)
+    long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
+                    for _ in range(2)]
+    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts)
+    free_cuda()
+    out["logits_head"] = logits_head_cost(params, cfg)
+
+    # (b) numerics on the served (bf16) model, reported
+    out["bf16_padded_vs_exact"] = padded_vs_exact(params, cfg,
+                                                  long_prompts[0])
+    out["bf16_prefill_vs_decode"] = prefill_vs_decode(params, cfg,
+                                                      long_prompts[0])
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, DENSE_BUCKET)[None],
+                           device=dev)
+    q, k, v = layer0_qkv(params, cfg, toks)
+    plain = L._sdpa(q, k, v, causal=True,
+                    q_pos=torch.arange(DENSE_BUCKET, device=dev)[None])
+    blocked = L.blocked_attention(q, k, v, causal=True,
+                                  q_chunk=BLOCKED_CHUNK, kv_block=BLOCKED_CHUNK)
+    err = (blocked - plain).abs()
+    worst = float((err / (BLOCKED_ATOL + BLOCKED_RTOL * plain.abs())).max())
+    out["blocked_vs_sdpa"] = d = {
+        "T": DENSE_BUCKET, "q_chunk": BLOCKED_CHUNK, "kv_block": BLOCKED_CHUNK,
+        "max_abs_err": float(err.max()), "max_abs_ref": float(plain.abs().max()),
+        "worst_err_over_tol": worst,
+        "tolerance": f"{BLOCKED_ATOL} + {BLOCKED_RTOL} * |ref|"}
+    if not worst <= 1.0:
+        raise AssertionError(f"blocked attention != _sdpa on layer 0 beyond "
+                             f"the tolerance: {d}")
+    del params, q, k, v, plain, blocked
+    free_cuda()
+
+    # float32: the gated comparisons
+    need = 4 * cfg.param_count() * 1.2
+    free = torch.cuda.mem_get_info(dev)[0]
+    cfg32 = cfg
+    if free < need:
+        cfg32 = dataclasses.replace(cfg, n_layers=DENSE_F32_CUT)
+    out["f32_layers"] = cfg32.n_layers
+    params = lm.init_params(SEED, cfg32, dtype=torch.float32, device=dev)
+    out["f32_padded_vs_exact"] = d = padded_vs_exact(params, cfg32,
+                                                     long_prompts[0])
+    if not (d["rel_l2"] <= F32_L2 and d["max_rel"] <= F32_L2
+            and d["argmax_equal"] and d["len_equal"]
+            and all(d[leaf]["rel_l2"] <= F32_L2 for leaf in ("k", "v"))):
+        raise AssertionError(f"float32: bucketed and exact-length prefill "
+                             f"differ beyond {F32_L2}: {d}")
+    out["f32_prefill_vs_decode"] = d = prefill_vs_decode(params, cfg32,
+                                                         long_prompts[0])
+    if not (d["rel_l2"] <= F32_DECODE_L2 and d["max_rel"] <= F32_DECODE_L2):
+        raise AssertionError(f"float32: prefill of prompt + 1 token and "
+                             f"prefill + decode differ beyond "
+                             f"{F32_DECODE_L2}: {d}")
+    del params
+    free_cuda()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_spiking():
+    """Wrap `pipeline.run_network` as the spiking FFN calls it: record each
+    call's mean spike rate (a device scalar) and, from the first call, its
+    program's state shape, input current and spike sums."""
+    from repro_torch.core import pipeline
+    orig, seen = pipeline.run_network, {"rates": [], "first": None}
+
+    def call(program, xs, *args, **kw):
+        res = orig(program, xs, *args, **kw)
+        seen["rates"].append(res.aux["spike_rates"].mean())
+        if seen["first"] is None:
+            seen["first"] = (xs.clone(), res.aux["spike_sums"][0].clone())
+        return res
+    pipeline.run_network = call
+    try:
+        yield seen
+    finally:
+        pipeline.run_network = orig
+
+
+def phase_spiking(dev, cfg) -> dict:
+    """Phase 14(c): ``cfg`` with the spiking FFN at full width, bf16
+    weights from seed 0, served compiled and eager; the mean spike rate of
+    an eager drain; layer 0's float executor on the card against the same
+    port code on the CPU, on the current it recorded."""
+    from repro_torch.core import pipeline
+    from repro_torch.models import lm
+    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
+                    for _ in range(2)]
+    out = {"params": sum(a.numel() for a in leaves(params))}
+    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts,
+                               profile=False)
+    with recorded_spiking() as seen:
+        toks = torch.as_tensor(long_prompts[0][None], device=dev)
+        lm.prefill(params, {"tokens": toks}, cfg, DENSE_MAX_LEN)
+    rates = torch.stack(seen["rates"])
+    current, sums = seen["first"]
+    program = pipeline.rate_coded_program(cfg.spiking,
+                                          tuple(current.shape[1:]),
+                                          device="cpu")
+    res = pipeline.run_network(program, current.cpu(), "float",
+                               collect_sums=True, static_input=True)
+    cpu_sums = res.aux["spike_sums"][0]
+    differ = int((cpu_sums != sums.cpu()).sum())
+    out["prefill_spike_rate"] = {"mean": float(rates.mean()),
+                                 "per_layer": [float(r) for r in rates]}
+    out["spike_sums_card_vs_cpu"] = d = {
+        "shape": list(current.shape), "differing": differ,
+        "spikes": float(cpu_sums.sum()), "bit_equal": differ == 0}
+    if differ:
+        raise AssertionError(f"spiking FFN: the card's spike sums differ from "
+                             f"the CPU's: {d}")
+    del params
+    free_cuda()
+    return out
+
+
+def print_dense(dense: dict, cfg, card: str) -> None:
+    """Phase 14(a)-(b)'s lines."""
+    srv = dense.pop("serve")
+    comp = srv.pop("compiled")
+    print(f"[phase 14] (a) {cfg.arch_id}: {dense['params']} params (bf16; "
+          f"param_count {dense['param_count']} + final_norm) drawn on the "
+          f"card in {dense['init_s']:.2f} s; eager engine: 8 requests (6 of "
+          f"4 to 16 tokens, 2 of {DENSE_LONG}) x {LM_NEW} tokens, 4 "
+          f"slots, max_len {DENSE_MAX_LEN}, {srv['tokens_per_s']:.2f} "
+          f"tokens/s ({srv['drain_s']:.3f} s), every logit finite "
+          f"({srv['logits_checked']} prefill and decode calls); buckets "
+          f"{srv['buckets']}; port kernel launches "
+          f"{srv['port_kernel_launches'] or 'none (no kernel on this path)'}")
+    print(f"[phase 14] (a) compiled engine (one CUDA graph per prefill "
+          f"bucket, a decode graph from tick 2) == eager engine, token for "
+          f"token; LRU {srv['lru']}; tokens/s (median of 3 in turns): eager "
+          f"{comp['eager']['tokens_per_s']:.2f}, graphed "
+          f"{comp['graphed']['tokens_per_s']:.2f}; device idle eager "
+          f"{comp['eager']['device_idle_share']:.3f}, graphed "
+          f"{comp['graphed']['device_idle_share']:.3f} ({card})")
+    print(f"[phase 14] (a) time to first token per bucket (ms, median of "
+          f"3): {json.dumps(srv['ttft_ms'])} ({card})")
+    print(f"[phase 14] (a) KV cache {srv['kv_cache_bytes']} bytes; float32 "
+          f"logits head at B = 4: {json.dumps(dense['logits_head'])} "
+          f"({card})")
+    print(f"[phase 14] (a) drains: {json.dumps(comp)} ({card})")
+    d = dense["blocked_vs_sdpa"]
+    print(f"[phase 14] (b) blocked_attention (q_chunk {d['q_chunk']}, "
+          f"kv_block {d['kv_block']}) vs _sdpa on layer 0's q, k, v at "
+          f"T = {d['T']}, float32: max |err| {d['max_abs_err']:.3e} "
+          f"(max |ref| {d['max_abs_ref']:.3f}), worst err / tol "
+          f"{d['worst_err_over_tol']:.3f}, tol {d['tolerance']}: ok")
+    print(f"[phase 14] (b) bucketed ({DENSE_LONG} -> {DENSE_BUCKET}) vs "
+          f"exact prefill, float32 at {dense['f32_layers']} layers (tol "
+          f"{F32_L2} rel L2 and max rel, K/V rel L2): "
+          f"{json.dumps(dense['f32_padded_vs_exact'])}: ok; bf16 at full "
+          f"depth (reported): {json.dumps(dense['bf16_padded_vs_exact'])}")
+    print(f"[phase 14] (b) prefill of prompt + 1 vs prefill + decode_step, "
+          f"float32 at {dense['f32_layers']} layers (tol {F32_DECODE_L2}): "
+          f"{json.dumps(dense['f32_prefill_vs_decode'])}: ok; bf16 at full "
+          f"depth (reported): {json.dumps(dense['bf16_prefill_vs_decode'])}")
+
+
 def leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -2173,7 +2562,7 @@ def main() -> int:
     if not (src / "repro_torch" / "__init__.py").is_file():
         return fail(f"the port's package is not at {src / 'repro_torch'}")
     sys.path.insert(0, str(src))
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import SpikingConfig, get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_snn_net import kernel, ops
     from repro_torch.kernels.fused_snn_step import kernel as step_kernel
@@ -2474,6 +2863,27 @@ def main() -> int:
           f"{lm_cmp['eager']['device_idle_share']:.3f}, graphed "
           f"{lm_cmp['graphed']['device_idle_share']:.3f}; the graphed drain "
           f"served the eager drain's tokens ({card})")
+    dense_cfg = get_config(DENSE_ARCH)
+    dense = phase_dense(dev, dense_cfg)
+    print_dense(dense, dense_cfg, card)
+    spk_cfg = dataclasses.replace(get_config(SPIKING_ARCH),
+                                  spiking=SpikingConfig(**SPIKING))
+    spk = phase_spiking(dev, spk_cfg)
+    srv = spk.pop("serve")
+    comp = srv.pop("compiled")
+    print(f"[phase 14] (c) {SPIKING_ARCH} + spiking FFN {SPIKING}: "
+          f"{spk['params']} params (bf16); served 8 requests x {LM_NEW} "
+          f"tokens, every logit finite, the compiled engine == the eager "
+          f"engine; tokens/s (median of 3): eager "
+          f"{comp['eager']['tokens_per_s']:.2f}, graphed "
+          f"{comp['graphed']['tokens_per_s']:.2f}; mean spike rate of a "
+          f"{DENSE_LONG}-token prefill "
+          f"{spk['prefill_spike_rate']['mean']:.4f} ({card})")
+    print(f"[phase 14] (c) layer 0's spike sums, card == CPU (same port "
+          f"code, recorded current): {json.dumps(spk['spike_sums_card_vs_cpu'])}")
+    print(f"[phase 14] (c) {json.dumps(spk)}; serve {json.dumps(srv)}")
+    print(f"[phase 14] (c) compiled vs eager drains: {json.dumps(comp)} "
+          f"({card})")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

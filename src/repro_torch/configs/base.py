@@ -1,11 +1,12 @@
 """Model, shape, parallelism and run configurations of the port: the model
 config, the registry, `reduced_config`, and the run configs training reads.
 
-The port's own copy of the fields of `repro.configs.base` that the RWKV
-serving path and the train step read (it imports nothing of the JAX
+The port's own copy of the fields of `repro.configs.base` that the dense
+attention family (GQA, RoPE, swiglu or gelu FFNs, the spiking FFN), the
+RWKV family and the train step read (it imports nothing of the JAX
 package). The other families' sub-configs (MoE, MLA, SSM, encoder-decoder,
-frontends) are not here: the port serves only the RWKV family so far, and
-`models.lm` raises `NotImplementedError` for any other.
+frontends) are not here: `models.lm` raises `NotImplementedError` for a
+config of any other family.
 """
 from __future__ import annotations
 
@@ -20,17 +21,71 @@ class RWKVConfig:
 
 
 @dataclass(frozen=True)
+class SpikingConfig:
+    """Neuron and number-format settings of a spiking network: the paper's
+    SNNs and the spiking FFN of a language model."""
+    neuron: str = "rmp"             # if | lif | rmp
+    timesteps: int = 10
+    threshold: float = 1.0
+    leak: float = 0.0625
+    w_bits: int = 6                 # paper: 6-bit signed weights
+    v_bits: int = 11                # paper: 11-bit signed membrane potential
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
     family: str                     # dense | moe | hybrid | ssm | audio | vlm | snn
     n_layers: int
     d_model: int
     n_heads: int
+    n_kv_heads: int
     d_ff: int
     vocab_size: int
+    head_dim: int = 128
+    rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # attention on layers where idx % period == offset (period 1: all)
+    attn_layer_period: int = 1
+    attn_layer_offset: int = 0
+    ffn_type: str = "swiglu"        # swiglu (3 mats) | gelu (2 mats)
     rwkv: Optional[RWKVConfig] = None
+    spiking: Optional[SpikingConfig] = None
+
+    def is_attention_layer(self, idx: int) -> bool:
+        return idx % self.attn_layer_period == self.attn_layer_offset
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding, blocks and head), by the JAX
+        package's formula: the norms of every block but not ``final_norm``,
+        and a spiking FFN counted as its ``ffn_type``'s matrices."""
+        d = self.d_model
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return n + sum(self._block_params(i) for i in range(self.n_layers))
+
+    def _block_params(self, idx: int) -> int:
+        d = self.d_model
+        n = 2 * d                                               # norms
+        if self.rwkv is not None:
+            # time mix: r, k, v, g, o, decay and bonus, the token-shift
+            # lora; channel mix: k (d -> ff), v (ff -> d), receptance
+            return (n + 5 * d * d + 2 * d + 6 * d * 32 * 2
+                    + 2 * d * self.d_ff + d * d)
+        if not self.is_attention_layer(idx):
+            raise NotImplementedError(
+                f"{self.arch_id}: layer {idx} is not an attention layer")
+        n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        mats = 3 if self.ffn_type == "swiglu" else 2
+        return n + mats * d * self.d_ff
 
 
 @dataclass(frozen=True)
@@ -43,12 +98,14 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The train step's batch policies. The JAX package's sharding and
-    layout policies (fsdp, sequence and expert parallelism, remat, scanned
-    layers, blocked attention) come with multi-GPU execution and LM
-    training."""
+    """The train step's batch policies and the prefill's attention form.
+    The JAX package's sharding and layout policies (fsdp, sequence and
+    expert parallelism, remat, scanned layers) come with multi-GPU
+    execution and LM training."""
     microbatches: int = 1           # gradient accumulation splits
     grad_compress: bool = False     # int8 wire format on the gradients
+    attn_q_chunk: int = 0           # >0: blocked attention with this q chunk
+    attn_kv_block: int = 1024       #   and this kv block
 
 
 @dataclass(frozen=True)
@@ -90,17 +147,22 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     _LOADED = True
-    from repro_torch.configs import rwkv6_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        llama3_2_1b, llama3_8b, phi3_medium_14b, rwkv6_7b, starcoder2_15b)
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to smoke-test size with the numbers of
-    `repro.configs.base.reduced_config`: 2 layers, d_model 128, d_ff 256,
-    vocab 512, and for RWKV 4 heads of size 32."""
+    `repro.configs.base.reduced_config`: 2 layers (one super-block period
+    at least), d_model 128, 4 heads of 32 with 2 KV heads under GQA (else
+    4), d_ff 256, vocab 512, and for RWKV 4 heads of size 32."""
     kw: dict = dict(
-        n_layers=2,
+        n_layers=max(cfg.attn_layer_period, 2),
         d_model=128,
         n_heads=4,
+        n_kv_heads=(min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
+                    else 4),
+        head_dim=32,
         d_ff=256,
         vocab_size=512,
     )

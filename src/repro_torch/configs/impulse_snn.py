@@ -7,16 +7,7 @@
 """
 from dataclasses import dataclass, field
 
-
-@dataclass(frozen=True)
-class SpikingConfig:
-    """Neuron and number-format settings of a spiking network."""
-    neuron: str = "rmp"             # if | lif | rmp
-    timesteps: int = 10
-    threshold: float = 1.0
-    leak: float = 0.0625
-    w_bits: int = 6                 # paper: 6-bit signed weights
-    v_bits: int = 11                # paper: 11-bit signed membrane potential
+from repro_torch.configs.base import SpikingConfig
 
 
 @dataclass(frozen=True)

@@ -13,6 +13,8 @@ CONFIG = register(ModelConfig(
     n_layers=32,
     d_model=4096,
     n_heads=64,                # d_model / head_size
+    n_kv_heads=64,
+    head_dim=64,               # rwkv6 head_size
     d_ff=14336,
     vocab_size=65536,
     rwkv=RWKVConfig(head_size=64),

@@ -1,13 +1,17 @@
 """Serving launcher: batched requests through the continuous-batching engine
 (`repro_torch.serve.ServeEngine`).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --requests 8 --max-new 12
 
 The model is ``reduced_config`` of ``--arch`` (2 layers, d_model 128), with
-random weights from ``--seed``; each request's prompt is 4 to 16 random
-tokens. ``--device`` defaults to ``cuda``, where prefill runs the CUDA wkv6
-kernel; ``--device cpu`` runs its plain version on the CPU.
+random weights from ``--seed``: a dense attention config (``llama3.2-1b``
+by default, ``llama3-8b``, ``phi3-medium-14b``, ``starcoder2-15b``) or
+``rwkv6-7b``. Each request's prompt is 4 to 16 random tokens. ``--device``
+defaults to ``cuda``, where prompts are prefilled through one CUDA graph per
+length bucket (RWKV: through the CUDA wkv6 kernel at the exact length);
+``--device cpu`` runs the same code, and the kernels' plain versions, on
+the CPU.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ def make_requests(cfg, n_requests: int, max_new: int, seed: int) -> list:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=12)

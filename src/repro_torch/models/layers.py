@@ -1,28 +1,249 @@
-"""Layer helpers of the language models: weight init and RMS norm (the two
-of `repro.models.layers` that the RWKV family uses).
+"""Layer library of the language models: weight init, norms, RoPE, FFNs and
+GQA attention (`repro.models.layers`' dense-family layers).
 
 Numerics as in the JAX package: params and activations bf16 by default;
-norms accumulate in float32.
+norms accumulate in float32, and attention upcasts q, k and v to float32
+and runs its softmax there. Attention is plain tensor code in the JAX
+package's order of operations (no fused or library attention kernel: one
+in bf16 would be another function).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape: tuple, in_axis: int = 0,
+def gen_device(gen) -> torch.device:
+    """The device the init draws on: the generator's, or ``meta`` (shapes
+    only) for a ``gen`` of None."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def normal(gen, shape: tuple) -> torch.Tensor:
+    """Standard normal float32 draws of ``shape`` from ``gen`` on its
+    device; a ``gen`` of None gives an empty ``meta`` tensor."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def dense_init(gen, shape: tuple, in_axis: int = 0,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Normal(0, 1 / fan_in) weights drawn in float32 from ``gen`` on the
     generator's device, then cast to ``dtype``; ``fan_in`` is
     ``shape[in_axis]``."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x / math.sqrt(shape[in_axis])).to(dtype)
+    return (normal(gen, shape) / math.sqrt(shape[in_axis])).to(dtype)
 
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., T, H, D); positions: (..., T) integer."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    ang = positions[..., None].float() * freqs                # (..., T, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def init_ffn(gen, d_model: int, d_ff: int, ffn_type: str,
+             dtype=torch.bfloat16) -> dict:
+    if ffn_type == "swiglu":
+        return {"gate": dense_init(gen, (d_model, d_ff), dtype=dtype),
+                "up": dense_init(gen, (d_model, d_ff), dtype=dtype),
+                "down": dense_init(gen, (d_ff, d_model), dtype=dtype)}
+    return {"up": dense_init(gen, (d_model, d_ff), dtype=dtype),
+            "down": dense_init(gen, (d_ff, d_model), dtype=dtype)}
+
+
+def ffn(x: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
+    """swiglu, or gelu in its tanh form (``jax.nn.gelu``'s default)."""
+    if ffn_type == "swiglu":
+        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    else:
+        h = F.gelu(x @ p["up"], approximate="tanh")
+    return h @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; decode with a pre-allocated KV cache)
+# ---------------------------------------------------------------------------
+
+def init_attention(gen, cfg, dtype=torch.bfloat16) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    return {"wq": dense_init(gen, (d, nh * hd), dtype=dtype),
+            "wk": dense_init(gen, (d, nkv * hd), dtype=dtype),
+            "wv": dense_init(gen, (d, nkv * hd), dtype=dtype),
+            "wo": dense_init(gen, (nh * hd, d), dtype=dtype)}
+
+
+def _sdpa(q, k, v, *, causal: bool, q_pos=None, kv_len=None):
+    """q: (B, T, H, D); k, v: (B, S, KV, D). GQA by head repetition,
+    float32 softmax. ``kv_len`` masks a pre-allocated cache to its valid
+    length; ``q_pos`` gives the queries' absolute positions for the causal
+    mask."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qf = q.float() / np.sqrt(D)
+    kf, vf = k.float(), v.float()
+    qf = qf.reshape(B, T, KV, rep, D)
+    logits = torch.einsum("btkrd,bskd->bkrts", qf, kf)       # (B,KV,rep,T,S)
+    sp = torch.arange(S, device=q.device)[None]
+    mask = None
+    if causal:
+        qp = (q_pos if q_pos is not None
+              else torch.arange(T, device=q.device)[None])
+        mask = qp[:, :, None] >= sp[:, None, :]               # (B, T, S)
+    if kv_len is not None:
+        valid = sp < (kv_len[:, None] if kv_len.dim() else kv_len)
+        valid = valid[:, None, :].expand(B, T, S)
+        mask = valid if mask is None else (mask & valid)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrts,bskd->btkrd", probs, vf)
+    return out.reshape(B, T, H, v.shape[-1]).to(q.dtype)
+
+
+def blocked_attention(q, k, v, *, causal: bool, q_chunk: int,
+                      kv_block: int) -> torch.Tensor:
+    """Flash-style two-level blocked attention: a loop over q chunks and,
+    within one, over kv blocks carrying the running (max, denominator,
+    accumulator); a causal q chunk skips the kv blocks wholly in its
+    future. Positions are ``arange(T)`` (prefill self-attention)."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    q_chunk = min(q_chunk, T)
+    kv_block = min(kv_block, S)
+    if T % q_chunk != 0 or S % kv_block != 0:
+        raise ValueError(
+            f"chunked attention needs T % q_chunk == 0 and S % kv_block "
+            f"== 0, got T={T}, q_chunk={q_chunk}, S={S}, "
+            f"kv_block={kv_block}")
+    qf = (q.float() / np.sqrt(D)).reshape(B, T, KV, rep, D)
+    kf, vf = k.float(), v.float()
+    dev = q.device
+
+    outs = []
+    for ci in range(T // q_chunk):
+        qs = ci * q_chunk
+        qc = qf[:, qs:qs + q_chunk]                          # (B,QC,KV,rep,D)
+        n_blocks = S // kv_block
+        if causal:                                           # causal skip
+            n_blocks = min(n_blocks, (qs + q_chunk + kv_block - 1) // kv_block)
+        qpos = qs + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, KV, rep, q_chunk), -1e30, device=dev)
+        den = torch.zeros((B, KV, rep, q_chunk), device=dev)
+        acc = torch.zeros((B, KV, rep, q_chunk, D), device=dev)
+        for bi in range(n_blocks):
+            blk = slice(bi * kv_block, (bi + 1) * kv_block)
+            s = torch.einsum("bqkrd,bskd->bkrqs", qc, kf[:, blk])
+            if causal:
+                kpos = bi * kv_block + torch.arange(kv_block, device=dev)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkrqs,bskd->bkrqd", p, vf[:, blk])
+            m = m_new
+        o = acc / torch.clamp(den[..., None], min=1e-30)    # (B,KV,rep,QC,D)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, D))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
+              causal: bool = True, use_rope: bool = True, q_chunk: int = 0,
+              kv_block: int = 1024) -> torch.Tensor:
+    """Full (prefill) self-attention; ``q_chunk`` > 0 selects the blocked
+    form."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, -1, hd)
+    k = (x @ p["wk"]).reshape(B, T, -1, hd)
+    v = (x @ p["wv"]).reshape(B, T, -1, hd)
+    if use_rope and cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if q_chunk and T > 1:
+        out = blocked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                kv_block=kv_block)
+    else:
+        out = _sdpa(q, k, v, causal=causal, q_pos=positions)
+    return out.reshape(B, T, -1) @ p["wo"]
+
+
+def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,
+                     pos: torch.Tensor, *, use_rope: bool = True
+                     ) -> tuple[torch.Tensor, dict]:
+    """One-token decode against a pre-allocated cache.
+    x: (B, 1, d); cache: {"k": (B, S_max, KV, D), "v": ...}; pos: (B,)
+    integer, each lane's own position (continuous-batching lanes sit at
+    different lengths).
+
+    The new K and V are written into ``cache``'s tensors in place (the JAX
+    package's ``.at[b, pos].set``), which are returned. A lane at or past
+    S_max writes nothing, as the JAX scatter drops an out-of-bounds
+    update."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, -1, hd)
+    k_new = (x @ p["wk"]).reshape(B, T, -1, hd)
+    v_new = (x @ p["wv"]).reshape(B, T, -1, hd)
+    if use_rope and cfg.rope_theta > 0:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    k_cache, v_cache = cache["k"], cache["v"]
+    S = k_cache.shape[1]
+    b_idx = torch.arange(B, device=x.device)
+    at = pos.long().clamp(max=S - 1)
+    inside = (pos < S)[:, None, None]
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        row = torch.where(inside, new[:, 0].to(c.dtype), c[b_idx, at])
+        c.index_put_((b_idx, at), row)
+    out = _sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
+    return out.reshape(B, T, -1) @ p["wo"], {"k": k_cache, "v": v_cache}

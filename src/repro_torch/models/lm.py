@@ -1,9 +1,11 @@
-"""Language models of the port: the RWKV family.
+"""Language models of the port: the dense attention family (GQA, RoPE,
+swiglu or gelu FFNs, or the spiking FFN) and the RWKV family.
 
-The functional API of `repro.models.lm`, for the RWKV family only:
+The functional API of `repro.models.lm`, for those families:
 
   init_params(seed, cfg)                        -> params tree
-  prefill(params, batch, cfg, max_len)          -> (logits_last, cache)
+  prefill(params, batch, cfg, max_len, parallel, length)
+                                                -> (logits_last, cache)
   decode_step(params, tokens, cache, cfg)       -> (logits, cache)  [serve]
   init_cache(cfg, batch, max_len)               -> cache tree
   params_from_jax(tree)                         -> the JAX package's params
@@ -11,11 +13,13 @@ The functional API of `repro.models.lm`, for the RWKV family only:
 
 Params and caches are nested dicts of tensors laid out as the JAX package's
 pytrees: every block leaf is stacked over the layer stack's super-blocks
-(one RWKV layer each), under ``params["blocks"]["pos0"]``. The stack is a
-Python loop over those stacked leaves in place of ``lax.scan``. Any other
-family raises `NotImplementedError`: attention, MoE, Mamba, the spiking FFN,
-encoder-decoder and the modality frontends, training (`loss_fn`) and the
-parallelism config are not ported.
+(one layer each: both families have period 1 and no prelude), under
+``params["blocks"]["pos0"]``. The stack is a Python loop over those stacked
+leaves in place of ``lax.scan``. The KV cache is written in place: prefill
+fills the cache it allocates, and a decode step writes each lane's new K
+and V into the caller's cache tensors, which the new cache keeps. Any other
+family raises `NotImplementedError`: MoE, MLA, Mamba, encoder-decoder and
+the modality frontends; training (`loss_fn`) is not ported either.
 """
 from __future__ import annotations
 
@@ -25,9 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
+from repro_torch.models import spiking_ffn as S
 
 
 def tree_map(fn, *trees):
@@ -42,29 +47,75 @@ def tree_map(fn, *trees):
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` unless ``cfg`` is an RWKV model."""
-    if cfg.rwkv is None:
+    """Raise `NotImplementedError` unless ``cfg`` is an RWKV model or a
+    dense attention stack (with or without the spiking FFN)."""
+    if cfg.rwkv is not None:
+        return
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.arch_id}: the port runs the RWKV family only, not family "
-            f"{cfg.family!r} (attention, MoE, Mamba and the other families "
-            "are not ported)")
+            f"{cfg.arch_id}: family {cfg.family!r} is not ported (the port "
+            "runs the dense attention family and RWKV; MoE, MLA, Mamba, "
+            "encoder-decoder and the modality frontends are not ported)")
+    if not all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: a stack with non-attention (Mamba) layers is "
+            "not ported")
+
+
+# ---------------------------------------------------------------------------
+# structure helpers
+# ---------------------------------------------------------------------------
+
+def super_period(cfg: ModelConfig) -> int:
+    """Layers per super-block: the attention period (1 for every ported
+    family)."""
+    return cfg.attn_layer_period
+
+
+def n_prelude(cfg: ModelConfig) -> int:
+    """Leading layers outside the stacked super-blocks: none for the ported
+    families (a MoE's first dense layers would be here)."""
+    return 0
 
 
 def n_super(cfg: ModelConfig) -> int:
-    """Super-blocks of the stack: one RWKV layer each."""
     check_family(cfg)
-    return cfg.n_layers
+    body = cfg.n_layers - n_prelude(cfg)
+    sp = super_period(cfg)
+    if body % sp != 0:
+        raise ValueError(
+            f"{cfg.arch_id}: {body} body layers do not divide into "
+            f"super-blocks of period {sp}")
+    return body // sp
+
+
+def layer_kind(cfg: ModelConfig, idx: int) -> tuple[str, str]:
+    """(mixer, ffn) kinds of global layer ``idx`` (`check_family` refuses
+    stacks with layers of other kinds)."""
+    if cfg.rwkv is not None:
+        return "rwkv", "none"
+    return "attn", "spiking" if cfg.spiking is not None else "dense"
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def _init_block(gen, cfg: ModelConfig, idx: int, dtype) -> dict:
+    mixer, f = layer_kind(cfg, idx)
+    dev = L.gen_device(gen)
     d = cfg.d_model
-    return {"norm1": torch.ones((d,), dtype=dtype, device=gen.device),
-            "rwkv": R.init_rwkv_block(gen, cfg, dtype),
-            "norm2": torch.ones((d,), dtype=dtype, device=gen.device)}
+    p: dict = {"norm1": torch.ones((d,), dtype=dtype, device=dev)}
+    if mixer == "rwkv":
+        p["rwkv"] = R.init_rwkv_block(gen, cfg, dtype)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, dtype=dtype)
+    p["norm2"] = torch.ones((d,), dtype=dtype, device=dev)
+    if f == "spiking":
+        p["ffn"] = S.init_spiking_ffn(gen, d, cfg.d_ff, dtype)
+    elif f == "dense":
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type, dtype)
+    return p
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
@@ -72,23 +123,26 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
     """Random parameters from ``seed``, drawn on ``device`` (the CUDA
     device unless given) by one `torch.Generator` there. The block leaves
     are filled one super-block at a time into their stacked tensors, so the
-    peak memory is the model plus one block."""
+    peak memory is the model plus one block. On ``device="meta"`` the same
+    code gives the tree's shapes and types without drawing."""
     device = resolve_device(device)
     n = n_super(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d = cfg.d_model
     params: dict = {
-        "embed": (torch.randn((cfg.vocab_size, d), generator=gen,
-                              dtype=torch.float32, device=device)
-                  * 0.02).to(dtype),
+        "embed": (L.normal(gen, (cfg.vocab_size, d)) * 0.02).to(dtype),
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
+    sp = super_period(cfg)
     blocks = None
     for s in range(n):
-        block = {"pos0": _init_block(gen, cfg, dtype)}
+        block = {f"pos{j}": _init_block(gen, cfg, s * sp + j, dtype)
+                 for j in range(sp)}
         if blocks is None:
             blocks = tree_map(lambda a: torch.empty((n,) + a.shape,
                                                     dtype=a.dtype,
@@ -123,18 +177,15 @@ def _norm(x, w, cfg: ModelConfig):
     return L.rms_norm(x, w, cfg.norm_eps)
 
 
-def _apply_block(x, p, cfg: ModelConfig, *, cache: Optional[dict], pos=None):
-    """One RWKV layer. Returns (x, new_cache_entry). Decode (the one-step
-    state update) when a cache and ``pos`` are given and T == 1."""
-    decode = cache is not None and x.shape[1] == 1 and pos is not None
+def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool):
+    """One RWKV layer. Returns (x, new_cache_entry)."""
     h_in = _norm(x, p["norm1"], cfg)
+    st = (None if cache is None
+          else {"shift": cache["shift_tm"], "wkv": cache["wkv"]})
     if decode:
-        st = {"shift": cache["shift_tm"], "wkv": cache["wkv"]}
         h, st = R.time_mix_decode(h_in, p["rwkv"]["tm"], cfg, st)
     else:
-        h, st = R.time_mix(h_in, p["rwkv"]["tm"], cfg,
-                           None if cache is None else
-                           {"shift": cache["shift_tm"], "wkv": cache["wkv"]})
+        h, st = R.time_mix(h_in, p["rwkv"]["tm"], cfg, st)
     x = x + h.to(x.dtype)
     h, shift_cm = R.channel_mix(_norm(x, p["norm2"], cfg), p["rwkv"]["cm"],
                                 None if cache is None else cache["shift_cm"])
@@ -142,24 +193,86 @@ def _apply_block(x, p, cfg: ModelConfig, *, cache: Optional[dict], pos=None):
     return x, {"shift_tm": st["shift"], "wkv": st["wkv"], "shift_cm": shift_cm}
 
 
-def _run_stack(params, x, cfg: ModelConfig, *, cache=None, pos=None):
+def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
+                 cache: Optional[dict], pos=None,
+                 parallel: Optional[ParallelConfig] = None):
+    """One layer. Returns (x, new_cache_entry, aux): aux is the spiking
+    FFN's mean spike rate (0 otherwise). Decode (the one-token update) when
+    a cache and ``pos`` are given and T == 1; prefill writes the prompt's K
+    and V into ``cache`` in place."""
+    mixer, f = layer_kind(cfg, idx)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    decode = cache is not None and x.shape[1] == 1 and pos is not None
+    if mixer == "rwkv":
+        x, new_cache = _apply_rwkv(x, p, cfg, cache, decode)
+        return x, new_cache, aux
+
+    h_in = _norm(x, p["norm1"], cfg)
+    if decode:
+        h, new_cache = L.attention_decode(
+            h_in, p["attn"], cfg, {"k": cache["k"], "v": cache["v"]}, pos)
+    else:
+        parallel = parallel or ParallelConfig()
+        h = L.attention(h_in, p["attn"], cfg, positions,
+                        q_chunk=parallel.attn_q_chunk,
+                        kv_block=parallel.attn_kv_block)
+        new_cache = None
+        if cache is not None:                       # prefill: fill the cache
+            hd = cfg.head_dim
+            B, T, _ = h_in.shape
+            k = (h_in @ p["attn"]["wk"]).reshape(B, T, -1, hd)
+            v = (h_in @ p["attn"]["wv"]).reshape(B, T, -1, hd)
+            if cfg.rope_theta > 0:
+                k = L.apply_rope(k, positions, cfg.rope_theta)
+            cache["k"][:, :T].copy_(k)
+            cache["v"][:, :T].copy_(v)
+            new_cache = {"k": cache["k"], "v": cache["v"]}
+    x = x + h.to(x.dtype)
+
+    h_in = _norm(x, p["norm2"], cfg)
+    if f == "spiking":
+        h, rate = S.spiking_ffn(h_in, p["ffn"], cfg)
+        aux = aux + rate
+    else:
+        h = L.ffn(h_in, p["ffn"], cfg.ffn_type)
+    x = x + h.to(x.dtype)
+    return x, new_cache, aux
+
+
+def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
+               pos=None, parallel: Optional[ParallelConfig] = None):
     """The layer stack, a loop over the stacked super-block leaves.
-    Returns (x, new_cache)."""
+    Returns (x, new_cache, aux summed over layers). A cache leaf that every
+    layer updated in place is the same tensor in the new cache; any other
+    is stacked anew from the layers' entries."""
+    sp = super_period(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_blocks = None if cache is None else cache["blocks"]
-    new = []
+    olds, news = [], []
     for s in range(n_super(cfg)):
         p_s = tree_map(lambda a: a[s], params["blocks"])
         c_s = (None if cache_blocks is None
                else tree_map(lambda a: a[s], cache_blocks))
-        x, c_new = _apply_block(x, p_s["pos0"], cfg,
-                                cache=None if c_s is None else c_s["pos0"],
-                                pos=pos)
-        new.append({"pos0": c_new})
+        c_new = {}
+        for j in range(sp):
+            x, c_new[f"pos{j}"], aux = _apply_block(
+                x, p_s[f"pos{j}"], cfg, s * sp + j, positions,
+                cache=None if c_s is None else c_s[f"pos{j}"], pos=pos,
+                parallel=parallel)
+            aux_total = aux_total + aux
+        olds.append(c_s)
+        news.append(c_new)
     new_cache = None
     if cache is not None:
+        n = len(news)
+
+        def restack(full, *entries):
+            if all(new is old for old, new in zip(entries[:n], entries[n:])):
+                return full
+            return torch.stack(entries[n:])
         new_cache = dict(cache)
-        new_cache["blocks"] = tree_map(lambda *xs: torch.stack(xs), *new)
-    return x, new_cache
+        new_cache["blocks"] = tree_map(restack, cache_blocks, *olds, *news)
+    return x, new_cache, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +280,12 @@ def _run_stack(params, x, cfg: ModelConfig, *, cache=None, pos=None):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, batch: dict, cfg: ModelConfig):
-    """tokens (B, T) -> x (B, T, d). RWKV has no positional encoding."""
+    """tokens (B, T) -> (x (B, T, d), positions (1, T))."""
     check_family(cfg)
-    return params["embed"][batch["tokens"]]
+    tokens = batch["tokens"]
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    return x, positions
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -181,40 +297,71 @@ def _logits(params, x, cfg: ModelConfig):
 # public API
 # ---------------------------------------------------------------------------
 
+def _cache_entry(cfg: ModelConfig, batch: int, max_len: int, dtype, device
+                 ) -> dict:
+    """One layer's serving cache: RWKV's token-shift carries and wkv state,
+    or the attention layer's (B, max_len, KV, D) K and V."""
+    if cfg.rwkv is not None:
+        return R.init_rwkv_state(cfg, batch, dtype, device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Pre-allocated serving cache on ``device`` (the CUDA device unless
-    given): per super-block the token-shift carries (B, d) of ``dtype`` —
-    bf16 by default whatever the params' type, as in the JAX package — and
-    the float32 wkv state (B, H, K, K); and the per-lane length. A
-    recurrent cache does not grow with ``max_len``."""
+    given), of ``dtype`` (bf16 by default whatever the params' type, as in
+    the JAX package), stacked over super-blocks: per RWKV layer the
+    token-shift carries (B, d) and the float32 wkv state (B, H, K, K), per
+    attention layer K and V (B, max_len, KV, D); and the per-lane length.
+    A recurrent cache does not grow with ``max_len``."""
     device = resolve_device(device)
     n = n_super(cfg)
-    entry = R.init_rwkv_state(cfg, batch, dtype, device)
+    entry = _cache_entry(cfg, batch, max_len, dtype, device)
     return {"blocks": {"pos0": tree_map(
                 lambda a: a[None].expand((n,) + a.shape).contiguous(), entry)},
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def prefill(params, batch: dict, cfg: ModelConfig, max_len: int):
-    """Process the whole prompt ``batch["tokens"]`` (B, T); return
-    (last-token logits (B, vocab) float32, populated cache). Exact length
-    only: a recurrent state would integrate right-padding."""
-    x = _embed_inputs(params, batch, cfg)
-    cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
-    x, cache = _run_stack(params, x, cfg, cache=cache)
+def prefill(params, batch: dict, cfg: ModelConfig, max_len: int,
+            parallel: Optional[ParallelConfig] = None, length=None):
+    """Process the prompt ``batch["tokens"]`` (B, T); return (last-token
+    logits (B, vocab) float32, populated cache).
+
+    ``length`` (an int, or an integer tensor of one element on the tokens'
+    device): the true prompt length when the tokens are right-padded to a
+    bucket. The logits are read at position length - 1 (a tensor index,
+    so one captured graph serves every length of its bucket) and
+    ``cache["len"]`` is set to length. Exact for causal attention stacks:
+    position length - 1 never attends the padding, and decode masks the
+    padded K/V slots by ``kv_len`` and overwrites them as it advances. Not
+    valid for recurrent mixers, whose state would integrate the padding;
+    the engine gates on the config."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    B, T = x.shape[:2]
+    cache = init_cache(cfg, B, max_len, device=x.device)
+    x, cache, _ = _run_stack(params, x, cfg, positions, cache=cache,
+                             parallel=parallel)
     x = _norm(x, params["final_norm"], cfg)
-    logits = _logits(params, x[:, -1:], cfg)[:, 0]
-    cache["len"] = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
-                              device=x.device)
+    if length is None:
+        length = T
+    n = torch.as_tensor(length, device=x.device).reshape(1).long()
+    last = x.index_select(1, n - 1)
+    logits = _logits(params, last, cfg)[:, 0]
+    cache["len"] = n.to(torch.int32).expand(B).clone()
     return logits, cache
 
 
-def decode_step(params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig):
-    """One serving step: tokens (B, 1) -> (logits (B, vocab), cache')."""
+def decode_step(params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
+                parallel: Optional[ParallelConfig] = None):
+    """One serving step: tokens (B, 1) -> (logits (B, vocab), cache'). The
+    attention layers write their K and V into ``cache``'s tensors in
+    place."""
     pos = cache["len"]
     x = params["embed"][tokens]
-    x, cache = _run_stack(params, x, cfg, cache=cache, pos=pos)
+    x, cache, _ = _run_stack(params, x, cfg, pos[:, None], cache=cache,
+                             pos=pos, parallel=parallel)
     x = _norm(x, params["final_norm"], cfg)
     logits = _logits(params, x, cfg)[:, 0]
     cache = dict(cache)

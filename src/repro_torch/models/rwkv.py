@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6.ops import wkv6, wkv6_decode_step
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, gen_device, normal
 
 LORA_R = 32
 N_MIX = 5  # r, k, v, g, w
@@ -35,10 +35,11 @@ N_MIX = 5  # r, k, v, g, w
 
 def init_rwkv_block(gen: torch.Generator, cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16) -> dict:
-    """One block's parameters, drawn from ``gen`` on its device."""
+    """One block's parameters, drawn from ``gen`` on its device (``meta``
+    tensors for a ``gen`` of None)."""
     d, ff = cfg.d_model, cfg.d_ff
     H, K = cfg.n_heads, cfg.rwkv.head_size
-    dev = gen.device
+    dev = gen_device(gen)
 
     def const(fill, shape, dt=dtype):
         return torch.full(shape, fill, dtype=dt, device=dev)
@@ -52,8 +53,7 @@ def init_rwkv_block(gen: torch.Generator, cfg: ModelConfig,
             "decay_base": torch.from_numpy(decay_base).to(dev),  # w0 (fp32)
             "decay_w1": dense_init(gen, (d, LORA_R * 2), dtype=dtype),
             "decay_w2": dense_init(gen, (LORA_R * 2, d), dtype=dtype),
-            "bonus": torch.randn((H, K), generator=gen, dtype=torch.float32,
-                                 device=dev) * 0.3,
+            "bonus": normal(gen, (H, K)) * 0.3,
             "wr": dense_init(gen, (d, d), dtype=dtype),
             "wk": dense_init(gen, (d, d), dtype=dtype),
             "wv": dense_init(gen, (d, d), dtype=dtype),

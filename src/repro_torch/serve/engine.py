@@ -4,14 +4,21 @@ language-model engine (`ServeEngine`)."""
 from __future__ import annotations
 
 import queue
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ParallelConfig
 from repro_torch.models import lm
 from repro_torch.serve import graphed
+
+# prompt-length bucketing: the smallest pad-to size, and the most compiled
+# prefill variants kept (LRU), as in the JAX engine
+PREFILL_BUCKET_MIN = 8
+PREFILL_CACHE_MAX = 8
 
 
 class EngineUndrained(RuntimeError):
@@ -142,38 +149,52 @@ class ServeEngine(SlotEngine):
     """Slot-based continuous batching of a language model over a fixed
     decode batch with a pre-allocated cache, on the params' device.
 
-    FIFO admission: a free slot takes the next request, prefills it at its
-    exact length (a recurrent state would integrate padding, so no length
-    buckets), takes its first token from the prefill logits, and copies the
-    single-lane cache into its lane (`tree_lane_scatter`). Each tick then
-    runs one batched `lm.decode_step` for all slots (empty ones decode
-    garbage that is dropped) and one device-to-host copy of the argmax
-    tokens; per-slot stops are ``max_new_tokens`` and ``eos_id``.
+    FIFO admission: a free slot takes the next request, prefills it, takes
+    its first token from the prefill logits, and copies the single-lane
+    cache into its lane (`tree_lane_scatter`). Each tick then runs one
+    batched `lm.decode_step` for all slots (empty ones decode garbage that
+    is dropped) and one device-to-host copy of the argmax tokens; per-slot
+    stops are ``max_new_tokens`` and ``eos_id``.
 
-    The cache starts as `lm.init_cache` makes it, with bf16 token-shift
-    leaves whatever the params' type, and the first decode tick replaces it
-    with what it returns (the compute type): as in the JAX package, a
-    request admitted before the first tick has its token-shift carry
-    rounded to bf16 and one admitted later does not.
+    Prompt lengths (as in the JAX engine): an attention stack right-pads a
+    prompt to its bucket, the next power of two (at least
+    ``PREFILL_BUCKET_MIN``, at most ``max_len``), and prefills it with its
+    true length; the prefill variant of each bucket is kept in
+    ``_prefill_cache``, at most ``PREFILL_CACHE_MAX`` of them, the least
+    recently used out first. A recurrent stack (RWKV) prefills at the exact
+    length, since its state would integrate the padding, and its variants
+    are keyed by that length.
 
-    Compiled decode (the counterpart of JAX's ``jax.jit(lm.decode_step)``):
-    the first tick runs eagerly, since it changes the cache's types; the
-    second captures the tick as a CUDA graph (`graphed.Graphed`) whose
-    static inputs are a (B, 1) token buffer and the cache's leaves, which
-    the graph updates in place, with the argmax inside it; every later
-    tick replays it. Prefill stays eager. On the CPU the same static-buffer
-    tick runs without a graph. A subclass that sets the class attribute
-    ``_compiled`` False decodes eagerly every tick."""
+    The RWKV cache starts as `lm.init_cache` makes it, with bf16
+    token-shift leaves whatever the params' type, and the first decode tick
+    replaces it with what it returns (the compute type): as in the JAX
+    package, a request admitted before the first tick has its token-shift
+    carry rounded to bf16 and one admitted later does not. The K/V cache is
+    bf16 throughout and is written in place.
+
+    Compiled dispatch (the counterpart of JAX's ``jax.jit``): each bucket's
+    prefill is one CUDA graph (`graphed.StaticPrefill`: static (1, bucket)
+    token and (1,) length buffers), captured the first time the bucket is
+    used; an exact-length prefill stays eager (a graph per distinct length
+    would be captured for nearly every request). The first decode tick
+    runs eagerly, since it changes an RWKV cache's types; the second
+    captures the tick as a CUDA graph (`graphed.Graphed`) whose static
+    inputs are a (B, 1) token buffer and the cache's leaves, which the
+    graph updates in place, with the argmax inside it; every later tick
+    replays it. On the CPU the same static-buffer code runs without a
+    graph. A subclass that sets the class attribute ``_compiled`` False
+    prefills and decodes eagerly (with the same buckets)."""
 
     _compiled = True
 
     def __init__(self, params, cfg, *, batch_slots: int = 4,
-                 max_len: int = 256):
+                 max_len: int = 256, parallel: Optional[ParallelConfig] = None):
         lm.check_family(cfg)
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
         self.max_len = max_len
+        self.parallel = parallel or ParallelConfig()
         self.device = params["embed"].device
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: "queue.Queue[Request]" = queue.Queue()
@@ -188,16 +209,55 @@ class ServeEngine(SlotEngine):
         self._batch_axes = probe_batch_axes(self.cache, probe)
         self.decode_ticks = 0
         self._decode = None               # the compiled tick, from tick 2
+        self._prefill_cache: OrderedDict = OrderedDict()   # bucket -> fn
+        # pad + true length is exact only where no mixer integrates the
+        # padded positions into a recurrent state
+        self._bucket_prompts = cfg.rwkv is None and all(
+            cfg.is_attention_layer(i) for i in range(cfg.n_layers))
 
     def submit(self, req: Request) -> None:
         """Enqueue ``req`` for FIFO admission into a free decode lane."""
         self.queue.put(req)
 
+    def _prefill_bucket(self, plen: int) -> int:
+        """Compile-shape bucket of a prompt length: the next power of two
+        (at least PREFILL_BUCKET_MIN, at most max_len) when the config
+        admits pad + true-length prefill; the exact length otherwise."""
+        if not self._bucket_prompts:
+            return plen
+        bucket = max(PREFILL_BUCKET_MIN, 1 << max(plen - 1, 0).bit_length())
+        return max(plen, min(bucket, self.max_len))
+
+    def _prefill_fn(self, bucket: int):
+        """The prefill variant of ``bucket``, made on first use; the LRU
+        keeps at most PREFILL_CACHE_MAX of them."""
+        if bucket in self._prefill_cache:
+            self._prefill_cache.move_to_end(bucket)
+        else:
+            self._prefill_cache[bucket] = self._make_prefill(bucket)
+            while len(self._prefill_cache) > PREFILL_CACHE_MAX:
+                self._prefill_cache.popitem(last=False)
+        return self._prefill_cache[bucket]
+
+    def _make_prefill(self, bucket: int):
+        """``fn(tokens (1, bucket) int64 numpy, length) -> (logits,
+        cache)``: a `graphed.StaticPrefill` for a bucket of a compiled
+        engine, else the eager prefill."""
+        def run(tokens, length):
+            return lm.prefill(self.params, {"tokens": tokens}, self.cfg,
+                              self.max_len, self.parallel, length=length)
+        if self._compiled and self._bucket_prompts:
+            return graphed.StaticPrefill(run, bucket, self.device)
+        return lambda toks, n: run(torch.as_tensor(toks, device=self.device),
+                                   n)
+
     def _prefill(self, prompt: np.ndarray):
-        toks = torch.as_tensor(np.asarray(prompt, np.int64)[None],
-                               device=self.device)
-        return lm.prefill(self.params, {"tokens": toks}, self.cfg,
-                          self.max_len)
+        plen = len(prompt)
+        bucket = self._prefill_bucket(plen)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :plen] = prompt
+        with torch.no_grad():
+            return self._prefill_fn(bucket)(toks, plen)
 
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
@@ -225,10 +285,14 @@ class ServeEngine(SlotEngine):
 
     def _decode_in_place(self) -> torch.Tensor:
         """The compiled tick's body: decode ``_tokens``, write the new
-        cache into the cache's leaves in place, return the argmax tokens."""
+        cache into the cache's leaves in place (a leaf the decode step
+        updated in place, the K/V cache, is not copied), return the argmax
+        tokens."""
         logits, cache = lm.decode_step(self.params, self._tokens, self.cache,
-                                       self.cfg)
+                                       self.cfg, self.parallel)
         for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
+            if src is dst:
+                continue
             if dst.dtype != src.dtype:
                 raise TypeError(f"decode changed a cache leaf from "
                                 f"{dst.dtype} to {src.dtype}")
@@ -243,7 +307,8 @@ class ServeEngine(SlotEngine):
         if not self._compiled or self.decode_ticks == 0:
             with torch.no_grad():
                 logits, self.cache = lm.decode_step(
-                    self.params, self._tokens, self.cache, self.cfg)
+                    self.params, self._tokens, self.cache, self.cfg,
+                    self.parallel)
                 next_tokens = torch.argmax(logits, dim=-1)
         else:
             if self._decode is None:

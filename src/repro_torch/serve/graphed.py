@@ -1,7 +1,7 @@
 """Compiled dispatch for the serving engines: a call captured once as a CUDA
 graph and replayed, the counterpart of the JAX package's ``jax.jit`` of the
-page megastep (`serve/snn_engine.py::_jit_megastep` there) and of the
-decode tick.
+page megastep (`serve/snn_engine.py::_jit_megastep` there), of the decode
+tick and of each prompt-length bucket's prefill.
 
 A graph replays the kernels its capture recorded on the same addresses, so
 every tensor it reads or writes is static: the caller copies its inputs
@@ -91,6 +91,27 @@ class Graphed:
         for name, n in self.launches.items():
             kernels.LAUNCH_COUNTS[name] += n
         return self.out
+
+
+class StaticPrefill:
+    """One prompt-length bucket's prefill as a static-buffer dispatch: a
+    (1, bucket) int64 token buffer and a (1,) int64 length buffer, and
+    ``fn(tokens, length) -> (logits, cache)`` over them, captured once
+    (one CUDA graph per bucket; on the CPU the body runs each call). The
+    outputs live in the graph's memory until its next replay."""
+
+    def __init__(self, fn: Callable, bucket: int, device: torch.device):
+        self.tokens = torch.zeros((1, bucket), dtype=torch.int64,
+                                  device=device)
+        self.length = torch.ones((1,), dtype=torch.int64, device=device)
+        self._run = Graphed(lambda: fn(self.tokens, self.length), device)
+
+    def __call__(self, tokens, length: int):
+        """Copy ``tokens`` (1, bucket), right-padded, and the true
+        ``length`` into the buffers and run the prefill."""
+        self.tokens.copy_(torch.as_tensor(tokens))
+        self.length.fill_(length)
+        return self._run()
 
 
 class PageMegastep:

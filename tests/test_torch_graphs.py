@@ -9,7 +9,8 @@ the page's state in place. The ``cuda``-marked twins run it as CUDA graphs
 on the card (``pytest -m cuda``), against the eager engine on the CPU.
 This file imports no JAX, so its card tests run on a machine without it;
 the JAX parity of the double buffer is in `test_torch_serve.py`, of the
-decode tick in `test_torch_lm_serve.py`.
+decode tick in `test_torch_lm_serve.py`, of the bucketed prefill in
+`test_torch_lm_dense.py`.
 """
 import pytest
 
@@ -25,11 +26,13 @@ from repro_torch.launch.serve_snn import make_requests  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, SNNServeEngine  # noqa: E402
 from repro_torch.serve.engine import tree_leaves  # noqa: E402
-from repro_torch.serve.graphed import GRAPHED_BACKENDS  # noqa: E402
+from repro_torch.serve.graphed import (GRAPHED_BACKENDS,  # noqa: E402
+                                      StaticPrefill)
 
 CPU = torch.device("cpu")
 BUDGETS = [30, 17, 30, None, 9, 30, 23]
 LM_CFG = reduced_config(get_config("rwkv6-7b"))
+DENSE_CFG = reduced_config(get_config("llama3.2-1b"))
 
 
 class EagerSNN(SNNServeEngine):
@@ -210,11 +213,12 @@ def test_staged_block_rebuilt_after_an_admission(backend, domain):
 
 # -- (e) the LM engine's compiled decode tick --------------------------------
 
-def lm_drain(engine_cls, params, device, slots=4, n=6, new=6):
+def lm_drain(engine_cls, params, device, slots=4, n=6, new=6, cfg=LM_CFG,
+             max_len=64, hi=17):
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, LM_CFG.vocab_size, int(rng.integers(4, 17)))
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, hi)))
                for _ in range(n)]
-    eng = engine_cls(params, LM_CFG, batch_slots=slots, max_len=64)
+    eng = engine_cls(params, cfg, batch_slots=slots, max_len=max_len)
     done = drain(eng, [Request(rid=i, prompt=p, max_new_tokens=new)
                        for i, p in enumerate(prompts)])
     return done, eng
@@ -246,6 +250,30 @@ def check_compiled_decode(device):
 def test_compiled_decode_equals_eager_decode():
     eng = check_compiled_decode(CPU)
     assert eng._decode is not None and eng._decode.graph is None
+
+
+def check_bucket_prefill(device):
+    """A dense attention stack: 9 prompts of 4 to 70 tokens through 3
+    slots; the compiled engine (one static-buffer prefill per length
+    bucket, the decode tick from tick 2) serves the eager engine's tokens,
+    keeps the same buckets in its LRU and ends with the same cache."""
+    params = lm.init_params(0, DENSE_CFG, dtype=torch.float32, device=device)
+    kw = dict(cfg=DENSE_CFG, slots=3, n=9, max_len=128, hi=71)
+    want, eager = lm_drain(EagerLM, params, device, **kw)
+    got, eng = lm_drain(ServeEngine, params, device, **kw)
+    assert [g.out_tokens for g in got] == [w.out_tokens for w in want]
+    assert list(eng._prefill_cache) == list(eager._prefill_cache)
+    assert len(eng._prefill_cache) >= 3
+    assert all(isinstance(f, StaticPrefill)
+               for f in eng._prefill_cache.values())
+    for a, b in zip(tree_leaves(eng.cache), tree_leaves(eager.cache)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return eng
+
+
+def test_bucket_prefill_equals_eager_prefill():
+    eng = check_bucket_prefill(CPU)
+    assert all(f._run.graph is None for f in eng._prefill_cache.values())
 
 
 # -- (f) the same on the card -------------------------------------------------
@@ -289,4 +317,12 @@ def test_graphed_double_buffer_engine_on_the_card(cuda_device, backend,
 @pytest.mark.cuda
 def test_compiled_decode_equals_eager_decode_on_the_card(cuda_device):
     eng = check_compiled_decode(cuda_device)
+    assert eng._decode.graph is not None
+
+
+@pytest.mark.cuda
+def test_bucket_prefill_equals_eager_prefill_on_the_card(cuda_device):
+    eng = check_bucket_prefill(cuda_device)
+    assert all(f._run.graph is not None
+               for f in eng._prefill_cache.values())
     assert eng._decode.graph is not None

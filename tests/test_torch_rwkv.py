@@ -17,6 +17,7 @@ Tolerances:
     blocks and the head (1 to 2.5 % measured).
 """
 import dataclasses
+import re
 
 import pytest
 
@@ -92,8 +93,10 @@ def test_config_matches_jax():
             if dataclasses.is_dataclass(a):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
-    with pytest.raises(KeyError, match=r"known: \['rwkv6-7b'\]"):
-        get_config("llama3-8b")
+    known = ("'llama3-8b', 'llama3.2-1b', 'phi3-medium-14b', 'rwkv6-7b', "
+             "'starcoder2-15b'")
+    with pytest.raises(KeyError, match=re.escape(known)):
+        get_config("whisper-large-v3")
 
 
 def test_rms_norm_matches_jax():
@@ -285,9 +288,11 @@ def test_init_cache_has_the_jax_types():
 
 
 def test_other_families_are_not_ported():
-    llama = dataclasses.replace(CFG, arch_id="llama-like", family="dense",
-                                rwkv=None)
-    with pytest.raises(NotImplementedError, match="dense"):
-        lm.init_params(0, llama, device="cpu")
-    with pytest.raises(NotImplementedError, match="RWKV family only"):
-        lm.init_cache(llama, 1, 8, device="cpu")
+    """The port runs RWKV and the dense attention family; a MoE config
+    (without the RWKV block) is refused by name."""
+    moe = dataclasses.replace(CFG, arch_id="moe-like", family="moe",
+                              rwkv=None)
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        lm.init_params(0, moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        lm.init_cache(moe, 1, 8, device="cpu")
