@@ -153,7 +153,31 @@ Phases, each of which exits non-zero on failure:
      FFN (RMP, 8 steps, threshold 0.5), bf16, served the same way
      (compiled == eager, tokens/s), the mean spike rate of a prefill, and
      layer 0's float executor on the card equal to the same port code on
-     the CPU, spike sum for spike sum, on the current it recorded.
+     the CPU, spike sum for spike sum, on the current it recorded;
+ 15. training the language models (`lm.loss_fn`, `init_train_state`, the
+     default `make_train_step`; AdamW with b2 0.95, weight decay 0.1 and a
+     cosine warm-up; remat per block): (a) llama3.2-1b at full width (16 x
+     2048, 32/8 heads of 64, SwiGLU 8192, vocab 128256, tied embeddings),
+     bf16 weights drawn on the card from seed 0, 20 steps at B = 8, seq
+     256: every loss and gradient norm finite, the mean of the last 5
+     losses below the first 5's, the median ms a step, a profiled step,
+     the peak memory and the state's bytes; then in float32 at full width
+     cut to 2 layers (B = 2, seq 64): loss and gradients on the card
+     against the same port code on the CPU, vocab_chunking 4 against 0,
+     remat against none and microbatches 2 against 1, at the CPU tests'
+     tolerances; (b) the same model with the spiking FFN, 10 steps at B =
+     4, seq 128: the loss finite, aux > 0, every FFN layer's gradient
+     finite and non-zero, ms a step, peak memory and
+     `examples/spiking_ffn_lm.py`'s sparsity and macro-energy line (a
+     model of the silicon); (c) rwkv6-7b at full width cut to 4 of its 32
+     layers, 10 steps at B = 4, seq 256 through the differentiable chunked
+     wkv6 in chunks of 16: no wkv6 launch in the steps, non-zero gradients
+     upstream of the recurrence (wr, wk, wv, the decay LoRA, bonus) in
+     every layer, the loss at JAX's chunk of 64 reported beside it, and a
+     prefill on the trained weights through the kernel, one launch a
+     layer, each within 2e-4 of `wkv6_sequential`; (d) `python -m
+     repro_torch.launch.train --arch llama3.2-1b --steps 10` as a
+     subprocess: exit 0 and its lines.
 
 Then one `kernels` JSON line with all five kernels, each redesigned for
 this card (the dense, gated and event-list modes, wkv6 and
@@ -171,6 +195,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -252,6 +277,26 @@ DENSE_MAX_LEN, DENSE_LONG, DENSE_BUCKET = 1152, 1000, 1024
 DENSE_F32_CUT = 8                 # float32 depth if 32 layers do not fit
 BLOCKED_CHUNK = 256               # q chunk and kv block
 BLOCKED_RTOL, BLOCKED_ATOL = 2e-5, 2e-5   # tests/test_blocked_attention.py
+# Phase 15: train the language models the port serves
+LM_TRAIN_LR = 1e-3
+LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_SEQ = 20, 8, 256
+LM_CHECK_LAYERS, LM_CHECK_B, LM_CHECK_SEQ = 2, 2, 64
+SPK_TRAIN_STEPS, SPK_TRAIN_B, SPK_TRAIN_SEQ = 10, 4, 128
+RWKV_TRAIN_STEPS, RWKV_TRAIN_B, RWKV_TRAIN_SEQ = 10, 4, 256
+RWKV_TRAIN_LAYERS = 4             # of 32: the moments of 7.6 B would not fit
+RWKV_TRAIN_CHUNK = 16             # the chunked wkv6 cannot overflow at 16
+# tests/test_torch_lm_train.py's tolerances: loss, gradients (relative L2),
+# vocab chunking's loss, and test_substrate's microbatch ones (loss,
+# parameters). cuBLAS picks a product's reduction order (split-K over the
+# 128,256-long vocabulary) by its shape, so the chunked head's input
+# gradient is summed in another order than the whole head's, as on the
+# card against the CPU: vocab chunking's gradients are held within
+# LM_GRAD_RL2. The embedding's backward on CUDA sums by atomics, so a
+# gradient that should be equal bit for bit (remat) is held within
+# LM_NONDET_RL2
+LM_LOSS_RTOL, LM_GRAD_RL2, LM_CHUNK_RTOL = 1e-5, 1e-4, 1e-6
+LM_MB_LOSS_RTOL, LM_MB_ATOL = 2e-2, 5e-2
+LM_NONDET_RL2 = 1e-6
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -832,9 +877,12 @@ def model_wkv6(fn):
         rwkv.wkv6 = orig
 
 
-def plain_wkv6(r, k, v, w, u, s0=None):
-    """The model-layout wkv6 with `wkv6_sequential` in place of the kernel."""
+def plain_wkv6(r, k, v, w, u, s0=None, use_kernel=True, chunk=64):
+    """The model-layout wkv6 with `wkv6_sequential` in place of the kernel
+    (the serving route's; the model passes the route's keywords)."""
     from repro_torch.kernels.wkv6 import ops as wkv_ops
+    if not use_kernel:
+        raise AssertionError("plain_wkv6 stands in for the kernel route")
     from repro_torch.kernels.wkv6 import ref as wkv_ref
     B, _, H, _ = r.shape
     return wkv_ops.from_bh_layout(
@@ -2547,6 +2595,348 @@ def print_dense(dense: dict, cfg, card: str) -> None:
           f"depth (reported): {json.dumps(dense['bf16_prefill_vs_decode'])}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: train the language models the port serves
+# ---------------------------------------------------------------------------
+
+def lm_run(cfg, B: int, seq: int, total: int, **parallel):
+    """The training run of phase 15: AdamW with the JAX package's defaults
+    (b2 0.95, weight decay 0.1) at lr 1e-3 with a cosine warm-up of 2
+    steps (the JAX tests' tiny run), remat per block unless given."""
+    from repro_torch.configs.base import ParallelConfig, RunConfig, ShapeConfig
+    parallel.setdefault("remat", "block")
+    return RunConfig(model=cfg, shape=ShapeConfig("phase15", seq, B, "train"),
+                     parallel=ParallelConfig(**parallel), optimizer="adamw",
+                     learning_rate=LM_TRAIN_LR, warmup_steps=2)
+
+
+def lm_batch(cfg, B: int, seq: int, step: int, dev) -> dict:
+    """Batch ``step`` of `lm_batch_fn` (seed 0) on ``dev``."""
+    from repro_torch.data.loader import lm_batch_fn
+    return {k: torch.as_tensor(v, device=dev) for k, v in
+            lm_batch_fn(cfg.vocab_size, B, seq, SEED)(step, 0, 1).items()}
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if torch.is_tensor(x))
+
+
+def train_lm(dev, run, steps: int, *, profile: bool = True) -> dict:
+    """``steps`` train steps of ``run`` from `init_train_state` (bf16
+    weights drawn on the card from seed 0), each batch on the card before
+    its step and each step ending in `torch.cuda.synchronize()`: the
+    losses and gradient norms (all finite), the median ms a step of the
+    last half, a profiled step, the peak memory and the state's bytes.
+    The state stays in the result."""
+    from repro_torch.train import init_train_state, make_train_step
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, opt = init_train_state(SEED, run, total_steps=steps, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(run, opt)
+    cfg, B, seq = run.model, run.shape.global_batch, run.shape.seq_len
+    losses, norms, ms = [], [], []
+    for s in range(steps):
+        batch = lm_batch(cfg, B, seq, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{cfg.arch_id}: a loss or grad norm is not "
+                             f"finite: {losses}, {norms}")
+    out = {"params": sum(a.numel() for a in leaves(state.params)),
+           "init_s": init_s, "steps": steps, "losses": losses,
+           "grad_norms": norms, "ms_per_step": ms,
+           "median_ms_per_step": float(np.median(ms[steps // 2:])),
+           "state_bytes": tree_bytes(state.params) + tree_bytes(
+               state.opt_state)}
+    if profile:
+        batch = lm_batch(cfg, B, seq, steps, dev)
+        out["profiled_step"] = profile_step(lambda: step(state, batch))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["state"] = state
+    return out
+
+
+def loss_and_grads(params, batch, cfg, parallel) -> tuple:
+    """(loss, aux, gradient tree) of `lm.loss_fn` by autograd."""
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+    xs = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    loss, aux = lm.loss_fn(tree_unflatten_like(params, xs), batch, cfg,
+                           parallel)
+    grads = torch.autograd.grad(loss, xs)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            tree_unflatten_like(params, list(grads)))
+
+
+def grads_diff(got, want) -> dict:
+    """The largest relative L2 difference over the leaves, and its leaf."""
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+    rows = [(rel_l2(a, b), "/".join(map(str, path))) for (path, a), b in
+            zip(tree_flatten_with_paths(got), tree_leaves(want))]
+    worst, leaf = max(rows)
+    return {"max_rel_l2": worst, "leaf": leaf}
+
+
+def lm_checks_f32(dev, cfg) -> dict:
+    """Phase 15(a), float32 at full width cut to LM_CHECK_LAYERS layers
+    (weights drawn on the card from seed 0, B = LM_CHECK_B, seq
+    LM_CHECK_SEQ, TF32 off): loss and gradients on the card against the
+    same port code on the CPU; vocab_chunking 4 against 0, remat "block"
+    against "none" (the embedding's backward sums by atomics on the card,
+    so the gradients are held within LM_NONDET_RL2, not bit for bit) and
+    microbatches 2 against 1 (one AdamW step), at the CPU tests'
+    tolerances (vocab chunking's gradients at the card-against-CPU one)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import lm
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.train_state import _make_opt
+    from repro_torch.tree import tree_leaves, tree_map
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the checks need f32")
+    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    params = lm.init_params(SEED, cut, dtype=torch.float32, device=dev)
+    batch = lm_batch(cut, LM_CHECK_B, LM_CHECK_SEQ, 0, dev)
+    none = ParallelConfig(remat="none")
+    loss, _, grads = loss_and_grads(params, batch, cut, none)
+    host = tree_map(lambda a: a.cpu(), params)
+    h_loss, _, h_grads = loss_and_grads(
+        host, {k: v.cpu() for k, v in batch.items()}, cut, none)
+    out = {"layers": LM_CHECK_LAYERS, "batch": LM_CHECK_B,
+           "seq": LM_CHECK_SEQ}
+    out["card_vs_cpu"] = d = {
+        "loss_card": float(loss), "loss_cpu": float(h_loss),
+        "loss_rel": abs(float(loss) - float(h_loss)) / abs(float(h_loss)),
+        **grads_diff(grads, h_grads)}
+    if d["loss_rel"] > LM_LOSS_RTOL or d["max_rel_l2"] > LM_GRAD_RL2:
+        raise AssertionError(f"float32 loss / gradients: card != CPU beyond "
+                             f"{LM_LOSS_RTOL} / {LM_GRAD_RL2}: {d}")
+    del host, h_grads
+    c_loss, _, c_grads = loss_and_grads(params, batch, cut, ParallelConfig(
+        remat="none", vocab_chunking=4))
+    out["vocab_chunking_4_vs_0"] = d = {
+        "loss_rel": abs(float(c_loss) - float(loss)) / abs(float(loss)),
+        **grads_diff(c_grads, grads)}
+    if d["loss_rel"] > LM_CHUNK_RTOL or d["max_rel_l2"] > LM_GRAD_RL2:
+        raise AssertionError(f"vocab_chunking=4 != 0 beyond {LM_CHUNK_RTOL} "
+                             f"(loss) / {LM_GRAD_RL2} (gradients): {d}")
+    del c_grads
+    r_loss, _, r_grads = loss_and_grads(params, batch, cut,
+                                        ParallelConfig(remat="block"))
+    out["remat_block_vs_none"] = d = {
+        "loss_equal": bool(torch.equal(r_loss, loss)),
+        **grads_diff(r_grads, grads)}
+    if not d["loss_equal"] or d["max_rel_l2"] > LM_NONDET_RL2:
+        raise AssertionError(f"remat block != none (loss bit for bit, "
+                             f"gradients within {LM_NONDET_RL2}): {d}")
+    del r_grads, grads
+    stepped = {}
+    for mb in (1, 2):
+        run = lm_run(cut, LM_CHECK_B, LM_CHECK_SEQ, 8, remat="none",
+                     microbatches=mb)
+        opt = _make_opt(run, 8)
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        stepped[mb] = make_train_step(run, opt)(state, batch)
+    (s1, m1), (s2, m2) = stepped[1], stepped[2]
+    first = [float((a - b).abs().max()) for a, b in
+             zip(tree_leaves(s1.params), tree_leaves(s2.params))]
+    out["microbatches_2_vs_1"] = d = {
+        "loss_rel": abs(float(m2["loss"]) - float(m1["loss"]))
+        / abs(float(m1["loss"])), "max_abs_param_diff": max(first)}
+    if d["loss_rel"] > LM_MB_LOSS_RTOL or d["max_abs_param_diff"] > LM_MB_ATOL:
+        raise AssertionError(f"microbatches 2 != 1 beyond {LM_MB_LOSS_RTOL} "
+                             f"/ {LM_MB_ATOL}: {d}")
+    del params, stepped, s1, s2
+    free_cuda()
+    return out
+
+
+def spiking_energy(params, cfg, B: int, seq: int, dev) -> dict:
+    """`examples/spiking_ffn_lm.py`'s sparsity and macro-energy line, with
+    the port's `core.energy` and `core.mapping`: the FFNs' mean spike rate
+    on batch 999 (the loss's aux over the layers), mapped onto IMPULSE
+    macros. A model of the silicon, not a number of the card."""
+    from repro_torch.core import energy, mapping
+    from repro_torch.core.isa import InstrCount
+    from repro_torch.models import lm
+    with torch.no_grad():
+        _, aux = lm.loss_fn(params, lm_batch(cfg, B, seq, 999, dev), cfg)
+    rate = float(aux["aux"]) / cfg.n_layers
+    sparsity = 1.0 - rate
+    tokens = B * seq
+    tiles = mapping.fc_tiling(cfg.d_model, cfg.d_ff)
+    T = cfg.spiking.timesteps
+    events = rate * cfg.d_model * T * tokens * cfg.n_layers
+    per_step = 2 * T * tokens * cfg.n_layers * tiles.col_tiles
+    counts = InstrCount(acc_w2v=int(2 * events * tiles.col_tiles),
+                        spike_check=per_step, acc_v2v=per_step)
+    e = energy.sequence_energy_j(counts)
+    return {"ffn_spike_sparsity": sparsity, "tokens": tokens,
+            "macro_ffn_energy_nj": e * 1e9,
+            "macro_pj_per_token": e / tokens * 1e12,
+            "edp_reduction_vs_dense_firing": energy.edp_reduction(sparsity),
+            "what": "IMPULSE macro energy model at point D, not the card"}
+
+
+def phase_lm_train(dev, cfg) -> dict:
+    """Phase 15(a): ``cfg`` (llama3.2-1b) at full width, bf16, trained
+    LM_TRAIN_STEPS steps at B = LM_TRAIN_B, seq LM_TRAIN_SEQ: every loss
+    finite and the mean of the last 5 below the first 5's; then the
+    float32 checks of `lm_checks_f32`."""
+    out = train_lm(dev, lm_run(cfg, LM_TRAIN_B, LM_TRAIN_SEQ,
+                               LM_TRAIN_STEPS), LM_TRAIN_STEPS)
+    del out["state"]
+    losses = out["losses"]
+    out["loss_first5"] = float(np.mean(losses[:5]))
+    out["loss_last5"] = float(np.mean(losses[-5:]))
+    if not out["loss_last5"] < out["loss_first5"]:
+        raise AssertionError(f"{cfg.arch_id}: the loss did not fall: "
+                             f"{losses}")
+    free_cuda()
+    out["f32_checks"] = lm_checks_f32(dev, cfg)
+    return out
+
+
+def phase_spiking_train(dev, cfg) -> dict:
+    """Phase 15(b): ``cfg`` with the spiking FFN at full width, bf16,
+    SPK_TRAIN_STEPS steps at B = SPK_TRAIN_B, seq SPK_TRAIN_SEQ; then on
+    the trained weights: the loss finite, aux > 0 and every FFN leaf's
+    gradient (each layer's slice) finite and non-zero; and the example's
+    sparsity and macro-energy line."""
+    out = train_lm(dev, lm_run(cfg, SPK_TRAIN_B, SPK_TRAIN_SEQ,
+                               SPK_TRAIN_STEPS), SPK_TRAIN_STEPS)
+    params = out.pop("state").params
+    batch = lm_batch(cfg, SPK_TRAIN_B, SPK_TRAIN_SEQ, SPK_TRAIN_STEPS + 1,
+                     dev)
+    run = lm_run(cfg, SPK_TRAIN_B, SPK_TRAIN_SEQ, SPK_TRAIN_STEPS)
+    loss, aux, grads = loss_and_grads(params, batch, cfg, run.parallel)
+    ffn = grads["blocks"]["pos0"]["ffn"]
+    zero = [f"{name}[{i}]" for name, g in ffn.items()
+            for i in range(g.shape[0]) if not g[i].abs().sum() > 0]
+    finite = all(bool(torch.isfinite(g).all()) for g in ffn.values())
+    out["trained"] = d = {"loss": float(loss), "aux": float(aux["aux"]),
+                          "ffn_grad_finite": finite,
+                          "ffn_grad_zero_slices": zero}
+    if not (math.isfinite(d["loss"]) and d["aux"] > 0 and finite
+            and not zero):
+        raise AssertionError(f"spiking FFN training: {d}")
+    out["energy"] = spiking_energy(params, cfg, SPK_TRAIN_B, SPK_TRAIN_SEQ,
+                                   dev)
+    del params, grads, ffn
+    free_cuda()
+    return out
+
+
+def phase_rwkv_train(dev, cfg) -> dict:
+    """Phase 15(c): ``cfg`` (rwkv6-7b) at full width cut to
+    RWKV_TRAIN_LAYERS layers (AdamW's float32 moments alone for 7.6 B
+    parameters exceed the card's 80 GB), bf16, RWKV_TRAIN_STEPS steps at
+    B = RWKV_TRAIN_B, seq RWKV_TRAIN_SEQ through the differentiable
+    chunked wkv6 in chunks of RWKV_TRAIN_CHUNK: no wkv6 launch in the
+    steps; on the trained weights every leaf upstream of the recurrence
+    (wr, wk, wv, decay_w1, decay_w2, bonus, each layer) gets a non-zero
+    gradient; the loss at JAX's chunk of 64 on the first batch (reported);
+    then a prefill on the trained weights launches the kernel once a layer,
+    each launch within WKV_TOL relative L2 of `wkv6_sequential`."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import lm, rwkv
+    cut = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
+    run = lm_run(cut, RWKV_TRAIN_B, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS,
+                 wkv_chunk=RWKV_TRAIN_CHUNK)
+    kernels.reset_launch_counts()
+    out = train_lm(dev, run, RWKV_TRAIN_STEPS)
+    out["wkv6_launches_in_training"] = kernels.LAUNCH_COUNTS["wkv6"]
+    if kernels.LAUNCH_COUNTS["wkv6"]:
+        raise AssertionError("the train steps launched the forward-only "
+                             "wkv6 kernel")
+    params = out.pop("state").params
+    batch = lm_batch(cut, RWKV_TRAIN_B, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS + 1,
+                     dev)
+    loss, _, grads = loss_and_grads(params, batch, cut, run.parallel)
+    tm = grads["blocks"]["pos0"]["rwkv"]["tm"]
+    upstream = ("wr", "wk", "wv", "decay_w1", "decay_w2", "bonus")
+    sums = {name: [float(tm[name][i].float().abs().sum())
+                   for i in range(cut.n_layers)] for name in upstream}
+    out["upstream_grad_abs_sums"] = sums
+    if not (math.isfinite(float(loss))
+            and all(x > 0 and math.isfinite(x)
+                    for v in sums.values() for x in v)):
+        raise AssertionError(f"rwkv training: loss {float(loss)}, gradients "
+                             f"upstream of wkv6 {sums}")
+    del grads, tm
+    with torch.no_grad():
+        first = lm_batch(cut, RWKV_TRAIN_B, RWKV_TRAIN_SEQ, 0, dev)
+        jax_chunk, _ = lm.loss_fn(params, first, cut, ParallelConfig(
+            wkv_chunk=64))
+        ours, _ = lm.loss_fn(params, first, cut, run.parallel)
+    out["loss_batch0_trained"] = {
+        f"chunk_{RWKV_TRAIN_CHUNK}": float(ours),
+        "chunk_64_jax_default": float(jax_chunk)}
+
+    model_fn, calls = rwkv.wkv6, []
+
+    def recording(*args, **kw):
+        y, s = model_fn(*args, **kw)
+        calls.append((args, kw, y, s))
+        return y, s
+    toks = first["tokens"][:1]
+    kernels.reset_launch_counts()
+    with torch.no_grad(), model_wkv6(recording):
+        logits, _ = lm.prefill(params, {"tokens": toks}, cut, toks.shape[1])
+    launches = kernels.LAUNCH_COUNTS["wkv6"]
+    rows = []
+    for n, (args, kw, y, s) in enumerate(calls):
+        y_p, s_p = plain_wkv6(*args, **kw)
+        rows.append({"layer": n,
+                     "rel_l2_y": float((y - y_p).norm() / y_p.norm()),
+                     "rel_l2_s": float((s - s_p).norm() / s_p.norm())})
+    out["prefill_on_trained"] = d = {
+        "wkv6_launches": launches, "rows": rows,
+        "logits_finite": bool(torch.isfinite(logits).all())}
+    if (launches != cut.n_layers or len(rows) != cut.n_layers
+            or not d["logits_finite"]
+            or any(max(r["rel_l2_y"], r["rel_l2_s"]) > WKV_TOL
+                   for r in rows)):
+        raise AssertionError(f"prefill on the trained weights: {d}")
+    del params, calls
+    free_cuda()
+    return out
+
+
+def phase_train_launcher() -> dict:
+    """Phase 15(d): `python -m repro_torch.launch.train --arch llama3.2-1b
+    --steps 10` as a subprocess (the reduced config, on the card): exit 0
+    and its lines."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "llama3.2-1b", "--steps", "10"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(root / "src")})
+    lines = res.stdout.strip().splitlines()
+    out = {"cmd": " ".join(cmd[1:]), "rc": res.returncode, "lines": lines,
+           "s": time.perf_counter() - t0}
+    if (res.returncode != 0 or len(lines) != 4
+            or not lines[-1].startswith("done: 3 logs")
+            or [x.split(" loss ")[0] for x in lines[:3]]
+            != ["step 1", "step 5", "step 10"]):
+        raise AssertionError(f"the train launcher: {out}; stderr "
+                             f"{res.stderr[-2000:]}")
+    return out
+
+
 def leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -2884,6 +3274,70 @@ def main() -> int:
     print(f"[phase 14] (c) {json.dumps(spk)}; serve {json.dumps(srv)}")
     print(f"[phase 14] (c) compiled vs eager drains: {json.dumps(comp)} "
           f"({card})")
+    lm_train = phase_lm_train(dev, get_config(SPIKING_ARCH))
+    checks = lm_train.pop("f32_checks")
+    prof = lm_train.pop("profiled_step")
+    print(f"[phase 15] (a) {SPIKING_ARCH} at full width: {lm_train['params']}"
+          f" params (bf16), AdamW (b2 0.95, wd 0.1, lr {LM_TRAIN_LR}, cosine "
+          f"warm-up), remat per block, B = {LM_TRAIN_B}, seq {LM_TRAIN_SEQ}, "
+          f"{LM_TRAIN_STEPS} steps: loss first 5 "
+          f"{lm_train['loss_first5']:.4f} -> last 5 "
+          f"{lm_train['loss_last5']:.4f}, every loss and grad norm finite; "
+          f"median {lm_train['median_ms_per_step']:.1f} ms a step (last "
+          f"{LM_TRAIN_STEPS // 2}); peak {lm_train['peak_bytes']} bytes, "
+          f"state {lm_train['state_bytes']} bytes ({card})")
+    print(f"[phase 15] (a) profiled step: {json.dumps(prof)} ({card})")
+    print(f"[phase 15] (a) {json.dumps(lm_train)}")
+    print(f"[phase 15] (a) float32 at full width cut to {LM_CHECK_LAYERS} "
+          f"layers (B = {LM_CHECK_B}, seq {LM_CHECK_SEQ}): card vs CPU (tol "
+          f"{LM_LOSS_RTOL} / {LM_GRAD_RL2}), vocab_chunking 4 vs 0 (tol "
+          f"{LM_CHUNK_RTOL} / {LM_GRAD_RL2}), remat block vs none (loss "
+          f"bit for bit, grads {LM_NONDET_RL2}), microbatches 2 vs 1 (tol "
+          f"{LM_MB_LOSS_RTOL} / "
+          f"{LM_MB_ATOL}): {json.dumps(checks)}")
+    spk_train = phase_spiking_train(dev, spk_cfg)
+    prof = spk_train.pop("profiled_step")
+    print(f"[phase 15] (b) {SPIKING_ARCH} + spiking FFN {SPIKING} at full "
+          f"width: {spk_train['params']} params (bf16), B = {SPK_TRAIN_B}, "
+          f"seq {SPK_TRAIN_SEQ}, {SPK_TRAIN_STEPS} steps, remat per block: "
+          f"losses {[round(x, 4) for x in spk_train['losses']]}; trained: "
+          f"{json.dumps(spk_train['trained'])}; median "
+          f"{spk_train['median_ms_per_step']:.1f} ms a step; peak "
+          f"{spk_train['peak_bytes']} bytes ({card})")
+    print(f"[phase 15] (b) profiled step: {json.dumps(prof)} ({card})")
+    e = spk_train["energy"]
+    print(f"[phase 15] (b) model of the silicon, not the card: FFN spike "
+          f"sparsity {e['ffn_spike_sparsity']:.3f}; macro-mapped FFN energy "
+          f"{e['macro_ffn_energy_nj']:.1f} nJ for {e['tokens']} tokens "
+          f"({e['macro_pj_per_token']:.1f} pJ/token) at point D; EDP "
+          f"reduction vs dense firing "
+          f"{e['edp_reduction_vs_dense_firing'] * 100:.1f}%")
+    print(f"[phase 15] (b) {json.dumps(spk_train)}")
+    rwkv_train = phase_rwkv_train(dev, cfg)
+    prof = rwkv_train.pop("profiled_step")
+    print(f"[phase 15] (c) {cfg.arch_id} at full width cut to "
+          f"{RWKV_TRAIN_LAYERS} of {cfg.n_layers} layers (AdamW's float32 "
+          f"moments of all {cfg.n_layers} would exceed the card): "
+          f"{rwkv_train['params']} params (bf16), B = {RWKV_TRAIN_B}, seq "
+          f"{RWKV_TRAIN_SEQ}, {RWKV_TRAIN_STEPS} steps through the chunked "
+          f"wkv6 (chunk {RWKV_TRAIN_CHUNK}): losses "
+          f"{[round(x, 4) for x in rwkv_train['losses']]}; wkv6 launches in "
+          f"training {rwkv_train['wkv6_launches_in_training']}; gradients "
+          f"upstream of the recurrence non-zero in every layer; median "
+          f"{rwkv_train['median_ms_per_step']:.1f} ms a step; peak "
+          f"{rwkv_train['peak_bytes']} bytes ({card})")
+    print(f"[phase 15] (c) loss on batch 0 after training, chunk "
+          f"{RWKV_TRAIN_CHUNK} and JAX's default of 64 (the reference's "
+          f"arithmetic): {json.dumps(rwkv_train['loss_batch0_trained'])}")
+    print(f"[phase 15] (c) prefill on the trained weights: "
+          f"{json.dumps(rwkv_train['prefill_on_trained'])} (tol {WKV_TOL} "
+          f"relative L2)")
+    print(f"[phase 15] (c) profiled step: {json.dumps(prof)} ({card})")
+    print(f"[phase 15] (c) {json.dumps(rwkv_train)}")
+    launcher = phase_train_launcher()
+    print(f"[phase 15] (d) python {launcher['cmd']}: exit "
+          f"{launcher['rc']} in {launcher['s']:.1f} s; "
+          + " | ".join(launcher["lines"]))
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [
@@ -2901,6 +3355,11 @@ def main() -> int:
             entry["conv_serving_launches"] = serve["engines"][
                 BACKEND_OF[entry["name"]]]["launches"][entry["name"]]
             entry["train_deploy_launches"] = deploy["launches"][entry["name"]]
+        if entry["name"] == "wkv6":
+            entry["trained_prefill_launches"] = rwkv_train[
+                "prefill_on_trained"]["wkv6_launches"]
+            entry["train_step_launches"] = rwkv_train[
+                "wkv6_launches_in_training"]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

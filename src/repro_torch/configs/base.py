@@ -98,24 +98,38 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The train step's batch policies and the prefill's attention form.
-    The JAX package's sharding and layout policies (fsdp, sequence and
-    expert parallelism, remat, scanned layers) come with multi-GPU
-    execution and LM training."""
+    """The train step's batch and memory policies and the prefill's
+    attention form, with the JAX package's names and defaults. Its sharding
+    and layout policies (fsdp, sequence and expert parallelism, scanned
+    layers) come with multi-GPU execution."""
+    remat: str = "block"            # none | block | full: recompute each
+                                    #   super-block in the backward pass
     microbatches: int = 1           # gradient accumulation splits
     grad_compress: bool = False     # int8 wire format on the gradients
+    vocab_chunking: int = 0         # logits and loss in N seq chunks (0=off)
     attn_q_chunk: int = 0           # >0: blocked attention with this q chunk
     attn_kv_block: int = 1024       #   and this kv block
+    wkv_chunk: int = 64             # chunk of the differentiable wkv6 form
+                                    #   the loss takes: JAX's `ops.wkv6`
+                                    #   default (the JAX config has no
+                                    #   field); 16 cannot overflow at any
+                                    #   decay the model allows
 
 
 @dataclass(frozen=True)
 class RunConfig:
-    """What a train step runs: the model, its shape cell and the batch
-    policies (the optimizer is built by the caller and passed beside it;
-    the JAX package's optimizer fields serve its LM `init_train_state`)."""
+    """What a train step runs: the model, its shape cell, the batch
+    policies, and the optimizer that `train.init_train_state` builds for a
+    language model (an SNN's caller builds its own and passes it beside
+    the run)."""
     model: Any                      # a ModelConfig, an SNNModelConfig, or None
     shape: Optional[ShapeConfig]
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    optimizer: str = "adamw"        # sgd | adam | adamw | adafactor
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    seed: int = 0
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

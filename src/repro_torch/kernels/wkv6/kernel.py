@@ -93,8 +93,16 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out (BH, K, V)), float32.
 
     Raises `ValueError` on a tensor the kernel does not take (K or V outside
-    `HEAD_SIZES`, T < 1, wrong device, dtype, shape or layout) and
-    `RuntimeError` when the launch returns a CUDA error."""
+    `HEAD_SIZES`, T < 1, wrong device, dtype, shape or layout), and in grad
+    mode on an input that requires a gradient: the kernel is forward-only
+    and its outputs would carry no graph (`ops.wkv6(use_kernel=False)` is
+    the differentiable route). `RuntimeError` when the launch returns a
+    CUDA error."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, w, u, s0)):
+        raise ValueError(f"the {NAME} kernel is forward-only and an input "
+                         "requires a gradient; differentiate through "
+                         "ops.wkv6(..., use_kernel=False)")
     device = r.device
     if device.type != "cuda":
         raise ValueError(f"the {NAME} kernel needs CUDA tensors, got r on "

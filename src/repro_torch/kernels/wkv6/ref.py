@@ -10,10 +10,15 @@ the membrane potential, w_t the leak, k v^T the synaptic accumulate.
   * `wkv6_sequential` -- a loop over T, the ground-truth oracle and the plain
     version the CUDA kernel (`kernel.py`) is held against;
   * `wkv6_chunked`    -- the chunked-parallel form of the JAX package's
-    `wkv6_chunked` (the algorithm its TPU kernel implements). It scales k by
-    exp(-L) over a chunk, which overflows float32 once the summed log-decay
-    of a chunk passes about -88 (w = exp(-e) over 64 steps reaches -174):
-    nothing on the serving path calls it.
+    `wkv6_chunked` (the algorithm its TPU kernel implements, and the form
+    the JAX package trains through). It is the differentiable route of
+    `ops.wkv6(use_kernel=False)`, which the language models' loss takes.
+    It scales k by exp(-L) over a chunk, which overflows float32 once the
+    summed log-decay of a chunk passes about -88.7: at the model's decay
+    clip (log w >= -e) a chunk of 64 steps can reach -174. A chunk of 32
+    cannot (-87.0), but its r exp(L) then nears float32's smallest normal
+    value; one of 16 keeps both factors within exp(+-43.5). Nothing on the
+    serving path calls it.
 
 Both take the (B*H, T, K/V) layout and return float32.
 """

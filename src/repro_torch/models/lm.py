@@ -4,6 +4,7 @@ swiglu or gelu FFNs, or the spiking FFN) and the RWKV family.
 The functional API of `repro.models.lm`, for those families:
 
   init_params(seed, cfg)                        -> params tree
+  loss_fn(params, batch, cfg, parallel)         -> (loss, aux)      [train]
   prefill(params, batch, cfg, max_len, parallel, length)
                                                 -> (logits_last, cache)
   decode_step(params, tokens, cache, cfg)       -> (logits, cache)  [serve]
@@ -15,11 +16,15 @@ Params and caches are nested dicts of tensors laid out as the JAX package's
 pytrees: every block leaf is stacked over the layer stack's super-blocks
 (one layer each: both families have period 1 and no prelude), under
 ``params["blocks"]["pos0"]``. The stack is a Python loop over those stacked
-leaves in place of ``lax.scan``. The KV cache is written in place: prefill
-fills the cache it allocates, and a decode step writes each lane's new K
-and V into the caller's cache tensors, which the new cache keeps. Any other
-family raises `NotImplementedError`: MoE, MLA, Mamba, encoder-decoder and
-the modality frontends; training (`loss_fn`) is not ported either.
+leaves in place of ``lax.scan``; in the loss, with ``parallel.remat`` set
+and grad mode on, each super-block runs under
+`torch.utils.checkpoint.checkpoint` (the JAX package's ``jax.checkpoint``
+per super-block), and RWKV's wkv recurrence takes the differentiable
+chunked form. The serving paths take neither. The KV cache is written in
+place: prefill fills the cache it allocates, and a decode step writes each
+lane's new K and V into the caller's cache tensors, which the new cache
+keeps. Any other family raises `NotImplementedError`: MoE, MLA, Mamba,
+encoder-decoder and the modality frontends.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -177,13 +183,19 @@ def _norm(x, w, cfg: ModelConfig):
     return L.rms_norm(x, w, cfg.norm_eps)
 
 
-def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool):
-    """One RWKV layer. Returns (x, new_cache_entry)."""
+def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool,
+                wkv_chunk: int = 0):
+    """One RWKV layer. Returns (x, new_cache_entry). ``wkv_chunk`` > 0
+    runs the recurrence through the differentiable chunked form in chunks
+    of that length (the loss); 0 through the kernel."""
     h_in = _norm(x, p["norm1"], cfg)
     st = (None if cache is None
           else {"shift": cache["shift_tm"], "wkv": cache["wkv"]})
     if decode:
         h, st = R.time_mix_decode(h_in, p["rwkv"]["tm"], cfg, st)
+    elif wkv_chunk:
+        h, st = R.time_mix(h_in, p["rwkv"]["tm"], cfg, st, use_kernel=False,
+                           chunk=wkv_chunk)
     else:
         h, st = R.time_mix(h_in, p["rwkv"]["tm"], cfg, st)
     x = x + h.to(x.dtype)
@@ -195,16 +207,20 @@ def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool):
 
 def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
                  cache: Optional[dict], pos=None,
-                 parallel: Optional[ParallelConfig] = None):
+                 parallel: Optional[ParallelConfig] = None,
+                 train: bool = False):
     """One layer. Returns (x, new_cache_entry, aux): aux is the spiking
     FFN's mean spike rate (0 otherwise). Decode (the one-token update) when
     a cache and ``pos`` are given and T == 1; prefill writes the prompt's K
-    and V into ``cache`` in place."""
+    and V into ``cache`` in place. ``train``: the loss's pass, where RWKV
+    takes the differentiable wkv6 form in chunks of
+    ``parallel.wkv_chunk``."""
     mixer, f = layer_kind(cfg, idx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = cache is not None and x.shape[1] == 1 and pos is not None
     if mixer == "rwkv":
-        x, new_cache = _apply_rwkv(x, p, cfg, cache, decode)
+        chunk = (parallel or ParallelConfig()).wkv_chunk if train else 0
+        x, new_cache = _apply_rwkv(x, p, cfg, cache, decode, chunk)
         return x, new_cache, aux
 
     h_in = _norm(x, p["norm1"], cfg)
@@ -240,26 +256,45 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
 
 
 def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
-               pos=None, parallel: Optional[ParallelConfig] = None):
+               pos=None, parallel: Optional[ParallelConfig] = None,
+               train: bool = False):
     """The layer stack, a loop over the stacked super-block leaves.
     Returns (x, new_cache, aux summed over layers). A cache leaf that every
     layer updated in place is the same tensor in the new cache; any other
-    is stacked anew from the layers' entries."""
+    is stacked anew from the layers' entries. ``train`` (the loss's pass,
+    no cache): with ``parallel.remat`` other than ``"none"`` and grad mode
+    on, each super-block is recomputed in the backward pass instead of
+    keeping its activations (``"block"`` and ``"full"`` alike, as in the
+    JAX package)."""
+    parallel = parallel or ParallelConfig()
     sp = super_period(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_blocks = None if cache is None else cache["blocks"]
-    olds, news = [], []
-    for s in range(n_super(cfg)):
-        p_s = tree_map(lambda a: a[s], params["blocks"])
-        c_s = (None if cache_blocks is None
-               else tree_map(lambda a: a[s], cache_blocks))
+    remat = train and parallel.remat != "none" and torch.is_grad_enabled()
+
+    def super_block(x, aux_total, p_s, c_s, s):
         c_new = {}
         for j in range(sp):
             x, c_new[f"pos{j}"], aux = _apply_block(
                 x, p_s[f"pos{j}"], cfg, s * sp + j, positions,
                 cache=None if c_s is None else c_s[f"pos{j}"], pos=pos,
-                parallel=parallel)
+                parallel=parallel, train=train)
             aux_total = aux_total + aux
+        return x, aux_total, c_new
+
+    def recomputed(x, aux_total, p_s, s):
+        return super_block(x, aux_total, p_s, None, s)[:2]
+
+    olds, news = [], []
+    for s in range(n_super(cfg)):
+        p_s = tree_map(lambda a: a[s], params["blocks"])
+        c_s = (None if cache_blocks is None
+               else tree_map(lambda a: a[s], cache_blocks))
+        if remat:
+            x, aux_total = checkpoint(recomputed, x, aux_total, p_s, s,
+                                      use_reentrant=False)
+            continue
+        x, aux_total, c_new = super_block(x, aux_total, p_s, c_s, s)
         olds.append(c_s)
         news.append(c_new)
     new_cache = None
@@ -296,6 +331,52 @@ def _logits(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
+
+def loss_fn(params, batch: dict, cfg: ModelConfig,
+            parallel: Optional[ParallelConfig] = None):
+    """Causal-LM cross entropy. batch: ``tokens`` and ``targets`` (B, T)
+    (integer arrays or tensors). The logits head runs in float32, then
+    `log_softmax`; with ``parallel.vocab_chunking`` = n > 1 the head and
+    the cross entropy run over n sequence chunks, each recomputed in the
+    backward pass, so one (B, T/n, vocab) logits buffer is live at a time
+    (n must divide T). Returns (loss, {"ce", "aux"}) with loss = ce +
+    0.01 * aux, aux the spiking FFNs' spike rates summed over layers (0
+    for the other FFNs)."""
+    parallel = parallel or ParallelConfig()
+    device = params["embed"].device
+    batch = {k: torch.as_tensor(v, device=device).long()
+             for k, v in batch.items()}
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, _, aux = _run_stack(params, x, cfg, positions, parallel=parallel,
+                           train=True)
+    x = _norm(x, params["final_norm"], cfg)
+    targets = batch["targets"]
+    n_chunks = max(parallel.vocab_chunking, 1)
+    B, T, _ = x.shape
+    if T % n_chunks != 0:
+        raise ValueError(f"vocab_chunking={n_chunks} must divide the "
+                         f"sequence length, got T={T}")
+
+    def ce(xc, tc):
+        lp = torch.log_softmax(_logits(params, xc, cfg), dim=-1)
+        return -torch.gather(lp, -1, tc[..., None])[..., 0]
+
+    if n_chunks == 1:
+        losses = ce(x, targets)
+    else:
+        step = T // n_chunks
+        parts = [(x[:, i * step:(i + 1) * step],
+                  targets[:, i * step:(i + 1) * step])
+                 for i in range(n_chunks)]
+        if torch.is_grad_enabled():
+            losses = torch.cat([checkpoint(ce, xc, tc, use_reentrant=False)
+                                for xc, tc in parts], dim=1)
+        else:
+            losses = torch.cat([ce(xc, tc) for xc, tc in parts], dim=1)
+    mean = losses.mean()
+    loss = mean + 0.01 * aux
+    return loss, {"ce": mean, "aux": aux}
+
 
 def _cache_entry(cfg: ModelConfig, batch: int, max_len: int, dtype, device
                  ) -> dict:

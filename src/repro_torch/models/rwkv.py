@@ -3,7 +3,10 @@
 The wkv state is the LM-scale analogue of the IMPULSE membrane potential
 (decay == learned leak). Prefill runs the recurrence through
 `kernels.wkv6.ops.wkv6`: the hand-written CUDA kernel on the card, its plain
-version on the CPU. Decode runs the one-step update as plain tensor code.
+version on the CPU. Training runs it through the same wrapper's
+differentiable chunked form (``use_kernel=False``), the jnp form the JAX
+package trains through. Decode runs the one-step update as plain tensor
+code.
 
 Block = time-mix (ddlerp token shift -> r, k, v, g, w -> wkv6 ->
 groupnorm * silu(g) -> out proj) + channel-mix (token shift -> relu^2 FFN
@@ -107,8 +110,11 @@ def _decay(xw: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
-             state: Optional[dict] = None):
+             state: Optional[dict] = None, *, use_kernel: bool = True,
+             chunk: int = 64):
     """x: (B, T, d). state: {"shift": (B, d), "wkv": (B, H, K, K)} or None.
+    ``use_kernel`` and ``chunk`` choose the wkv6 route (`ops.wkv6`): the
+    kernel, or the differentiable chunked form in chunks of ``chunk``.
     Returns (out (B, T, d) float32, new_state)."""
     B, T, d = x.shape
     H, K = cfg.n_heads, cfg.rwkv.head_size
@@ -120,7 +126,8 @@ def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
     g = F.silu(xg @ p["wg"])
     w = _decay(xw, p).reshape(B, T, H, K)
     s0 = None if state is None else state["wkv"]
-    y, s_new = wkv6(r, k, v, w, p["bonus"], s0=s0)
+    y, s_new = wkv6(r, k, v, w, p["bonus"], s0=s0, use_kernel=use_kernel,
+                    chunk=chunk)
     y = y.reshape(B, T, d)
     out = (_group_norm(y, p["gn_scale"], H) * g) @ p["wo"].float()
     return out, {"shift": x[:, -1], "wkv": s_new}

@@ -5,7 +5,9 @@ The FFN's hidden layer runs ``cfg.spiking.timesteps`` steps of IF/LIF/RMP
 dynamics (rate coding) with 6-bit fake-quantized weights; the normalized
 spike count is the activation. The temporal loop is the pipeline's float
 executor on a single-population program, built for the call's own
-``(T, d_ff)`` state shape.
+``(T, d_ff)`` state shape. Gradients flow through the surrogate spike, to
+the output and to the mean spike rate, which `lm.loss_fn` adds to the
+loss as aux.
 """
 from __future__ import annotations
 

@@ -194,7 +194,7 @@ class ServeEngine(SlotEngine):
         self.cfg = cfg
         self.B = batch_slots
         self.max_len = max_len
-        self.parallel = parallel or ParallelConfig()
+        self.parallel = parallel or ParallelConfig(remat="none")
         self.device = params["embed"].device
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: "queue.Queue[Request]" = queue.Queue()

@@ -6,8 +6,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig
-from repro_torch.optim import apply_updates, clip_by_global_norm
+from repro_torch.models import lm
+from repro_torch.optim import (apply_updates, clip_by_global_norm,
+                               make_optimizer)
+from repro_torch.optim.schedule import cosine_warmup
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -17,14 +21,26 @@ class TrainState(NamedTuple):
     step: torch.Tensor          # 0-d int32
 
 
-def init_train_state(*args, **kwargs):
-    """The language-model train state needs `models.lm.init_params` and
-    `lm.loss_fn` for a trainable family; the port serves RWKV only, so
-    this raises `NotImplementedError`. Build an SNN's state from its
-    parameters with `TrainState(params, opt.init(params), step)`."""
-    raise NotImplementedError(
-        "init_train_state builds a language model's train state, which "
-        "needs lm.loss_fn; the port has no LM training yet")
+def init_train_state(seed: int, run: RunConfig, total_steps: int = 10_000,
+                     dtype=torch.bfloat16, device=None
+                     ) -> tuple[TrainState, Any]:
+    """A language model's train state and its optimizer: `lm.init_params`
+    from ``seed`` in ``dtype`` on ``device`` (the CUDA device unless
+    given), ``run.optimizer`` at ``run.learning_rate`` with a cosine
+    warm-up over ``run.warmup_steps`` to ``total_steps``, and step 0. An
+    SNN's state is built from its parameters with
+    ``TrainState(params, opt.init(params), step)``."""
+    device = resolve_device(device)
+    params = lm.init_params(seed, run.model, dtype=dtype, device=device)
+    opt = _make_opt(run, total_steps)
+    return (TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=device)),
+            opt)
+
+
+def _make_opt(run: RunConfig, total_steps: int):
+    lr = cosine_warmup(run.learning_rate, run.warmup_steps, total_steps)
+    return make_optimizer(run.optimizer, lr, run.weight_decay)
 
 
 def make_train_step(run: RunConfig, opt, loss_fn: Callable | None = None,
@@ -41,13 +57,14 @@ def make_train_step(run: RunConfig, opt, loss_fn: Callable | None = None,
     and a live one step alike. metrics: ``loss``, ``grad_norm`` and
     ``step``, as detached tensors.
 
-    ``loss_fn`` None means the language-model loss, which the port does not
-    have yet (raises `NotImplementedError`)."""
-    if loss_fn is None:
-        raise NotImplementedError(
-            "make_train_step needs loss_fn: the default, lm.loss_fn (the "
-            "language-model loss), is not part of the port yet")
+    ``loss_fn`` None means the language-model loss, `lm.loss_fn` of
+    ``run.model`` under ``run.parallel``."""
     parallel = run.parallel
+    if loss_fn is None:
+        cfg = run.model
+
+        def loss_fn(p, b):
+            return lm.loss_fn(p, b, cfg, parallel)
 
     def grads_of(params, batch):
         leaves = [p.detach().requires_grad_(True)

@@ -336,10 +336,21 @@ def test_microbatches_match_the_full_batch():
 
 
 def test_train_step_without_a_loss_fn_names_the_lm_loss():
-    with pytest.raises(NotImplementedError, match="lm.loss_fn"):
-        make_train_step(run_cfg(), optim.adamw(1e-3))
-    with pytest.raises(NotImplementedError, match="lm.loss_fn"):
-        init_train_state(0, run_cfg())
+    """Without a loss the train step takes the language-model loss,
+    `lm.loss_fn` of the run's model under the run's parallel config (the
+    JAX package's default), on the state `init_train_state` builds."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import lm
+    run = RunConfig(model=reduced_config(get_config("llama3.2-1b")),
+                    shape=ShapeConfig("lm", 16, 2, "train"),
+                    parallel=ParallelConfig(remat="none"))
+    state, opt = init_train_state(0, run, total_steps=4,
+                                  dtype=torch.float32, device="cpu")
+    b = loader.lm_batch_fn(512, 2, 16, seed=0)(0, 0, 1)
+    _, m = make_train_step(run, opt)(state, b)
+    with torch.no_grad():
+        want, _ = lm.loss_fn(state.params, b, run.model, run.parallel)
+    assert torch.equal(m["loss"], want)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ Tolerance 2e-4 relative and absolute, the JAX package's own for its wkv6
 tests: both sides compute in float32, in different summation orders.
 
 On the CPU the wrapper runs its plain version; the `cuda`-marked tests hold
-the CUDA kernel against it on the card (``pytest -m cuda``). JAX is
+the CUDA kernel against it on the card (``pytest -m cuda``). The
+differentiable route (``use_kernel=False``, the chunked form the language
+models' loss takes) is held against JAX's padded `ops.wkv6` and its
+`jax.grad`. JAX is
 imported inside the tests that need it, so the card-only tests also run
 where JAX is not installed.
 """
@@ -213,6 +216,109 @@ def test_cuda_binding_refuses_cpu_tensors():
         kernel.wkv6_cuda(*bh[:4], bh[4], s0)
 
 
+def test_cuda_binding_refuses_inputs_that_require_grad():
+    """The kernel is forward-only: in grad mode an input that requires a
+    gradient is refused before anything else is checked (its outputs would
+    carry no graph, and the gradient upstream of the recurrence would be
+    silently lost); under no_grad the same call reaches the device check."""
+    bh = [t(x) for x in bh_inputs(*wkv_inputs(1, 4, 1, 16, 16))]
+    s0 = torch.zeros((1, 16, 16))
+    for i in range(6):
+        args = [x.clone() for x in (*bh, s0)]
+        args[i].requires_grad_(True)
+        with pytest.raises(ValueError, match="forward-only"):
+            kernel.wkv6_cuda(*args)
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+            kernel.wkv6_cuda(*args)
+
+
+def grad_inputs(B, T, H, K, V, seed):
+    """Model-layout inputs, a random initial state and random cotangents
+    of y and the final state, as numpy float32 arrays."""
+    rng = np.random.default_rng(seed + 100)
+    s0 = rng.standard_normal((B, H, K, V)).astype(np.float32) * 0.5
+    gy = rng.standard_normal((B, T, H, V)).astype(np.float32)
+    gs = rng.standard_normal((B, H, K, V)).astype(np.float32)
+    return wkv_inputs(B, T, H, K, V, seed=seed), s0, gy, gs
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65])
+def test_differentiable_route_pads_as_jax(T):
+    """``use_kernel=False``: the chunked form with T padded to the chunk of
+    64 (w = 1, k = r = v = 0) against JAX `ops.wkv6(use_pallas=False)`,
+    which pads the same way, from a carried state; and against the
+    sequential form."""
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
+    B, H, K, V = 2, 2, 32, 32
+    inputs, s0, _, _ = grad_inputs(B, T, H, K, V, seed=T)
+    y, s = ops.wkv6(*map(t, inputs), s0=t(s0), use_kernel=False)
+    assert y.shape == (B, T, H, V) and s.shape == (B, H, K, V)
+    y_j, s_j = jax_wkv6(*map(jnp.asarray, inputs), s0=jnp.asarray(s0),
+                        use_pallas=False)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), **TOL)
+    y_s, s_s = ops.wkv6(*map(t, inputs), s0=t(s0))
+    np.testing.assert_allclose(y.numpy(), y_s.numpy(), **TOL)
+    np.testing.assert_allclose(s.numpy(), s_s.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("T", [40, 100])
+def test_differentiable_route_gradients_match_jax(T):
+    """Gradients of <y, gy> + <s_out, gs> with respect to r, k, v, w, u
+    and s0 through the route, against `jax.grad` of JAX's `ops.wkv6`
+    (the padded `wkv6_chunked`), each within 2e-4 relative L2."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
+    B, H, K, V = 2, 2, 32, 32
+    inputs, s0, gy, gs = grad_inputs(B, T, H, K, V, seed=T)
+    xs = [t(x).requires_grad_(True) for x in (*inputs, s0)]
+    y, s = ops.wkv6(*xs[:5], s0=xs[5], use_kernel=False)
+    obj = (y * t(gy)).sum() + (s * t(gs)).sum()
+    grads = torch.autograd.grad(obj, xs)
+
+    def jobj(r, k, v, w, u, s0):
+        y, s = jax_wkv6(r, k, v, w, u, s0=s0, use_pallas=False)
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+    jgrads = jax.grad(jobj, argnums=tuple(range(6)))(
+        *map(jnp.asarray, (*inputs, s0)))
+    for name, g, jg in zip("rkvwus", grads, jgrads):
+        jg = np.asarray(jg, np.float64)
+        err = np.linalg.norm(g.numpy() - jg) / np.linalg.norm(jg)
+        assert err <= 2e-4, (name, err)
+
+
+def test_a_chunk_of_16_stays_finite_where_jax_chunk_64_overflows():
+    """At the strongest decay the model's clip allows (w = exp(-e) every
+    step) JAX's chunked form overflows at its default chunk of 64 (exp(-L)
+    over 64 steps is exp(174)), and the port's route does the same. At a
+    chunk of 32 the exponent stays inside float32 (exp(87.0)), but r
+    exp(L) reaches the edge of its normal range, and JAX's CPU form (which
+    flushes subnormals) already misses by 0.046 there; at 16 (exp(43.5))
+    both stay finite and equal the sequential form."""
+    import jax.numpy as jnp
+
+    from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
+    inputs = wkv_inputs(1, 64, 1, 64, 64, seed=17, w_const=STRONG)
+    y64, _ = ops.wkv6(*map(t, inputs), use_kernel=False, chunk=64)
+    y64_j, _ = jax_wkv6(*map(jnp.asarray, inputs), use_pallas=False,
+                        chunk=64)
+    assert not torch.isfinite(y64).all()
+    assert not np.isfinite(np.asarray(y64_j)).all()
+    y16, s16 = ops.wkv6(*map(t, inputs), use_kernel=False, chunk=16)
+    y16_j, s16_j = jax_wkv6(*map(jnp.asarray, inputs), use_pallas=False,
+                            chunk=16)
+    y_s, s_s = jax_sequential(*inputs)
+    assert torch.isfinite(y16).all() and torch.isfinite(s16).all()
+    np.testing.assert_allclose(y16.numpy(), np.asarray(y16_j), **TOL)
+    np.testing.assert_allclose(s16.numpy(), np.asarray(s16_j), **TOL)
+    np.testing.assert_allclose(to_bh(y16.numpy()), y_s, **TOL)
+    np.testing.assert_allclose(s16.numpy().reshape(64, 64), s_s[0], **TOL)
+
+
 @pytest.mark.parametrize("K", kernel.HEAD_SIZES)
 @pytest.mark.parametrize("V", kernel.HEAD_SIZES)
 def test_launch_plan_fits_a_hopper_block(K, V):
@@ -289,6 +395,23 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, case):
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     torch.testing.assert_close(y, y_p, **TOL)
     torch.testing.assert_close(s, s_p, **TOL)
+
+
+@pytest.mark.cuda
+def test_differentiable_route_launches_no_kernel_on_the_card(cuda_device):
+    """On the card the route differentiates (every input gets a non-zero
+    gradient) and launches no kernel; the kernel refuses the same inputs
+    in grad mode."""
+    from repro_torch import kernels
+    xs = [t(x).to(cuda_device).requires_grad_(True)
+          for x in wkv_inputs(2, 100, 4, 64, 64)]
+    before = kernels.LAUNCH_COUNTS["wkv6"]
+    y, s = ops.wkv6(*xs, use_kernel=False)
+    grads = torch.autograd.grad(y.square().sum() + s.sum(), xs)
+    assert kernels.LAUNCH_COUNTS["wkv6"] == before
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.wkv6(*xs)
 
 
 @pytest.mark.cuda
