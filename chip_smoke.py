@@ -177,18 +177,35 @@ Phases, each of which exits non-zero on failure:
      prefill on the trained weights through the kernel, one launch a
      layer, each within 2e-4 of `wkv6_sequential`; (d) `python -m
      repro_torch.launch.train --arch llama3.2-1b --steps 10` as a
-     subprocess: exit 0 and its lines.
+     subprocess: exit 0 and its lines;
+ 16. the MoE super-block, which launches no port kernel: (a)
+     llama4-maverick-400b-a17b with every published width (5120, 40 query
+     and 8 KV heads of 128, dense d_ff 16,384, 128 routed experts of d_ff
+     8,192 at top-1 plus one shared expert, vocab 202,048) cut to 2 of its
+     48 layers, one dense/MoE super-block (37.4 GB of bf16 weights drawn
+     on the card from seed 0, each expert into its slot), served as phase
+     14 serves: every logit finite, the compiled engine == the eager one
+     token for token, tokens/s (median of 3 in turns), the time to the
+     first token per bucket (8, 16, 1,024), a profiled drain's idle share
+     and top ops, the peak memory, the drop count of each bucketed
+     prefill's MoE layer and one decode graph replay against the bytes a
+     tick must read; (b) `moe_ffn` at full width on layer 1's input in a
+     1,024-token prefill (cap 10, so tokens drop): within 2e-2 relative
+     L2 of a float32 per-token reference that rebuilds the keep mask
+     itself, dropped tokens == the shared expert bit for bit, and the
+     router's top-1 on the card == the CPU's but at near ties (top-2
+     logit gap under 1e-4, printed).
 
-Then one `kernels` JSON line with all five kernels, each redesigned for
-this card (the dense, gated and event-list modes, wkv6 and
-fused_snn_step) with `redesigned_in` and its registers and spills; each
-fused-network mode names its paths and its launches in the conv serving
-drain (`conv_serving_launches`), in the deployment of the trained
-IMDB net (`train_deploy_launches`) and in phase 13's graphed drains
-(`graphed_launches`). The
-last line is {"ok": true, "device": {...}}. Without a CUDA device, or
-without the repository's src/repro_torch beside this file, it prints no
-result and exits 1.
+Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
+line with all five kernels, each redesigned for this card (the dense,
+gated and event-list modes, wkv6 and fused_snn_step) with
+`redesigned_in` and its registers and spills; each fused-network mode
+names its paths and its launches in the conv serving drain
+(`conv_serving_launches`), in the deployment of the trained IMDB net
+(`train_deploy_launches`) and in phase 13's graphed drains
+(`graphed_launches`). The last line is {"ok": true, "device": {...}}.
+Without a CUDA device, or without the repository's src/repro_torch
+beside this file, it prints no result and exits 1.
 """
 import contextlib
 import dataclasses
@@ -297,6 +314,13 @@ RWKV_TRAIN_CHUNK = 16             # the chunked wkv6 cannot overflow at 16
 LM_LOSS_RTOL, LM_GRAD_RL2, LM_CHUNK_RTOL = 1e-5, 1e-4, 1e-6
 LM_MB_LOSS_RTOL, LM_MB_ATOL = 2e-2, 5e-2
 LM_NONDET_RL2 = 1e-6
+# Phase 16: the MoE super-block of llama4-maverick at full width
+MOE_ARCH = "llama4-maverick-400b-a17b"
+MOE_LAYERS = 2                    # of 48: one dense/MoE super-block (2 would
+                                  #   hold about 70 GB of bf16 weights)
+MOE_PROMPT = 1024                 # tokens of the full-width moe_ffn check
+MOE_REF_RL2 = 2e-2                # bf16 moe_ffn vs the float32 reference
+MOE_TIE_GAP = 1e-4                # router logit gap of a card/CPU top-1 split
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -2335,7 +2359,8 @@ def serve_dense(dev, cfg, params, label: str, long_prompts: list,
             for f in prefills)):
         raise AssertionError(f"{label}: a prefill bucket was not graphed")
     out["lru"] = list(geng._prefill_cache)
-    out["kv_cache_bytes"] = sum(geng.cache["blocks"]["pos0"][leaf].nbytes
+    out["kv_cache_bytes"] = sum(pos[leaf].nbytes
+                                for pos in geng.cache["blocks"].values()
                                 for leaf in ("k", "v"))
     by_bucket = {}
     for r in reqs:
@@ -2343,6 +2368,9 @@ def serve_dense(dev, cfg, params, label: str, long_prompts: list,
     out["ttft_ms"] = {
         mode: {b: 1e3 * bucket_ttft(eng, p) for b, p in by_bucket.items()}
         for mode, eng in (("graphed", geng), ("eager", engines["eager"]))}
+    # device ms of one decode graph replay; the replays advance the served
+    # engine's lanes past their requests, and nothing reads them after
+    out["decode_tick_ms"] = device_ms(geng._decode, 10)[0]
     return out
 
 
@@ -2575,8 +2603,8 @@ def print_dense(dense: dict, cfg, card: str) -> None:
     print(f"[phase 14] (a) time to first token per bucket (ms, median of "
           f"3): {json.dumps(srv['ttft_ms'])} ({card})")
     print(f"[phase 14] (a) KV cache {srv['kv_cache_bytes']} bytes; float32 "
-          f"logits head at B = 4: {json.dumps(dense['logits_head'])} "
-          f"({card})")
+          f"logits head at B = 4: {json.dumps(dense['logits_head'])}; one "
+          f"decode graph replay {srv['decode_tick_ms']:.3f} ms ({card})")
     print(f"[phase 14] (a) drains: {json.dumps(comp)} ({card})")
     d = dense["blocked_vs_sdpa"]
     print(f"[phase 14] (b) blocked_attention (q_chunk {d['q_chunk']}, "
@@ -2937,6 +2965,240 @@ def phase_train_launcher() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the MoE super-block (llama4-maverick) at full width
+# ---------------------------------------------------------------------------
+
+def moe_drops(x, p, cfg, capacity_factor: float = 1.25) -> torch.Tensor:
+    """(token, choice) pairs past their expert's capacity in one `moe_ffn`
+    call on ``x`` (B, T, d) with its default groups, counted from the
+    router's top-k by a per-group bincount (no sort): a device scalar."""
+    from repro_torch.models import layers as L
+    m = cfg.moe
+    B, T, d = x.shape
+    G = B if T > 1 else 1
+    n = B * T // G
+    probs = torch.softmax(x.reshape(G, n, d).float() @ p["router"], -1)
+    eidx = L._topk_first(probs, m.top_k)[1].reshape(G, n * m.top_k)
+    cap = max(int(np.ceil(n * m.top_k / m.n_experts * capacity_factor)), 4)
+    counts = torch.zeros((G, m.n_experts), dtype=torch.long,
+                         device=x.device).scatter_add_(
+        1, eidx, torch.ones_like(eidx))
+    return (counts - cap).clamp(min=0).sum()
+
+
+@contextlib.contextmanager
+def recorded_moe():
+    """Wrap `layers.moe_ffn` as the model calls it: record each call's
+    input (a copy) and its drop count (`moe_drops`, a device scalar)."""
+    from repro_torch.models import layers as L
+    orig, seen = L.moe_ffn, []
+
+    def call(x, p, cfg, **kw):
+        seen.append((x.clone(), moe_drops(x, p, cfg)))
+        return orig(x, p, cfg, **kw)
+    L.moe_ffn = call
+    try:
+        yield seen
+    finally:
+        L.moe_ffn = orig
+
+
+def prefill_drops(params, cfg, long_prompts: list) -> list:
+    """Each request's prefill as the engine pads it to its bucket (the
+    padding is routed too), with the drop count of its MoE layer."""
+    from repro_torch.serve import ServeEngine
+
+    class EagerEngine(ServeEngine):
+        _compiled = False
+    eng = EagerEngine(params, cfg, batch_slots=4, max_len=DENSE_MAX_LEN)
+    rows = []
+    for r in lm_requests(cfg, long_prompts):
+        with recorded_moe() as seen:
+            eng._prefill(r.prompt)
+        rows.append({"rid": r.rid, "len": len(r.prompt),
+                     "bucket": eng._prefill_bucket(len(r.prompt)),
+                     "drops": [int(n) for _, n in seen]})
+    return rows
+
+
+def moe_reference(x, p, cfg) -> tuple:
+    """An independent float32 per-token reference of top-1 `moe_ffn` on
+    ``x`` (1, n, d): each token's expert is the argmax of its float32
+    router logits (the lowest index on a tie); the keep mask is rebuilt as
+    the first ``cap`` tokens of each expert in token order; a kept token
+    gets its expert (gate 1 after renormalising) plus the shared expert,
+    a dropped one the shared expert alone, all in float32 from the bf16
+    weights. Returns (out (1, n, d) float32, keep (n,), expert (n,))."""
+    import torch.nn.functional as F
+    m = cfg.moe
+    if m.top_k != 1 or x.shape[0] != 1:
+        raise ValueError("the reference covers top-1 routing of one row")
+    xf = x[0].float()
+    n = xf.shape[0]
+    cap = max(int(np.ceil(n / m.n_experts * 1.25)), 4)
+    top = (xf @ p["router"]).argmax(-1)
+    onehot = F.one_hot(top, m.n_experts)
+    keep = ((onehot.cumsum(0) * onehot).sum(-1) - 1) < cap
+
+    def swiglu(h, g, u, dn):
+        return (F.silu(h @ g.float()) * (h @ u.float())) @ dn.float()
+    sh = p["shared"]
+    out = swiglu(xf, sh["gate"], sh["up"], sh["down"])
+    ex = p["experts"]
+    for e in torch.unique(top[keep]).tolist():
+        rows = (top == e) & keep
+        out[rows] += swiglu(xf[rows], ex["gate"][e], ex["up"][e],
+                            ex["down"][e])
+    return out[None], keep, top
+
+
+def moe_ffn_checks(params, cfg, prompt: np.ndarray) -> dict:
+    """Phase 16(b): `moe_ffn` at full width on layer 1's served weights and
+    its input in a prefill of ``prompt``: the float32 per-token reference,
+    dropped tokens == the shared expert, the router's top-1 on the card
+    against the CPU's (near ties only), and the call's device ms beside the
+    bytes it must read."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    p1 = lm.tree_map(lambda a: a[0], params["blocks"])["pos1"]["moe"]
+    with recorded_moe() as seen:
+        lm.prefill(params, {"tokens": torch.as_tensor(prompt[None],
+                                                      device=dev)},
+                   cfg, DENSE_MAX_LEN)
+    x = seen[0][0]
+    n = x.shape[1]
+    cap = max(int(np.ceil(n / cfg.moe.n_experts * 1.25)), 4)
+    y, lb = L.moe_ffn(x, p1, cfg)
+    ref, keep, top = moe_reference(x, p1, cfg)
+    shared = L.ffn(x, p1["shared"], "swiglu")
+    dropped = ~keep
+    out = {"tokens": n, "cap": cap, "drops": int(dropped.sum()),
+           "drops_by_count": int(moe_drops(x, p1, cfg)),
+           "lb_aux": float(lb),
+           "dropped_equal_shared": bool(torch.equal(y[0, dropped],
+                                                    shared[0, dropped])),
+           "vs_f32_reference": rel_diff(y[0].float(), ref[0]),
+           "tolerance_rel_l2": MOE_REF_RL2}
+    # the router's top-1 on the card against the CPU's (TF32 off)
+    xc, rc = x[0].float().cpu(), p1["router"].cpu()
+    logits_cpu = xc @ rc
+    top_cpu = logits_cpu.argmax(-1)
+    split = (top_cpu != top.cpu()).nonzero().flatten()
+    two = logits_cpu.topk(2, dim=-1).values
+    gaps = (two[:, 0] - two[:, 1])
+    out["router_top1_card_vs_cpu"] = {
+        "disagree": int(split.numel()),
+        "gaps_of_disagreements": [float(gaps[i]) for i in split],
+        "smallest_gap": float(gaps.min()), "tie_bound": MOE_TIE_GAP}
+    expert_bytes = sum(t.nbytes for t in p1["experts"].values())
+    other = p1["router"].nbytes + tree_bytes(p1["shared"])
+    out["ms"] = {
+        "prefill": device_ms(lambda: L.moe_ffn(x, p1, cfg), 5)[0],
+        "decode_B4": device_ms(lambda: L.moe_ffn(
+            x[:, :4].transpose(0, 1), p1, cfg), 5)[0],
+        "bound": (expert_bytes + other) / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes (all experts' weights, read once)"}
+    if not (out["drops"] > 0 and out["drops"] == out["drops_by_count"]
+            and out["dropped_equal_shared"]):
+        raise AssertionError(f"moe_ffn: the drops on {n} tokens at cap {cap} "
+                             f"are not what the reference rebuilt: {out}")
+    if not out["vs_f32_reference"]["rel_l2"] <= MOE_REF_RL2:
+        raise AssertionError(f"moe_ffn: bf16 output vs the float32 "
+                             f"reference beyond {MOE_REF_RL2}: {out}")
+    if not all(g < MOE_TIE_GAP for g in
+               out["router_top1_card_vs_cpu"]["gaps_of_disagreements"]):
+        raise AssertionError(f"router top-1: a card/CPU disagreement is not "
+                             f"a near tie: {out['router_top1_card_vs_cpu']}")
+    return out
+
+
+def phase_moe(dev, cfg) -> dict:
+    """Phase 16: ``cfg`` (llama4-maverick at every published width, cut to
+    one dense/MoE super-block) with bf16 weights from seed 0 drawn on
+    ``dev``: (a) served by ServeEngine as phase 14 serves (eager and
+    graphed drains, buckets 8, 16 and 1,024, TTFT, a profiled drain), the
+    peak memory, each prefill's drops and a decode tick's bound; (b)
+    `moe_ffn` at full width against its references."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(a.numel() for a in leaves(params)),
+           "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(),
+           "param_bytes": tree_bytes(params),
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    rng = np.random.default_rng(SEED + 3)
+    long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
+                    for _ in range(2)]
+    kernels.reset_launch_counts()
+    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts)
+    out["port_kernel_launches"] = {k: v for k, v in
+                                   kernels.LAUNCH_COUNTS.items() if v}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    free_cuda()
+    # the bytes a decode tick must read: every weight but the embedding's
+    # unread rows (the dense bucket product touches all experts)
+    tick = out["param_bytes"] - params["embed"].nbytes + 4 * cfg.d_model * 2
+    out["decode_tick_bound"] = {
+        "bytes": tick, "ms": tick / PEAK_BYTES_PER_S * 1e3,
+        "measured_ms": out["serve"]["decode_tick_ms"]}
+    out["prefill_drops"] = prefill_drops(params, cfg, long_prompts)
+    out["moe_ffn"] = moe_ffn_checks(
+        params, cfg, rng.integers(0, cfg.vocab_size, MOE_PROMPT))
+    del params
+    free_cuda()
+    return out
+
+
+def print_moe(moe: dict, cfg, card: str) -> None:
+    """Phase 16's lines."""
+    srv = moe.pop("serve")
+    comp = srv.pop("compiled")
+    f = moe.pop("moe_ffn")
+    print(f"[phase 16] (a) {cfg.arch_id} at full width cut to {cfg.n_layers}"
+          f" of 48 layers (one dense/MoE super-block): {moe['params']} "
+          f"params (bf16, {moe['param_bytes']} bytes) drawn on the card in "
+          f"{moe['init_s']:.2f} s (init peak {moe['init_peak_bytes']} "
+          f"bytes); eager engine: 8 requests (6 of 4 to 16 tokens, 2 of "
+          f"{DENSE_LONG}) x {LM_NEW} tokens, 4 slots, {srv['tokens_per_s']:.2f}"
+          f" tokens/s, every logit finite ({srv['logits_checked']} calls); "
+          f"buckets {srv['buckets']}; port kernel launches "
+          f"{moe['port_kernel_launches'] or 'none (no kernel on this path)'}")
+    print(f"[phase 16] (a) compiled engine == eager engine, token for token; "
+          f"tokens/s (median of 3 in turns): eager "
+          f"{comp['eager']['tokens_per_s']:.2f}, graphed "
+          f"{comp['graphed']['tokens_per_s']:.2f}; device idle eager "
+          f"{comp['eager']['device_idle_share']:.3f}, graphed "
+          f"{comp['graphed']['device_idle_share']:.3f}; time to first token "
+          f"(ms): {json.dumps(srv['ttft_ms'])}; peak {moe['peak_bytes']} "
+          f"bytes ({card})")
+    print(f"[phase 16] (a) decode tick: {srv['decode_tick_ms']:.3f} ms a "
+          f"graph replay against a bound of "
+          f"{moe['decode_tick_bound']['ms']:.3f} ms "
+          f"({moe['decode_tick_bound']['bytes']} bytes at 3.35 TB/s: all "
+          f"{cfg.moe.n_experts} experts' weights are read) ({card})")
+    print(f"[phase 16] (a) drops of each bucketed prefill's MoE layer: "
+          f"{json.dumps(moe['prefill_drops'])}")
+    print(f"[phase 16] (a) drains and profiled top ops: {json.dumps(comp)} "
+          f"({card})")
+    print(f"[phase 16] (b) moe_ffn at full width on layer 1's input in a "
+          f"{f['tokens']}-token prefill (cap {f['cap']}, {f['drops']} "
+          f"dropped): vs the float32 "
+          f"per-token reference rel L2 "
+          f"{f['vs_f32_reference']['rel_l2']:.3e} (tol {MOE_REF_RL2}); "
+          f"dropped tokens == the shared expert bit for bit; router top-1 "
+          f"card vs CPU: {json.dumps(f['router_top1_card_vs_cpu'])}: ok")
+    print(f"[phase 16] (b) moe_ffn device ms: {json.dumps(f['ms'])} ({card})")
+
+
 def leaves(tree) -> list:
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
@@ -2960,6 +3222,14 @@ def main() -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
+    clock = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        """Print the seconds since the last lap and since the start."""
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - clock[0]:.1f} s (total "
+              f"{now - start:.1f} s of the 1,200 s limit)")
+        clock[0] = now
     print(f"[phase 1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(dev)}")
     t0 = time.perf_counter()
@@ -2983,11 +3253,13 @@ def main() -> int:
                 print(f"[phase 1] ptxas ({name}): {line.strip()}")
         usage.update(kernel_usage(_build.ptxas_usage(log)))
     print(f"[phase 1] registers and spills: {json.dumps(usage)}")
+    lap("phase 1")
 
     checked = phase_kernel_vs_plain(ops, dev)
     for name, (n_cases, worst) in checked.items():
         print(f"[phase 2] {name} == plain version on the card in {n_cases} "
               f"cases (max |diff| {worst})")
+    lap("phase 2")
 
     serving = phase_serving(dev)
     print(f"[phase 3] int_ref engine on the card: "
@@ -2999,6 +3271,7 @@ def main() -> int:
               f"{row['frames_per_s']:.1f} frames/s ({row['s']:.4f} s), every "
               f"request equal to the int_ref engine; {json.dumps(row)}")
         print(f"[phase 3] {backend} profiled drain: {json.dumps(profile)}")
+    lap("phase 3")
 
     entries, serve_ms = [], {}
     for name in REPLACES:
@@ -3047,6 +3320,7 @@ def main() -> int:
         if name in vs_dense:
             entry["vs_dense"] = vs_dense[name]
 
+    lap("phase 4")
     wkv = phase_wkv6_vs_plain(dev)
     for row in wkv["rows"]:
         print(f"[phase 5] {row} (tol {WKV_TOL} rel + {WKV_TOL} abs): ok")
@@ -3054,6 +3328,7 @@ def main() -> int:
           f"{len(wkv['rows'])} cases: max|dy| {wkv['max_abs_err_y']:.3e}, "
           f"max|ds| {wkv['max_abs_err_s']:.3e}")
 
+    lap("phase 5")
     cfg = get_config("rwkv6-7b")
     lmrun = phase_rwkv(dev, cfg)
     profile = lmrun.pop("profile")
@@ -3094,6 +3369,7 @@ def main() -> int:
         "serving_tokens_per_s": lmrun["tokens_per_s"],
         "device_idle_share": profile["device_idle_share"]})
 
+    lap("phase 6")
     step = phase_step_vs_plain(dev)
     print(f"[phase 7] fused_snn_step == plain version on the card in "
           f"{step['cases']} cases (max |diff| {step['max_abs_err']})")
@@ -3137,6 +3413,7 @@ def main() -> int:
         "ptxas": {k: v for k, v in usage.items()
                   if k.startswith("fused_snn_step<")}})
 
+    lap("phases 7-8")
     conv = phase_conv(dev)
     launch_ms = conv["cuda_dense_launch_ms"]
     if len(launch_ms) != 3:
@@ -3153,6 +3430,7 @@ def main() -> int:
           f"instruction counts); encoder on the card == CPU: "
           f"{json.dumps(conv)} ({card})")
 
+    lap("phase 9")
     serve = phase_conv_serving(dev, ops)
     for backend, row in serve["streaming"].items():
         print(f"[phase 10] {backend}: 8 impulse-mnist images streamed 10 "
@@ -3179,12 +3457,14 @@ def main() -> int:
         print(f"[phase 10] contracts vs launch, {backend}: the contract pass "
               f"accepted exactly the {row['launched']} stacks that launched "
               f"and refused {row['refused']}, each as the wrapper did")
+    lap("phase 10")
     oracle = phase_macro_oracle(dev)
     for name, row in oracle.items():
         print(f"[phase 11] {name} (wrap): bitmacro on the host == cuda on the "
               f"card (V, rasters, readout), macro counts == raster count less "
               f"the readout's, in {row['bitmacro_s']:.2f} s of host time: "
               f"{json.dumps(row)}")
+    lap("phase 11")
     step_vs_cpu = phase_train_step_vs_cpu(dev)
     print(f"[phase 12] (a) one IMDB train step (make_train_step, SGD lr 1) "
           f"at full width, B = {TRAIN_BATCH}, {TRAIN_WORDS} words: card vs "
@@ -3228,6 +3508,7 @@ def main() -> int:
     lenet = phase_lenet_train(dev)
     print(f"[phase 12] (e) impulse-mnist {LENET_STEPS} lenet_loss steps at "
           f"batch {LENET_BATCH}: {json.dumps(lenet)}")
+    lap("phase 12")
     compiled = phase_compiled(dev)
     for name, res in compiled.items():
         for backend, row in res["backends"].items():
@@ -3253,6 +3534,7 @@ def main() -> int:
           f"{lm_cmp['eager']['device_idle_share']:.3f}, graphed "
           f"{lm_cmp['graphed']['device_idle_share']:.3f}; the graphed drain "
           f"served the eager drain's tokens ({card})")
+    lap("phase 13")
     dense_cfg = get_config(DENSE_ARCH)
     dense = phase_dense(dev, dense_cfg)
     print_dense(dense, dense_cfg, card)
@@ -3274,6 +3556,7 @@ def main() -> int:
     print(f"[phase 14] (c) {json.dumps(spk)}; serve {json.dumps(srv)}")
     print(f"[phase 14] (c) compiled vs eager drains: {json.dumps(comp)} "
           f"({card})")
+    lap("phase 14")
     lm_train = phase_lm_train(dev, get_config(SPIKING_ARCH))
     checks = lm_train.pop("f32_checks")
     prof = lm_train.pop("profiled_step")
@@ -3338,6 +3621,12 @@ def main() -> int:
     print(f"[phase 15] (d) python {launcher['cmd']}: exit "
           f"{launcher['rc']} in {launcher['s']:.1f} s; "
           + " | ".join(launcher["lines"]))
+    lap("phase 15")
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    moe = phase_moe(dev, moe_cfg)
+    print_moe(moe, moe_cfg, card)
+    print(f"[phase 16] {json.dumps(moe)}")
+    lap("phase 16")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

@@ -3,16 +3,29 @@ config, the registry, `reduced_config`, and the run configs training reads.
 
 The port's own copy of the fields of `repro.configs.base` that the dense
 attention family (GQA, RoPE, swiglu or gelu FFNs, the spiking FFN), the
-RWKV family and the train step read (it imports nothing of the JAX
-package). The other families' sub-configs (MoE, MLA, SSM, encoder-decoder,
+MoE super-block (routed and shared experts interleaved with dense layers),
+the RWKV family and the train step read (it imports nothing of the JAX
+package). The other families' sub-configs (MLA, SSM, encoder-decoder,
 frontends) are not here: `models.lm` raises `NotImplementedError` for a
 config of any other family.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0              # routed experts (0 = dense)
+    top_k: int = 1
+    n_shared_experts: int = 0
+    d_ff: int = 0                   # per-expert hidden dim
+    every: int = 1                  # MoE on layers where (idx % every == every-1)
+    first_k_dense: int = 0          # leading dense layers (deepseek style)
+    dense_d_ff: int = 0             # ffn dim of the dense layers interleaved w/ MoE
 
 
 @dataclass(frozen=True)
@@ -50,11 +63,19 @@ class ModelConfig:
     attn_layer_period: int = 1
     attn_layer_offset: int = 0
     ffn_type: str = "swiglu"        # swiglu (3 mats) | gelu (2 mats)
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     spiking: Optional[SpikingConfig] = None
 
     def is_attention_layer(self, idx: int) -> bool:
         return idx % self.attn_layer_period == self.attn_layer_offset
+
+    def is_moe_layer(self, idx: int) -> bool:
+        if self.moe is None or self.moe.n_experts == 0:
+            return False
+        if idx < self.moe.first_k_dense:
+            return False
+        return idx % self.moe.every == self.moe.every - 1
 
     @property
     def q_dim(self) -> int:
@@ -72,7 +93,19 @@ class ModelConfig:
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return n + sum(self._block_params(i) for i in range(self.n_layers))
 
-    def _block_params(self, idx: int) -> int:
+    def active_param_count(self) -> int:
+        """Parameters one token touches: a MoE layer counts its routed
+        top-k and shared experts only."""
+        d = self.d_model
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return n + sum(self._block_params(i, active_only=True)
+                       for i in range(self.n_layers))
+
+    def _ffn_params(self, d_ff: int) -> int:
+        mats = 3 if self.ffn_type == "swiglu" else 2
+        return mats * self.d_model * d_ff
+
+    def _block_params(self, idx: int, active_only: bool = False) -> int:
         d = self.d_model
         n = 2 * d                                               # norms
         if self.rwkv is not None:
@@ -84,8 +117,14 @@ class ModelConfig:
             raise NotImplementedError(
                 f"{self.arch_id}: layer {idx} is not an attention layer")
         n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        mats = 3 if self.ffn_type == "swiglu" else 2
-        return n + mats * d * self.d_ff
+        if self.is_moe_layer(idx):
+            m = self.moe
+            k = (m.top_k if active_only else m.n_experts) + m.n_shared_experts
+            return n + k * self._ffn_params(m.d_ff) + d * m.n_experts
+        d_ff = self.d_ff
+        if self.moe is not None and self.moe.dense_d_ff:
+            d_ff = self.moe.dense_d_ff
+        return n + self._ffn_params(d_ff)
 
 
 @dataclass(frozen=True)
@@ -109,6 +148,9 @@ class ParallelConfig:
     vocab_chunking: int = 0         # logits and loss in N seq chunks (0=off)
     attn_q_chunk: int = 0           # >0: blocked attention with this q chunk
     attn_kv_block: int = 1024       #   and this kv block
+    moe_gather_dispatch: bool = False  # JAX's gather-only MoE dispatch;
+                                       #   the port's one dispatch gives
+                                       #   its result (`moe_ffn`)
     wkv_chunk: int = 64             # chunk of the differentiable wkv6 form
                                     #   the loss takes: JAX's `ops.wkv6`
                                     #   default (the JAX config has no
@@ -162,16 +204,23 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
-        llama3_2_1b, llama3_8b, phi3_medium_14b, rwkv6_7b, starcoder2_15b)
+        llama3_2_1b, llama3_8b, llama4_maverick_400b_a17b, phi3_medium_14b,
+        rwkv6_7b, starcoder2_15b)
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to smoke-test size with the numbers of
     `repro.configs.base.reduced_config`: 2 layers (one super-block period
-    at least), d_model 128, 4 heads of 32 with 2 KV heads under GQA (else
-    4), d_ff 256, vocab 512, and for RWKV 4 heads of size 32."""
+    at least, the MoE interleave included, plus any leading dense layers),
+    d_model 128, 4 heads of 32 with 2 KV heads under GQA (else 4), d_ff
+    256, vocab 512; for MoE at most 4 experts and top-2, expert d_ff 64 and
+    dense d_ff 256; for RWKV 4 heads of size 32."""
+    period = cfg.attn_layer_period
+    if cfg.moe is not None and cfg.moe.n_experts:
+        period = math.lcm(period, cfg.moe.every)
+    first_dense = cfg.moe.first_k_dense if cfg.moe is not None else 0
     kw: dict = dict(
-        n_layers=max(cfg.attn_layer_period, 2),
+        n_layers=max(period, 2) + first_dense,
         d_model=128,
         n_heads=4,
         n_kv_heads=(min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
@@ -180,6 +229,14 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         d_ff=256,
         vocab_size=512,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe,
+            n_experts=min(cfg.moe.n_experts, 4),
+            top_k=min(cfg.moe.top_k, 2),
+            d_ff=64 if cfg.moe.d_ff else 0,
+            dense_d_ff=256 if cfg.moe.dense_d_ff else 0,
+        )
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_size=32)
     return dataclasses.replace(cfg, arch_id=cfg.arch_id + "-smoke", **kw)

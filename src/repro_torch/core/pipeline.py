@@ -211,7 +211,7 @@ def _param_f32(x, device: torch.device) -> torch.Tensor:
 
 def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
                     clamp_mode: str = "saturate", quantize: bool = True,
-                    device=None) -> SNNProgram:
+                    validate: bool = True, device=None) -> SNNProgram:
     """Lower (cfg, params) to an executable program of an FC or conv stack.
 
     ``domain="float"`` (the default, as in the JAX package) keeps the
@@ -237,7 +237,17 @@ def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
     plus, for a conv program, ``"convs": [{"w": (k, k, c_in, c_out)},
     ...]``, as `snn.init_fc_snn` / `snn.init_lenet_snn` make them (tensors
     or numpy arrays). Raises `ValueError` for an unknown domain or clamp
-    mode, or parameters that do not match ``cfg``'s layers."""
+    mode, or parameters that do not match ``cfg``'s layers.
+
+    ``validate`` (default on, as in the JAX package) runs
+    `analysis.validate_program` on the compiled program before returning
+    it: the range pass and the dense ``cuda`` kernel contract for an int
+    program, the ``float`` contract otherwise. A refused program raises
+    the named `AnalysisError` here, not mid-dispatch. The ``cuda``
+    contract is stricter than the Pallas one (``smem_budget``,
+    ``max_layers``): pass ``validate=False`` for a program meant for a
+    host backend (``int_ref``, ``ref_events``) that the kernel cannot
+    take."""
     if domain not in ("float", "int"):
         raise ValueError(f"unknown domain {domain!r}; have 'float', 'int'")
     if clamp_mode not in CLAMP_MODES:
@@ -312,10 +322,15 @@ def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
                 leak=None if is_readout else lk[k], state_shape=(n_out,)))
         if not is_readout:
             k += 1
-    return SNNProgram(cfg=cfg, neuron=cfg.spiking.neuron,
-                      timesteps=cfg.timesteps, layers=tuple(layers),
-                      clamp_mode=clamp_mode, device=device, domain=domain,
-                      quantize=quantize)
+    program = SNNProgram(cfg=cfg, neuron=cfg.spiking.neuron,
+                         timesteps=cfg.timesteps, layers=tuple(layers),
+                         clamp_mode=clamp_mode, device=device, domain=domain,
+                         quantize=quantize)
+    if validate:
+        # lazy import: analysis consumes programs, pipeline produces them
+        from repro_torch.analysis import validate_program
+        validate_program(program)
+    return program
 
 
 def rate_coded_program(spiking_cfg, state_shape: tuple, device=None

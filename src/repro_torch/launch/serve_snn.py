@@ -7,7 +7,11 @@ continuous-batching engine (`repro_torch.serve.SNNServeEngine`).
         --poisson-gap 4 --stop-threshold 1.0 --megastep 10 --pages 2 \
         --slots 32 --requests 64
 
-Each request is a synthetic word stream for the IMDB network: a seeded
+``--arch`` names the network (default ``impulse-imdb``, as in the JAX
+launcher); its FC stack comes from `snn.init_fc_snn`, so an arch with a
+conv front end (``impulse-mnist``) is refused by `compile_network` and an
+unknown name raises `KeyError`, never a quiet fallback to IMDB.
+Each request is a synthetic word stream for the network: a seeded
 spike raster at the offered sparsity, scaled by the encoder threshold so the
 off-macro encoder reproduces it exactly (the offered sparsity is then exact,
 not approximate). The network's weights are random, made from ``--seed``.
@@ -33,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.impulse_snn import IMDB
+from repro_torch.configs.impulse_snn import get_snn_config
 from repro_torch.core import energy, pipeline, snn
 from repro_torch.serve import SNNRequest, SNNServeEngine
 
@@ -84,6 +88,7 @@ def main(argv=None) -> list:
     """Parse ``argv``, serve the requests, print the summary and return
     the finished requests."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="impulse-imdb")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--pages", type=int, default=1,
@@ -117,7 +122,7 @@ def main(argv=None) -> list:
     if args.backend == "cuda_events":
         step_kw["event_crossover"] = args.crossover
 
-    cfg = IMDB
+    cfg = get_snn_config(args.arch)
     program = pipeline.compile_network(cfg, snn.init_fc_snn(args.seed, cfg),
                                        domain="int", device=args.device)
     eng = SNNServeEngine(program, batch_slots=args.slots, backend=args.backend,

@@ -1,5 +1,6 @@
-"""Layer library of the language models: weight init, norms, RoPE, FFNs and
-GQA attention (`repro.models.layers`' dense-family layers).
+"""Layer library of the language models: weight init, norms, RoPE, FFNs,
+GQA attention and the MoE FFN (`repro.models.layers`' dense-family and MoE
+layers).
 
 Numerics as in the JAX package: params and activations bf16 by default;
 norms accumulate in float32, and attention upcasts q, k and v to float32
@@ -10,6 +11,7 @@ in bf16 would be another function).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +43,16 @@ def dense_init(gen, shape: tuple, in_axis: int = 0,
     generator's device, then cast to ``dtype``; ``fan_in`` is
     ``shape[in_axis]``."""
     return (normal(gen, shape) / math.sqrt(shape[in_axis])).to(dtype)
+
+
+def dense_draw_(gen, leaf: torch.Tensor) -> torch.Tensor:
+    """Fill ``leaf`` in place with `dense_init`'s draws for its shape
+    (fan-in ``leaf.shape[0]``); a 3-D leaf (stacked experts) is drawn one
+    expert at a time, so the float32 draw never holds more than one."""
+    scale = math.sqrt(leaf.shape[0])
+    for part in (leaf if leaf.dim() == 3 else leaf[None]):
+        part.copy_(normal(gen, part.shape).div_(scale))
+    return leaf
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +259,110 @@ def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,
         c.index_put_((b_idx, at), row)
     out = _sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
     return out.reshape(B, T, -1) @ p["wo"], {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based, capacity-bounded top-k dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg, dtype=torch.bfloat16) -> dict:
+    """The MoE FFN's params: a float32 (d, E) router, stacked expert leaves
+    ``gate``/``up`` (E, d, f) and ``down`` (E, f, d), each `dense_init` of
+    the whole leaf as the JAX package draws it (fan-in E) but drawn one
+    expert at a time, and with shared experts a swiglu FFN of
+    ``d_ff * n_shared_experts``."""
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.n_experts, m.d_ff
+    dev = gen_device(gen)
+
+    def stacked(shape):
+        leaf = torch.empty(shape, dtype=dtype, device=dev)
+        return leaf if gen is None else dense_draw_(gen, leaf)
+    p = {"router": dense_init(gen, (d, E), dtype=torch.float32),
+         "experts": {name: stacked(shape) for name, shape in (
+             ("gate", (E, d, f)), ("up", (E, d, f)), ("down", (E, f, d)))}}
+    if m.n_shared_experts:
+        p["shared"] = init_ffn(gen, d, f * m.n_shared_experts, "swiglu",
+                               dtype)
+    return p
+
+
+def _topk_first(probs: torch.Tensor, k: int):
+    """The k largest values along the last axis and their indices, ties to
+    the lower index (``lax.top_k``'s order; `torch.topk` promises none)."""
+    idx = torch.argsort(probs, dim=-1, descending=True, stable=True)[..., :k]
+    return torch.gather(probs, -1, idx), idx
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
+            groups: Optional[int] = None, gather_dispatch: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k routing with capacity, as the JAX package's
+    ``moe_ffn``: float32 router softmax, top-k gates renormalised, the
+    Switch load-balance aux; tokens are routed within groups of the
+    flattened token axis (default one group per batch row for T > 1, a
+    single group when decoding), sorted by expert (stable, so the first
+    ``cap`` tokens of an expert in token order keep their slot and later
+    ones overflow to a trash slot), bucketed (G, E, cap, d), run through
+    all E experts in three batched products and combined by a scatter-add.
+    Every shape is fixed by (x.shape, cfg, capacity_factor): no host sync,
+    so a decode tick can be a CUDA graph. ``gather_dispatch`` is taken for
+    the JAX signature and gives the same result: the JAX package's gather
+    form only works round an XLA lowering of wide scatters under a mesh,
+    which PyTorch does not have, so the port has the one dispatch. Returns
+    (out, load-balance aux float32)."""
+    m = cfg.moe
+    B, T, d = x.shape
+    k, E = m.top_k, m.n_experts
+    G = groups if groups else (B if T > 1 else 1)
+    n = B * T // G
+    xg = x.reshape(G, n, d)
+    logits = torch.einsum("gnd,de->gne", xg.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)                     # (G, n, E)
+    gate_vals, eidx = _topk_first(probs, k)                   # (G, n, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    assign = torch.zeros_like(probs).scatter_add_(
+        -1, eidx, torch.ones_like(gate_vals)) / k
+    lb_loss = E * torch.mean(torch.mean(probs, dim=1)
+                             * torch.mean(assign, dim=1))
+
+    cap = max(int(np.ceil(n * k / E * capacity_factor)), 4)
+    flat_e = eidx.reshape(G, n * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)        # group-local
+    e_sorted = torch.gather(flat_e, 1, order)
+    tok_sorted = order // k
+    gate_sorted = torch.gather(gate_vals.reshape(G, n * k), 1, order)
+    experts = torch.arange(E, device=x.device).expand(G, E).contiguous()
+    starts = torch.searchsorted(e_sorted, experts)            # (G, E)
+    slot = (torch.arange(n * k, device=x.device)[None]
+            - torch.gather(starts, 1, e_sorted))
+    keep = slot < cap
+    # overflow goes to a trash slot so it cannot clobber a real token
+    dest = torch.where(keep, e_sorted * cap + slot,
+                       torch.full_like(slot, E * cap))
+
+    gathered = torch.gather(xg, 1, tok_sorted[..., None].expand(-1, -1, d))
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    buckets = torch.zeros((G, E * cap + 1, d), dtype=x.dtype,
+                          device=x.device).scatter_(
+        1, dest[..., None].expand(-1, -1, d), gathered)[:, :-1]
+    be = buckets.reshape(G, E, cap, d)
+    ex = p["experts"]
+    h = (F.silu(torch.einsum("gecd,edf->gecf", be, ex["gate"]))
+         * torch.einsum("gecd,edf->gecf", be, ex["up"]))
+    ye = torch.einsum("gecf,efd->gecd", h, ex["down"]).reshape(G, E * cap, d)
+
+    safe_dest = torch.clamp(dest, max=E * cap - 1)            # trash masked
+    weight = (gate_sorted * keep)[..., None].to(ye.dtype)
+    contrib = torch.gather(ye, 1, safe_dest[..., None].expand(-1, -1, d)) \
+        * weight
+    out = torch.zeros((G, n, d), dtype=x.dtype, device=x.device
+                      ).scatter_add_(
+        1, tok_sorted[..., None].expand(-1, -1, d), contrib.to(x.dtype))
+    out = out.reshape(B, T, d)
+    if "shared" in p:
+        out = out + ffn(x, p["shared"], "swiglu")
+    return out, lb_loss.float()

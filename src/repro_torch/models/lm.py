@@ -1,5 +1,7 @@
 """Language models of the port: the dense attention family (GQA, RoPE,
-swiglu or gelu FFNs, or the spiking FFN) and the RWKV family.
+swiglu or gelu FFNs, or the spiking FFN), its MoE variant (dense and MoE
+FFN layers interleaved, as llama4-maverick's super-block) and the RWKV
+family.
 
 The functional API of `repro.models.lm`, for those families:
 
@@ -14,20 +16,25 @@ The functional API of `repro.models.lm`, for those families:
 
 Params and caches are nested dicts of tensors laid out as the JAX package's
 pytrees: every block leaf is stacked over the layer stack's super-blocks
-(one layer each: both families have period 1 and no prelude), under
-``params["blocks"]["pos0"]``. The stack is a Python loop over those stacked
-leaves in place of ``lax.scan``; in the loss, with ``parallel.remat`` set
-and grad mode on, each super-block runs under
+under ``params["blocks"]["pos<j>"]``, j the layer's place in its
+super-block. A super-block is one layer for the dense and RWKV families and
+``lcm(attn_layer_period, moe.every)`` layers for a MoE stack (llama4: a
+dense layer, then a MoE layer). The stack is a Python loop over those
+stacked leaves in place of ``lax.scan``; in the loss, with
+``parallel.remat`` set and grad mode on, each super-block runs under
 `torch.utils.checkpoint.checkpoint` (the JAX package's ``jax.checkpoint``
 per super-block), and RWKV's wkv recurrence takes the differentiable
-chunked form. The serving paths take neither. The KV cache is written in
-place: prefill fills the cache it allocates, and a decode step writes each
-lane's new K and V into the caller's cache tensors, which the new cache
-keeps. Any other family raises `NotImplementedError`: MoE, MLA, Mamba,
-encoder-decoder and the modality frontends.
+chunked form. The serving paths take neither. The MoE layers' load-balance
+aux adds to the loss's aux, as in the JAX package. The KV cache is written
+in place: prefill fills the cache it allocates, and a decode step writes
+each lane's new K and V into the caller's cache tensors, which the new
+cache keeps. Any other family raises `NotImplementedError`: a MoE with
+leading dense layers (``first_k_dense``), MLA, Mamba, encoder-decoder and
+the modality frontends.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -53,15 +60,22 @@ def tree_map(fn, *trees):
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` unless ``cfg`` is an RWKV model or a
-    dense attention stack (with or without the spiking FFN)."""
+    """Raise `NotImplementedError` unless ``cfg`` is an RWKV model, a dense
+    attention stack (with or without the spiking FFN) or a MoE attention
+    stack without leading dense layers."""
     if cfg.rwkv is not None:
         return
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} is not ported (the port "
-            "runs the dense attention family and RWKV; MoE, MLA, Mamba, "
-            "encoder-decoder and the modality frontends are not ported)")
+            "runs the dense attention family, its MoE variant and RWKV; MLA, "
+            "Mamba, encoder-decoder and the modality frontends are not "
+            "ported)")
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: family {cfg.family!r} with "
+            f"first_k_dense={cfg.moe.first_k_dense} leading dense layers is "
+            "not ported (the prelude comes with MLA)")
     if not all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)):
         raise NotImplementedError(
             f"{cfg.arch_id}: a stack with non-attention (Mamba) layers is "
@@ -73,14 +87,18 @@ def check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def super_period(cfg: ModelConfig) -> int:
-    """Layers per super-block: the attention period (1 for every ported
-    family)."""
-    return cfg.attn_layer_period
+    """Layers per super-block: the least common multiple of the attention
+    period and the MoE interleave (1 for the dense and RWKV families, 2 for
+    llama4's dense/MoE alternation)."""
+    p = cfg.attn_layer_period
+    if cfg.moe is not None and cfg.moe.n_experts:
+        p = math.lcm(p, cfg.moe.every)
+    return p
 
 
 def n_prelude(cfg: ModelConfig) -> int:
     """Leading layers outside the stacked super-blocks: none for the ported
-    families (a MoE's first dense layers would be here)."""
+    families (`check_family` refuses a MoE's first dense layers)."""
     return 0
 
 
@@ -100,7 +118,9 @@ def layer_kind(cfg: ModelConfig, idx: int) -> tuple[str, str]:
     stacks with layers of other kinds)."""
     if cfg.rwkv is not None:
         return "rwkv", "none"
-    return "attn", "spiking" if cfg.spiking is not None else "dense"
+    if cfg.spiking is not None:
+        return "attn", "spiking"
+    return "attn", "moe" if cfg.is_moe_layer(idx) else "dense"
 
 
 # ---------------------------------------------------------------------------
@@ -117,20 +137,47 @@ def _init_block(gen, cfg: ModelConfig, idx: int, dtype) -> dict:
     else:
         p["attn"] = L.init_attention(gen, cfg, dtype=dtype)
     p["norm2"] = torch.ones((d,), dtype=dtype, device=dev)
-    if f == "spiking":
+    if f == "moe":
+        p["moe"] = L.init_moe(gen, cfg, dtype)
+    elif f == "spiking":
         p["ffn"] = S.init_spiking_ffn(gen, d, cfg.d_ff, dtype)
     elif f == "dense":
-        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type, dtype)
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            d_ff = cfg.moe.dense_d_ff
+        p["ffn"] = L.init_ffn(gen, d, d_ff, cfg.ffn_type, dtype)
     return p
+
+
+def _draw_block_(gen, cfg: ModelConfig, idx: int, dtype, slot: dict) -> None:
+    """Draw layer ``idx`` into ``slot``, its view of the stacked block
+    leaves, with the draws `_init_block` makes in its order: the norms are
+    ones, every attention, dense-FFN and MoE weight is a `dense_init` of
+    its leaf drawn in place (the experts one expert at a time), and the
+    RWKV and spiking-FFN leaves are drawn by their own init and copied."""
+    _, f = layer_kind(cfg, idx)
+    for key, sub in slot.items():                   # _init_block's order
+        if key in ("norm1", "norm2"):
+            sub.fill_(1)
+        elif key == "rwkv":
+            tree_map(torch.Tensor.copy_, sub,
+                     R.init_rwkv_block(gen, cfg, dtype))
+        elif key == "ffn" and f == "spiking":
+            tree_map(torch.Tensor.copy_, sub,
+                     S.init_spiking_ffn(gen, cfg.d_model, cfg.d_ff, dtype))
+        else:                                       # attn, ffn, moe
+            tree_map(lambda a: L.dense_draw_(gen, a), sub)
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                 device=None) -> dict:
     """Random parameters from ``seed``, drawn on ``device`` (the CUDA
-    device unless given) by one `torch.Generator` there. The block leaves
-    are filled one super-block at a time into their stacked tensors, so the
-    peak memory is the model plus one block. On ``device="meta"`` the same
-    code gives the tree's shapes and types without drawing."""
+    device unless given) by one `torch.Generator` there. The stacked block
+    leaves are allocated first and each layer is drawn straight into its
+    slot (`_draw_block_`), so the peak memory is the model plus the
+    float32 draw of one weight (of one expert, for a MoE leaf). On
+    ``device="meta"`` the same code gives the tree's shapes and types
+    without drawing."""
     device = resolve_device(device)
     n = n_super(cfg)
     gen = None
@@ -145,15 +192,14 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
     sp = super_period(cfg)
-    blocks = None
-    for s in range(n):
-        block = {f"pos{j}": _init_block(gen, cfg, s * sp + j, dtype)
-                 for j in range(sp)}
-        if blocks is None:
-            blocks = tree_map(lambda a: torch.empty((n,) + a.shape,
-                                                    dtype=a.dtype,
-                                                    device=device), block)
-        tree_map(lambda full, a: full[s].copy_(a), blocks, block)
+    shape = {f"pos{j}": _init_block(None, cfg, j, dtype) for j in range(sp)}
+    blocks = tree_map(lambda a: torch.empty((n,) + a.shape, dtype=a.dtype,
+                                            device=device), shape)
+    if gen is not None:
+        for s in range(n):
+            for j in range(sp):
+                _draw_block_(gen, cfg, s * sp + j, dtype,
+                             tree_map(lambda full: full[s], blocks[f"pos{j}"]))
     params["blocks"] = blocks
     return params
 
@@ -210,7 +256,7 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
                  parallel: Optional[ParallelConfig] = None,
                  train: bool = False):
     """One layer. Returns (x, new_cache_entry, aux): aux is the spiking
-    FFN's mean spike rate (0 otherwise). Decode (the one-token update) when
+    FFN's mean spike rate or the MoE FFN's load-balance loss (0 otherwise). Decode (the one-token update) when
     a cache and ``pos`` are given and T == 1; prefill writes the prompt's K
     and V into ``cache`` in place. ``train``: the loss's pass, where RWKV
     takes the differentiable wkv6 form in chunks of
@@ -246,7 +292,10 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
     x = x + h.to(x.dtype)
 
     h_in = _norm(x, p["norm2"], cfg)
-    if f == "spiking":
+    if f == "moe":
+        h, lb = L.moe_ffn(h_in, p["moe"], cfg)
+        aux = aux + lb
+    elif f == "spiking":
         h, rate = S.spiking_ffn(h_in, p["ffn"], cfg)
         aux = aux + rate
     else:
@@ -340,8 +389,8 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
     the cross entropy run over n sequence chunks, each recomputed in the
     backward pass, so one (B, T/n, vocab) logits buffer is live at a time
     (n must divide T). Returns (loss, {"ce", "aux"}) with loss = ce +
-    0.01 * aux, aux the spiking FFNs' spike rates summed over layers (0
-    for the other FFNs)."""
+    0.01 * aux, aux the spiking FFNs' spike rates or the MoE FFNs'
+    load-balance losses summed over layers (0 for the other FFNs)."""
     parallel = parallel or ParallelConfig()
     device = params["embed"].device
     batch = {k: torch.as_tensor(v, device=device).long()
@@ -399,9 +448,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     A recurrent cache does not grow with ``max_len``."""
     device = resolve_device(device)
     n = n_super(cfg)
-    entry = _cache_entry(cfg, batch, max_len, dtype, device)
-    return {"blocks": {"pos0": tree_map(
-                lambda a: a[None].expand((n,) + a.shape).contiguous(), entry)},
+    # a fresh entry per position: with one super-block the expand is
+    # already contiguous and would share the entry's storage
+    stacked = {f"pos{j}": tree_map(
+        lambda a: a[None].expand((n,) + a.shape).contiguous(),
+        _cache_entry(cfg, batch, max_len, dtype, device))
+        for j in range(super_period(cfg))}
+    return {"blocks": stacked,
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 

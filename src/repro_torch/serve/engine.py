@@ -163,7 +163,11 @@ class ServeEngine(SlotEngine):
     ``_prefill_cache``, at most ``PREFILL_CACHE_MAX`` of them, the least
     recently used out first. A recurrent stack (RWKV) prefills at the exact
     length, since its state would integrate the padding, and its variants
-    are keyed by that length.
+    are keyed by that length. A MoE stack buckets as the JAX engine does,
+    though its padding is routed too (and the expert capacity grows with
+    the bucket), so its prefill depends on the bucket as JAX's does; and
+    every decode tick routes all B lanes, idle ones included, in one
+    group, fed the same stale tokens and caches as JAX's.
 
     The RWKV cache starts as `lm.init_cache` makes it, with bf16
     token-shift leaves whatever the params' type, and the first decode tick

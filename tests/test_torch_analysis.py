@@ -23,9 +23,9 @@ import numpy as np  # noqa: E402
 from repro_torch.analysis import (V_DOMAIN, ContractError, Interval,  # noqa: E402
                                   RangeError, check_kernel_contracts,
                                   check_program, clamp_interval,
-                                  wrap_is_exact)
+                                  validate_program, wrap_is_exact)
 from repro_torch.configs.impulse_snn import IMDB, MNIST  # noqa: E402
-from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core import pipeline, snn  # noqa: E402
 from repro_torch.core.pipeline import LayerSpec, SNNProgram  # noqa: E402
 from repro_torch.core.quant import V_MAX, V_MIN, V_SPAN  # noqa: E402
 from repro_torch.kernels.fused_snn_net import kernel  # noqa: E402
@@ -394,3 +394,147 @@ def test_contracts_agree_with_the_wrapper_on_the_card(cuda_device, backend):
         refused += want is not None
         launched += want is None
     assert refused and launched
+
+
+# --- compile_network(validate=) ----------------------------------------------
+
+def test_compile_network_signature_is_jax_s_plus_device():
+    """The port's `compile_network` takes JAX's keywords with JAX's
+    defaults (``validate=True`` among them), plus its own ``device``."""
+    import inspect
+
+    from repro.core import pipeline as jpipe
+    want = inspect.signature(jpipe.compile_network).parameters
+    got = inspect.signature(pipeline.compile_network).parameters
+    assert [n for n in got if n != "device"] == list(want)
+    for name, p in want.items():
+        assert (got[name].kind, got[name].default) == (p.kind, p.default)
+
+
+def port_cfg(sizes, timesteps=3):
+    return dataclasses.replace(
+        IMDB, arch_id="ana-test", layer_sizes=tuple(sizes),
+        timesteps=timesteps,
+        spiking=dataclasses.replace(IMDB.spiking, timesteps=timesteps))
+
+
+@pytest.mark.parametrize("domain", ["int", "float"])
+@pytest.mark.parametrize("clamp", ["saturate", "wrap"])
+def test_validate_false_compiles_the_same_program(domain, clamp):
+    """With ``validate`` off or on, an accepted program is the same
+    program: the same layers, weights, constants and scales."""
+    for cfg, init in ((IMDB, snn.init_fc_snn), (MNIST, snn.init_lenet_snn)):
+        params = init(3, cfg, device="cpu")
+        progs = [pipeline.compile_network(cfg, params, domain=domain,
+                                          clamp_mode=clamp, validate=v,
+                                          device="cpu")
+                 for v in (True, False)]
+        a, b = progs
+        assert (a.domain, a.clamp_mode, a.timesteps) == (
+            b.domain, b.clamp_mode, b.timesteps)
+        assert len(a.layers) == len(b.layers)
+        for x, y in zip(a.layers, b.layers):
+            for f in ("kind", "n_in", "n_out", "scale", "stride",
+                      "state_shape", "quantize"):
+                assert getattr(x, f) == getattr(y, f), f
+            for f in ("w", "threshold", "leak"):
+                u, v = getattr(x, f), getattr(y, f)
+                if torch.is_tensor(u):
+                    assert torch.equal(u, v), f
+                else:
+                    assert u == v, f
+
+
+def jax_refusal(fn):
+    """The pass ("range") or contract named by a JAX analysis refusal of
+    ``fn()``, or None."""
+    from repro.analysis import ContractError as JaxContractError
+    from repro.analysis import RangeError as JaxRangeError
+    try:
+        fn()
+    except JaxRangeError:
+        return "range"
+    except JaxContractError as e:
+        return str(e)[len(e.where) + 2:].split(":")[0]
+    return None
+
+
+# FC stacks (logical widths) with the verdicts of JAX's dense Pallas
+# contract and the port's dense cuda contract at T = 3, B = 1.
+COMPILE_CASES = [
+    ((100, 128, 128, 1), None, None),                  # the IMDB widths
+    ((37, 250, 12, 90, 5), None, None),
+    ((100,) + (64,) * 17 + (2,), None, "max_layers"),  # 18 layers
+    ((1000, 1000, 2), None, "smem_budget"),
+    ((4000, 4000, 2), "vmem_budget", "smem_budget"),
+]
+
+
+@pytest.mark.parametrize("sizes,jax_says,port_says", COMPILE_CASES)
+def test_compile_refusals_match_jax_passes(sizes, jax_says, port_says):
+    """JAX compiles the stack with ``validate=False`` and its range and
+    contract passes are called directly (its ``validate=True`` raises
+    `TraceError` on this JAX); the port compiles the same float params
+    with the default ``validate=True``. Every JAX refusal is a port
+    refusal, and the port's only extra ones are the cuda contract's
+    ``smem_budget`` and ``max_layers`` (shared memory and 16 layers a
+    launch, against 75 % of a TPU core's VMEM)."""
+    import jax
+
+    from repro.analysis import check_kernel_contracts as jax_contracts
+    from repro.analysis import check_program as jax_check
+    from repro.configs.base import SpikingConfig
+    from repro.configs.impulse_snn import SNNModelConfig
+    from repro.core import pipeline as jpipe
+    from repro.core import snn as jsnn
+    jcfg = SNNModelConfig(
+        arch_id="ana-test", layer_sizes=sizes,
+        spiking=SpikingConfig(neuron="rmp", timesteps=3, threshold=1.0,
+                              leak=0.0625, w_bits=6, v_bits=11),
+        timesteps=3)
+    jparams = jsnn.init_fc_snn(jax.random.PRNGKey(len(sizes)), jcfg)
+    jprog = jpipe.compile_network(jcfg, jparams, domain="int",
+                                  validate=False)
+    want = jax_refusal(lambda: jax_check(jprog)) or jax_refusal(
+        lambda: jax_contracts(jprog, "pallas"))
+    assert want == jax_says
+    params = jax.tree_util.tree_map(np.asarray, jparams)
+    cfg = port_cfg(sizes)
+    got = refusal(lambda: pipeline.compile_network(
+        cfg, params, domain="int", device="cpu"))
+    assert got == port_says
+    if want is not None:
+        assert got is not None
+    else:
+        assert got in (None, "smem_budget", "max_layers")
+    prog = pipeline.compile_network(cfg, params, domain="int",
+                                    validate=False, device="cpu")
+    if got is None:
+        ranges, contracts, traces = validate_program(prog)
+        assert list(contracts) == ["cuda"] and traces == {}
+        assert_same_report(ranges, jax_check(jprog))
+
+
+@pytest.mark.parametrize("clamp", ["saturate", "wrap"])
+def test_validate_program_range_refusals_match_jax(clamp):
+    """The range pass of `validate_program` refuses past the readout's
+    safe horizon exactly where JAX's `check_program` does, naming the
+    readout."""
+    from repro.analysis import check_program as jax_check
+    jprog, prog = jax_program(None, "rmp", clamp, (17, 12, 5, 2))
+    safe = jax_check(jprog).max_safe_frames
+    for frames in (safe, safe + 1):
+        want = jax_refusal(lambda: jax_check(jprog, frames=frames))
+        try:
+            validate_program(prog, frames=frames)
+            got = None
+        except RangeError as e:
+            got = "range"
+            assert e.where.startswith("readout")
+        assert got == want
+    assert want == "range"
+    ranges, contracts, traces = validate_program(pipeline.compile_network(
+        IMDB, snn.init_fc_snn(0, IMDB, device="cpu"), domain="float",
+        device="cpu"))
+    assert list(contracts) == ["float"] and ranges.layers == ()
+    assert traces == {}

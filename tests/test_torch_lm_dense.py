@@ -29,7 +29,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
-from repro_torch.configs.base import SpikingConfig  # noqa: E402
+from repro_torch.configs.base import MoEConfig, SpikingConfig  # noqa: E402
 from repro_torch.configs.base import get_config, reduced_config  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -43,6 +43,8 @@ BF16_ULP = 2.0 ** -7                 # relative, an upper bound
 DENSE_ARCHS = ("llama3-8b", "llama3.2-1b", "phi3-medium-14b",
                "starcoder2-15b")
 SPIKING = dict(neuron="rmp", timesteps=8, threshold=0.5)
+# a MoE stack whose first layer is dense (the prelude is not ported)
+PRELUDE_MOE = MoEConfig(n_experts=4, top_k=1, d_ff=64, first_k_dense=1)
 
 
 def configs(name: str):
@@ -132,6 +134,37 @@ def test_init_params_draws_the_same_weights_from_a_seed():
                                                  tree_leaves(b)))
     wq = a["blocks"]["pos0"]["attn"]["wq"].float()
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+
+
+def test_init_params_draws_are_pinned():
+    """The weights a seed draws stay what they were when each block was
+    drawn whole and then copied into the stack: the init now draws each
+    weight straight into its stacked slot (pinned sums of reduced
+    llama3.2-1b, seed 5, bf16)."""
+    _, cfg = configs("llama3.2")
+    p = lm.init_params(5, cfg, dtype=torch.bfloat16, device="cpu")
+    sums = [float(x.double().sum()) for x in (
+        p["embed"], p["blocks"]["pos0"]["attn"]["wq"],
+        p["blocks"]["pos0"]["ffn"]["down"])]
+    assert sums == [-5.867088407278061, -21.64960753917694,
+                    6.0444552302360535]
+    assert sum(float(x.double().abs().sum())
+               for x in tree_leaves(p)) == 21161.7265155809
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_draw_block_equals_init_block(name):
+    """`lm._draw_block_`, which `init_params` uses to draw a layer straight
+    into its stacked slot, makes the draws of a fresh `_init_block` from
+    the same generator state."""
+    _, cfg = configs(name)
+    fresh = lm._init_block(torch.Generator().manual_seed(2), cfg, 0,
+                           torch.bfloat16)
+    slot = lm.tree_map(torch.empty_like, fresh)
+    lm._draw_block_(torch.Generator().manual_seed(2), cfg, 0,
+                    torch.bfloat16, slot)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(slot),
+                                                 tree_leaves(fresh)))
 
 
 def test_init_cache_has_the_jax_layout():
@@ -332,8 +365,11 @@ def test_spiking_programs_follow_the_call_shape(monkeypatch):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
 def test_other_families_raise_by_name(family):
+    """The unported families, and a MoE stack with a leading dense prelude
+    (``first_k_dense``, deepseek style), are refused by name."""
     _, cfg = configs("llama3.2")
-    other = dataclasses.replace(cfg, arch_id=f"{family}-like", family=family)
+    other = dataclasses.replace(cfg, arch_id=f"{family}-like", family=family,
+                                moe=PRELUDE_MOE if family == "moe" else None)
     for make in (lambda: lm.init_params(0, other, device="cpu"),
                  lambda: lm.init_cache(other, 1, 8, device="cpu"),
                  lambda: ServeEngine(params("llama3.2")[1], other)):

@@ -32,7 +32,8 @@ from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import reduced_config as jax_reduced  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
-from repro_torch.configs.base import get_config, reduced_config  # noqa: E402
+from repro_torch.configs.base import (MoEConfig, get_config,  # noqa: E402
+                                      reduced_config)
 from repro_torch.models import layers, lm, rwkv  # noqa: E402
 
 JCFG = jax_reduced(jax_get_config("rwkv6-7b"))
@@ -93,8 +94,8 @@ def test_config_matches_jax():
             if dataclasses.is_dataclass(a):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
-    known = ("'llama3-8b', 'llama3.2-1b', 'phi3-medium-14b', 'rwkv6-7b', "
-             "'starcoder2-15b'")
+    known = ("'llama3-8b', 'llama3.2-1b', 'llama4-maverick-400b-a17b', "
+             "'phi3-medium-14b', 'rwkv6-7b', 'starcoder2-15b'")
     with pytest.raises(KeyError, match=re.escape(known)):
         get_config("whisper-large-v3")
 
@@ -275,6 +276,19 @@ def test_init_params_has_the_jax_layout(dtype):
                                       np.asarray(want, np.float32))
 
 
+def test_draw_block_equals_init_block():
+    """`lm._draw_block_` (a layer drawn into its stacked slot, as
+    `init_params` does) makes the draws of a fresh `_init_block` from the
+    same generator state: the RWKV leaves are drawn whole and copied."""
+    fresh = lm._init_block(torch.Generator().manual_seed(2), CFG, 0,
+                           torch.float32)
+    slot = lm.tree_map(torch.empty_like, fresh)
+    lm._draw_block_(torch.Generator().manual_seed(2), CFG, 0, torch.float32,
+                    slot)
+    lm.tree_map(lambda a, b: (torch.equal(a, b) or pytest.fail("differ")),
+                slot, fresh)
+
+
 def test_init_cache_has_the_jax_types():
     cache = lm.init_cache(CFG, 3, 32, device="cpu")
     jcache = jlm.init_cache(JCFG, 3, 32)
@@ -288,10 +302,12 @@ def test_init_cache_has_the_jax_types():
 
 
 def test_other_families_are_not_ported():
-    """The port runs RWKV and the dense attention family; a MoE config
-    (without the RWKV block) is refused by name."""
-    moe = dataclasses.replace(CFG, arch_id="moe-like", family="moe",
-                              rwkv=None)
+    """The port runs RWKV, the dense attention family and its MoE variant;
+    a MoE config with a leading dense prelude (without the RWKV block) is
+    refused by name."""
+    moe = dataclasses.replace(
+        CFG, arch_id="moe-like", family="moe", rwkv=None,
+        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, first_k_dense=1))
     with pytest.raises(NotImplementedError, match="'moe'"):
         lm.init_params(0, moe, device="cpu")
     with pytest.raises(NotImplementedError, match="is not ported"):

@@ -226,3 +226,29 @@ def test_launcher_lines_match_jax(monkeypatch, capsys):
     got = launcher_lines(port_launch.main, argv + ["--device", "cpu"], capsys)
     assert got == want
     assert len(got[0]) == 1 and "instr=" in got[1][0]
+
+
+def test_launcher_arch_flag_follows_the_jax_launcher(capsys):
+    """``--arch impulse-imdb`` (JAX's default) prints what no ``--arch``
+    prints, timing aside; an arch that is not registered raises JAX's
+    `KeyError`, and ``impulse-mnist``, whose conv front end the launcher's
+    FC init cannot build, is refused by `compile_network` (JAX's compile
+    drops the convs unchecked): neither serves IMDB instead."""
+    from repro.launch import serve_snn as jax_launch
+    from repro_torch.launch import serve_snn as port_launch
+    argv = ["--quick", "--device", "cpu", "--backend", "int_ref"]
+
+    def lines(extra):
+        port_launch.main(argv + extra)
+        out = capsys.readouterr().out.splitlines()
+        return [out[0].split(" in ")[0]] + out[1:]
+    assert lines(["--arch", "impulse-imdb"]) == lines([])
+    errors = []
+    for main, extra in ((jax_launch.main, []), (port_launch.main, argv)):
+        with pytest.raises(KeyError) as ei:
+            main(["--arch", "impulse-nope"] + extra)
+        errors.append(ei.value.args)
+    assert errors[0] == errors[1] == ("impulse-nope",)
+    with pytest.raises(ValueError, match="the config has 3 convs"):
+        port_launch.main(argv + ["--arch", "impulse-mnist"])
+    assert capsys.readouterr().out == ""
