@@ -194,7 +194,27 @@ Phases, each of which exits non-zero on failure:
      L2 of a float32 per-token reference that rebuilds the keep mask
      itself, dropped tokens == the shared expert bit for bit, and the
      router's top-1 on the card == the CPU's but at near ties (top-2
-     logit gap under 1e-4, printed).
+     logit gap under 1e-4, printed);
+ 17. deepseek-v2-lite-16b, which launches no port kernel either: (a) every
+     published width and all 27 layers (2048, 16 MLA heads with a
+     512 + 64 latent, nope/rope/v heads of 128/64/128, a dense first layer
+     of d_ff 10,944, 26 MoE layers of 64 routed experts of d_ff 1,408 at
+     top-6 plus two shared, vocab 102,400; 31.4 GB of bf16 weights drawn
+     on the card from seed 0), served as phase 16 serves but each prompt
+     prefilled at its exact length (MLA is not bucketed, as in the JAX
+     engine): every logit finite, two eager drains equal and the compiled
+     engine == the eager one token for token, tokens/s, the time to the
+     first token per prompt length, idle shares, the peak memory, the
+     latent cache's bytes against the per-head K/V it stands for, each
+     prefill's drops in every MoE layer, and one decode graph replay
+     against its bound; (b) top-6 `moe_ffn` at full width on layer 1's
+     input in a 1,024-token prefill within 2e-2 relative L2 of the float32
+     per-token reference (router top-6 card vs CPU split only at near
+     ties), `mla_attention` at full width on layer 0 (prefill of 1,024
+     tokens and a decode step over the cache it leaves) within 2e-2 of a
+     float32 reference in the absorbed form, and its decode against a
+     prefill of one more token; the model's decode against a prefill of
+     one more token in bf16 (reported).
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -223,6 +243,7 @@ import numpy as np
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12          # H100 SXM, dense bf16 tensor cores
 PEAK_INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core rate
 IMDB_WIDTHS = (100, 128, 128, 1)
 WIDE_WIDTHS = (130, 24, 3)        # a fan-in spanning two macro row tiles
@@ -320,7 +341,13 @@ MOE_LAYERS = 2                    # of 48: one dense/MoE super-block (2 would
                                   #   hold about 70 GB of bf16 weights)
 MOE_PROMPT = 1024                 # tokens of the full-width moe_ffn check
 MOE_REF_RL2 = 2e-2                # bf16 moe_ffn vs the float32 reference
-MOE_TIE_GAP = 1e-4                # router logit gap of a card/CPU top-1 split
+MOE_TIE_GAP = 1e-4                # router logit gap of a card/CPU top-k split
+# Phase 17: deepseek-v2-lite (MLA, the dense prelude, top-6) at full depth
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_PROMPT = 1024                 # tokens of the full-width module checks
+MLA_REF_RL2 = 2e-2                # bf16 mla_attention vs the float32
+                                  #   absorbed reference, and its decode vs
+                                  #   a prefill of one more token
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -713,6 +740,19 @@ def event_ledger(drain, eng) -> dict:
             "device_ticks": eng.device_ticks}
 
 
+def device_events(prof) -> list:
+    """(name, ms) of every device (CUDA) event a finished torch.profiler
+    recorded, read from its raw kineto events. `prof.events()` gives the
+    same events but first builds a Python tree over every host event too,
+    which took minutes a phase over the LM drains' hundreds of thousands
+    of host ops."""
+    from torch.autograd import DeviceType
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def profile_drain(drain, *args) -> dict:
     """One more drain (``drain(*args, window=...)``, returning its wall
     time second) under torch.profiler, which the drain turns on around its
@@ -722,15 +762,13 @@ def profile_drain(drain, *args) -> dict:
     every kernel of the port, its device op count, and the share of the
     wall time the device was idle. The profiler slows the host, so the
     wall time here is not the drain's throughput."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     _, wall_s, _ = drain(*args, window=prof)
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, ms_e in device_events(prof):
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + ms_e, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
@@ -1837,7 +1875,6 @@ def profile_step(fn) -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, the device's
     busy ms and idle share, and the number of device operations (kernels
     and copies) it ran."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1846,12 +1883,12 @@ def profile_step(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    ops = device_events(prof)
+    busy = sum(ms for _, ms in ops)
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
             "device_ops": len(ops),
-            "kernels": sum(1 for e in ops if not e.name.startswith("Mem"))}
+            "kernels": sum(1 for name, _ in ops if not name.startswith("Mem"))}
 
 
 def train_run(dev, loss_fn, params, batch_fn, steps: int, *,
@@ -2310,22 +2347,30 @@ def bucket_ttft(eng, prompt, repeats: int = 3) -> float:
 
 
 def serve_dense(dev, cfg, params, label: str, long_prompts: list,
-                profile: bool = True) -> dict:
+                profile: bool = True, repeat_equal: bool = False) -> dict:
     """Phase 14(a)/(c): ``cfg`` served by the port's ServeEngine (4 slots,
     DENSE_MAX_LEN): an eager warm-up drain, then an eager drain with every
-    prefill and decode logit checked finite, then the compiled engine
-    (one graph per prefill bucket, a decode graph from tick 2) against it
-    and both engines' tokens/s and profiled drains, the buckets and the
-    LRU's contents, and the time to the first token per bucket."""
+    prefill and decode logit checked finite (``repeat_equal``: and its
+    tokens equal to the warm-up's), then the compiled engine (one graph
+    per prefill bucket, a decode graph from tick 2) against it and both
+    engines' tokens/s and profiled drains, the buckets and the LRU's
+    contents, and the time to the first token per bucket. An engine that
+    prefills at the exact length (MLA) keys those by length, and its
+    prefills run eagerly."""
     from repro_torch import kernels
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import tree_leaves
     from repro_torch.serve.graphed import StaticPrefill
 
     drain, EagerEngine = lm_drainer(params, cfg, DENSE_MAX_LEN, long_prompts)
-    drain()                                        # warm-up, not counted
+    warm = drain()[0]                              # warm-up, not counted
     kernels.reset_launch_counts()
     with recorded_logits() as seen:
         served, dt, eager = drain()
+    if repeat_equal and ([r.out_tokens for r in served]
+                         != [r.out_tokens for r in warm]):
+        raise AssertionError(f"{label}: two eager drains served other "
+                             "tokens")
     launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
     bad_shape = [(kind, shape) for kind, shape, _ in seen
                  if shape != ((1 if kind == "prefill" else 4), cfg.vocab_size)]
@@ -2338,7 +2383,8 @@ def serve_dense(dev, cfg, params, label: str, long_prompts: list,
                              f"x {LM_NEW} tokens")
     reqs = lm_requests(cfg, long_prompts)
     buckets = sorted({eager._prefill_bucket(len(r.prompt)) for r in reqs})
-    if DENSE_BUCKET not in buckets or sorted(eager._prefill_cache) != buckets:
+    long_bucket = DENSE_BUCKET if eager._bucket_prompts else DENSE_LONG
+    if long_bucket not in buckets or sorted(eager._prefill_cache) != buckets:
         raise AssertionError(f"{label}: buckets {buckets}, LRU "
                              f"{list(eager._prefill_cache)}")
     tokens = sum(len(r.out_tokens) for r in served)
@@ -2355,13 +2401,14 @@ def serve_dense(dev, cfg, params, label: str, long_prompts: list,
     geng = engines["graphed"]
     prefills = list(geng._prefill_cache.values())
     if not (list(geng._prefill_cache) and all(
-            isinstance(f, StaticPrefill) and f._run.graph is not None
+            isinstance(f, StaticPrefill) == geng._bucket_prompts
+            and (not geng._bucket_prompts or f._run.graph is not None)
             for f in prefills)):
-        raise AssertionError(f"{label}: a prefill bucket was not graphed")
+        raise AssertionError(f"{label}: a prefill bucket was not graphed, "
+                             "or an exact-length prefill was")
     out["lru"] = list(geng._prefill_cache)
-    out["kv_cache_bytes"] = sum(pos[leaf].nbytes
-                                for pos in geng.cache["blocks"].values()
-                                for leaf in ("k", "v"))
+    out["kv_cache_bytes"] = sum(t.nbytes for t in tree_leaves(
+        {k: v for k, v in geng.cache.items() if k != "len"}))
     by_bucket = {}
     for r in reqs:
         by_bucket.setdefault(geng._prefill_bucket(len(r.prompt)), r.prompt)
@@ -3022,24 +3069,34 @@ def prefill_drops(params, cfg, long_prompts: list) -> list:
     return rows
 
 
+def moe_cap(cfg, n: int) -> int:
+    """`moe_ffn`'s expert capacity for a group of ``n`` tokens."""
+    m = cfg.moe
+    return max(int(np.ceil(n * m.top_k / m.n_experts * 1.25)), 4)
+
+
 def moe_reference(x, p, cfg) -> tuple:
-    """An independent float32 per-token reference of top-1 `moe_ffn` on
-    ``x`` (1, n, d): each token's expert is the argmax of its float32
-    router logits (the lowest index on a tie); the keep mask is rebuilt as
-    the first ``cap`` tokens of each expert in token order; a kept token
-    gets its expert (gate 1 after renormalising) plus the shared expert,
-    a dropped one the shared expert alone, all in float32 from the bf16
-    weights. Returns (out (1, n, d) float32, keep (n,), expert (n,))."""
+    """An independent float32 per-token reference of top-k `moe_ffn` on
+    ``x`` (1, n, d): each token's k experts are the k largest of its
+    float32 router logits, their gates the router's softmax over all
+    experts renormalised over those k; the keep mask is rebuilt as the
+    first ``cap`` assignments of each expert in flat (token, choice)
+    order; a token gets its kept experts' outputs times their gates plus
+    the shared experts', all in float32 from the bf16 weights. Returns
+    (out (1, n, d) float32, keep (n, k), experts (n, k))."""
     import torch.nn.functional as F
     m = cfg.moe
-    if m.top_k != 1 or x.shape[0] != 1:
-        raise ValueError("the reference covers top-1 routing of one row")
+    if x.shape[0] != 1:
+        raise ValueError("the reference covers the routing of one row")
     xf = x[0].float()
-    n = xf.shape[0]
-    cap = max(int(np.ceil(n / m.n_experts * 1.25)), 4)
-    top = (xf @ p["router"]).argmax(-1)
-    onehot = F.one_hot(top, m.n_experts)
-    keep = ((onehot.cumsum(0) * onehot).sum(-1) - 1) < cap
+    n, k = xf.shape[0], m.top_k
+    cap = moe_cap(cfg, n)
+    logits = xf @ p["router"]
+    top = logits.topk(k, dim=-1).indices                     # (n, k)
+    probs = torch.softmax(logits, dim=-1).gather(-1, top)
+    gates = probs / probs.sum(-1, keepdim=True)
+    onehot = F.one_hot(top.reshape(-1), m.n_experts)         # flat order
+    keep = (((onehot.cumsum(0) * onehot).sum(-1) - 1) < cap).reshape(n, k)
 
     def swiglu(h, g, u, dn):
         return (F.silu(h @ g.float()) * (h @ u.float())) @ dn.float()
@@ -3047,48 +3104,54 @@ def moe_reference(x, p, cfg) -> tuple:
     out = swiglu(xf, sh["gate"], sh["up"], sh["down"])
     ex = p["experts"]
     for e in torch.unique(top[keep]).tolist():
-        rows = (top == e) & keep
-        out[rows] += swiglu(xf[rows], ex["gate"][e], ex["up"][e],
-                            ex["down"][e])
+        t, j = ((top == e) & keep).nonzero(as_tuple=True)
+        out.index_add_(0, t, gates[t, j, None] * swiglu(
+            xf[t], ex["gate"][e], ex["up"][e], ex["down"][e]))
     return out[None], keep, top
 
 
 def moe_ffn_checks(params, cfg, prompt: np.ndarray) -> dict:
-    """Phase 16(b): `moe_ffn` at full width on layer 1's served weights and
-    its input in a prefill of ``prompt``: the float32 per-token reference,
-    dropped tokens == the shared expert, the router's top-1 on the card
-    against the CPU's (near ties only), and the call's device ms beside the
-    bytes it must read."""
+    """Phases 16(b) and 17(b): `moe_ffn` at full width on layer 1's served
+    weights (the first MoE layer) and its input in a prefill of
+    ``prompt``: the float32 per-token reference, tokens that lost every
+    expert == the shared experts, the router's top-k on the card against
+    the CPU's (near ties only: the gap between the k-th and (k+1)-th
+    logits), and the call's device ms beside the bytes it must read. At
+    top-1 some tokens must drop."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     dev = params["embed"].device
-    p1 = lm.tree_map(lambda a: a[0], params["blocks"])["pos1"]["moe"]
+    k = cfg.moe.top_k
+    j = next(j for j in range(lm.super_period(cfg))
+             if cfg.is_moe_layer(lm.n_prelude(cfg) + j))
+    p1 = lm.tree_map(lambda a: a[0], params["blocks"])[f"pos{j}"]["moe"]
     with recorded_moe() as seen:
         lm.prefill(params, {"tokens": torch.as_tensor(prompt[None],
                                                       device=dev)},
                    cfg, DENSE_MAX_LEN)
     x = seen[0][0]
     n = x.shape[1]
-    cap = max(int(np.ceil(n / cfg.moe.n_experts * 1.25)), 4)
+    cap = moe_cap(cfg, n)
     y, lb = L.moe_ffn(x, p1, cfg)
     ref, keep, top = moe_reference(x, p1, cfg)
     shared = L.ffn(x, p1["shared"], "swiglu")
-    dropped = ~keep
-    out = {"tokens": n, "cap": cap, "drops": int(dropped.sum()),
+    dropped = ~keep.any(-1)
+    out = {"tokens": n, "cap": cap, "drops": int((~keep).sum()),
            "drops_by_count": int(moe_drops(x, p1, cfg)),
            "lb_aux": float(lb),
            "dropped_equal_shared": bool(torch.equal(y[0, dropped],
                                                     shared[0, dropped])),
            "vs_f32_reference": rel_diff(y[0].float(), ref[0]),
            "tolerance_rel_l2": MOE_REF_RL2}
-    # the router's top-1 on the card against the CPU's (TF32 off)
+    # the router's top-k on the card against the CPU's (TF32 off)
     xc, rc = x[0].float().cpu(), p1["router"].cpu()
     logits_cpu = xc @ rc
-    top_cpu = logits_cpu.argmax(-1)
-    split = (top_cpu != top.cpu()).nonzero().flatten()
-    two = logits_cpu.topk(2, dim=-1).values
-    gaps = (two[:, 0] - two[:, 1])
-    out["router_top1_card_vs_cpu"] = {
+    top_cpu = logits_cpu.topk(k, dim=-1).indices
+    split = (top_cpu.sort(-1).values != top.cpu().sort(-1).values).any(
+        -1).nonzero().flatten()
+    vals = logits_cpu.topk(k + 1, dim=-1).values
+    gaps = (vals[:, k - 1] - vals[:, k])
+    out[f"router_top{k}_card_vs_cpu"] = {
         "disagree": int(split.numel()),
         "gaps_of_disagreements": [float(gaps[i]) for i in split],
         "smallest_gap": float(gaps.min()), "tie_bound": MOE_TIE_GAP}
@@ -3100,7 +3163,8 @@ def moe_ffn_checks(params, cfg, prompt: np.ndarray) -> dict:
             x[:, :4].transpose(0, 1), p1, cfg), 5)[0],
         "bound": (expert_bytes + other) / PEAK_BYTES_PER_S * 1e3,
         "bound_by": "bytes (all experts' weights, read once)"}
-    if not (out["drops"] > 0 and out["drops"] == out["drops_by_count"]
+    if not ((out["drops"] > 0 or k > 1)
+            and out["drops"] == out["drops_by_count"]
             and out["dropped_equal_shared"]):
         raise AssertionError(f"moe_ffn: the drops on {n} tokens at cap {cap} "
                              f"are not what the reference rebuilt: {out}")
@@ -3108,9 +3172,10 @@ def moe_ffn_checks(params, cfg, prompt: np.ndarray) -> dict:
         raise AssertionError(f"moe_ffn: bf16 output vs the float32 "
                              f"reference beyond {MOE_REF_RL2}: {out}")
     if not all(g < MOE_TIE_GAP for g in
-               out["router_top1_card_vs_cpu"]["gaps_of_disagreements"]):
-        raise AssertionError(f"router top-1: a card/CPU disagreement is not "
-                             f"a near tie: {out['router_top1_card_vs_cpu']}")
+               out[f"router_top{k}_card_vs_cpu"]["gaps_of_disagreements"]):
+        raise AssertionError(f"router top-{k}: a card/CPU disagreement is "
+                             f"not a near tie: "
+                             f"{out[f'router_top{k}_card_vs_cpu']}")
     return out
 
 
@@ -3199,10 +3264,253 @@ def print_moe(moe: dict, cfg, card: str) -> None:
     print(f"[phase 16] (b) moe_ffn device ms: {json.dumps(f['ms'])} ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: deepseek-v2-lite (MLA, the dense prelude, top-6) at full depth
+# ---------------------------------------------------------------------------
+
+def rope_f32(x, positions, theta: float):
+    """RoPE in float32 from its formula (rotate the two halves of the last
+    axis by position x 1 / theta^(2i/D)); x (T, ..., D), positions (T,)."""
+    D = x.shape[-1]
+    freqs = 1.0 / theta ** (torch.arange(0, D, 2, device=x.device,
+                                         dtype=torch.float64) / D)
+    ang = (positions.double()[:, None] * freqs).float()
+    ang = ang.reshape((x.shape[0],) + (1,) * (x.dim() - 2) + (D // 2,))
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * ang.cos() - x2 * ang.sin(),
+                      x1 * ang.sin() + x2 * ang.cos()], dim=-1)
+
+
+def mla_absorbed(h, p, cfg, positions, cache_rows=None):
+    """A float32 reference of `mla_attention` for one row, h (T, d), in
+    the absorbed form (no per-head K or V is formed): scores = (q_nope
+    W_uk^T) . c + q_rope . k_rope over the latent (c, k_rope), out = (P c)
+    W_uv W_o, from the bf16 weights. ``cache_rows`` (S, r + rope): latent
+    rows before the T new ones (decode); the queries sit at ``positions``
+    and attend causally. Not on any serving path: a check only."""
+    m = cfg.mla
+    nh, r, nope, rd, vd = (cfg.n_heads, m.kv_lora_rank, m.nope_head_dim,
+                           m.rope_head_dim, m.v_head_dim)
+    W = {k: v.float() for k, v in p.items()}
+    hf = h.float()
+    T = hf.shape[0]
+    q = (hf @ W["wq"]).reshape(T, nh, nope + rd)
+    q_nope, q_rope = q[..., :nope], rope_f32(q[..., nope:], positions,
+                                             cfg.rope_theta)
+    lat = hf @ W["w_dkv"]
+    lat = torch.cat([lat[:, :r], rope_f32(lat[:, r:], positions,
+                                          cfg.rope_theta)], dim=-1)
+    if cache_rows is not None:
+        lat = torch.cat([cache_rows.float(), lat])
+    c, kr = lat[:, :r], lat[:, r:]
+    q_abs = torch.einsum("thn,rhn->thr", q_nope, W["w_uk"].reshape(r, nh,
+                                                                   nope))
+    scores = (torch.einsum("thr,sr->hts", q_abs, c)
+              + torch.einsum("thd,sd->hts", q_rope, kr)) / math.sqrt(nope + rd)
+    kpos = torch.arange(lat.shape[0], device=h.device)
+    scores = torch.where(positions[:, None] >= kpos[None], scores, -1e30)
+    ctx = torch.einsum("hts,sr->thr", torch.softmax(scores, -1), c)
+    o = torch.einsum("thr,rhv->thv", ctx, W["w_uv"].reshape(r, nh, vd))
+    return o.reshape(T, nh * vd) @ W["wo"]
+
+
+def mla_checks(params, cfg, prompt: np.ndarray, nxt: int) -> dict:
+    """Phase 17(b): `mla_attention` at full width on layer 0's weights and
+    its attention input for ``prompt`` (1, T): the prefill against the
+    float32 absorbed reference, a decode step of ``nxt`` over the bf16
+    cache the prefill leaves against the reference over those cached
+    rows, and that decode against the prefill of the prompt plus ``nxt``
+    (its last row); and the device ms of each."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    p0 = params["prelude"][0]
+    toks = torch.as_tensor(np.append(prompt, nxt)[None], device=dev)
+    h = lm._norm(params["embed"][toks], p0["norm1"], cfg)     # (1, T+1, d)
+    T = len(prompt)
+    pos = torch.arange(T + 1, device=dev)
+    out, latent = L.mla_attention(h[:, :T], p0["attn"], cfg, pos[None, :T])
+    cache = torch.zeros((1, DENSE_MAX_LEN, latent.shape[-1]),
+                        dtype=torch.bfloat16, device=dev)
+    cache[:, :T].copy_(latent)
+    step = torch.tensor([T], device=dev)
+    dec, _ = L.mla_attention(h[:, T:], p0["attn"], cfg, step[:, None],
+                             latent_cache=cache, pos=step)
+    full, _ = L.mla_attention(h, p0["attn"], cfg, pos[None])
+    res = {"T": T,
+           "prefill_vs_f32_absorbed": rel_diff(
+               out[0], mla_absorbed(h[0, :T], p0["attn"], cfg, pos[:T])),
+           "decode_vs_f32_absorbed": rel_diff(
+               dec[0], mla_absorbed(h[0, T:], p0["attn"], cfg, pos[T:],
+                                    cache_rows=cache[0, :T])),
+           "decode_vs_prefill_plus_one": rel_diff(dec[0], full[0, T:]),
+           "tolerance_rel_l2": MLA_REF_RL2}
+    res["ms"] = {
+        "prefill": device_ms(lambda: L.mla_attention(
+            h[:, :T], p0["attn"], cfg, pos[None, :T]), 5)[0],
+        "decode_B1_S%d" % DENSE_MAX_LEN: device_ms(lambda: L.mla_attention(
+            h[:, T:], p0["attn"], cfg, step[:, None], latent_cache=cache,
+            pos=step), 5)[0]}
+    bad = {k: v for k, v in res.items() if isinstance(v, dict)
+           and "rel_l2" in v and not v["rel_l2"] <= MLA_REF_RL2}
+    if bad:
+        raise AssertionError(f"mla_attention beyond {MLA_REF_RL2} relative "
+                             f"L2: {bad}")
+    return res
+
+
+def phase_mla(dev, cfg) -> dict:
+    """Phase 17: ``cfg`` (deepseek-v2-lite at every published width and
+    all its layers) with bf16 weights from seed 0 drawn on ``dev``: (a)
+    served by ServeEngine as phase 16 serves, each prompt prefilled at its
+    exact length (MLA is not bucketed), two eager drains equal token for
+    token, the latent cache's bytes against the per-head K/V it stands
+    for, the peak memory, each prefill's drops in its MoE layers and a
+    decode tick against its bound; (b) top-6 `moe_ffn` and
+    `mla_attention` at full width against float32 references that do not
+    share their code, and the model's decode against a prefill of one
+    more token (bf16, reported)."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(a.numel() for a in leaves(params)),
+           "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(),
+           "param_bytes": tree_bytes(params),
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    rng = np.random.default_rng(SEED + 4)
+    long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
+                    for _ in range(2)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts,
+                               repeat_equal=True)
+    seconds = {"init": out["init_s"], "serve": time.perf_counter() - t0}
+    out["port_kernel_launches"] = {k: v for k, v in
+                                   kernels.LAUNCH_COUNTS.items() if v}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    free_cuda()
+    m = cfg.mla
+    per_token_layer = cfg.n_heads * (m.nope_head_dim + m.rope_head_dim
+                                     + m.v_head_dim)
+    latent_bytes = out["serve"]["kv_cache_bytes"]
+    kv_bytes = cfg.n_layers * 4 * DENSE_MAX_LEN * per_token_layer * 2
+    out["latent_cache"] = {
+        "bytes": latent_bytes, "per_head_kv_bytes": kv_bytes,
+        "ratio": kv_bytes / latent_bytes,
+        "per_token_layer": {"latent": m.kv_lora_rank + m.rope_head_dim,
+                            "per_head_kv": per_token_layer}}
+    # a decode tick must read every weight but the embedding's unread rows
+    # (the dense bucket product reads all experts) and the latent cache;
+    # its products re-expand the latent to per-head K and V in every layer
+    tick = (out["param_bytes"] - params["embed"].nbytes + 4 * cfg.d_model * 2
+            + latent_bytes)
+    flops = 2 * cfg.n_layers * 4 * DENSE_MAX_LEN * m.kv_lora_rank * (
+        cfg.n_heads * (m.nope_head_dim + m.v_head_dim))
+    out["decode_tick_bound"] = {
+        "bytes": tick, "ms_bytes": tick / PEAK_BYTES_PER_S * 1e3,
+        "reexpand_flops": flops, "ms_flops": flops / PEAK_BF16_FLOPS * 1e3,
+        "measured_ms": out["serve"]["decode_tick_ms"]}
+    out["decode_tick_bound"]["ms"] = max(out["decode_tick_bound"]["ms_bytes"],
+                                         out["decode_tick_bound"]["ms_flops"])
+    t0 = time.perf_counter()
+    out["prefill_drops"] = prefill_drops(params, cfg, long_prompts)
+    prompt = rng.integers(0, cfg.vocab_size, MLA_PROMPT)
+    out["moe_ffn"] = moe_ffn_checks(params, cfg, prompt)
+    out["mla"] = mla_checks(params, cfg, prompt,
+                            int(rng.integers(0, cfg.vocab_size)))
+    out["bf16_prefill_vs_decode"] = prefill_vs_decode(params, cfg,
+                                                      long_prompts[0])
+    seconds["checks"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    del params
+    free_cuda()
+    return out
+
+
+def print_mla(res: dict, cfg, card: str) -> None:
+    """Phase 17's lines."""
+    from repro_torch.models import lm
+    srv = res.pop("serve")
+    comp = srv.pop("compiled")
+    f = res.pop("moe_ffn")
+    a = res.pop("mla")
+    lat = res["latent_cache"]
+    b = res["decode_tick_bound"]
+    print(f"[phase 17] (a) {cfg.arch_id} at every published width and all "
+          f"{cfg.n_layers} layers (MLA, {lm.n_prelude(cfg)} dense prelude "
+          f"layer, {cfg.n_layers - lm.n_prelude(cfg)} MoE layers "
+          f"of {cfg.moe.n_experts} experts at top-{cfg.moe.top_k} plus "
+          f"{cfg.moe.n_shared_experts} shared): {res['params']} params (bf16, "
+          f"{res['param_bytes']} bytes) drawn on the card in "
+          f"{res['init_s']:.2f} s (init peak {res['init_peak_bytes']} bytes);"
+          f" eager engine: 8 requests (6 of 4 to 16 tokens, 2 of "
+          f"{DENSE_LONG}) x {LM_NEW} tokens, 4 slots, "
+          f"{srv['tokens_per_s']:.2f} tokens/s, every logit finite "
+          f"({srv['logits_checked']} calls), two eager drains equal token "
+          f"for token; exact-length prefills {srv['buckets']}; port kernel "
+          f"launches "
+          f"{res['port_kernel_launches'] or 'none (no kernel on this path)'}")
+    print(f"[phase 17] (a) compiled engine == eager engine, token for token; "
+          f"tokens/s (median of 3 in turns): eager "
+          f"{comp['eager']['tokens_per_s']:.2f}, graphed "
+          f"{comp['graphed']['tokens_per_s']:.2f}; device idle eager "
+          f"{comp['eager']['device_idle_share']:.3f}, graphed "
+          f"{comp['graphed']['device_idle_share']:.3f}; time to first token "
+          f"per prompt length (ms): {json.dumps(srv['ttft_ms'])}; peak "
+          f"{res['peak_bytes']} bytes ({card})")
+    print(f"[phase 17] (a) latent cache {lat['bytes']} bytes ({cfg.n_layers} "
+          f"layers x 4 slots x {DENSE_MAX_LEN} x "
+          f"{lat['per_token_layer']['latent']} x 2) against "
+          f"{lat['per_head_kv_bytes']} bytes of the per-head K/V it stands "
+          f"for ({lat['per_token_layer']['per_head_kv']} a token and layer):"
+          f" {lat['ratio']:.2f}x smaller")
+    print(f"[phase 17] (a) decode tick: {srv['decode_tick_ms']:.3f} ms a "
+          f"graph replay against a bound of {b['ms']:.3f} ms ({b['bytes']} "
+          f"bytes at 3.35 TB/s: every weight, all experts included, and the "
+          f"latent cache; the re-expansion's {b['reexpand_flops']} bf16 "
+          f"FLOPs take {b['ms_flops']:.3f} ms at 989 TFLOP/s) ({card})")
+    print(f"[phase 17] (a) drops of each exact-length prefill's MoE layers "
+          f"(cap {moe_cap(cfg, DENSE_LONG)} at {DENSE_LONG} tokens): "
+          f"{json.dumps(res['prefill_drops'])}")
+    print(f"[phase 17] (a) drains and profiled top ops: {json.dumps(comp)} "
+          f"({card})")
+    k = cfg.moe.top_k
+    print(f"[phase 17] (b) moe_ffn top-{k} at full width on layer 1's input "
+          f"in a {f['tokens']}-token prefill (cap {f['cap']}, {f['drops']} "
+          f"(token, choice) pairs dropped): vs the float32 per-token "
+          f"reference rel L2 {f['vs_f32_reference']['rel_l2']:.3e} (tol "
+          f"{MOE_REF_RL2}); router top-{k} card vs CPU (gap of the k-th "
+          f"and (k+1)-th logits): "
+          f"{json.dumps(f[f'router_top{k}_card_vs_cpu'])}: ok; device ms "
+          f"{json.dumps(f['ms'])} ({card})")
+    print(f"[phase 17] (b) mla_attention at full width on layer 0 (T = "
+          f"{a['T']}), bf16 vs the float32 absorbed-form reference (tol "
+          f"{MLA_REF_RL2} rel L2): prefill "
+          f"{json.dumps(a['prefill_vs_f32_absorbed'])}, decode over the "
+          f"cache {json.dumps(a['decode_vs_f32_absorbed'])}, decode vs "
+          f"prefill of one more token "
+          f"{json.dumps(a['decode_vs_prefill_plus_one'])}: ok; device ms "
+          f"{json.dumps(a['ms'])} ({card})")
+    print(f"[phase 17] (b) prefill of prompt + 1 vs prefill + decode_step, "
+          f"bf16 at all {cfg.n_layers} layers (reported: the prefill routes "
+          f"the last token after {DENSE_LONG} others under the capacity, the "
+          f"decode routes it alone): "
+          f"{json.dumps(res['bf16_prefill_vs_decode'])}")
+
+
 def leaves(tree) -> list:
-    """The tensors of a nested dict."""
+    """The tensors of a nested dict (and list)."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
     return [tree]
 
 
@@ -3627,6 +3935,11 @@ def main() -> int:
     print_moe(moe, moe_cfg, card)
     print(f"[phase 16] {json.dumps(moe)}")
     lap("phase 16")
+    mla_cfg = get_config(MLA_ARCH)
+    mla = phase_mla(dev, mla_cfg)
+    print_mla(mla, mla_cfg, card)
+    print(f"[phase 17] {json.dumps(mla)}")
+    lap("phase 17")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

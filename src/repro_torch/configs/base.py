@@ -3,9 +3,10 @@ config, the registry, `reduced_config`, and the run configs training reads.
 
 The port's own copy of the fields of `repro.configs.base` that the dense
 attention family (GQA, RoPE, swiglu or gelu FFNs, the spiking FFN), the
-MoE super-block (routed and shared experts interleaved with dense layers),
-the RWKV family and the train step read (it imports nothing of the JAX
-package). The other families' sub-configs (MLA, SSM, encoder-decoder,
+MoE stacks (routed and shared experts interleaved with dense layers, and
+deepseek's leading dense layers), multi-head latent attention (MLA), the
+RWKV family and the train step read (it imports nothing of the JAX
+package). The other families' sub-configs (SSM, encoder-decoder,
 frontends) are not here: `models.lm` raises `NotImplementedError` for a
 config of any other family.
 """
@@ -26,6 +27,16 @@ class MoEConfig:
     every: int = 1                  # MoE on layers where (idx % every == every-1)
     first_k_dense: int = 0          # leading dense layers (deepseek style)
     dense_d_ff: int = 0             # ffn dim of the dense layers interleaved w/ MoE
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0            # 0 = direct q projection (V2-Lite)
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -64,6 +75,7 @@ class ModelConfig:
     attn_layer_offset: int = 0
     ffn_type: str = "swiglu"        # swiglu (3 mats) | gelu (2 mats)
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
     spiking: Optional[SpikingConfig] = None
 
@@ -101,6 +113,19 @@ class ModelConfig:
         return n + sum(self._block_params(i, active_only=True)
                        for i in range(self.n_layers))
 
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla is not None:
+            m = self.mla
+            qd = self.n_heads * (m.nope_head_dim + m.rope_head_dim)
+            n = (d * qd if m.q_lora_rank == 0
+                 else d * m.q_lora_rank + m.q_lora_rank * qd)
+            n += d * (m.kv_lora_rank + m.rope_head_dim)   # latent + rope key
+            n += m.kv_lora_rank * self.n_heads * (m.nope_head_dim
+                                                  + m.v_head_dim)
+            return n + self.n_heads * m.v_head_dim * d    # o proj
+        return d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+
     def _ffn_params(self, d_ff: int) -> int:
         mats = 3 if self.ffn_type == "swiglu" else 2
         return mats * self.d_model * d_ff
@@ -116,7 +141,7 @@ class ModelConfig:
         if not self.is_attention_layer(idx):
             raise NotImplementedError(
                 f"{self.arch_id}: layer {idx} is not an attention layer")
-        n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        n += self._attn_params()
         if self.is_moe_layer(idx):
             m = self.moe
             k = (m.top_k if active_only else m.n_experts) + m.n_shared_experts
@@ -204,8 +229,8 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
-        llama3_2_1b, llama3_8b, llama4_maverick_400b_a17b, phi3_medium_14b,
-        rwkv6_7b, starcoder2_15b)
+        deepseek_v2_lite_16b, llama3_2_1b, llama3_8b,
+        llama4_maverick_400b_a17b, phi3_medium_14b, rwkv6_7b, starcoder2_15b)
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
@@ -214,7 +239,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     at least, the MoE interleave included, plus any leading dense layers),
     d_model 128, 4 heads of 32 with 2 KV heads under GQA (else 4), d_ff
     256, vocab 512; for MoE at most 4 experts and top-2, expert d_ff 64 and
-    dense d_ff 256; for RWKV 4 heads of size 32."""
+    dense d_ff 256; for MLA a latent of 32, rope heads of 16 and nope and
+    v heads of 32; for RWKV 4 heads of size 32."""
     period = cfg.attn_layer_period
     if cfg.moe is not None and cfg.moe.n_experts:
         period = math.lcm(period, cfg.moe.every)
@@ -237,6 +263,11 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
             d_ff=64 if cfg.moe.d_ff else 0,
             dense_d_ff=256 if cfg.moe.dense_d_ff else 0,
         )
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                              rope_head_dim=16, nope_head_dim=32,
+                              v_head_dim=32)
+        kw["head_dim"] = 32
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_size=32)
     return dataclasses.replace(cfg, arch_id=cfg.arch_id + "-smoke", **kw)

@@ -1,6 +1,6 @@
 """Layer library of the language models: weight init, norms, RoPE, FFNs,
-GQA attention and the MoE FFN (`repro.models.layers`' dense-family and MoE
-layers).
+GQA attention, multi-head latent attention (MLA) and the MoE FFN
+(`repro.models.layers`' dense-family, MLA and MoE layers).
 
 Numerics as in the JAX package: params and activations bf16 by default;
 norms accumulate in float32, and attention upcasts q, k and v to float32
@@ -262,6 +262,73 @@ def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention): a compressed, shared KV cache
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg, dtype=torch.bfloat16) -> dict:
+    """MLA's params: ``wq`` (d, nh * (nope + rope)), the latent's down
+    projection ``w_dkv`` (d, r + rope), the up projections ``w_uk`` (r,
+    nh * nope) and ``w_uv`` (r, nh * v), and ``wo`` (nh * v, d)."""
+    m = cfg.mla
+    d, nh = cfg.d_model, cfg.n_heads
+    qd = nh * (m.nope_head_dim + m.rope_head_dim)
+    r = m.kv_lora_rank
+    return {"wq": dense_init(gen, (d, qd), dtype=dtype),
+            "w_dkv": dense_init(gen, (d, r + m.rope_head_dim), dtype=dtype),
+            "w_uk": dense_init(gen, (r, nh * m.nope_head_dim), dtype=dtype),
+            "w_uv": dense_init(gen, (r, nh * m.v_head_dim), dtype=dtype),
+            "wo": dense_init(gen, (nh * m.v_head_dim, d), dtype=dtype)}
+
+
+def mla_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
+                  latent_cache: Optional[torch.Tensor] = None,
+                  pos: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA over the latent ``[c_kv, rotated k_rope]`` (B, S, r + rope),
+    as the JAX package computes it: K and V are re-expanded from the
+    latent at every call (``w_uk``, ``w_uv``) and the one rope key is
+    broadcast over the heads; the q head (nope + rope) is wider than the v
+    head. Prefill (causal) when ``latent_cache`` is None; else a one-token
+    decode step (T == 1) at each lane's ``pos`` (B,), whose latent row is
+    written into ``latent_cache`` in place (a lane at or past its length
+    writes nothing, as the JAX package's ``.at[].set`` drops it) and which
+    attends the cache up to ``pos``. Returns (out (B, T, d), the latent:
+    the prompt's (B, T, r + rope) in prefill, ``latent_cache`` in
+    decode)."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    nh, r = cfg.n_heads, m.kv_lora_rank
+    q = (x @ p["wq"]).reshape(B, T, nh, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (x @ p["w_dkv"]).split([r, m.rope_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    latent_new = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
+    if latent_cache is None:
+        latent, kv_len, causal = latent_new, None, True
+    else:
+        S = latent_cache.shape[1]
+        b_idx = torch.arange(B, device=x.device)
+        at = pos.long().clamp(max=S - 1)
+        row = torch.where((pos < S)[:, None],
+                          latent_new[:, 0].to(latent_cache.dtype),
+                          latent_cache[b_idx, at])
+        latent_cache.index_put_((b_idx, at), row)
+        latent, kv_len, causal = latent_cache, pos + 1, False
+    # a bf16 cache under float32 weights is promoted, as JAX promotes it
+    latent_w = latent.to(torch.promote_types(latent.dtype, p["w_uk"].dtype))
+    c_all, kr_all = latent_w.split([r, m.rope_head_dim], dim=-1)
+    S = c_all.shape[1]
+    k_nope = (c_all @ p["w_uk"]).reshape(B, S, nh, m.nope_head_dim)
+    v = (c_all @ p["w_uv"]).reshape(B, S, nh, m.v_head_dim)
+    k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+        B, S, nh, m.rope_head_dim)], dim=-1)
+    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k_full, v,
+                causal=causal, q_pos=positions, kv_len=kv_len)
+    return out.reshape(B, T, nh * m.v_head_dim) @ p["wo"], latent
+
+
+# ---------------------------------------------------------------------------
 # MoE: sort-based, capacity-bounded top-k dispatch
 # ---------------------------------------------------------------------------
 
@@ -294,6 +361,27 @@ def _topk_first(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, idx), idx
 
 
+def _combine(contrib: torch.Tensor, order: torch.Tensor, k: int
+             ) -> torch.Tensor:
+    """The MoE combine: ``contrib`` (G, n * k, d) holds the gated expert
+    outputs in sorted order, where place i belongs to token
+    ``order[g, i] // k``. Each token's k contributions are added from zero
+    one at a time in ``contrib``'s type, in ascending order of place, as
+    XLA:CPU adds the updates of JAX's ``.at[g, tok].add`` (one rounding
+    after each add); `Tensor.scatter_add_` rounds a bf16 sum once on the
+    CPU and adds in a varying order by atomics on CUDA. Returns (G, n,
+    d)."""
+    G, nk, d = contrib.shape
+    n = nk // k
+    at = torch.argsort(order, dim=-1).reshape(G, n, k).sort(dim=-1).values
+    per_tok = torch.gather(contrib, 1, at.reshape(G, nk, 1).expand(
+        -1, -1, d)).reshape(G, n, k, d)
+    out = torch.zeros((G, n, d), dtype=contrib.dtype, device=contrib.device)
+    for j in range(k):
+        out = out + per_tok[:, :, j]
+    return out
+
+
 def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
             groups: Optional[int] = None, gather_dispatch: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -304,9 +392,10 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
     single group when decoding), sorted by expert (stable, so the first
     ``cap`` tokens of an expert in token order keep their slot and later
     ones overflow to a trash slot), bucketed (G, E, cap, d), run through
-    all E experts in three batched products and combined by a scatter-add.
-    Every shape is fixed by (x.shape, cfg, capacity_factor): no host sync,
-    so a decode tick can be a CUDA graph. ``gather_dispatch`` is taken for
+    all E experts in three batched products and combined by `_combine`
+    in JAX's order of adds, the same on every run. Every shape is fixed by
+    (x.shape, cfg, capacity_factor): no host sync, so a decode tick can be
+    a CUDA graph. ``gather_dispatch`` is taken for
     the JAX signature and gives the same result: the JAX package's gather
     form only works round an XLA lowering of wide scatters under a mesh,
     which PyTorch does not have, so the port has the one dispatch. Returns
@@ -357,12 +446,9 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
 
     safe_dest = torch.clamp(dest, max=E * cap - 1)            # trash masked
     weight = (gate_sorted * keep)[..., None].to(ye.dtype)
-    contrib = torch.gather(ye, 1, safe_dest[..., None].expand(-1, -1, d)) \
-        * weight
-    out = torch.zeros((G, n, d), dtype=x.dtype, device=x.device
-                      ).scatter_add_(
-        1, tok_sorted[..., None].expand(-1, -1, d), contrib.to(x.dtype))
-    out = out.reshape(B, T, d)
+    contrib = (torch.gather(ye, 1, safe_dest[..., None].expand(-1, -1, d))
+               * weight).to(x.dtype)
+    out = _combine(contrib, order, k).reshape(B, T, d)
     if "shared" in p:
         out = out + ffn(x, p["shared"], "swiglu")
     return out, lb_loss.float()

@@ -1,6 +1,7 @@
 """Language models of the port: the dense attention family (GQA, RoPE,
-swiglu or gelu FFNs, or the spiking FFN), its MoE variant (dense and MoE
-FFN layers interleaved, as llama4-maverick's super-block) and the RWKV
+swiglu or gelu FFNs, or the spiking FFN), its MoE variants (dense and MoE
+FFN layers interleaved, as llama4-maverick's super-block; leading dense
+layers and multi-head latent attention, as deepseek-v2-lite) and the RWKV
 family.
 
 The functional API of `repro.models.lm`, for those families:
@@ -19,18 +20,22 @@ pytrees: every block leaf is stacked over the layer stack's super-blocks
 under ``params["blocks"]["pos<j>"]``, j the layer's place in its
 super-block. A super-block is one layer for the dense and RWKV families and
 ``lcm(attn_layer_period, moe.every)`` layers for a MoE stack (llama4: a
-dense layer, then a MoE layer). The stack is a Python loop over those
-stacked leaves in place of ``lax.scan``; in the loss, with
-``parallel.remat`` set and grad mode on, each super-block runs under
+dense layer, then a MoE layer). A MoE's ``first_k_dense`` leading dense
+layers (deepseek's prelude) come before the body, unstacked, as the list
+``params["prelude"]`` (and ``cache["prelude"]``); body layer j of
+super-block s is global layer ``n_prelude + s * period + j``. The stack is
+a Python loop over the prelude, then over the stacked leaves in place of
+``lax.scan``; in the loss, with ``parallel.remat`` set and grad mode on,
+each super-block (not a prelude layer, as in JAX) runs under
 `torch.utils.checkpoint.checkpoint` (the JAX package's ``jax.checkpoint``
 per super-block), and RWKV's wkv recurrence takes the differentiable
 chunked form. The serving paths take neither. The MoE layers' load-balance
-aux adds to the loss's aux, as in the JAX package. The KV cache is written
-in place: prefill fills the cache it allocates, and a decode step writes
-each lane's new K and V into the caller's cache tensors, which the new
-cache keeps. Any other family raises `NotImplementedError`: a MoE with
-leading dense layers (``first_k_dense``), MLA, Mamba, encoder-decoder and
-the modality frontends.
+aux adds to the loss's aux, as in the JAX package. The attention cache is
+written in place: prefill fills the cache it allocates, and a decode step
+writes each lane's new K and V (MLA: its latent row, ``cache["latent"]``
+(B, max_len, r + rope)) into the caller's cache tensors, which the new
+cache keeps. Any other family raises `NotImplementedError`: Mamba,
+encoder-decoder and the modality frontends.
 """
 from __future__ import annotations
 
@@ -62,24 +67,19 @@ def tree_map(fn, *trees):
 def check_family(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` unless ``cfg`` is an RWKV model, a dense
     attention stack (with or without the spiking FFN) or a MoE attention
-    stack without leading dense layers."""
+    stack (with or without leading dense layers), with GQA or MLA."""
     if cfg.rwkv is not None:
         return
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} is not ported (the port "
-            "runs the dense attention family, its MoE variant and RWKV; MLA, "
-            "Mamba, encoder-decoder and the modality frontends are not "
-            "ported)")
-    if cfg.moe is not None and cfg.moe.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} with "
-            f"first_k_dense={cfg.moe.first_k_dense} leading dense layers is "
-            "not ported (the prelude comes with MLA)")
+            "runs the dense attention family, its MoE variants, MLA and "
+            "RWKV; Mamba, encoder-decoder and the modality frontends are "
+            "not ported)")
     if not all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)):
         raise NotImplementedError(
-            f"{cfg.arch_id}: a stack with non-attention (Mamba) layers is "
-            "not ported")
+            f"{cfg.arch_id}: family {cfg.family!r} with non-attention "
+            "(Mamba) layers is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +97,10 @@ def super_period(cfg: ModelConfig) -> int:
 
 
 def n_prelude(cfg: ModelConfig) -> int:
-    """Leading layers outside the stacked super-blocks: none for the ported
-    families (`check_family` refuses a MoE's first dense layers)."""
+    """Leading layers outside the stacked super-blocks: a MoE's
+    ``first_k_dense`` dense layers (deepseek's first layer)."""
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        return cfg.moe.first_k_dense
     return 0
 
 
@@ -134,6 +136,8 @@ def _init_block(gen, cfg: ModelConfig, idx: int, dtype) -> dict:
     p: dict = {"norm1": torch.ones((d,), dtype=dtype, device=dev)}
     if mixer == "rwkv":
         p["rwkv"] = R.init_rwkv_block(gen, cfg, dtype)
+    elif cfg.mla is not None:
+        p["attn"] = L.init_mla(gen, cfg, dtype=dtype)
     else:
         p["attn"] = L.init_attention(gen, cfg, dtype=dtype)
     p["norm2"] = torch.ones((d,), dtype=dtype, device=dev)
@@ -172,12 +176,13 @@ def _draw_block_(gen, cfg: ModelConfig, idx: int, dtype, slot: dict) -> None:
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                 device=None) -> dict:
     """Random parameters from ``seed``, drawn on ``device`` (the CUDA
-    device unless given) by one `torch.Generator` there. The stacked block
-    leaves are allocated first and each layer is drawn straight into its
-    slot (`_draw_block_`), so the peak memory is the model plus the
-    float32 draw of one weight (of one expert, for a MoE leaf). On
-    ``device="meta"`` the same code gives the tree's shapes and types
-    without drawing."""
+    device unless given) by one `torch.Generator` there: the embedding,
+    the head, the prelude layers, then the stacked body. The prelude's and
+    the stacked block leaves are allocated first and each layer is drawn
+    straight into its slot (`_draw_block_`), so the peak memory is the
+    model plus the float32 draw of one weight (of one expert, for a MoE
+    leaf). On ``device="meta"`` the same code gives the tree's shapes and
+    types without drawing."""
     device = resolve_device(device)
     n = n_super(cfg)
     gen = None
@@ -191,14 +196,23 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
+    off = n_prelude(cfg)
+    if off:
+        params["prelude"] = [tree_map(
+            lambda a: torch.empty(a.shape, dtype=a.dtype, device=device),
+            _init_block(None, cfg, i, dtype)) for i in range(off)]
+        if gen is not None:
+            for i, slot in enumerate(params["prelude"]):
+                _draw_block_(gen, cfg, i, dtype, slot)
     sp = super_period(cfg)
-    shape = {f"pos{j}": _init_block(None, cfg, j, dtype) for j in range(sp)}
+    shape = {f"pos{j}": _init_block(None, cfg, off + j, dtype)
+             for j in range(sp)}
     blocks = tree_map(lambda a: torch.empty((n,) + a.shape, dtype=a.dtype,
                                             device=device), shape)
     if gen is not None:
         for s in range(n):
             for j in range(sp):
-                _draw_block_(gen, cfg, s * sp + j, dtype,
+                _draw_block_(gen, cfg, off + s * sp + j, dtype,
                              tree_map(lambda full: full[s], blocks[f"pos{j}"]))
     params["blocks"] = blocks
     return params
@@ -256,9 +270,10 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
                  parallel: Optional[ParallelConfig] = None,
                  train: bool = False):
     """One layer. Returns (x, new_cache_entry, aux): aux is the spiking
-    FFN's mean spike rate or the MoE FFN's load-balance loss (0 otherwise). Decode (the one-token update) when
-    a cache and ``pos`` are given and T == 1; prefill writes the prompt's K
-    and V into ``cache`` in place. ``train``: the loss's pass, where RWKV
+    FFN's mean spike rate or the MoE FFN's load-balance loss (0
+    otherwise). Decode (the one-token update) when a cache and ``pos`` are
+    given and T == 1; prefill writes the prompt's K and V (MLA: its latent)
+    into ``cache`` in place. ``train``: the loss's pass, where RWKV
     takes the differentiable wkv6 form in chunks of
     ``parallel.wkv_chunk``."""
     mixer, f = layer_kind(cfg, idx)
@@ -270,7 +285,17 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
         return x, new_cache, aux
 
     h_in = _norm(x, p["norm1"], cfg)
-    if decode:
+    if cfg.mla is not None:
+        h, latent = L.mla_attention(
+            h_in, p["attn"], cfg, positions,
+            latent_cache=cache["latent"] if decode else None,
+            pos=pos if decode else None)
+        new_cache = None
+        if cache is not None:
+            if not decode:                          # prefill: fill the cache
+                cache["latent"][:, :latent.shape[1]].copy_(latent)
+            new_cache = {"latent": cache["latent"]}
+    elif decode:
         h, new_cache = L.attention_decode(
             h_in, p["attn"], cfg, {"k": cache["k"], "v": cache["v"]}, pos)
     else:
@@ -307,25 +332,35 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
 def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
                pos=None, parallel: Optional[ParallelConfig] = None,
                train: bool = False):
-    """The layer stack, a loop over the stacked super-block leaves.
-    Returns (x, new_cache, aux summed over layers). A cache leaf that every
-    layer updated in place is the same tensor in the new cache; any other
-    is stacked anew from the layers' entries. ``train`` (the loss's pass,
-    no cache): with ``parallel.remat`` other than ``"none"`` and grad mode
-    on, each super-block is recomputed in the backward pass instead of
-    keeping its activations (``"block"`` and ``"full"`` alike, as in the
-    JAX package)."""
+    """The layer stack: the prelude layers, then a loop over the stacked
+    super-block leaves. Returns (x, new_cache, aux summed over layers). A
+    cache leaf that every layer updated in place is the same tensor in the
+    new cache; any other is stacked anew from the layers' entries.
+    ``train`` (the loss's pass, no cache): with ``parallel.remat`` other
+    than ``"none"`` and grad mode on, each super-block is recomputed in the
+    backward pass instead of keeping its activations (``"block"`` and
+    ``"full"`` alike, as in the JAX package)."""
     parallel = parallel or ParallelConfig()
     sp = super_period(cfg)
+    off = n_prelude(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_blocks = None if cache is None else cache["blocks"]
     remat = train and parallel.remat != "none" and torch.is_grad_enabled()
+
+    new_pre = []
+    for i, p in enumerate(params.get("prelude", [])):
+        x, c_new, aux = _apply_block(
+            x, p, cfg, i, positions,
+            cache=None if cache is None else cache["prelude"][i], pos=pos,
+            parallel=parallel, train=train)
+        new_pre.append(c_new)
+        aux_total = aux_total + aux
 
     def super_block(x, aux_total, p_s, c_s, s):
         c_new = {}
         for j in range(sp):
             x, c_new[f"pos{j}"], aux = _apply_block(
-                x, p_s[f"pos{j}"], cfg, s * sp + j, positions,
+                x, p_s[f"pos{j}"], cfg, off + s * sp + j, positions,
                 cache=None if c_s is None else c_s[f"pos{j}"], pos=pos,
                 parallel=parallel, train=train)
             aux_total = aux_total + aux
@@ -356,6 +391,8 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
             return torch.stack(entries[n:])
         new_cache = dict(cache)
         new_cache["blocks"] = tree_map(restack, cache_blocks, *olds, *news)
+        if new_pre:
+            new_cache["prelude"] = new_pre
     return x, new_cache, aux_total
 
 
@@ -430,9 +467,15 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
 def _cache_entry(cfg: ModelConfig, batch: int, max_len: int, dtype, device
                  ) -> dict:
     """One layer's serving cache: RWKV's token-shift carries and wkv state,
-    or the attention layer's (B, max_len, KV, D) K and V."""
+    MLA's (B, max_len, r + rope) latent, or the attention layer's (B,
+    max_len, KV, D) K and V."""
     if cfg.rwkv is not None:
         return R.init_rwkv_state(cfg, batch, dtype, device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"latent": torch.zeros(
+            (batch, max_len, m.kv_lora_rank + m.rope_head_dim), dtype=dtype,
+            device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -444,8 +487,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     given), of ``dtype`` (bf16 by default whatever the params' type, as in
     the JAX package), stacked over super-blocks: per RWKV layer the
     token-shift carries (B, d) and the float32 wkv state (B, H, K, K), per
-    attention layer K and V (B, max_len, KV, D); and the per-lane length.
-    A recurrent cache does not grow with ``max_len``."""
+    attention layer K and V (B, max_len, KV, D) or MLA's latent (B,
+    max_len, r + rope); the per-lane length; and for a prelude a list of
+    its layers' entries. A recurrent cache does not grow with
+    ``max_len``."""
     device = resolve_device(device)
     n = n_super(cfg)
     # a fresh entry per position: with one super-block the expand is
@@ -454,8 +499,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         lambda a: a[None].expand((n,) + a.shape).contiguous(),
         _cache_entry(cfg, batch, max_len, dtype, device))
         for j in range(super_period(cfg))}
-    return {"blocks": stacked,
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    cache = {"blocks": stacked,
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if n_prelude(cfg):
+        cache["prelude"] = [_cache_entry(cfg, batch, max_len, dtype, device)
+                            for _ in range(n_prelude(cfg))]
+    return cache
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, max_len: int,
@@ -490,8 +539,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int,
 def decode_step(params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
                 parallel: Optional[ParallelConfig] = None):
     """One serving step: tokens (B, 1) -> (logits (B, vocab), cache'). The
-    attention layers write their K and V into ``cache``'s tensors in
-    place."""
+    attention layers write their K and V (MLA: the latent) into
+    ``cache``'s tensors in place."""
     pos = cache["len"]
     x = params["embed"][tokens]
     x, cache, _ = _run_stack(params, x, cfg, pos[:, None], cache=cache,

@@ -162,8 +162,9 @@ class ServeEngine(SlotEngine):
     true length; the prefill variant of each bucket is kept in
     ``_prefill_cache``, at most ``PREFILL_CACHE_MAX`` of them, the least
     recently used out first. A recurrent stack (RWKV) prefills at the exact
-    length, since its state would integrate the padding, and its variants
-    are keyed by that length. A MoE stack buckets as the JAX engine does,
+    length, since its state would integrate the padding, and so does an
+    MLA stack, as the JAX engine does; their variants are keyed by that
+    length. A MoE stack buckets as the JAX engine does,
     though its padding is routed too (and the expert capacity grows with
     the bucket), so its prefill depends on the bucket as JAX's does; and
     every decode tick routes all B lanes, idle ones included, in one
@@ -215,9 +216,11 @@ class ServeEngine(SlotEngine):
         self._decode = None               # the compiled tick, from tick 2
         self._prefill_cache: OrderedDict = OrderedDict()   # bucket -> fn
         # pad + true length is exact only where no mixer integrates the
-        # padded positions into a recurrent state
-        self._bucket_prompts = cfg.rwkv is None and all(
-            cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+        # padded positions into a recurrent state; MLA prefills at the
+        # exact length, as the JAX engine does
+        self._bucket_prompts = (
+            cfg.rwkv is None and cfg.mla is None
+            and all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)))
 
     def submit(self, req: Request) -> None:
         """Enqueue ``req`` for FIFO admission into a free decode lane."""

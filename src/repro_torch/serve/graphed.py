@@ -22,6 +22,7 @@ recorded: a drain counts what the eager drain counts.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional
 
 import torch
@@ -49,9 +50,10 @@ class Graphed:
     """``body()`` compiled for ``device``. On CUDA: one eager warm-up run
     on a side stream (kernel builds, plans and library handles happen
     here), after which the tensors of ``keep`` get back the values they
-    had, then one capture; each call replays the graph and returns the
-    capture's outputs, which the next replay overwrites. On the CPU each
-    call runs ``body()``. ``body`` must take its inputs from static tensors
+    had, then one capture with Python's automatic garbage collection held
+    off; each call replays the graph and returns the capture's outputs,
+    which the next replay overwrites. On the CPU each call runs
+    ``body()``. ``body`` must take its inputs from static tensors
     and write its results into static tensors or return them."""
 
     def __init__(self, body: Callable, device: torch.device,
@@ -71,11 +73,20 @@ class Graphed:
             for t, s in zip(keep, saved):
                 t.copy_(s)
             before = dict(kernels.LAUNCH_COUNTS)
-            graph.capture_begin()
+            # no automatic collection while capturing: one that frees
+            # another graph held in a reference cycle destroys it
+            # mid-capture, which invalidates this capture
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                self.out = body()
+                graph.capture_begin()
+                try:
+                    self.out = body()
+                finally:
+                    graph.capture_end()
             finally:
-                graph.capture_end()
+                if collecting:
+                    gc.enable()
         torch.cuda.current_stream(device).wait_stream(side)
         self.launches = {k: n - before[k]
                          for k, n in kernels.LAUNCH_COUNTS.items()

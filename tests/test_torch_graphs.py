@@ -12,6 +12,8 @@ the JAX parity of the double buffer is in `test_torch_serve.py`, of the
 decode tick in `test_torch_lm_serve.py`, of the bucketed prefill in
 `test_torch_lm_dense.py`.
 """
+import gc
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -27,7 +29,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, SNNServeEngine  # noqa: E402
 from repro_torch.serve.engine import tree_leaves  # noqa: E402
 from repro_torch.serve.graphed import (GRAPHED_BACKENDS,  # noqa: E402
-                                      StaticPrefill)
+                                      Graphed, StaticPrefill)
 
 CPU = torch.device("cpu")
 BUDGETS = [30, 17, 30, None, 9, 30, 23]
@@ -326,3 +328,40 @@ def test_bucket_prefill_equals_eager_prefill_on_the_card(cuda_device):
     assert all(f._run.graph is not None
                for f in eng._prefill_cache.values())
     assert eng._decode.graph is not None
+
+
+@pytest.mark.cuda
+def test_capture_holds_off_python_collection(cuda_device):
+    """A graph held in a reference cycle and dropped while another graph
+    is being captured must not be freed mid-capture (that invalidates the
+    capture): `Graphed` turns automatic collection off while it captures.
+    The body drops such a cycle during the capture and then allocates,
+    with the collector set to run at every allocation."""
+    x = torch.zeros(8, device=cuda_device)
+
+    def step():
+        x.add_(1)
+        return x * 2
+    spare = {"g": Graphed(step, cuda_device)}
+    calls = []
+
+    def body():
+        calls.append(len(calls))
+        if len(calls) == 2:                        # the capture
+            cycle = {"g": spare.pop("g")}
+            cycle["self"] = cycle
+            del cycle
+            _ = [[] for _ in range(100)]           # a collection's trigger
+        return step()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g = Graphed(body, cuda_device)
+    finally:
+        gc.set_threshold(*threshold)
+    assert gc.isenabled() and g.graph is not None and not spare
+    gc.collect()
+    before = x.clone()
+    out = g()
+    torch.cuda.synchronize()
+    assert torch.equal(x, before + 1) and torch.equal(out, x * 2)

@@ -43,8 +43,11 @@ BF16_ULP = 2.0 ** -7                 # relative, an upper bound
 DENSE_ARCHS = ("llama3-8b", "llama3.2-1b", "phi3-medium-14b",
                "starcoder2-15b")
 SPIKING = dict(neuron="rmp", timesteps=8, threshold=0.5)
-# a MoE stack whose first layer is dense (the prelude is not ported)
+# a MoE stack whose first layer is dense (deepseek's prelude, without MLA)
 PRELUDE_MOE = MoEConfig(n_experts=4, top_k=1, d_ff=64, first_k_dense=1)
+# a MoE stack with Mamba layers (jamba's interleave), which is not ported
+MAMBA_MOE = dict(attn_layer_period=2, moe=MoEConfig(n_experts=4, top_k=1,
+                                                    d_ff=64, every=2))
 
 
 def configs(name: str):
@@ -365,16 +368,57 @@ def test_spiking_programs_follow_the_call_shape(monkeypatch):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
 def test_other_families_raise_by_name(family):
-    """The unported families, and a MoE stack with a leading dense prelude
-    (``first_k_dense``, deepseek style), are refused by name."""
+    """The unported families, and a MoE stack with Mamba layers (jamba
+    style), are refused by name."""
     _, cfg = configs("llama3.2")
+    kw = MAMBA_MOE if family == "moe" else {}
     other = dataclasses.replace(cfg, arch_id=f"{family}-like", family=family,
-                                moe=PRELUDE_MOE if family == "moe" else None)
+                                **kw)
     for make in (lambda: lm.init_params(0, other, device="cpu"),
                  lambda: lm.init_cache(other, 1, 8, device="cpu"),
                  lambda: ServeEngine(params("llama3.2")[1], other)):
         with pytest.raises(NotImplementedError, match=f"'{family}'"):
             make()
+
+
+def test_prelude_moe_runs_and_matches_jax():
+    """A MoE stack whose first layer is dense (`PRELUDE_MOE` on the
+    reduced llama3.2-1b: GQA, no MLA) runs: its params and cache carry
+    ``prelude`` as JAX's do, prefill logits and K/V and two decode steps
+    equal JAX's (float32 params)."""
+    from repro.configs.base import MoEConfig as JaxMoE
+    jcfg, cfg = configs("llama3.2")
+    jcfg = dataclasses.replace(jcfg, family="moe", moe=JaxMoE(
+        **dataclasses.asdict(PRELUDE_MOE)))
+    cfg = dataclasses.replace(cfg, family="moe", moe=PRELUDE_MOE)
+    assert lm.n_prelude(cfg) == jlm.n_prelude(jcfg) == 1
+    jp = jax.jit(jlm.init_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(2), jcfg, jnp.float32)
+    p = lm.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    assert shapes(lm.init_params(0, cfg, torch.float32, device="meta")) == \
+        jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype)), jp)
+    assert "ffn" in p["prelude"][0] and "moe" in p["blocks"]["pos0"]
+    t = tokens(12, seed=4)
+    jlogits, jcache = jax.jit(jlm.prefill, static_argnums=(2, 3))(
+        jp, {"tokens": jnp.asarray(t)}, jcfg, 32)
+    with torch.no_grad():
+        logits, cache = lm.prefill(p, {"tokens": torch.as_tensor(t)}, cfg,
+                                   32)
+    close(logits, jlogits)
+    close_kv(cache["prelude"][0]["k"][None], jcache["prelude"][0]["k"][None],
+             n=12)
+    close_kv(cache["blocks"]["pos0"]["v"], jcache["blocks"]["pos0"]["v"],
+             n=12)
+    jdecode = jax.jit(jlm.decode_step, static_argnums=(3,))
+    for step in range(2):
+        nxt = np.asarray(jlogits.argmax(-1))[:, None]
+        jlogits, jcache = jdecode(jp, jnp.asarray(nxt), jcache, jcfg)
+        with torch.no_grad():
+            logits, cache = lm.decode_step(p, torch.as_tensor(nxt), cache,
+                                           cfg)
+        close(logits, jlogits)
+    assert cache["len"].tolist() == [14]
 
 
 def test_launcher_serves_the_dense_default_on_the_cpu(capsys):

@@ -286,11 +286,12 @@ def test_loss_fn_refuses_the_other_families_by_name():
     _, cfg = configs("llama3.2")
     _, p = params("llama3.2")
     for family in ("moe", "hybrid", "audio", "vlm"):
-        # the MoE case has a leading dense prelude, which is not ported
+        # the MoE case has Mamba layers (jamba style), which are not ported
+        kw = (dict(attn_layer_period=2, moe=MoEConfig(
+            n_experts=4, top_k=1, d_ff=64, every=2))
+            if family == "moe" else {})
         other = dataclasses.replace(
-            cfg, arch_id=f"{family}-like", family=family,
-            moe=(MoEConfig(n_experts=4, top_k=1, d_ff=64, first_k_dense=1)
-                 if family == "moe" else None))
+            cfg, arch_id=f"{family}-like", family=family, **kw)
         with pytest.raises(NotImplementedError, match=f"'{family}'"):
             lm.loss_fn(p, batch(), other)
 

@@ -302,12 +302,12 @@ def test_init_cache_has_the_jax_types():
 
 
 def test_other_families_are_not_ported():
-    """The port runs RWKV, the dense attention family and its MoE variant;
-    a MoE config with a leading dense prelude (without the RWKV block) is
-    refused by name."""
+    """The port runs RWKV, the dense attention family and its MoE
+    variants; a MoE config with Mamba layers (jamba style, without the
+    RWKV block) is refused by name."""
     moe = dataclasses.replace(
-        CFG, arch_id="moe-like", family="moe", rwkv=None,
-        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, first_k_dense=1))
+        CFG, arch_id="moe-like", family="moe", rwkv=None, attn_layer_period=2,
+        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, every=2))
     with pytest.raises(NotImplementedError, match="'moe'"):
         lm.init_params(0, moe, device="cpu")
     with pytest.raises(NotImplementedError, match="is not ported"):
