@@ -214,7 +214,25 @@ Phases, each of which exits non-zero on failure:
      tokens and a decode step over the cache it leaves) within 2e-2 of a
      float32 reference in the absorbed form, and its decode against a
      prefill of one more token; the model's decode against a prefill of
-     one more token in bf16 (reported).
+     one more token in bf16 (reported);
+ 18. jamba-v0.1-52b's hybrid super-block, which launches no port kernel
+     either: (a) every published width (4096; 32 query and 8 KV heads of
+     128; Mamba d_inner 8,192, state 16, conv 4, dt rank 256; dense d_ff
+     14,336; 16 experts of 14,336 at top-2; vocab 65,536) cut to 8 of its
+     32 layers, one period-8 super-block (7 Mamba layers, attention at
+     place 4, MoE at the odd places; 26.6 GB of bf16 weights drawn on the
+     card from seed 0, each expert into its slot), served as phase 17
+     serves, each prompt prefilled at its exact length (a Mamba state
+     would integrate padding): every logit finite, two eager drains equal
+     and the compiled engine == the eager one token for token, tokens/s,
+     the time to the first token per prompt length, idle shares, the peak
+     memory, the recurrent state's bytes against the K/V those layers
+     would hold, each prefill's drops in every MoE layer, and one decode
+     graph replay against its bound; (b) `mamba_forward` at full width on
+     layer 0's input in a 1,024-token prefill (8 chunks of 128): the
+     output and final conv and SSM states within 2e-2 relative L2 of a
+     float64 step-by-step recurrence, a prefill then `mamba_decode` of one
+     token against a prefill of one more token, and the layer's device ms.
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -348,6 +366,14 @@ MLA_PROMPT = 1024                 # tokens of the full-width module checks
 MLA_REF_RL2 = 2e-2                # bf16 mla_attention vs the float32
                                   #   absorbed reference, and its decode vs
                                   #   a prefill of one more token
+# Phase 18: jamba-v0.1-52b's hybrid super-block at full width
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8                  # of 32: one period-8 super-block (all 32
+                                  #   would hold 103 GB of bf16 weights)
+JAMBA_PROMPT = 1024               # tokens of the full-width Mamba check
+MAMBA_REF_RL2 = 2e-2              # bf16 mamba_forward (output and states)
+                                  #   vs the float64 recurrence, and its
+                                  #   decode vs a prefill of one more token
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -3179,13 +3205,13 @@ def moe_ffn_checks(params, cfg, prompt: np.ndarray) -> dict:
     return out
 
 
-def phase_moe(dev, cfg) -> dict:
-    """Phase 16: ``cfg`` (llama4-maverick at every published width, cut to
-    one dense/MoE super-block) with bf16 weights from seed 0 drawn on
-    ``dev``: (a) served by ServeEngine as phase 14 serves (eager and
-    graphed drains, buckets 8, 16 and 1,024, TTFT, a profiled drain), the
-    peak memory, each prefill's drops and a decode tick's bound; (b)
-    `moe_ffn` at full width against its references."""
+def served_model(dev, cfg, seed_offset: int, repeat_equal: bool = False
+                 ) -> tuple:
+    """Phases 16-18's serving part: ``cfg``'s bf16 weights from seed 0
+    drawn on ``dev`` (the seconds, parameter counts, bytes and init peak),
+    two long prompts from seed SEED + ``seed_offset``, and `serve_dense`
+    with the port kernels it launched, its seconds and the peak memory.
+    Returns (params, out, rng, long_prompts)."""
     from repro_torch import kernels
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3200,15 +3226,30 @@ def phase_moe(dev, cfg) -> dict:
            "active_param_count": cfg.active_param_count(),
            "param_bytes": tree_bytes(params),
            "init_peak_bytes": torch.cuda.max_memory_allocated()}
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(SEED + seed_offset)
     long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
                     for _ in range(2)]
     kernels.reset_launch_counts()
-    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts)
+    t0 = time.perf_counter()
+    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts,
+                               repeat_equal=repeat_equal)
+    out["seconds"] = {"init": out["init_s"],
+                      "serve": time.perf_counter() - t0}
     out["port_kernel_launches"] = {k: v for k, v in
                                    kernels.LAUNCH_COUNTS.items() if v}
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     free_cuda()
+    return params, out, rng, long_prompts
+
+
+def phase_moe(dev, cfg) -> dict:
+    """Phase 16: ``cfg`` (llama4-maverick at every published width, cut to
+    one dense/MoE super-block) with bf16 weights from seed 0 drawn on
+    ``dev``: (a) served by ServeEngine as phase 14 serves (eager and
+    graphed drains, buckets 8, 16 and 1,024, TTFT, a profiled drain), the
+    peak memory, each prefill's drops and a decode tick's bound; (b)
+    `moe_ffn` at full width against its references."""
+    params, out, rng, long_prompts = served_model(dev, cfg, 3)
     # the bytes a decode tick must read: every weight but the embedding's
     # unread rows (the dense bucket product touches all experts)
     tick = out["param_bytes"] - params["embed"].nbytes + 4 * cfg.d_model * 2
@@ -3370,32 +3411,8 @@ def phase_mla(dev, cfg) -> dict:
     `mla_attention` at full width against float32 references that do not
     share their code, and the model's decode against a prefill of one
     more token (bf16, reported)."""
-    from repro_torch import kernels
-    from repro_torch.models import lm
-    torch.backends.cuda.matmul.allow_tf32 = False
-    free_cuda()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    out = {"init_s": time.perf_counter() - t0,
-           "params": sum(a.numel() for a in leaves(params)),
-           "param_count": cfg.param_count(),
-           "active_param_count": cfg.active_param_count(),
-           "param_bytes": tree_bytes(params),
-           "init_peak_bytes": torch.cuda.max_memory_allocated()}
-    rng = np.random.default_rng(SEED + 4)
-    long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
-                    for _ in range(2)]
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out["serve"] = serve_dense(dev, cfg, params, cfg.arch_id, long_prompts,
-                               repeat_equal=True)
-    seconds = {"init": out["init_s"], "serve": time.perf_counter() - t0}
-    out["port_kernel_launches"] = {k: v for k, v in
-                                   kernels.LAUNCH_COUNTS.items() if v}
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    free_cuda()
+    params, out, rng, long_prompts = served_model(dev, cfg, 4,
+                                                  repeat_equal=True)
     m = cfg.mla
     per_token_layer = cfg.n_heads * (m.nope_head_dim + m.rope_head_dim
                                      + m.v_head_dim)
@@ -3427,8 +3444,7 @@ def phase_mla(dev, cfg) -> dict:
                             int(rng.integers(0, cfg.vocab_size)))
     out["bf16_prefill_vs_decode"] = prefill_vs_decode(params, cfg,
                                                       long_prompts[0])
-    seconds["checks"] = time.perf_counter() - t0
-    out["seconds"] = seconds
+    out["seconds"]["checks"] = time.perf_counter() - t0
     del params
     free_cuda()
     return out
@@ -3503,6 +3519,198 @@ def print_mla(res: dict, cfg, card: str) -> None:
           f"the last token after {DENSE_LONG} others under the capacity, the "
           f"decode routes it alone): "
           f"{json.dumps(res['bf16_prefill_vs_decode'])}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: jamba-v0.1-52b's hybrid super-block (Mamba, attention 1 in 8,
+# MoE every 2) at full width
+# ---------------------------------------------------------------------------
+
+def mamba_f64(h, p, cfg) -> tuple:
+    """A float64 step-by-step reference of `mamba.mamba_forward` on one
+    row, h (T, d), from the bf16 weights and a zero state: the in
+    projection, the causal conv tap by tap, silu, dt = log(1 + exp(.)),
+    then h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t and y_t = h_t . C_t + D
+    x_t one step at a time, gated by silu(z), out projection. Returns (out
+    (T, d), conv state (d_conv - 1, d_in), SSM state (d_in, N)). Not on
+    any serving path: a check only."""
+    s = cfg.ssm
+    W = {k: v.double() for k, v in p.items()}
+    x = h.double()
+    T = x.shape[0]
+    xs, z = (x @ W["in_proj"]).chunk(2, dim=-1)
+    d_in = xs.shape[1]
+    xp = torch.cat([torch.zeros((s.d_conv - 1, d_in), dtype=torch.float64,
+                                device=x.device), xs])
+    u = W["conv_b"] + sum(xp[i:i + T] * W["conv_w"][i]
+                          for i in range(s.d_conv))
+    u = u * torch.sigmoid(u)
+    dt_r, b_mat, c_mat = (u @ W["x_proj"]).split(
+        [s.dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = torch.logaddexp(dt_r @ W["dt_proj"] + W["dt_bias"],
+                         torch.zeros((), dtype=torch.float64, device=x.device))
+    a = -torch.exp(W["a_log"])                                # (d_in, N)
+    state = torch.zeros((d_in, s.d_state), dtype=torch.float64,
+                        device=x.device)
+    ys = []
+    for t in range(T):
+        state = (torch.exp(dt[t, :, None] * a) * state
+                 + (dt[t] * u[t])[:, None] * b_mat[t][None])
+        ys.append(state @ c_mat[t])
+    y = torch.stack(ys) + u * W["d_skip"]
+    out = (y * z * torch.sigmoid(z)) @ W["out_proj"]
+    return out, xs[-(s.d_conv - 1):], state
+
+
+def mamba_checks(params, cfg, prompt: np.ndarray, nxt: int) -> dict:
+    """Phase 18(b): `mamba_forward` at full width on layer 0's weights and
+    its input for ``prompt`` (1, T): the output and the final conv and SSM
+    states against the float64 recurrence; a prefill of T then
+    `mamba_decode` of ``nxt`` against a prefill of T + 1 (its last row and
+    its states); the device ms of each beside the least time of the
+    prefill's work."""
+    from repro_torch.models import lm
+    from repro_torch.models import mamba as M
+    dev = params["embed"].device
+    p0 = lm.tree_map(lambda a: a[0], params["blocks"])["pos0"]
+    pm = p0["ssm"]
+    toks = torch.as_tensor(np.append(prompt, nxt)[None], device=dev)
+    h = lm._norm(params["embed"][toks], p0["norm1"], cfg)     # (1, T+1, d)
+    T = len(prompt)
+    out, st = M.mamba_forward(h[:, :T], pm, cfg)
+    ref, ref_conv, ref_ssm = mamba_f64(h[0, :T], pm, cfg)
+    dec, st1 = M.mamba_decode(h[:, T:], pm, cfg, st)
+    full, stf = M.mamba_forward(h, pm, cfg)
+    res = {"T": T, "chunks": -(-T // M.CHUNK), "pad": (-T) % M.CHUNK,
+           "vs_f64_recurrence": {
+               "out": rel_diff(out[0], ref),
+               "conv": rel_diff(st["conv"][0], ref_conv),
+               "ssm": rel_diff(st["ssm"][0], ref_ssm)},
+           "decode_vs_prefill_plus_one": {
+               "out": rel_diff(dec[0, 0], full[0, T]),
+               "conv": rel_diff(st1["conv"], stf["conv"]),
+               "ssm": rel_diff(st1["ssm"], stf["ssm"])},
+           "tolerance_rel_l2": MAMBA_REF_RL2}
+    d = cfg.d_model
+    weights = tree_bytes(pm)
+    flops = 2 * T * sum(int(pm[k].numel()) for k in
+                        ("in_proj", "x_proj", "dt_proj", "out_proj"))
+    h4 = h[:, T:].expand(4, 1, d).contiguous()
+    st4 = M.init_mamba_state(cfg, 4, torch.bfloat16, dev)
+    res["ms"] = {
+        "prefill": device_ms(lambda: M.mamba_forward(h[:, :T], pm, cfg),
+                             3)[0],
+        "decode_B4": device_ms(lambda: M.mamba_decode(h4, pm, cfg, st4),
+                               10)[0],
+        "prefill_bound": max((weights + 2 * T * d * 2) / PEAK_BYTES_PER_S,
+                             flops / PEAK_BF16_FLOPS) * 1e3,
+        "prefill_bound_by": ("operations (the four projections' bf16 "
+                             "products)" if flops / PEAK_BF16_FLOPS
+                             > (weights + 2 * T * d * 2) / PEAK_BYTES_PER_S
+                             else "bytes (weights, input and output)"),
+        "weights_bytes": weights}
+    bad = {f"{k}/{leaf}": v for k in ("vs_f64_recurrence",
+                                      "decode_vs_prefill_plus_one")
+           for leaf, v in res[k].items() if not v["rel_l2"] <= MAMBA_REF_RL2}
+    if bad or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"mamba_forward beyond {MAMBA_REF_RL2} relative "
+                             f"L2 or not finite: {bad}")
+    return res
+
+
+def phase_jamba(dev, cfg) -> dict:
+    """Phase 18: ``cfg`` (jamba-v0.1-52b at every published width, cut to
+    one period-8 super-block) with bf16 weights from seed 0 drawn on
+    ``dev``: (a) served by ServeEngine as phase 17 serves, each prompt
+    prefilled at its exact length (a Mamba state would integrate the
+    padding), two eager drains equal token for token, the recurrent
+    state's bytes against the K/V those layers would hold, the peak
+    memory, each prefill's drops in its MoE layers and a decode tick
+    against its bound; (b) `mamba_forward` and `mamba_decode` at full
+    width against a float64 recurrence and against each other."""
+    from repro_torch.models import lm
+    params, out, rng, long_prompts = served_model(dev, cfg, 5,
+                                                  repeat_equal=True)
+    blocks = lm.init_cache(cfg, 4, DENSE_MAX_LEN, device="meta")["blocks"]
+    ssm = {j: c for j, c in blocks.items() if "ssm" in c}
+    kv = {j: c for j, c in blocks.items() if "k" in c}
+    state_bytes, kv_bytes = tree_bytes(ssm), tree_bytes(kv)
+    out["recurrent_state"] = {
+        "bytes": state_bytes, "layers": len(ssm), "lanes": 4,
+        "kv_bytes_of_those_layers": len(ssm) * kv_bytes // len(kv),
+        "attention_kv_bytes": kv_bytes, "max_len": DENSE_MAX_LEN}
+    # a decode tick must read every weight but the embedding's unread rows
+    # (the dense bucket product reads all experts) and the attention
+    # layer's K/V, and read and write the Mamba layers' state
+    tick = (out["param_bytes"] - params["embed"].nbytes + 4 * cfg.d_model * 2
+            + kv_bytes + 2 * state_bytes)
+    out["decode_tick_bound"] = {
+        "bytes": tick, "ms": tick / PEAK_BYTES_PER_S * 1e3,
+        "measured_ms": out["serve"]["decode_tick_ms"]}
+    t0 = time.perf_counter()
+    out["prefill_drops"] = prefill_drops(params, cfg, long_prompts)
+    out["mamba"] = mamba_checks(params, cfg,
+                                rng.integers(0, cfg.vocab_size, JAMBA_PROMPT),
+                                int(rng.integers(0, cfg.vocab_size)))
+    out["seconds"]["checks"] = time.perf_counter() - t0
+    del params
+    free_cuda()
+    return out
+
+
+def print_jamba(res: dict, cfg, card: str) -> None:
+    """Phase 18's lines."""
+    srv = res.pop("serve")
+    comp = srv.pop("compiled")
+    mb = res.pop("mamba")
+    st = res["recurrent_state"]
+    b = res["decode_tick_bound"]
+    s = cfg.ssm
+    print(f"[phase 18] (a) {cfg.arch_id} at every published width cut to "
+          f"{cfg.n_layers} of 32 layers (one super-block: 7 Mamba layers of "
+          f"d_inner {s.expand * cfg.d_model}, state {s.d_state}, conv "
+          f"{s.d_conv}, dt rank {s.dt_rank}; attention at place "
+          f"{cfg.attn_layer_offset}; MoE of {cfg.moe.n_experts} experts at "
+          f"top-{cfg.moe.top_k} every 2): {res['params']} params (bf16, "
+          f"{res['param_bytes']} bytes) drawn on the card in "
+          f"{res['init_s']:.2f} s (init peak {res['init_peak_bytes']} bytes);"
+          f" eager engine: 8 requests (6 of 4 to 16 tokens, 2 of "
+          f"{DENSE_LONG}) x {LM_NEW} tokens, 4 slots, "
+          f"{srv['tokens_per_s']:.2f} tokens/s, every logit finite "
+          f"({srv['logits_checked']} calls), two eager drains equal token "
+          f"for token; exact-length prefills {srv['buckets']}; port kernel "
+          f"launches "
+          f"{res['port_kernel_launches'] or 'none (no kernel on this path)'}")
+    print(f"[phase 18] (a) compiled engine == eager engine, token for token; "
+          f"tokens/s (median of 3 in turns): eager "
+          f"{comp['eager']['tokens_per_s']:.2f}, graphed "
+          f"{comp['graphed']['tokens_per_s']:.2f}; device idle eager "
+          f"{comp['eager']['device_idle_share']:.3f}, graphed "
+          f"{comp['graphed']['device_idle_share']:.3f}; time to first token "
+          f"per prompt length (ms): {json.dumps(srv['ttft_ms'])}; peak "
+          f"{res['peak_bytes']} bytes ({card})")
+    print(f"[phase 18] (a) recurrent state {st['bytes']} bytes ({st['layers']}"
+          f" Mamba layers x {st['lanes']} lanes: conv window and float32 SSM "
+          f"state, whatever the length) against "
+          f"{st['kv_bytes_of_those_layers']} bytes of K/V those layers would "
+          f"hold at max_len {st['max_len']} (the attention layer's: "
+          f"{st['attention_kv_bytes']})")
+    print(f"[phase 18] (a) decode tick: {srv['decode_tick_ms']:.3f} ms a "
+          f"graph replay against a bound of {b['ms']:.3f} ms ({b['bytes']} "
+          f"bytes at 3.35 TB/s: every weight, all experts included, the K/V "
+          f"cache, the state read and written) ({card})")
+    print(f"[phase 18] (a) drops of each exact-length prefill's MoE layers "
+          f"(cap {moe_cap(cfg, DENSE_LONG)} at {DENSE_LONG} tokens): "
+          f"{json.dumps(res['prefill_drops'])}")
+    print(f"[phase 18] (a) drains and profiled top ops: {json.dumps(comp)} "
+          f"({card})")
+    print(f"[phase 18] (b) mamba_forward at full width on layer 0 (T = "
+          f"{mb['T']}: {mb['chunks']} chunks of 128, pad {mb['pad']}), bf16 "
+          f"vs the float64 step-by-step recurrence (tol {MAMBA_REF_RL2} rel "
+          f"L2): {json.dumps(mb['vs_f64_recurrence'])}; prefill of T then "
+          f"mamba_decode vs prefill of T + 1: "
+          f"{json.dumps(mb['decode_vs_prefill_plus_one'])}: ok; device ms "
+          f"{json.dumps(mb['ms'])} ({card})")
 
 
 def leaves(tree) -> list:
@@ -3940,6 +4148,12 @@ def main() -> int:
     print_mla(mla, mla_cfg, card)
     print(f"[phase 17] {json.dumps(mla)}")
     lap("phase 17")
+    jamba_cfg = dataclasses.replace(get_config(JAMBA_ARCH),
+                                    n_layers=JAMBA_LAYERS)
+    jamba = phase_jamba(dev, jamba_cfg)
+    print_jamba(jamba, jamba_cfg, card)
+    print(f"[phase 18] {json.dumps(jamba)}")
+    lap("phase 18")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

@@ -5,10 +5,10 @@ The port's own copy of the fields of `repro.configs.base` that the dense
 attention family (GQA, RoPE, swiglu or gelu FFNs, the spiking FFN), the
 MoE stacks (routed and shared experts interleaved with dense layers, and
 deepseek's leading dense layers), multi-head latent attention (MLA), the
-RWKV family and the train step read (it imports nothing of the JAX
-package). The other families' sub-configs (SSM, encoder-decoder,
-frontends) are not here: `models.lm` raises `NotImplementedError` for a
-config of any other family.
+Mamba layers of a hybrid stack (jamba's SSM), the RWKV family and the
+train step read (it imports nothing of the JAX package). The
+encoder-decoder and frontend fields are not here: `models.lm` raises
+`NotImplementedError` for a config of those families.
 """
 from __future__ import annotations
 
@@ -37,6 +37,15 @@ class MLAConfig:
     rope_head_dim: int = 64
     nope_head_dim: int = 128
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba block (Jamba's SSM layers)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 256
 
 
 @dataclass(frozen=True)
@@ -76,6 +85,7 @@ class ModelConfig:
     ffn_type: str = "swiglu"        # swiglu (3 mats) | gelu (2 mats)
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     spiking: Optional[SpikingConfig] = None
 
@@ -130,6 +140,19 @@ class ModelConfig:
         mats = 3 if self.ffn_type == "swiglu" else 2
         return mats * self.d_model * d_ff
 
+    def _ssm_params(self) -> int:
+        if self.ssm is None:
+            raise ValueError(f"{self.arch_id}: ssm layer kind requested "
+                             "but cfg.ssm is unset")
+        s, d = self.ssm, self.d_model
+        d_in = s.expand * d
+        n = 2 * d * d_in                                # in_proj (x, z)
+        n += d_in * s.d_conv                            # conv1d
+        n += d_in * (s.dt_rank + 2 * s.d_state)         # x -> (dt, B, C)
+        n += s.dt_rank * d_in                           # dt proj
+        n += d_in * s.d_state + d_in                    # A_log, D
+        return n + d_in * d                             # out proj
+
     def _block_params(self, idx: int, active_only: bool = False) -> int:
         d = self.d_model
         n = 2 * d                                               # norms
@@ -138,10 +161,8 @@ class ModelConfig:
             # lora; channel mix: k (d -> ff), v (ff -> d), receptance
             return (n + 5 * d * d + 2 * d + 6 * d * 32 * 2
                     + 2 * d * self.d_ff + d * d)
-        if not self.is_attention_layer(idx):
-            raise NotImplementedError(
-                f"{self.arch_id}: layer {idx} is not an attention layer")
-        n += self._attn_params()
+        n += (self._attn_params() if self.is_attention_layer(idx)
+              else self._ssm_params())
         if self.is_moe_layer(idx):
             m = self.moe
             k = (m.top_k if active_only else m.n_experts) + m.n_shared_experts
@@ -229,7 +250,7 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_lite_16b, llama3_2_1b, llama3_8b,
+        deepseek_v2_lite_16b, jamba_v0_1_52b, llama3_2_1b, llama3_8b,
         llama4_maverick_400b_a17b, phi3_medium_14b, rwkv6_7b, starcoder2_15b)
 
 
@@ -240,7 +261,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     d_model 128, 4 heads of 32 with 2 KV heads under GQA (else 4), d_ff
     256, vocab 512; for MoE at most 4 experts and top-2, expert d_ff 64 and
     dense d_ff 256; for MLA a latent of 32, rope heads of 16 and nope and
-    v heads of 32; for RWKV 4 heads of size 32."""
+    v heads of 32; for Mamba a state of 8, conv 4, expand 2 and dt rank
+    16; for RWKV 4 heads of size 32."""
     period = cfg.attn_layer_period
     if cfg.moe is not None and cfg.moe.n_experts:
         period = math.lcm(period, cfg.moe.every)
@@ -268,6 +290,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
                               rope_head_dim=16, nope_head_dim=32,
                               v_head_dim=32)
         kw["head_dim"] = 32
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2, dt_rank=16)
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_size=32)
     return dataclasses.replace(cfg, arch_id=cfg.arch_id + "-smoke", **kw)

@@ -9,11 +9,13 @@ random weights from ``--seed``: a dense attention config (``llama3.2-1b``
 by default, ``llama3-8b``, ``phi3-medium-14b``, ``starcoder2-15b``), the
 MoE super-block of ``llama4-maverick-400b-a17b`` (a dense layer and a MoE
 layer of 4 experts), ``deepseek-v2-lite-16b`` (MLA, a dense prelude layer
-and two MoE layers of 4 experts at top-2) or ``rwkv6-7b``. Each request's
+and two MoE layers of 4 experts at top-2), the hybrid super-block of
+``jamba-v0.1-52b`` (8 layers: 7 Mamba layers and one attention layer, MoE
+of 4 experts at top-2 every other layer) or ``rwkv6-7b``. Each request's
 prompt is 4 to 16 random tokens. ``--device`` defaults to ``cuda``, where
-prompts are prefilled through one CUDA graph per length bucket (MLA:
-eagerly at the exact length; RWKV: through the CUDA wkv6 kernel at the
-exact length);
+prompts are prefilled through one CUDA graph per length bucket (MLA and
+Mamba: eagerly at the exact length; RWKV: through the CUDA wkv6 kernel at
+the exact length);
 ``--device cpu`` runs the same code, and the kernels' plain versions, on
 the CPU.
 """

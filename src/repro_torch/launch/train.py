@@ -7,7 +7,8 @@ counterpart).
 It trains ``reduced_config`` of ``--arch`` (2 layers, d_model 128; for
 ``llama4-maverick-400b-a17b`` a dense and a MoE layer of 4 experts, for
 ``deepseek-v2-lite-16b`` MLA over a dense prelude layer and two MoE
-layers): as in
+layers, for ``jamba-v0.1-52b`` one hybrid super-block of 8 layers, 7 of
+them Mamba): as in
 the JAX launcher, ``--reduced`` is a ``store_true`` flag whose default is
 already True, so no command line trains the full config (full width trains
 through `chip_smoke.py`). Weights are bf16, drawn from ``--seed``; the

@@ -1,8 +1,9 @@
 """Language models of the port: the dense attention family (GQA, RoPE,
 swiglu or gelu FFNs, or the spiking FFN), its MoE variants (dense and MoE
 FFN layers interleaved, as llama4-maverick's super-block; leading dense
-layers and multi-head latent attention, as deepseek-v2-lite) and the RWKV
-family.
+layers and multi-head latent attention, as deepseek-v2-lite), the hybrid
+Mamba/attention stacks (jamba's super-block of 7 Mamba layers and one
+attention layer, MoE every 2) and the RWKV family.
 
 The functional API of `repro.models.lm`, for those families:
 
@@ -19,9 +20,11 @@ Params and caches are nested dicts of tensors laid out as the JAX package's
 pytrees: every block leaf is stacked over the layer stack's super-blocks
 under ``params["blocks"]["pos<j>"]``, j the layer's place in its
 super-block. A super-block is one layer for the dense and RWKV families and
-``lcm(attn_layer_period, moe.every)`` layers for a MoE stack (llama4: a
-dense layer, then a MoE layer). A MoE's ``first_k_dense`` leading dense
-layers (deepseek's prelude) come before the body, unstacked, as the list
+``lcm(attn_layer_period, moe.every)`` layers for a MoE or hybrid stack
+(llama4: a dense layer, then a MoE layer; jamba: 8 layers, attention at
+place 4 and Mamba elsewhere, MoE at the odd places). A MoE's
+``first_k_dense`` leading dense layers (deepseek's prelude) come before
+the body, unstacked, as the list
 ``params["prelude"]`` (and ``cache["prelude"]``); body layer j of
 super-block s is global layer ``n_prelude + s * period + j``. The stack is
 a Python loop over the prelude, then over the stacked leaves in place of
@@ -34,8 +37,11 @@ aux adds to the loss's aux, as in the JAX package. The attention cache is
 written in place: prefill fills the cache it allocates, and a decode step
 writes each lane's new K and V (MLA: its latent row, ``cache["latent"]``
 (B, max_len, r + rope)) into the caller's cache tensors, which the new
-cache keeps. Any other family raises `NotImplementedError`: Mamba,
-encoder-decoder and the modality frontends.
+cache keeps. The recurrent caches (RWKV's, and a Mamba layer's conv window
+and float32 SSM state) are returned as new tensors; prefill starts them
+from the cache's state. A stack with non-attention layers and no
+``cfg.ssm`` raises JAX's `ValueError`; any other family raises
+`NotImplementedError`: encoder-decoder and the modality frontends.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import spiking_ffn as S
 
@@ -66,20 +73,22 @@ def tree_map(fn, *trees):
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` unless ``cfg`` is an RWKV model, a dense
-    attention stack (with or without the spiking FFN) or a MoE attention
-    stack (with or without leading dense layers), with GQA or MLA."""
+    attention stack (with or without the spiking FFN), a MoE stack (with
+    or without leading dense layers) or a hybrid stack, with GQA or MLA;
+    raise the JAX package's `ValueError` for non-attention (Mamba) layers
+    without ``cfg.ssm``."""
     if cfg.rwkv is not None:
         return
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} is not ported (the port "
-            "runs the dense attention family, its MoE variants, MLA and "
-            "RWKV; Mamba, encoder-decoder and the modality frontends are "
-            "not ported)")
-    if not all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} with non-attention "
-            "(Mamba) layers is not ported")
+            "runs the dense attention family, its MoE variants, MLA, the "
+            "Mamba hybrids and RWKV; encoder-decoder and the modality "
+            "frontends are not ported)")
+    if cfg.ssm is None and not all(cfg.is_attention_layer(i)
+                                   for i in range(cfg.n_layers)):
+        raise ValueError(f"{cfg.arch_id}: ssm layer kind requested but "
+                         "cfg.ssm is unset")
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +98,7 @@ def check_family(cfg: ModelConfig) -> None:
 def super_period(cfg: ModelConfig) -> int:
     """Layers per super-block: the least common multiple of the attention
     period and the MoE interleave (1 for the dense and RWKV families, 2 for
-    llama4's dense/MoE alternation)."""
+    llama4's dense/MoE alternation, 8 for jamba's)."""
     p = cfg.attn_layer_period
     if cfg.moe is not None and cfg.moe.n_experts:
         p = math.lcm(p, cfg.moe.every)
@@ -116,13 +125,15 @@ def n_super(cfg: ModelConfig) -> int:
 
 
 def layer_kind(cfg: ModelConfig, idx: int) -> tuple[str, str]:
-    """(mixer, ffn) kinds of global layer ``idx`` (`check_family` refuses
-    stacks with layers of other kinds)."""
+    """(mixer, ffn) kinds of global layer ``idx``: mixer ``rwkv``,
+    ``attn`` or ``ssm`` (Mamba), FFN ``none`` (RWKV), ``spiking``,
+    ``moe`` or ``dense``."""
     if cfg.rwkv is not None:
         return "rwkv", "none"
+    mixer = "attn" if cfg.is_attention_layer(idx) else "ssm"
     if cfg.spiking is not None:
-        return "attn", "spiking"
-    return "attn", "moe" if cfg.is_moe_layer(idx) else "dense"
+        return mixer, "spiking"
+    return mixer, "moe" if cfg.is_moe_layer(idx) else "dense"
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +147,8 @@ def _init_block(gen, cfg: ModelConfig, idx: int, dtype) -> dict:
     p: dict = {"norm1": torch.ones((d,), dtype=dtype, device=dev)}
     if mixer == "rwkv":
         p["rwkv"] = R.init_rwkv_block(gen, cfg, dtype)
+    elif mixer == "ssm":
+        p["ssm"] = M.init_mamba_block(gen, cfg, dtype)
     elif cfg.mla is not None:
         p["attn"] = L.init_mla(gen, cfg, dtype=dtype)
     else:
@@ -158,7 +171,9 @@ def _draw_block_(gen, cfg: ModelConfig, idx: int, dtype, slot: dict) -> None:
     leaves, with the draws `_init_block` makes in its order: the norms are
     ones, every attention, dense-FFN and MoE weight is a `dense_init` of
     its leaf drawn in place (the experts one expert at a time), and the
-    RWKV and spiking-FFN leaves are drawn by their own init and copied."""
+    RWKV, Mamba and spiking-FFN leaves are drawn by their own init and
+    copied (a Mamba block's constant leaves, ``a_log``, ``dt_bias``,
+    ``d_skip`` and ``conv_b``, are not draws)."""
     _, f = layer_kind(cfg, idx)
     for key, sub in slot.items():                   # _init_block's order
         if key in ("norm1", "norm2"):
@@ -166,6 +181,9 @@ def _draw_block_(gen, cfg: ModelConfig, idx: int, dtype, slot: dict) -> None:
         elif key == "rwkv":
             tree_map(torch.Tensor.copy_, sub,
                      R.init_rwkv_block(gen, cfg, dtype))
+        elif key == "ssm":
+            tree_map(torch.Tensor.copy_, sub,
+                     M.init_mamba_block(gen, cfg, dtype))
         elif key == "ffn" and f == "spiking":
             tree_map(torch.Tensor.copy_, sub,
                      S.init_spiking_ffn(gen, cfg.d_model, cfg.d_ff, dtype))
@@ -273,7 +291,8 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
     FFN's mean spike rate or the MoE FFN's load-balance loss (0
     otherwise). Decode (the one-token update) when a cache and ``pos`` are
     given and T == 1; prefill writes the prompt's K and V (MLA: its latent)
-    into ``cache`` in place. ``train``: the loss's pass, where RWKV
+    into ``cache`` in place, and a Mamba layer's prefill starts from the
+    cache's conv and SSM state. ``train``: the loss's pass, where RWKV
     takes the differentiable wkv6 form in chunks of
     ``parallel.wkv_chunk``."""
     mixer, f = layer_kind(cfg, idx)
@@ -285,7 +304,14 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
         return x, new_cache, aux
 
     h_in = _norm(x, p["norm1"], cfg)
-    if cfg.mla is not None:
+    if mixer == "ssm":
+        st = (None if cache is None
+              else {"conv": cache["conv"], "ssm": cache["ssm"]})
+        if decode:
+            h, new_cache = M.mamba_decode(h_in, p["ssm"], cfg, st)
+        else:
+            h, new_cache = M.mamba_forward(h_in, p["ssm"], cfg, st)
+    elif cfg.mla is not None:
         h, latent = L.mla_attention(
             h_in, p["attn"], cfg, positions,
             latent_cache=cache["latent"] if decode else None,
@@ -464,13 +490,17 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
     return loss, {"ce": mean, "aux": aux}
 
 
-def _cache_entry(cfg: ModelConfig, batch: int, max_len: int, dtype, device
-                 ) -> dict:
-    """One layer's serving cache: RWKV's token-shift carries and wkv state,
-    MLA's (B, max_len, r + rope) latent, or the attention layer's (B,
-    max_len, KV, D) K and V."""
-    if cfg.rwkv is not None:
+def _cache_entry(cfg: ModelConfig, idx: int, batch: int, max_len: int,
+                 dtype, device) -> dict:
+    """Layer ``idx``'s serving cache: RWKV's token-shift carries and wkv
+    state, a Mamba layer's conv window and SSM state, MLA's (B, max_len,
+    r + rope) latent, or the attention layer's (B, max_len, KV, D) K and
+    V."""
+    mixer, _ = layer_kind(cfg, idx)
+    if mixer == "rwkv":
         return R.init_rwkv_state(cfg, batch, dtype, device)
+    if mixer == "ssm":
+        return M.init_mamba_state(cfg, batch, dtype, device)
     if cfg.mla is not None:
         m = cfg.mla
         return {"latent": torch.zeros(
@@ -485,25 +515,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Pre-allocated serving cache on ``device`` (the CUDA device unless
     given), of ``dtype`` (bf16 by default whatever the params' type, as in
-    the JAX package), stacked over super-blocks: per RWKV layer the
-    token-shift carries (B, d) and the float32 wkv state (B, H, K, K), per
-    attention layer K and V (B, max_len, KV, D) or MLA's latent (B,
+    the JAX package), stacked over super-blocks, each place ``pos<j>``
+    from its own layer's kind: per RWKV layer the token-shift carries (B,
+    d) and the float32 wkv state (B, H, K, K), per Mamba layer the conv
+    window (B, d_conv - 1, d_in) and the float32 SSM state (B, d_in, N),
+    per attention layer K and V (B, max_len, KV, D) or MLA's latent (B,
     max_len, r + rope); the per-lane length; and for a prelude a list of
     its layers' entries. A recurrent cache does not grow with
     ``max_len``."""
     device = resolve_device(device)
     n = n_super(cfg)
+    off = n_prelude(cfg)
     # a fresh entry per position: with one super-block the expand is
     # already contiguous and would share the entry's storage
     stacked = {f"pos{j}": tree_map(
         lambda a: a[None].expand((n,) + a.shape).contiguous(),
-        _cache_entry(cfg, batch, max_len, dtype, device))
+        _cache_entry(cfg, off + j, batch, max_len, dtype, device))
         for j in range(super_period(cfg))}
     cache = {"blocks": stacked,
              "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    if n_prelude(cfg):
-        cache["prelude"] = [_cache_entry(cfg, batch, max_len, dtype, device)
-                            for _ in range(n_prelude(cfg))]
+    if off:
+        cache["prelude"] = [_cache_entry(cfg, i, batch, max_len, dtype,
+                                         device) for i in range(off)]
     return cache
 
 

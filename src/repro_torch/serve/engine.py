@@ -161,21 +161,23 @@ class ServeEngine(SlotEngine):
     ``PREFILL_BUCKET_MIN``, at most ``max_len``), and prefills it with its
     true length; the prefill variant of each bucket is kept in
     ``_prefill_cache``, at most ``PREFILL_CACHE_MAX`` of them, the least
-    recently used out first. A recurrent stack (RWKV) prefills at the exact
-    length, since its state would integrate the padding, and so does an
-    MLA stack, as the JAX engine does; their variants are keyed by that
-    length. A MoE stack buckets as the JAX engine does,
-    though its padding is routed too (and the expert capacity grows with
-    the bucket), so its prefill depends on the bucket as JAX's does; and
-    every decode tick routes all B lanes, idle ones included, in one
-    group, fed the same stale tokens and caches as JAX's.
+    recently used out first. A recurrent stack (RWKV, or a hybrid with
+    Mamba layers) prefills at the exact length, since its state would
+    integrate the padding, and so does an MLA stack, as the JAX engine
+    does; their variants are keyed by that length. A MoE stack buckets as
+    the JAX engine does, though its padding is routed too (and the expert
+    capacity grows with the bucket), so its prefill depends on the bucket
+    as JAX's does; and every decode tick routes all B lanes, idle ones
+    included, in one group, fed the same stale tokens and caches as
+    JAX's.
 
     The RWKV cache starts as `lm.init_cache` makes it, with bf16
-    token-shift leaves whatever the params' type, and the first decode tick
-    replaces it with what it returns (the compute type): as in the JAX
-    package, a request admitted before the first tick has its token-shift
-    carry rounded to bf16 and one admitted later does not. The K/V cache is
-    bf16 throughout and is written in place.
+    token-shift leaves whatever the params' type, and so does a Mamba
+    layer's conv window; the first decode tick replaces them with what it
+    returns (the compute type): as in the JAX package, a request admitted
+    before the first tick has its carry rounded to bf16 and one admitted
+    later does not. The SSM and wkv states are float32 throughout; the K/V
+    cache is bf16 throughout and is written in place.
 
     Compiled dispatch (the counterpart of JAX's ``jax.jit``): each bucket's
     prefill is one CUDA graph (`graphed.StaticPrefill`: static (1, bucket)
@@ -216,8 +218,8 @@ class ServeEngine(SlotEngine):
         self._decode = None               # the compiled tick, from tick 2
         self._prefill_cache: OrderedDict = OrderedDict()   # bucket -> fn
         # pad + true length is exact only where no mixer integrates the
-        # padded positions into a recurrent state; MLA prefills at the
-        # exact length, as the JAX engine does
+        # padded positions into a recurrent state (RWKV, Mamba); MLA
+        # prefills at the exact length, as the JAX engine does
         self._bucket_prompts = (
             cfg.rwkv is None and cfg.mla is None
             and all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)))

@@ -29,7 +29,8 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
-from repro_torch.configs.base import MoEConfig, SpikingConfig  # noqa: E402
+from repro_torch.configs.base import (MoEConfig, SpikingConfig,  # noqa: E402
+                                      SSMConfig)
 from repro_torch.configs.base import get_config, reduced_config  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -45,9 +46,11 @@ DENSE_ARCHS = ("llama3-8b", "llama3.2-1b", "phi3-medium-14b",
 SPIKING = dict(neuron="rmp", timesteps=8, threshold=0.5)
 # a MoE stack whose first layer is dense (deepseek's prelude, without MLA)
 PRELUDE_MOE = MoEConfig(n_experts=4, top_k=1, d_ff=64, first_k_dense=1)
-# a MoE stack with Mamba layers (jamba's interleave), which is not ported
+# a MoE stack with Mamba layers (jamba's interleave): refused without an
+# SSM config, built with one
 MAMBA_MOE = dict(attn_layer_period=2, moe=MoEConfig(n_experts=4, top_k=1,
                                                     d_ff=64, every=2))
+MAMBA_SSM = SSMConfig(d_state=8, d_conv=4, expand=2, dt_rank=16)
 
 
 def configs(name: str):
@@ -368,17 +371,35 @@ def test_spiking_programs_follow_the_call_shape(monkeypatch):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
 def test_other_families_raise_by_name(family):
-    """The unported families, and a MoE stack with Mamba layers (jamba
-    style), are refused by name."""
+    """The unported families (encoder-decoder and the frontends) are
+    refused by name; a MoE stack with Mamba layers (jamba style) and no
+    SSM config is refused with the JAX package's `ValueError`; a hybrid
+    stack with an SSM config builds, its Mamba layer's params and cache
+    included."""
     _, cfg = configs("llama3.2")
-    kw = MAMBA_MOE if family == "moe" else {}
+    kw = {"moe": MAMBA_MOE,
+          "hybrid": dict(MAMBA_MOE, ssm=MAMBA_SSM)}.get(family, {})
     other = dataclasses.replace(cfg, arch_id=f"{family}-like", family=family,
                                 **kw)
+    if family == "hybrid":
+        p = lm.init_params(0, other, device="cpu")
+        cache = lm.init_cache(other, 1, 8, device="cpu")
+        eng = ServeEngine(p, other)
+        assert [lm.layer_kind(other, i) for i in range(2)] == [
+            ("attn", "dense"), ("ssm", "moe")]
+        assert set(p["blocks"]["pos1"]) == {"norm1", "ssm", "norm2", "moe"}
+        assert set(cache["blocks"]["pos1"]) == {"conv", "ssm"}
+        assert not eng._bucket_prompts
+        return
     for make in (lambda: lm.init_params(0, other, device="cpu"),
                  lambda: lm.init_cache(other, 1, 8, device="cpu"),
                  lambda: ServeEngine(params("llama3.2")[1], other)):
-        with pytest.raises(NotImplementedError, match=f"'{family}'"):
-            make()
+        if family == "moe":
+            with pytest.raises(ValueError, match="cfg.ssm is unset"):
+                make()
+        else:
+            with pytest.raises(NotImplementedError, match=f"'{family}'"):
+                make()
 
 
 def test_prelude_moe_runs_and_matches_jax():

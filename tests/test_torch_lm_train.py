@@ -36,7 +36,7 @@ from repro.train import train_state as jtrain  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import (MoEConfig, ParallelConfig,  # noqa: E402
                                       RunConfig, ShapeConfig, SpikingConfig,
-                                      get_config, reduced_config)
+                                      SSMConfig, get_config, reduced_config)
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.data import loader  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
@@ -283,17 +283,33 @@ def test_remat_recomputes_each_super_block(monkeypatch):
 
 
 def test_loss_fn_refuses_the_other_families_by_name():
+    """The encoder-decoder and frontend families are refused by name; a
+    MoE stack with Mamba layers (jamba style) without an SSM config raises
+    the JAX package's `ValueError`, and with one (a hybrid) its loss is
+    finite and reaches the Mamba layer's weights."""
     _, cfg = configs("llama3.2")
     _, p = params("llama3.2")
+    mamba_moe = dict(attn_layer_period=2, moe=MoEConfig(
+        n_experts=4, top_k=1, d_ff=64, every=2))
     for family in ("moe", "hybrid", "audio", "vlm"):
-        # the MoE case has Mamba layers (jamba style), which are not ported
-        kw = (dict(attn_layer_period=2, moe=MoEConfig(
-            n_experts=4, top_k=1, d_ff=64, every=2))
-            if family == "moe" else {})
+        kw = {"moe": mamba_moe,
+              "hybrid": dict(mamba_moe, ssm=SSMConfig(d_state=8, dt_rank=16))
+              }.get(family, {})
         other = dataclasses.replace(
             cfg, arch_id=f"{family}-like", family=family, **kw)
-        with pytest.raises(NotImplementedError, match=f"'{family}'"):
-            lm.loss_fn(p, batch(), other)
+        if family == "hybrid":
+            hp = lm.init_params(0, other, dtype=torch.float32, device="cpu")
+            w = hp["blocks"]["pos1"]["ssm"]["in_proj"].requires_grad_(True)
+            loss, _ = lm.loss_fn(hp, batch(), other)
+            assert torch.isfinite(loss)
+            (g,) = torch.autograd.grad(loss, [w])
+            assert float(g.abs().sum()) > 0
+        elif family == "moe":
+            with pytest.raises(ValueError, match="cfg.ssm is unset"):
+                lm.loss_fn(p, batch(), other)
+        else:
+            with pytest.raises(NotImplementedError, match=f"'{family}'"):
+                lm.loss_fn(p, batch(), other)
 
 
 # -- the train state and step -------------------------------------------------

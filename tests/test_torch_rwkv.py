@@ -302,13 +302,18 @@ def test_init_cache_has_the_jax_types():
 
 
 def test_other_families_are_not_ported():
-    """The port runs RWKV, the dense attention family and its MoE
-    variants; a MoE config with Mamba layers (jamba style, without the
-    RWKV block) is refused by name."""
+    """The port runs RWKV, the dense attention family, its MoE variants
+    and the Mamba hybrids; a MoE config with Mamba layers (jamba style,
+    without the RWKV block) and no SSM config is refused with the JAX
+    package's `ValueError`, and an audio config by name."""
     moe = dataclasses.replace(
         CFG, arch_id="moe-like", family="moe", rwkv=None, attn_layer_period=2,
         moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, every=2))
-    with pytest.raises(NotImplementedError, match="'moe'"):
+    with pytest.raises(ValueError, match="cfg.ssm is unset"):
         lm.init_params(0, moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="is not ported"):
+    with pytest.raises(ValueError, match="cfg.ssm is unset"):
         lm.init_cache(moe, 1, 8, device="cpu")
+    audio = dataclasses.replace(CFG, arch_id="audio-like", family="audio",
+                                rwkv=None)
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        lm.init_cache(audio, 1, 8, device="cpu")
