@@ -232,7 +232,35 @@ Phases, each of which exits non-zero on failure:
      layer 0's input in a 1,024-token prefill (8 chunks of 128): the
      output and final conv and SSM states within 2e-2 relative L2 of a
      float64 step-by-step recurrence, a prefill then `mamba_decode` of one
-     token against a prefill of one more token, and the layer's device ms.
+     token against a prefill of one more token, and the layer's device ms;
+ 19. whisper-large-v3, the encoder-decoder family, which launches no port
+     kernel: (a) every published width and all 32 encoder and 32 decoder
+     layers (1280, 20 heads of 64, gelu d_ff 5,120, vocab 51,866, tied;
+     3.07 GB of bf16 weights drawn on the card from seed 0), a
+     `prefill_batch_spec` batch from `io_spec.materialize(seed=0)` (B =
+     4, 1,500 frames, whisper's 30 s window, and a 187-token prompt),
+     max_len 448 (whisper's `max_target_positions`), 64 greedy tokens
+     eager twice and with each tick one CUDA graph replay: every logit
+     finite, the three runs equal token for token, ``cache["enc_out"]``
+     == the encoder's output, the time to the first token split into the
+     encoder and the decoder prefill, tokens/s eager and graphed (median
+     of 3 in turns), a profiled graphed run, the peak memory, the cache's
+     bytes against cached cross K/V, and one replay against its bound
+     (JAX's per-tick cross K/V projections counted); (b) in float32 at
+     full width and depth, a prefill then a decode step against a
+     prefill of one more token, and layer 0's `attention(kv_x=)` against
+     a float64 reference;
+ 20. llava-next-mistral-7b, the vision stub, which launches no port kernel
+     either: (a) every published width and all 32 layers (4096, 32/8
+     heads of 128, SwiGLU 14,336, vocab 32,000; 14.5 GB of bf16 weights),
+     a `prefill_batch_spec` batch (B = 2, 4,096 positions: 1,024 patch
+     embeddings and 3,072 tokens), max_len 4,160, 32 greedy tokens as in
+     phase 19 (``cache["len"]`` == 4,096 after the prefill); (b) the
+     text-only `ServeEngine` (4 requests of 4 to 16 tokens x 16, 4 slots),
+     compiled == eager token for token, tokens/s; (c) in float32 at full
+     width cut to 2 layers (64 patches + 192 tokens), the prefill on the
+     card against the same port code on the CPU, and a prefill then a
+     decode step against a prefill of one more token.
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -374,6 +402,20 @@ JAMBA_PROMPT = 1024               # tokens of the full-width Mamba check
 MAMBA_REF_RL2 = 2e-2              # bf16 mamba_forward (output and states)
                                   #   vs the float64 recurrence, and its
                                   #   decode vs a prefill of one more token
+# Phase 19: whisper-large-v3 at every published width and full depth
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_FRAMES, WHISPER_B = 1500, 4   # whisper's 30 s encoder window
+WHISPER_MAX_LEN = 448                 # whisper's max_target_positions
+WHISPER_NEW = 64                      # greedy tokens a lane
+ATTN_F64_L2 = 1e-4                    # float32 attention(kv_x=) vs float64
+# Phase 20: llava-next-mistral-7b at every published width and full depth
+LLAVA_ARCH = "llava-next-mistral-7b"
+LLAVA_SEQ, LLAVA_B = 4096, 2          # 1,024 patches + 3,072 text tokens
+LLAVA_MAX_LEN = 4160
+LLAVA_NEW = 32
+LLAVA_SERVE_MAX_LEN = 64              # the text-only engine
+LLAVA_CUT_LAYERS, LLAVA_CUT_SEQ = 2, 256   # 64 patches + 192 tokens
+CARD_CPU_L2 = 1e-4                    # float32 logits, card vs the CPU
 MODE_KW = {"fused_snn_net": {},
            "fused_snn_net_gated": {"use_sparse": True,
                                    "gate_granularity": GATE_G},
@@ -1015,17 +1057,18 @@ def logit_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
         got.argmax(-1), want.argmax(-1)))}
 
 
-def lm_requests(cfg, long_prompts: list) -> list:
-    """Phases 6 and 14's 8 requests: 6 prompts of 4 to 16 tokens (the
-    launcher's) and the long prompts, LM_NEW new tokens each."""
+def lm_requests(cfg, long_prompts: list, n_short: int = 6) -> list:
+    """Phases 6 and 14's 8 requests: ``n_short`` prompts of 4 to 16 tokens
+    (the launcher's) and the long prompts, LM_NEW new tokens each."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Request
-    reqs = make_requests(cfg, 6, LM_NEW, SEED)
-    return reqs + [Request(rid=6 + i, prompt=p, max_new_tokens=LM_NEW)
+    reqs = make_requests(cfg, n_short, LM_NEW, SEED)
+    return reqs + [Request(rid=n_short + i, prompt=p, max_new_tokens=LM_NEW)
                    for i, p in enumerate(long_prompts)]
 
 
-def lm_drainer(params, cfg, max_len: int, long_prompts: list):
+def lm_drainer(params, cfg, max_len: int, long_prompts: list,
+               n_short: int = 6):
     """(drain, EagerEngine): ``drain(cls, eng, window)`` serves
     `lm_requests` on ``eng`` (kept from an earlier drain, its graphs
     captured) or on a new 4-slot engine of class ``cls`` (the eager engine
@@ -1040,7 +1083,7 @@ def lm_drainer(params, cfg, max_len: int, long_prompts: list):
         if eng is None:
             eng = cls(params, cfg, batch_slots=4, max_len=max_len)
         eng.finished = []
-        for r in lm_requests(cfg, long_prompts):
+        for r in lm_requests(cfg, long_prompts, n_short):
             eng.submit(r)
         torch.cuda.synchronize()
         with window or contextlib.nullcontext():
@@ -3205,6 +3248,23 @@ def moe_ffn_checks(params, cfg, prompt: np.ndarray) -> dict:
     return out
 
 
+def lm_weights(dev, cfg) -> tuple:
+    """``cfg``'s bf16 weights from seed 0 drawn on ``dev``, and their
+    seconds, counts, bytes and the init's peak memory."""
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    return params, {"init_s": time.perf_counter() - t0,
+                    "params": sum(a.numel() for a in leaves(params)),
+                    "param_count": cfg.param_count(),
+                    "param_bytes": tree_bytes(params),
+                    "init_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
 def served_model(dev, cfg, seed_offset: int, repeat_equal: bool = False
                  ) -> tuple:
     """Phases 16-18's serving part: ``cfg``'s bf16 weights from seed 0
@@ -3213,19 +3273,8 @@ def served_model(dev, cfg, seed_offset: int, repeat_equal: bool = False
     with the port kernels it launched, its seconds and the peak memory.
     Returns (params, out, rng, long_prompts)."""
     from repro_torch import kernels
-    from repro_torch.models import lm
-    torch.backends.cuda.matmul.allow_tf32 = False
-    free_cuda()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = lm.init_params(SEED, cfg, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    out = {"init_s": time.perf_counter() - t0,
-           "params": sum(a.numel() for a in leaves(params)),
-           "param_count": cfg.param_count(),
-           "active_param_count": cfg.active_param_count(),
-           "param_bytes": tree_bytes(params),
-           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    params, out = lm_weights(dev, cfg)
+    out["active_param_count"] = cfg.active_param_count()
     rng = np.random.default_rng(SEED + seed_offset)
     long_prompts = [rng.integers(0, cfg.vocab_size, DENSE_LONG)
                     for _ in range(2)]
@@ -3713,6 +3762,470 @@ def print_jamba(res: dict, cfg, card: str) -> None:
           f"{json.dumps(mb['ms'])} ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-20: the encoder-decoder (whisper-large-v3) and vision-stub
+# (llava-next-mistral-7b) families at every published width and full depth
+# ---------------------------------------------------------------------------
+
+def greedy_run(params, cfg, batch: dict, max_len: int, new: int,
+               graphed: bool, window=None) -> tuple:
+    """A prefill of ``batch``, then ``new`` greedy decode ticks, each
+    reading its (B,) tokens on the host as the engine does: eager
+    `lm.decode_step` calls, or (``graphed``) one `serve.graphed.Graphed`
+    replay a tick, captured after the prefill over a static (B, 1) token
+    buffer and the cache's leaves (the K/V, the length, ``enc_out``),
+    which the graph writes in place. Only the ticks are timed (inside
+    ``window``). Returns (tokens (B, new + 1), the prefill's first, as
+    numpy; the ticks' seconds; {"finite": every logit of the prefill and
+    of each tick finite, "prefill_len": the prefill's ``cache["len"]``,
+    "cache": the prefill's cache as the ticks left it, "graph": the
+    `Graphed` or None})."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import tree_leaves
+    from repro_torch.serve.graphed import Graphed
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, batch, cfg, max_len)
+    dev = logits.device
+    finite = torch.isfinite(logits).all().reshape(1).clone()
+    prefill_len = cache["len"].tolist()
+    toks = logits.argmax(-1)[:, None].clone()
+    out = [toks[:, 0].cpu().numpy()]
+    leaves_ = tree_leaves(cache)
+
+    def body():
+        lg, new_cache = lm.decode_step(params, toks, cache, cfg)
+        for dst, src in zip(leaves_, tree_leaves(new_cache)):
+            if src is not dst:
+                dst.copy_(src)
+        finite.logical_and_(torch.isfinite(lg).all())
+        return lg.argmax(-1)
+    graph = (Graphed(body, dev, keep=tuple(leaves_) + (finite,))
+             if graphed else None)
+    torch.cuda.synchronize()
+    with window or contextlib.nullcontext(), torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(new):
+            nxt = graph() if graphed else body()
+            toks.copy_(nxt[:, None])
+            out.append(nxt.cpu().numpy())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return (np.stack(out, axis=1), dt,
+            {"finite": bool(finite.item()), "prefill_len": prefill_len,
+             "cache": cache, "graph": graph})
+
+
+def greedy_checks(params, cfg, batch: dict, max_len: int, new: int,
+                  label: str, repeats: int = 3) -> dict:
+    """Phases 19(a) and 20(a): two eager greedy runs and a graphed one
+    (`greedy_run`), every logit finite, the three equal token for token
+    and the graph replayed; then tokens/s of the ticks eager and graphed
+    (median of ``repeats`` runs in turns), a profiled graphed run (idle
+    share, top ops; the eager run's hundred thousand device ops would
+    take the profiler many seconds), and the device ms of one graph
+    replay. Returns the figures and the graphed run's (cache, prefill
+    length)."""
+    eager = [greedy_run(params, cfg, batch, max_len, new, False)
+             for _ in range(2)]
+    toks, _, g = greedy_run(params, cfg, batch, max_len, new, True)
+    if not all(run[2]["finite"] for run in eager) or not g["finite"]:
+        raise AssertionError(f"{label}: a non-finite logit")
+    if not np.array_equal(eager[0][0], eager[1][0]):
+        raise AssertionError(f"{label}: two eager runs gave other tokens")
+    if not np.array_equal(toks, eager[0][0]):
+        raise AssertionError(f"{label}: the graphed ticks gave other tokens "
+                             "than the eager ones")
+    if g["graph"] is None or g["graph"].graph is None:
+        raise AssertionError(f"{label}: no graph was replayed")
+    B = toks.shape[0]
+    times = {"eager": [], "graphed": []}
+    for i in range(repeats):
+        for mode in (("eager", "graphed") if i % 2 == 0
+                     else ("graphed", "eager")):
+            times[mode].append(greedy_run(params, cfg, batch, max_len, new,
+                                          mode == "graphed")[1])
+    out = {"B": B, "new_tokens": new, "first_tokens": toks[:, :4].tolist(),
+           "len_after_ticks": g["cache"]["len"].tolist()}
+    for mode in times:
+        out[mode] = {"tokens_per_s": B * new / float(np.median(times[mode])),
+                     "s": times[mode]}
+    prof = profile_drain(greedy_run, params, cfg, batch, max_len, new, True)
+    out["graphed"].update({
+        "device_busy_ms": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "device_ops": prof["device_ops"], "profiled_wall_ms": prof["wall_ms"],
+        "top": prof["top"]})
+    # one replay's device ms: the replays advance the lanes past the run
+    # (13 more positions), and nothing reads them after
+    out["replay_ms"] = device_ms(g["graph"], 10)[0]
+    return out, g["cache"], g["prefill_len"]
+
+
+def first_token_ms(params, cfg, batch: dict, max_len: int,
+                   repeats: int = 3) -> float:
+    """Median ms from a batch to its first tokens on the host: the
+    prefill and the argmax read."""
+    from repro_torch.models import lm
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = lm.prefill(params, batch, cfg, max_len)
+        logits.argmax(-1).cpu()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def decode_bound(params, cfg, B: int, kv_len: int, enc_len: int = 0
+                 ) -> dict:
+    """Least time of one decode tick at ``kv_len`` cached positions, the
+    larger of its bytes at 3.35 TB/s and its operations: every weight but
+    the embedding's unread rows (a tied embedding is read whole as the
+    head), the K/V read and one position written, ``enc_out`` read once,
+    the float32 logits written; bf16 products (the block weights, JAX's
+    per-tick cross K and V projections of the ``enc_len`` encoder
+    positions) at 989 TFLOP/s, float32 ones (the head, the attention
+    scores and sums) at 67 TFLOP/s."""
+    from repro_torch.models import lm
+    d, hd = cfg.d_model, cfg.head_dim
+    blocks = tree_bytes(params["blocks"])
+    head = params["embed"].nbytes if cfg.tie_embeddings else tree_bytes(
+        params["lm_head"])
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+    kv = 2 * n_attn * B * (kv_len + 1) * cfg.n_kv_heads * hd * 2
+    moved = (blocks + head + B * d * 2 + kv + B * enc_len * d * 2
+             + B * cfg.vocab_size * 4)
+    mats = sum(a.numel() for a in leaves(params["blocks"]) if a.dim() == 3)
+    bf16 = 2 * B * mats
+    cross = 0
+    if cfg.is_encoder_decoder:
+        cross = 2 * 2 * B * enc_len * d * d * cfg.n_layers
+        bf16 += cross
+    f32 = 2 * B * cfg.vocab_size * d + 4 * n_attn * B * cfg.n_heads * hd * (
+        kv_len + 1 + enc_len)
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = (bf16 / PEAK_BF16_FLOPS + f32 / PEAK_F32_OPS_PER_S) * 1e3
+    return {"ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": moved, "bytes_ms": t_bytes, "bf16_flops": bf16,
+            "cross_kv_flops": cross, "f32_flops": f32, "ops_ms": t_ops,
+            "kv_len": kv_len, "B": B}
+
+
+def f64_attention(x, p, cfg, kv_x) -> torch.Tensor:
+    """Cross-attention from its formula in float64: q from ``x``, K and V
+    from ``kv_x``, softmax(q k / sqrt(D)) v, no mask, out projection."""
+    W = {k: v.double() for k, v in p.items()}
+    B, T, _ = x.shape
+    S, D = kv_x.shape[1], cfg.head_dim
+    q = (x.double() @ W["wq"]).reshape(B, T, -1, D)
+    k = (kv_x.double() @ W["wk"]).reshape(B, S, -1, D)
+    v = (kv_x.double() @ W["wv"]).reshape(B, S, -1, D)
+    probs = torch.softmax(torch.einsum("bthd,bshd->bhts", q, k) / D ** 0.5,
+                          dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, -1) @ W[
+        "wo"]
+
+
+def whisper_f32_checks(dev, cfg, batch: dict) -> dict:
+    """Phase 19(b): float32 weights from seed 0 at full width and depth,
+    lane 0 of the batch (frames as float32): a prefill of the prompt
+    less its last token then a decode step of it against a prefill of the
+    whole prompt (the logits), and layer 0's `attention(kv_x=)` on the
+    encoder's output against `f64_attention`."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    params = lm.init_params(SEED, cfg, dtype=torch.float32, device=dev)
+    frames = batch["frames"][:1].float()
+    toks = batch["tokens"][:1].long()
+    T = toks.shape[1]
+    with torch.no_grad():
+        full, cache = lm.prefill(params, {"frames": frames, "tokens": toks},
+                                 cfg, WHISPER_MAX_LEN)
+        _, part = lm.prefill(params, {"frames": frames,
+                                      "tokens": toks[:, :-1]},
+                             cfg, WHISPER_MAX_LEN)
+        dec, _ = lm.decode_step(params, toks[:, -1:], part, cfg)
+        p0 = lm.tree_map(lambda a: a[0], params["blocks"])["pos0"]
+        x = params["embed"][toks] + L.sinusoidal_positions(
+            T, cfg.d_model).to(dev)[None]
+        x = lm._norm(x, p0["norm_cross"], cfg)
+        enc = cache["enc_out"]
+        got = L.attention(x, p0["cross"], cfg,
+                          torch.arange(T, device=dev)[None], causal=False,
+                          kv_x=enc)
+        want = f64_attention(x, p0["cross"], cfg, enc)
+    out = {"T": T, "prefill_vs_decode": logit_diff(dec, full),
+           "cross_attention_vs_f64": rel_diff(got, want),
+           "tolerance": {"prefill_vs_decode_rel_l2": F32_DECODE_L2,
+                         "cross_attention_rel_l2": ATTN_F64_L2}}
+    d = out["prefill_vs_decode"]
+    if not (d["rel_l2"] <= F32_DECODE_L2 and d["max_rel"] <= F32_DECODE_L2):
+        raise AssertionError(f"whisper float32: prefill of T + 1 and prefill "
+                             f"+ decode differ beyond {F32_DECODE_L2}: {d}")
+    if not out["cross_attention_vs_f64"]["rel_l2"] <= ATTN_F64_L2:
+        raise AssertionError(f"attention(kv_x=) beyond {ATTN_F64_L2} of the "
+                             f"float64 reference: {out}")
+    del params
+    free_cuda()
+    return out
+
+
+def phase_whisper(dev, cfg) -> dict:
+    """Phase 19: ``cfg`` (whisper-large-v3, every width, 32 encoder and 32
+    decoder layers) with bf16 weights from seed 0 drawn on ``dev``: (a) a
+    `prefill_batch_spec` batch (B = WHISPER_B, WHISPER_FRAMES frames, the
+    decoder prompt of frames // 8 tokens) from `io_spec.materialize(seed
+    = 0)`, WHISPER_NEW greedy tokens eager (twice) and graphed, the time
+    to the first token split into the encoder and the decoder prefill, the
+    cache's bytes, the peak memory and one replay against its bound; (b)
+    the float32 checks."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import io_spec, lm
+    params, out = lm_weights(dev, cfg)
+    t0 = time.perf_counter()
+    batch = io_spec.materialize(io_spec.prefill_batch_spec(
+        cfg, ShapeConfig("whisper_30s", WHISPER_FRAMES, WHISPER_B,
+                         "prefill")), seed=SEED, device=dev)
+    kernels.reset_launch_counts()
+    res, cache, _ = greedy_checks(params, cfg, batch, WHISPER_MAX_LEN,
+                                  WHISPER_NEW, cfg.arch_id)
+    out["port_kernel_launches"] = {k: v for k, v in
+                                   kernels.LAUNCH_COUNTS.items() if v}
+    out["greedy"] = res
+    with torch.no_grad():
+        enc = lm._run_encoder(params, batch["frames"], cfg)
+    if not torch.equal(enc, cache["enc_out"]):
+        raise AssertionError("whisper: cache['enc_out'] is not the "
+                             "encoder's output")
+    T = batch["tokens"].shape[1]
+    enc_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            lm._run_encoder(params, batch["frames"], cfg)
+        torch.cuda.synchronize()
+        enc_times.append(time.perf_counter() - t1)
+    ttft = first_token_ms(params, cfg, batch, WHISPER_MAX_LEN)
+    enc_ms = 1e3 * float(np.median(enc_times))
+    out["ttft_ms"] = {"total": ttft, "encoder": enc_ms,
+                      "decoder_prefill": ttft - enc_ms}
+    kv = {k: v for k, v in cache["blocks"]["pos0"].items()}
+    out["cache_bytes"] = {
+        "self_kv": tree_bytes(kv), "enc_out": cache["enc_out"].nbytes,
+        "cached_cross_kv_would_hold": (2 * cfg.n_layers * WHISPER_B
+                                       * WHISPER_FRAMES * cfg.d_model * 2)}
+    out["replay_bound"] = decode_bound(
+        params, cfg, WHISPER_B, T + WHISPER_NEW + 13, WHISPER_FRAMES)
+    out["replay_bound"]["measured_ms"] = res["replay_ms"]
+    out["prompt"] = {"frames": list(batch["frames"].shape),
+                     "tokens": list(batch["tokens"].shape)}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = {"bf16": time.perf_counter() - t0}
+    del params, cache, enc
+    free_cuda()
+    t0 = time.perf_counter()
+    out["f32"] = whisper_f32_checks(dev, cfg, batch)
+    out["seconds"]["f32"] = time.perf_counter() - t0
+    return out
+
+
+def llava_cut_checks(dev, cfg) -> dict:
+    """Phase 20(c): float32 weights from seed 0 at full width cut to
+    LLAVA_CUT_LAYERS layers, one `prefill_batch_spec` row of LLAVA_CUT_SEQ
+    (patches and tokens) from `io_spec.materialize`: the prefill on the
+    card against the same port code on the CPU (logits and length), and
+    a prefill less the last token then its decode step against the whole
+    prefill."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import io_spec, lm
+    cut = dataclasses.replace(cfg, n_layers=LLAVA_CUT_LAYERS)
+    params = lm.init_params(SEED, cut, dtype=torch.float32, device=dev)
+    batch = io_spec.materialize(io_spec.prefill_batch_spec(
+        cut, ShapeConfig("llava_cut", LLAVA_CUT_SEQ, 1, "prefill")),
+        seed=SEED, device=dev)
+    n = batch["patches"].shape[1] + batch["tokens"].shape[1]
+    max_len = n + 8
+    with torch.no_grad():
+        card, card_cache = lm.prefill(params, batch, cut, max_len)
+        cpu_params = lm.tree_map(lambda a: a.cpu(), params)
+        cpu, cpu_cache = lm.prefill(cpu_params,
+                                    lm.tree_map(lambda a: a.cpu(), batch),
+                                    cut, max_len)
+        del cpu_params
+        part = dict(batch, tokens=batch["tokens"][:, :-1])
+        _, cache = lm.prefill(params, part, cut, max_len)
+        dec, _ = lm.decode_step(params, batch["tokens"][:, -1:].long(),
+                                cache, cut)
+    out = {"layers": LLAVA_CUT_LAYERS, "patches": batch["patches"].shape[1],
+           "tokens": batch["tokens"].shape[1],
+           "card_vs_cpu": logit_diff(card.cpu(), cpu),
+           "len": card_cache["len"].tolist(),
+           "prefill_vs_decode": logit_diff(dec, card),
+           "tolerance": {"card_vs_cpu_rel_l2": CARD_CPU_L2,
+                         "prefill_vs_decode_rel_l2": F32_DECODE_L2}}
+    d = out["card_vs_cpu"]
+    if not (d["rel_l2"] <= CARD_CPU_L2 and d["argmax_equal"]
+            and out["len"] == cpu_cache["len"].tolist() == [n]):
+        raise AssertionError(f"llava float32 card vs CPU beyond "
+                             f"{CARD_CPU_L2}: {out}")
+    d = out["prefill_vs_decode"]
+    if not (d["rel_l2"] <= F32_DECODE_L2 and d["max_rel"] <= F32_DECODE_L2):
+        raise AssertionError(f"llava float32: prefill + decode and the whole "
+                             f"prefill differ beyond {F32_DECODE_L2}: {d}")
+    del params
+    free_cuda()
+    return out
+
+
+def phase_llava(dev, cfg) -> dict:
+    """Phase 20: ``cfg`` (llava-next-mistral-7b, every width, 32 layers)
+    with bf16 weights from seed 0 drawn on ``dev``: (a) a
+    `prefill_batch_spec` batch (B = LLAVA_B, LLAVA_SEQ positions: patches
+    of `vision_patch_frac`, then the text) from `io_spec.materialize(seed
+    = 0)`, LLAVA_NEW greedy tokens eager (twice) and graphed, ``len`` ==
+    LLAVA_SEQ, the time to the first token, the peak memory and one
+    replay against its bound; (b) `ServeEngine` text-only (4 requests of
+    4 to 16 tokens x LM_NEW, 4 slots) compiled against eager, tokens/s;
+    (c) the float32 checks at LLAVA_CUT_LAYERS layers."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import io_spec
+    from repro_torch.serve import ServeEngine
+    params, out = lm_weights(dev, cfg)
+    t0 = time.perf_counter()
+    batch = io_spec.materialize(io_spec.prefill_batch_spec(
+        cfg, ShapeConfig("llava_4k", LLAVA_SEQ, LLAVA_B, "prefill")),
+        seed=SEED, device=dev)
+    kernels.reset_launch_counts()
+    res, cache, prefill_len = greedy_checks(params, cfg, batch,
+                                            LLAVA_MAX_LEN, LLAVA_NEW,
+                                            cfg.arch_id)
+    out["greedy"] = res
+    if (prefill_len != [LLAVA_SEQ] * LLAVA_B
+            or res["len_after_ticks"] != [LLAVA_SEQ + LLAVA_NEW] * LLAVA_B):
+        raise AssertionError(f"llava: cache length {prefill_len} after the "
+                             f"prefill of {LLAVA_SEQ} positions, "
+                             f"{res['len_after_ticks']} after {LLAVA_NEW} "
+                             "ticks")
+    out["prompt"] = {"patches": list(batch["patches"].shape),
+                     "tokens": list(batch["tokens"].shape),
+                     "len_after_prefill": LLAVA_SEQ}
+    out["ttft_ms"] = first_token_ms(params, cfg, batch, LLAVA_MAX_LEN)
+    out["kv_cache_bytes"] = tree_bytes(cache["blocks"])
+    del cache
+    out["replay_bound"] = decode_bound(params, cfg, LLAVA_B,
+                                       LLAVA_SEQ + LLAVA_NEW + 13)
+    out["replay_bound"]["measured_ms"] = res["replay_ms"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = {"greedy": time.perf_counter() - t0}
+    del batch
+    free_cuda()
+    t0 = time.perf_counter()
+    drain, EagerEngine = lm_drainer(params, cfg, LLAVA_SERVE_MAX_LEN, [],
+                                    n_short=4)
+    served, dt, eng = drain()
+    if len(served) != 4 or any(len(r.out_tokens) != LM_NEW for r in served):
+        raise AssertionError("llava: the engine did not serve 4 requests x "
+                             f"{LM_NEW} tokens")
+    if not eng._bucket_prompts:
+        raise AssertionError("llava: the engine did not bucket its prompts")
+    out["serve"] = compiled_decode(drain, served, EagerEngine, ServeEngine,
+                                   label=cfg.arch_id, profile=False)
+    out["serve"]["buckets"] = sorted(eng._prefill_cache)
+    out["serve"]["first_tokens"] = [r.out_tokens[:4] for r in served]
+    out["port_kernel_launches"] = {k: v for k, v in
+                                   kernels.LAUNCH_COUNTS.items() if v}
+    out["seconds"]["serve"] = time.perf_counter() - t0
+    del params, eng, drain
+    free_cuda()
+    t0 = time.perf_counter()
+    out["f32_cut"] = llava_cut_checks(dev, cfg)
+    out["seconds"]["f32_cut"] = time.perf_counter() - t0
+    return out
+
+
+def print_greedy(n: int, res: dict, card: str) -> None:
+    """Phases 19(a) and 20(a)'s tokens/s, idle shares and profiled ops."""
+    g = res["greedy"]
+    print(f"[phase {n}] (a) greedy ticks, B = {g['B']} x {g['new_tokens']} "
+          f"tokens: two eager runs and the graphed one (one Graphed replay a "
+          f"tick) equal token for token, every logit finite; tokens/s "
+          f"(median of 3 in turns): eager {g['eager']['tokens_per_s']:.2f}, "
+          f"graphed {g['graphed']['tokens_per_s']:.2f}; device idle graphed "
+          f"{g['graphed']['device_idle_share']:.3f}; peak "
+          f"{res['peak_bytes']} bytes; port kernel launches "
+          f"{res['port_kernel_launches'] or 'none (no kernel on this path)'}"
+          f" ({card})")
+    b = res["replay_bound"]
+    print(f"[phase {n}] (a) decode tick: {g['replay_ms']:.3f} ms a graph "
+          f"replay against a bound of {b['ms']:.3f} ms ({b['bound_by']}: "
+          f"{b['bytes']} bytes at 3.35 TB/s = {b['bytes_ms']:.3f} ms; "
+          f"{b['bf16_flops']:.4g} bf16 FLOP at 989 TFLOP/s + "
+          f"{b['f32_flops']:.4g} float32 at 67 = {b['ops_ms']:.3f} ms) "
+          f"({card})")
+    print(f"[phase {n}] (a) runs and the graphed run's profiled top ops: "
+          f"{json.dumps({k: g[k] for k in ('eager', 'graphed')})} ({card})")
+
+
+def print_whisper(res: dict, cfg, card: str) -> None:
+    """Phase 19's lines."""
+    f32 = res.pop("f32")
+    print(f"[phase 19] (a) {cfg.arch_id} at every published width and full "
+          f"depth ({cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder "
+          f"layers of {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"gelu d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied): "
+          f"{res['params']} params (bf16, {res['param_bytes']} bytes) drawn "
+          f"on the card in {res['init_s']:.2f} s; prompt {res['prompt']} "
+          f"from io_spec.materialize(seed={SEED}), max_len "
+          f"{WHISPER_MAX_LEN}; cache['enc_out'] == the encoder's output")
+    print_greedy(19, res, card)
+    t = res["ttft_ms"]
+    c = res["cache_bytes"]
+    print(f"[phase 19] (a) time to the first token {t['total']:.2f} ms: "
+          f"encoder {t['encoder']:.2f}, decoder prefill "
+          f"{t['decoder_prefill']:.2f} ({card}); cache: self K/V "
+          f"{c['self_kv']} bytes, enc_out {c['enc_out']} bytes, against "
+          f"{c['cached_cross_kv_would_hold']} bytes that cached cross K/V "
+          f"would hold")
+    print(f"[phase 19] (b) float32 at full width and depth, lane 0 (T = "
+          f"{f32['T']}): prefill of T - 1 then decode vs prefill of T "
+          f"{json.dumps(f32['prefill_vs_decode'])} (tol {F32_DECODE_L2}); "
+          f"layer 0's attention(kv_x=) vs float64 "
+          f"{json.dumps(f32['cross_attention_vs_f64'])} (tol {ATTN_F64_L2} "
+          f"rel L2): ok")
+
+
+def print_llava(res: dict, cfg, card: str) -> None:
+    """Phase 20's lines."""
+    cut = res.pop("f32_cut")
+    srv = res.pop("serve")
+    print(f"[phase 20] (a) {cfg.arch_id} at every published width and full "
+          f"depth ({cfg.n_layers} layers of {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, SwiGLU {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}): {res['params']} params (bf16, "
+          f"{res['param_bytes']} bytes) drawn on the card in "
+          f"{res['init_s']:.2f} s; prompt {res['prompt']} from "
+          f"io_spec.materialize(seed={SEED}), max_len {LLAVA_MAX_LEN}; time "
+          f"to the first token {res['ttft_ms']:.2f} ms; K/V cache "
+          f"{res['kv_cache_bytes']} bytes ({card})")
+    print_greedy(20, res, card)
+    print(f"[phase 20] (b) ServeEngine text-only (4 requests of 4 to 16 "
+          f"tokens x {LM_NEW}, 4 slots, buckets {srv['buckets']}): compiled "
+          f"== eager token for token; tokens/s (median of 3 in turns) eager "
+          f"{srv['eager']['tokens_per_s']:.2f}, graphed "
+          f"{srv['graphed']['tokens_per_s']:.2f} ({card})")
+    print(f"[phase 20] (c) float32 at full width cut to {cut['layers']} "
+          f"layers ({cut['patches']} patches + {cut['tokens']} tokens): card "
+          f"vs CPU {json.dumps(cut['card_vs_cpu'])} (tol {CARD_CPU_L2}), "
+          f"len {cut['len']}; prefill less one token + decode vs prefill "
+          f"{json.dumps(cut['prefill_vs_decode'])} (tol {F32_DECODE_L2}): "
+          f"ok")
+
+
 def leaves(tree) -> list:
     """The tensors of a nested dict (and list)."""
     if isinstance(tree, dict):
@@ -4154,6 +4667,16 @@ def main() -> int:
     print_jamba(jamba, jamba_cfg, card)
     print(f"[phase 18] {json.dumps(jamba)}")
     lap("phase 18")
+    whisper_cfg = get_config(WHISPER_ARCH)
+    whisper = phase_whisper(dev, whisper_cfg)
+    print_whisper(whisper, whisper_cfg, card)
+    print(f"[phase 19] {json.dumps(whisper)}")
+    lap("phase 19")
+    llava_cfg = get_config(LLAVA_ARCH)
+    llava = phase_llava(dev, llava_cfg)
+    print_llava(llava, llava_cfg, card)
+    print(f"[phase 20] {json.dumps(llava)}")
+    lap("phase 20")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

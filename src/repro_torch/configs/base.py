@@ -5,10 +5,11 @@ The port's own copy of the fields of `repro.configs.base` that the dense
 attention family (GQA, RoPE, swiglu or gelu FFNs, the spiking FFN), the
 MoE stacks (routed and shared experts interleaved with dense layers, and
 deepseek's leading dense layers), multi-head latent attention (MLA), the
-Mamba layers of a hybrid stack (jamba's SSM), the RWKV family and the
-train step read (it imports nothing of the JAX package). The
-encoder-decoder and frontend fields are not here: `models.lm` raises
-`NotImplementedError` for a config of those families.
+Mamba layers of a hybrid stack (jamba's SSM), the RWKV family, the
+encoder-decoder family (whisper's encoder and cross-attention), the
+modality frontend stubs (audio frames, vision patches) and the train step
+read (it imports nothing of the JAX package). `ASSIGNED_ARCHS` and
+`list_archs` name the language models, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -88,6 +89,13 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     spiking: Optional[SpikingConfig] = None
+    # encoder-decoder (whisper): decoder layers cross-attend the encoder's
+    # output
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    # modality frontend stubs
+    frontend: str = "none"          # none | audio_stub | vision_stub
+    vision_patch_frac: float = 0.25  # share of seq that is image patches
 
     def is_attention_layer(self, idx: int) -> bool:
         return idx % self.attn_layer_period == self.attn_layer_offset
@@ -108,20 +116,24 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding, blocks and head), by the JAX
-        package's formula: the norms of every block but not ``final_norm``,
-        and a spiking FFN counted as its ``ffn_type``'s matrices."""
+        """Analytic parameter count (embedding, blocks, encoder and head),
+        by the JAX package's formula: the norm1 and norm2 of every block
+        but not ``final_norm``, the encoder's ``final_norm`` or a decoder
+        block's ``norm_cross``, and a spiking FFN counted as its
+        ``ffn_type``'s matrices."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return n + sum(self._block_params(i) for i in range(self.n_layers))
+        return (n + sum(self._block_params(i) for i in range(self.n_layers))
+                + self._encoder_params())
 
     def active_param_count(self) -> int:
         """Parameters one token touches: a MoE layer counts its routed
         top-k and shared experts only."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return n + sum(self._block_params(i, active_only=True)
-                       for i in range(self.n_layers))
+        return (n + sum(self._block_params(i, active_only=True)
+                        for i in range(self.n_layers))
+                + self._encoder_params())
 
     def _attn_params(self) -> int:
         d = self.d_model
@@ -161,8 +173,12 @@ class ModelConfig:
             # lora; channel mix: k (d -> ff), v (ff -> d), receptance
             return (n + 5 * d * d + 2 * d + 6 * d * 32 * 2
                     + 2 * d * self.d_ff + d * d)
-        n += (self._attn_params() if self.is_attention_layer(idx)
-              else self._ssm_params())
+        if self.is_attention_layer(idx):
+            n += self._attn_params()
+            if self.is_encoder_decoder:
+                n += 4 * d * d                          # cross-attention
+        else:
+            n += self._ssm_params()
         if self.is_moe_layer(idx):
             m = self.moe
             k = (m.top_k if active_only else m.n_experts) + m.n_shared_experts
@@ -171,6 +187,14 @@ class ModelConfig:
         if self.moe is not None and self.moe.dense_d_ff:
             d_ff = self.moe.dense_d_ff
         return n + self._ffn_params(d_ff)
+
+    def _encoder_params(self) -> int:
+        """An encoder-decoder's encoder layers: norms, MHA and the FFN."""
+        if not self.is_encoder_decoder:
+            return 0
+        d = self.d_model
+        return self.n_encoder_layers * (2 * d + 4 * d * d
+                                        + self._ffn_params(self.d_ff))
 
 
 @dataclass(frozen=True)
@@ -240,7 +264,18 @@ def get_config(arch_id: str) -> ModelConfig:
     return _REGISTRY[arch_id]
 
 
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
 _LOADED = False
+
+ASSIGNED_ARCHS = [
+    "rwkv6-7b", "llama3-8b", "starcoder2-15b", "llama3.2-1b", "phi3-medium-14b",
+    "whisper-large-v3", "jamba-v0.1-52b", "llama4-maverick-400b-a17b",
+    "deepseek-v2-lite-16b", "llava-next-mistral-7b",
+]
 
 
 def _ensure_loaded() -> None:
@@ -251,7 +286,8 @@ def _ensure_loaded() -> None:
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_lite_16b, jamba_v0_1_52b, llama3_2_1b, llama3_8b,
-        llama4_maverick_400b_a17b, phi3_medium_14b, rwkv6_7b, starcoder2_15b)
+        llama4_maverick_400b_a17b, llava_next_mistral_7b, phi3_medium_14b,
+        rwkv6_7b, starcoder2_15b, whisper_large_v3)
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
@@ -262,7 +298,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     256, vocab 512; for MoE at most 4 experts and top-2, expert d_ff 64 and
     dense d_ff 256; for MLA a latent of 32, rope heads of 16 and nope and
     v heads of 32; for Mamba a state of 8, conv 4, expand 2 and dt rank
-    16; for RWKV 4 heads of size 32."""
+    16; for RWKV 4 heads of size 32; for an encoder-decoder 2 encoder
+    layers."""
     period = cfg.attn_layer_period
     if cfg.moe is not None and cfg.moe.n_experts:
         period = math.lcm(period, cfg.moe.every)
@@ -294,4 +331,6 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2, dt_rank=16)
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVConfig(head_size=32)
+    if cfg.is_encoder_decoder:
+        kw["n_encoder_layers"] = 2
     return dataclasses.replace(cfg, arch_id=cfg.arch_id + "-smoke", **kw)

@@ -11,7 +11,10 @@ MoE super-block of ``llama4-maverick-400b-a17b`` (a dense layer and a MoE
 layer of 4 experts), ``deepseek-v2-lite-16b`` (MLA, a dense prelude layer
 and two MoE layers of 4 experts at top-2), the hybrid super-block of
 ``jamba-v0.1-52b`` (8 layers: 7 Mamba layers and one attention layer, MoE
-of 4 experts at top-2 every other layer) or ``rwkv6-7b``. Each request's
+of 4 experts at top-2 every other layer), ``rwkv6-7b``, or the text
+backbone of ``llava-next-mistral-7b`` (its requests carry no patches).
+``whisper-large-v3`` fails as in the JAX package: the engine's prefill
+has no ``frames`` for the encoder and raises `KeyError`. Each request's
 prompt is 4 to 16 random tokens. ``--device`` defaults to ``cuda``, where
 prompts are prefilled through one CUDA graph per length bucket (MLA and
 Mamba: eagerly at the exact length; RWKV: through the CUDA wkv6 kernel at

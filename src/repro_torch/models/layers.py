@@ -1,6 +1,7 @@
-"""Layer library of the language models: weight init, norms, RoPE, FFNs,
-GQA attention, multi-head latent attention (MLA) and the MoE FFN
-(`repro.models.layers`' dense-family, MLA and MoE layers).
+"""Layer library of the language models: weight init, norms, RoPE and
+sinusoidal positions, FFNs, GQA attention with its cross-attention form,
+multi-head latent attention (MLA) and the MoE FFN (`repro.models.layers`'
+dense-family, encoder-decoder, MLA and MoE layers).
 
 Numerics as in the JAX package: params and activations bf16 by default;
 norms accumulate in float32, and attention upcasts q, k and v to float32
@@ -94,6 +95,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d_model: int) -> torch.Tensor:
+    """(seq, d_model) float32 table [sin | cos] of pos / 10000^(2i/d),
+    computed in float64 with numpy and rounded once to float32, as the JAX
+    package computes it (bit for bit)."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d_model // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d_model)
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)],
+                                           axis=-1).astype(np.float32))
+
+
+def sinusoidal_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The [sin | cos] positional term of each lane's position ``pos`` (B,)
+    in float32 on ``pos``'s device, as the JAX package's decode step
+    computes it: the angle is pos / 10000^(2i/d) in float32, with the
+    exponent 2i/d rounded to float32 and the power taken in float64 and
+    rounded once (the value of XLA:CPU's float32 power on every exponent;
+    `torch.pow` in float32 is an ulp off on some). The angles then equal
+    JAX's; float32 sin and cos differ from XLA's by at most an ulp.
+    Device code only, so a CUDA graph can capture it. Returns (B, d)."""
+    i = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device)
+    div = torch.pow(10000.0, (2 * i / d_model).double()).float()
+    ang = pos[:, None].float() / div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
@@ -118,12 +145,15 @@ def ffn(x: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; decode with a pre-allocated KV cache)
+# Attention (GQA; cross-attention; decode with a pre-allocated KV cache)
 # ---------------------------------------------------------------------------
 
-def init_attention(gen, cfg, dtype=torch.bfloat16) -> dict:
+def init_attention(gen, cfg, cross: bool = False,
+                   dtype=torch.bfloat16) -> dict:
+    """``wq``, ``wk``, ``wv`` and ``wo``; ``cross`` (a cross-attention or
+    an encoder layer) is MHA: as many K/V heads as query heads."""
     d, hd = cfg.d_model, cfg.head_dim
-    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    nh, nkv = cfg.n_heads, (cfg.n_heads if cross else cfg.n_kv_heads)
     return {"wq": dense_init(gen, (d, nh * hd), dtype=dtype),
             "wk": dense_init(gen, (d, nkv * hd), dtype=dtype),
             "wv": dense_init(gen, (d, nkv * hd), dtype=dtype),
@@ -209,16 +239,21 @@ def blocked_attention(q, k, v, *, causal: bool, q_chunk: int,
 
 
 def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
-              causal: bool = True, use_rope: bool = True, q_chunk: int = 0,
+              causal: bool = True, kv_x: Optional[torch.Tensor] = None,
+              use_rope: bool = True, q_chunk: int = 0,
               kv_block: int = 1024) -> torch.Tensor:
-    """Full (prefill) self-attention; ``q_chunk`` > 0 selects the blocked
-    form."""
+    """Full (prefill) attention; ``q_chunk`` > 0 selects the blocked form.
+    ``kv_x`` (B, S, d) is a cross-attention's source: K and V come from it,
+    with no RoPE and no causal mask."""
     B, T, _ = x.shape
     hd = cfg.head_dim
+    src = x if kv_x is None else kv_x
+    S = src.shape[1]
+    causal = causal and kv_x is None
     q = (x @ p["wq"]).reshape(B, T, -1, hd)
-    k = (x @ p["wk"]).reshape(B, T, -1, hd)
-    v = (x @ p["wv"]).reshape(B, T, -1, hd)
-    if use_rope and cfg.rope_theta > 0:
+    k = (src @ p["wk"]).reshape(B, S, -1, hd)
+    v = (src @ p["wv"]).reshape(B, S, -1, hd)
+    if use_rope and cfg.rope_theta > 0 and kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if q_chunk and T > 1:
@@ -230,7 +265,8 @@ def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
 
 
 def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,
-                     pos: torch.Tensor, *, use_rope: bool = True
+                     pos: torch.Tensor, *, use_rope: bool = True,
+                     cross_kv: Optional[tuple] = None
                      ) -> tuple[torch.Tensor, dict]:
     """One-token decode against a pre-allocated cache.
     x: (B, 1, d); cache: {"k": (B, S_max, KV, D), "v": ...}; pos: (B,)
@@ -240,10 +276,16 @@ def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,
     The new K and V are written into ``cache``'s tensors in place (the JAX
     package's ``.at[b, pos].set``), which are returned. A lane at or past
     S_max writes nothing, as the JAX scatter drops an out-of-bounds
-    update."""
+    update. ``cross_kv``: a fixed (k, v) (B, S, KV, D) that the query
+    attends unmasked (an encoder-decoder's cross-attention), with no RoPE
+    and ``cache`` returned untouched."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, T, -1, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = _sdpa(q, k, v, causal=False)
+        return out.reshape(B, T, -1) @ p["wo"], cache
     k_new = (x @ p["wk"]).reshape(B, T, -1, hd)
     v_new = (x @ p["wv"]).reshape(B, T, -1, hd)
     if use_rope and cfg.rope_theta > 0:

@@ -3,16 +3,19 @@ swiglu or gelu FFNs, or the spiking FFN), its MoE variants (dense and MoE
 FFN layers interleaved, as llama4-maverick's super-block; leading dense
 layers and multi-head latent attention, as deepseek-v2-lite), the hybrid
 Mamba/attention stacks (jamba's super-block of 7 Mamba layers and one
-attention layer, MoE every 2) and the RWKV family.
+attention layer, MoE every 2), the RWKV family, the encoder-decoder family
+(whisper: an encoder over stub frame embeddings, sinusoidal positions,
+cross-attention in every decoder layer) and the vision-stub family
+(llava: stub patch embeddings ahead of the text tokens).
 
-The functional API of `repro.models.lm`, for those families:
+The functional API of `repro.models.lm`, for every family:
 
   init_params(seed, cfg)                        -> params tree
   loss_fn(params, batch, cfg, parallel)         -> (loss, aux)      [train]
   prefill(params, batch, cfg, max_len, parallel, length)
                                                 -> (logits_last, cache)
   decode_step(params, tokens, cache, cfg)       -> (logits, cache)  [serve]
-  init_cache(cfg, batch, max_len)               -> cache tree
+  init_cache(cfg, batch, max_len, enc_len=)     -> cache tree
   params_from_jax(tree)                         -> the JAX package's params
                                                    (or cache) as torch tensors
 
@@ -39,9 +42,20 @@ writes each lane's new K and V (MLA: its latent row, ``cache["latent"]``
 (B, max_len, r + rope)) into the caller's cache tensors, which the new
 cache keeps. The recurrent caches (RWKV's, and a Mamba layer's conv window
 and float32 SSM state) are returned as new tensors; prefill starts them
-from the cache's state. A stack with non-attention layers and no
-``cfg.ssm`` raises JAX's `ValueError`; any other family raises
-`NotImplementedError`: encoder-decoder and the modality frontends.
+from the cache's state.
+
+An encoder-decoder config (whisper) adds ``params["encoder"]`` (its
+``blocks`` stacked over ``n_encoder_layers``: norm1, MHA, norm2, FFN; and
+its ``final_norm``) and, in every decoder block, ``cross`` (MHA) and
+``norm_cross`` after ``attn``. Its batches carry ``frames`` (B, S, d), the
+encoder's input; prefill runs the encoder once and keeps its output as
+``cache["enc_out"]`` (B, S, d), which every decode step cross-attends,
+recomputing the cross K and V from it as the JAX package does. A
+vision-stub config (llava) takes an optional ``patches`` (B, P, d) ahead
+of the tokens: the positions, ``cache["len"]`` and prefill's ``length``
+count the patches, and the loss reads the text positions only. A stack
+with non-attention layers and no ``cfg.ssm`` raises JAX's `ValueError`;
+a family the JAX package does not model raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -71,20 +85,23 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+LM_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm")
+
+
 def check_family(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` unless ``cfg`` is an RWKV model, a dense
     attention stack (with or without the spiking FFN), a MoE stack (with
-    or without leading dense layers) or a hybrid stack, with GQA or MLA;
-    raise the JAX package's `ValueError` for non-attention (Mamba) layers
-    without ``cfg.ssm``."""
+    or without leading dense layers), a hybrid stack, an encoder-decoder
+    (audio) or a vision-stub (vlm) model, with GQA or MLA; raise the JAX
+    package's `ValueError` for non-attention (Mamba) layers without
+    ``cfg.ssm``."""
     if cfg.rwkv is not None:
         return
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} is not ported (the port "
-            "runs the dense attention family, its MoE variants, MLA, the "
-            "Mamba hybrids and RWKV; encoder-decoder and the modality "
-            "frontends are not ported)")
+            f"{cfg.arch_id}: family {cfg.family!r} is not a language model "
+            f"family of the JAX package's lm ({', '.join(LM_FAMILIES)}, "
+            "and RWKV)")
     if cfg.ssm is None and not all(cfg.is_attention_layer(i)
                                    for i in range(cfg.n_layers)):
         raise ValueError(f"{cfg.arch_id}: ssm layer kind requested but "
@@ -153,6 +170,9 @@ def _init_block(gen, cfg: ModelConfig, idx: int, dtype) -> dict:
         p["attn"] = L.init_mla(gen, cfg, dtype=dtype)
     else:
         p["attn"] = L.init_attention(gen, cfg, dtype=dtype)
+    if mixer == "attn" and cfg.is_encoder_decoder:
+        p["cross"] = L.init_attention(gen, cfg, cross=True, dtype=dtype)
+        p["norm_cross"] = torch.ones((d,), dtype=dtype, device=dev)
     p["norm2"] = torch.ones((d,), dtype=dtype, device=dev)
     if f == "moe":
         p["moe"] = L.init_moe(gen, cfg, dtype)
@@ -166,17 +186,29 @@ def _init_block(gen, cfg: ModelConfig, idx: int, dtype) -> dict:
     return p
 
 
-def _draw_block_(gen, cfg: ModelConfig, idx: int, dtype, slot: dict) -> None:
-    """Draw layer ``idx`` into ``slot``, its view of the stacked block
-    leaves, with the draws `_init_block` makes in its order: the norms are
-    ones, every attention, dense-FFN and MoE weight is a `dense_init` of
-    its leaf drawn in place (the experts one expert at a time), and the
-    RWKV, Mamba and spiking-FFN leaves are drawn by their own init and
-    copied (a Mamba block's constant leaves, ``a_log``, ``dt_bias``,
-    ``d_skip`` and ``conv_b``, are not draws)."""
-    _, f = layer_kind(cfg, idx)
+def _init_encoder_block(gen, cfg: ModelConfig, dtype) -> dict:
+    """An encoder layer: norm1, MHA self-attention, norm2, the FFN."""
+    dev = L.gen_device(gen)
+    d = cfg.d_model
+    return {"norm1": torch.ones((d,), dtype=dtype, device=dev),
+            "attn": L.init_attention(gen, cfg, cross=True, dtype=dtype),
+            "norm2": torch.ones((d,), dtype=dtype, device=dev),
+            "ffn": L.init_ffn(gen, d, cfg.d_ff, cfg.ffn_type, dtype)}
+
+
+def _draw_block_(gen, cfg: ModelConfig, idx: Optional[int], dtype,
+                 slot: dict) -> None:
+    """Draw layer ``idx`` (None: an encoder layer) into ``slot``, its view
+    of the stacked block leaves, with the draws `_init_block` (or
+    `_init_encoder_block`) makes in its order: the norms (``norm_cross``
+    too) are ones, every attention, cross-attention, dense-FFN and MoE
+    weight is a `dense_init` of its leaf drawn in place (the experts one
+    expert at a time), and the RWKV, Mamba and spiking-FFN leaves are
+    drawn by their own init and copied (a Mamba block's constant leaves,
+    ``a_log``, ``dt_bias``, ``d_skip`` and ``conv_b``, are not draws)."""
+    f = "dense" if idx is None else layer_kind(cfg, idx)[1]
     for key, sub in slot.items():                   # _init_block's order
-        if key in ("norm1", "norm2"):
+        if key in ("norm1", "norm_cross", "norm2"):
             sub.fill_(1)
         elif key == "rwkv":
             tree_map(torch.Tensor.copy_, sub,
@@ -187,7 +219,7 @@ def _draw_block_(gen, cfg: ModelConfig, idx: int, dtype, slot: dict) -> None:
         elif key == "ffn" and f == "spiking":
             tree_map(torch.Tensor.copy_, sub,
                      S.init_spiking_ffn(gen, cfg.d_model, cfg.d_ff, dtype))
-        else:                                       # attn, ffn, moe
+        else:                                   # attn, cross, ffn, moe
             tree_map(lambda a: L.dense_draw_(gen, a), sub)
 
 
@@ -195,12 +227,13 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                 device=None) -> dict:
     """Random parameters from ``seed``, drawn on ``device`` (the CUDA
     device unless given) by one `torch.Generator` there: the embedding,
-    the head, the prelude layers, then the stacked body. The prelude's and
-    the stacked block leaves are allocated first and each layer is drawn
-    straight into its slot (`_draw_block_`), so the peak memory is the
-    model plus the float32 draw of one weight (of one expert, for a MoE
-    leaf). On ``device="meta"`` the same code gives the tree's shapes and
-    types without drawing."""
+    the head, the prelude layers, the stacked body, then an
+    encoder-decoder's stacked encoder layers, as the JAX package orders
+    them. The prelude's and the stacked block leaves are allocated first
+    and each layer is drawn straight into its slot (`_draw_block_`), so
+    the peak memory is the model plus the float32 draw of one weight (of
+    one expert, for a MoE leaf). On ``device="meta"`` the same code gives
+    the tree's shapes and types without drawing."""
     device = resolve_device(device)
     n = n_super(cfg)
     gen = None
@@ -233,6 +266,18 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                 _draw_block_(gen, cfg, off + s * sp + j, dtype,
                              tree_map(lambda full: full[s], blocks[f"pos{j}"]))
     params["blocks"] = blocks
+    if cfg.is_encoder_decoder:
+        n_enc = cfg.n_encoder_layers
+        enc = tree_map(lambda a: torch.empty((n_enc,) + a.shape,
+                                             dtype=a.dtype, device=device),
+                       _init_encoder_block(None, cfg, dtype))
+        if gen is not None:
+            for i in range(n_enc):
+                _draw_block_(gen, cfg, None, dtype,
+                             tree_map(lambda full: full[i], enc))
+        params["encoder"] = {
+            "blocks": enc,
+            "final_norm": torch.ones((d,), dtype=dtype, device=device)}
     return params
 
 
@@ -284,7 +329,7 @@ def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool,
 
 
 def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
-                 cache: Optional[dict], pos=None,
+                 cache: Optional[dict], pos=None, enc_out=None,
                  parallel: Optional[ParallelConfig] = None,
                  train: bool = False):
     """One layer. Returns (x, new_cache_entry, aux): aux is the spiking
@@ -292,9 +337,11 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
     otherwise). Decode (the one-token update) when a cache and ``pos`` are
     given and T == 1; prefill writes the prompt's K and V (MLA: its latent)
     into ``cache`` in place, and a Mamba layer's prefill starts from the
-    cache's conv and SSM state. ``train``: the loss's pass, where RWKV
-    takes the differentiable wkv6 form in chunks of
-    ``parallel.wkv_chunk``."""
+    cache's conv and SSM state. An encoder-decoder's attention layer then
+    cross-attends ``enc_out`` (B, S, d) through ``cross`` (full, unmasked
+    attention over K and V projected from it, in train, prefill and
+    decode alike). ``train``: the loss's pass, where RWKV takes the
+    differentiable wkv6 form in chunks of ``parallel.wkv_chunk``."""
     mixer, f = layer_kind(cfg, idx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     decode = cache is not None and x.shape[1] == 1 and pos is not None
@@ -341,6 +388,10 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
             cache["v"][:, :T].copy_(v)
             new_cache = {"k": cache["k"], "v": cache["v"]}
     x = x + h.to(x.dtype)
+    if mixer == "attn" and cfg.is_encoder_decoder and enc_out is not None:
+        h = L.attention(_norm(x, p["norm_cross"], cfg), p["cross"], cfg,
+                        positions, causal=False, kv_x=enc_out)
+        x = x + h.to(x.dtype)
 
     h_in = _norm(x, p["norm2"], cfg)
     if f == "moe":
@@ -356,12 +407,15 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
 
 
 def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
-               pos=None, parallel: Optional[ParallelConfig] = None,
+               pos=None, enc_out=None,
+               parallel: Optional[ParallelConfig] = None,
                train: bool = False):
     """The layer stack: the prelude layers, then a loop over the stacked
-    super-block leaves. Returns (x, new_cache, aux summed over layers). A
-    cache leaf that every layer updated in place is the same tensor in the
-    new cache; any other is stacked anew from the layers' entries.
+    super-block leaves, every layer given ``enc_out`` (an
+    encoder-decoder's encoder output, or None). Returns (x, new_cache, aux
+    summed over layers). A cache leaf that every layer updated in place is
+    the same tensor in the new cache; any other is stacked anew from the
+    layers' entries.
     ``train`` (the loss's pass, no cache): with ``parallel.remat`` other
     than ``"none"`` and grad mode on, each super-block is recomputed in the
     backward pass instead of keeping its activations (``"block"`` and
@@ -378,22 +432,22 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
         x, c_new, aux = _apply_block(
             x, p, cfg, i, positions,
             cache=None if cache is None else cache["prelude"][i], pos=pos,
-            parallel=parallel, train=train)
+            enc_out=enc_out, parallel=parallel, train=train)
         new_pre.append(c_new)
         aux_total = aux_total + aux
 
-    def super_block(x, aux_total, p_s, c_s, s):
+    def super_block(x, aux_total, p_s, c_s, s, enc_out):
         c_new = {}
         for j in range(sp):
             x, c_new[f"pos{j}"], aux = _apply_block(
                 x, p_s[f"pos{j}"], cfg, off + s * sp + j, positions,
                 cache=None if c_s is None else c_s[f"pos{j}"], pos=pos,
-                parallel=parallel, train=train)
+                enc_out=enc_out, parallel=parallel, train=train)
             aux_total = aux_total + aux
         return x, aux_total, c_new
 
-    def recomputed(x, aux_total, p_s, s):
-        return super_block(x, aux_total, p_s, None, s)[:2]
+    def recomputed(x, aux_total, p_s, s, enc_out):
+        return super_block(x, aux_total, p_s, None, s, enc_out)[:2]
 
     olds, news = [], []
     for s in range(n_super(cfg)):
@@ -402,9 +456,9 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
                else tree_map(lambda a: a[s], cache_blocks))
         if remat:
             x, aux_total = checkpoint(recomputed, x, aux_total, p_s, s,
-                                      use_reentrant=False)
+                                      enc_out, use_reentrant=False)
             continue
-        x, aux_total, c_new = super_block(x, aux_total, p_s, c_s, s)
+        x, aux_total, c_new = super_block(x, aux_total, p_s, c_s, s, enc_out)
         olds.append(c_s)
         news.append(c_new)
     new_cache = None
@@ -422,17 +476,62 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
     return x, new_cache, aux_total
 
 
+def _run_encoder(params, frames, cfg: ModelConfig,
+                 parallel: Optional[ParallelConfig] = None,
+                 train: bool = False):
+    """The encoder over stub frame embeddings ``frames`` (B, S, d): the
+    sinusoidal table added in the frames' type, then each stacked layer
+    (unmasked self-attention without RoPE, the blocked form when
+    ``parallel.attn_q_chunk`` is set, then the FFN, both pre-norm and
+    residual), then ``final_norm``. ``train`` with ``parallel.remat``
+    other than ``"none"`` and grad mode on: each layer is recomputed in
+    the backward pass (JAX's ``jax.checkpoint`` per encoder layer)."""
+    parallel = parallel or ParallelConfig()
+    enc = params["encoder"]
+    S = frames.shape[1]
+    x = frames + L.sinusoidal_positions(S, cfg.d_model).to(
+        device=frames.device, dtype=frames.dtype)[None]
+    positions = torch.arange(S, device=frames.device)[None]
+
+    def layer(x, p):
+        h = L.attention(_norm(x, p["norm1"], cfg), p["attn"], cfg, positions,
+                        causal=False, use_rope=False,
+                        q_chunk=parallel.attn_q_chunk,
+                        kv_block=parallel.attn_kv_block)
+        x = x + h
+        return x + L.ffn(_norm(x, p["norm2"], cfg), p["ffn"], cfg.ffn_type)
+
+    remat = train and parallel.remat != "none" and torch.is_grad_enabled()
+    for i in range(cfg.n_encoder_layers):
+        p = tree_map(lambda a: a[i], enc["blocks"])
+        x = (checkpoint(layer, x, p, use_reentrant=False) if remat
+             else layer(x, p))
+    return _norm(x, enc["final_norm"], cfg)
+
+
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, batch: dict, cfg: ModelConfig):
-    """tokens (B, T) -> (x (B, T, d), positions (1, T))."""
+    """tokens (B, T) and the modality stubs -> (x, positions (1, T'),
+    enc_src). An encoder-decoder adds the sinusoidal table to the token
+    embeddings and returns ``batch["frames"]`` as ``enc_src`` (a batch
+    without frames raises JAX's `KeyError`); a vision-stub config puts
+    ``batch["patches"]`` (B, P, d), cast to the embeddings' type, ahead of
+    the tokens (T' = P + T) when the batch has them; ``enc_src`` is None
+    otherwise."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = params["embed"][batch["tokens"]]
+    if cfg.is_encoder_decoder:
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model).to(
+            device=x.device, dtype=x.dtype)[None]
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        return x, positions, batch["frames"]
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    return x, positions
+    return x, positions, None
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -446,8 +545,12 @@ def _logits(params, x, cfg: ModelConfig):
 
 def loss_fn(params, batch: dict, cfg: ModelConfig,
             parallel: Optional[ParallelConfig] = None):
-    """Causal-LM cross entropy. batch: ``tokens`` and ``targets`` (B, T)
-    (integer arrays or tensors). The logits head runs in float32, then
+    """Causal-LM (or encoder-decoder) cross entropy. batch: ``tokens`` and
+    ``targets`` (B, T) (integer arrays or tensors), and an
+    encoder-decoder's ``frames`` (B, S, d) or a vision-stub model's
+    ``patches`` (B, P, d) (tensors, or float arrays); the encoder runs
+    first, and with patches only the T text positions are scored. The
+    logits head runs in float32, then
     `log_softmax`; with ``parallel.vocab_chunking`` = n > 1 the head and
     the cross entropy run over n sequence chunks, each recomputed in the
     backward pass, so one (B, T/n, vocab) logits buffer is live at a time
@@ -456,12 +559,19 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
     load-balance losses summed over layers (0 for the other FFNs)."""
     parallel = parallel or ParallelConfig()
     device = params["embed"].device
-    batch = {k: torch.as_tensor(v, device=device).long()
+    batch = {k: (torch.as_tensor(v, device=device).long()
+                 if k in ("tokens", "targets")
+                 else torch.as_tensor(v, device=device))
              for k, v in batch.items()}
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, _, aux = _run_stack(params, x, cfg, positions, parallel=parallel,
-                           train=True)
+    x, positions, enc_src = _embed_inputs(params, batch, cfg)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _run_encoder(params, enc_src, cfg, parallel, train=True)
+    x, _, aux = _run_stack(params, x, cfg, positions, enc_out=enc_out,
+                           parallel=parallel, train=True)
     x = _norm(x, params["final_norm"], cfg)
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        x = x[:, batch["patches"].shape[1]:]        # text positions only
     targets = batch["targets"]
     n_chunks = max(parallel.vocab_chunking, 1)
     B, T, _ = x.shape
@@ -512,7 +622,7 @@ def _cache_entry(cfg: ModelConfig, idx: int, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, enc_len: int = 0) -> dict:
     """Pre-allocated serving cache on ``device`` (the CUDA device unless
     given), of ``dtype`` (bf16 by default whatever the params' type, as in
     the JAX package), stacked over super-blocks, each place ``pos<j>``
@@ -520,8 +630,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     d) and the float32 wkv state (B, H, K, K), per Mamba layer the conv
     window (B, d_conv - 1, d_in) and the float32 SSM state (B, d_in, N),
     per attention layer K and V (B, max_len, KV, D) or MLA's latent (B,
-    max_len, r + rope); the per-lane length; and for a prelude a list of
-    its layers' entries. A recurrent cache does not grow with
+    max_len, r + rope); the per-lane length; for a prelude a list of its
+    layers' entries; and for an encoder-decoder the encoder output
+    ``enc_out`` (B, enc_len, d). A recurrent cache does not grow with
     ``max_len``."""
     device = resolve_device(device)
     n = n_super(cfg)
@@ -537,13 +648,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if off:
         cache["prelude"] = [_cache_entry(cfg, i, batch, max_len, dtype,
                                          device) for i in range(off)]
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                       dtype=dtype, device=device)
     return cache
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, max_len: int,
             parallel: Optional[ParallelConfig] = None, length=None):
-    """Process the prompt ``batch["tokens"]`` (B, T); return (last-token
-    logits (B, vocab) float32, populated cache).
+    """Process the prompt ``batch["tokens"]`` (B, T) (an encoder-decoder's
+    with its ``frames``, a vision-stub model's with its ``patches`` ahead
+    of the tokens); return (last-token logits (B, vocab) float32,
+    populated cache). An encoder-decoder runs the encoder here and keeps
+    its output as ``cache["enc_out"]``.
 
     ``length`` (an int, or an integer tensor of one element on the tokens'
     device): the true prompt length when the tokens are right-padded to a
@@ -553,12 +670,19 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int,
     position length - 1 never attends the padding, and decode masks the
     padded K/V slots by ``kv_len`` and overwrites them as it advances. Not
     valid for recurrent mixers, whose state would integrate the padding;
-    the engine gates on the config."""
-    x, positions = _embed_inputs(params, batch, cfg)
+    the engine gates on the config. With patches, T, ``length`` and
+    ``cache["len"]`` count the patch positions too."""
+    x, positions, enc_src = _embed_inputs(params, batch, cfg)
     B, T = x.shape[:2]
-    cache = init_cache(cfg, B, max_len, device=x.device)
+    enc_out = None
+    cache = init_cache(cfg, B, max_len, device=x.device,
+                       enc_len=(enc_src.shape[1] if cfg.is_encoder_decoder
+                                else 0))
+    if cfg.is_encoder_decoder:
+        enc_out = _run_encoder(params, enc_src, cfg, parallel)
+        cache["enc_out"] = enc_out
     x, cache, _ = _run_stack(params, x, cfg, positions, cache=cache,
-                             parallel=parallel)
+                             enc_out=enc_out, parallel=parallel)
     x = _norm(x, params["final_norm"], cfg)
     if length is None:
         length = T
@@ -573,11 +697,16 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
                 parallel: Optional[ParallelConfig] = None):
     """One serving step: tokens (B, 1) -> (logits (B, vocab), cache'). The
     attention layers write their K and V (MLA: the latent) into
-    ``cache``'s tensors in place."""
+    ``cache``'s tensors in place. An encoder-decoder adds each lane's
+    sinusoidal term at its position (`layers.sinusoidal_at`, computed on
+    the device) and cross-attends ``cache["enc_out"]``."""
     pos = cache["len"]
     x = params["embed"][tokens]
+    if cfg.is_encoder_decoder:
+        x = x + L.sinusoidal_at(pos, cfg.d_model)[:, None].to(x.dtype)
     x, cache, _ = _run_stack(params, x, cfg, pos[:, None], cache=cache,
-                             pos=pos, parallel=parallel)
+                             pos=pos, enc_out=cache.get("enc_out"),
+                             parallel=parallel)
     x = _norm(x, params["final_norm"], cfg)
     logits = _logits(params, x, cfg)[:, 0]
     cache = dict(cache)

@@ -163,13 +163,17 @@ class ServeEngine(SlotEngine):
     ``_prefill_cache``, at most ``PREFILL_CACHE_MAX`` of them, the least
     recently used out first. A recurrent stack (RWKV, or a hybrid with
     Mamba layers) prefills at the exact length, since its state would
-    integrate the padding, and so does an MLA stack, as the JAX engine
-    does; their variants are keyed by that length. A MoE stack buckets as
-    the JAX engine does, though its padding is routed too (and the expert
-    capacity grows with the bucket), so its prefill depends on the bucket
-    as JAX's does; and every decode tick routes all B lanes, idle ones
-    included, in one group, fed the same stale tokens and caches as
-    JAX's.
+    integrate the padding, and so do an MLA stack and an encoder-decoder,
+    as the JAX engine does; their variants are keyed by that length. An
+    encoder-decoder cannot be served, as in the JAX engine: the prefill
+    passes only ``tokens``, and the model's `KeyError` for the missing
+    ``frames`` comes out of the first admission. A vision-stub model
+    (llava) is served text-only, bucketed as a dense stack. A MoE stack
+    buckets as the JAX engine does, though its padding is routed too (and
+    the expert capacity grows with the bucket), so its prefill depends on
+    the bucket as JAX's does; and every decode tick routes all B lanes,
+    idle ones included, in one group, fed the same stale tokens and
+    caches as JAX's.
 
     The RWKV cache starts as `lm.init_cache` makes it, with bf16
     token-shift leaves whatever the params' type, and so does a Mamba
@@ -218,10 +222,12 @@ class ServeEngine(SlotEngine):
         self._decode = None               # the compiled tick, from tick 2
         self._prefill_cache: OrderedDict = OrderedDict()   # bucket -> fn
         # pad + true length is exact only where no mixer integrates the
-        # padded positions into a recurrent state (RWKV, Mamba); MLA
-        # prefills at the exact length, as the JAX engine does
+        # padded positions into a recurrent state (RWKV, Mamba); MLA and
+        # an encoder-decoder prefill at the exact length, as the JAX
+        # engine does
         self._bucket_prompts = (
             cfg.rwkv is None and cfg.mla is None
+            and not cfg.is_encoder_decoder
             and all(cfg.is_attention_layer(i) for i in range(cfg.n_layers)))
 
     def submit(self, req: Request) -> None:

@@ -12,11 +12,12 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.configs.base import get_config, reduced_config  # noqa: E402
+from repro_torch.configs.base import (ShapeConfig, get_config,  # noqa: E402
+                                      reduced_config)
 from repro_torch.configs.impulse_snn import IMDB, MNIST  # noqa: E402
 from repro_torch.core import pipeline, snn  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import io_spec, lm  # noqa: E402
 from repro_torch.serve import SNNServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -86,12 +87,22 @@ def test_entry_points_without_a_device_raise_on_a_host_without_cuda(
     assert pipeline.compile_network(MNIST, conv_params, domain="int",
                                     device="cpu").device.type == "cpu"
     cfg = reduced_config(get_config("rwkv6-7b"))
+    whisper = reduced_config(get_config("whisper-large-v3"))
+    spec = io_spec.prefill_batch_spec(whisper, ShapeConfig("s", 16, 1,
+                                                           "prefill"))
     for make in (lambda: lm.init_params(0, cfg),
                  lambda: lm.init_cache(cfg, 1, 8),
-                 lambda: launch_serve.main(["--requests", "1"])):
+                 lambda: launch_serve.main(["--requests", "1"]),
+                 lambda: lm.init_params(0, whisper),
+                 lambda: lm.init_cache(whisper, 1, 8, enc_len=16),
+                 lambda: io_spec.materialize(spec, 0),
+                 lambda: launch_serve.main(["--requests", "1", "--arch",
+                                            "llava-next-mistral-7b"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert lm.init_cache(cfg, 1, 8, device="cpu")["len"].device.type == "cpu"
+    assert io_spec.materialize(spec, 0, device="cpu")[
+        "frames"].device.type == "cpu"
 
 
 def test_init_fc_snn_is_seeded():

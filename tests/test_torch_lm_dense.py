@@ -371,35 +371,57 @@ def test_spiking_programs_follow_the_call_shape(monkeypatch):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
 def test_other_families_raise_by_name(family):
-    """The unported families (encoder-decoder and the frontends) are
-    refused by name; a MoE stack with Mamba layers (jamba style) and no
-    SSM config is refused with the JAX package's `ValueError`; a hybrid
-    stack with an SSM config builds, its Mamba layer's params and cache
-    included."""
+    """A MoE stack with Mamba layers (jamba style) and no SSM config is
+    refused with the JAX package's `ValueError`; a hybrid stack with an
+    SSM config builds, its Mamba layer's params and cache included; an
+    encoder-decoder (audio) stack builds with its encoder, cross-attention
+    and ``enc_out`` cache, and its engine prefills at the exact length; a
+    vision-stub (vlm) stack builds as the dense one, its prefill counts
+    the patches ahead of the tokens, and its engine buckets the (text)
+    prompts. A family the JAX package's lm does not model is refused by
+    name."""
     _, cfg = configs("llama3.2")
     kw = {"moe": MAMBA_MOE,
-          "hybrid": dict(MAMBA_MOE, ssm=MAMBA_SSM)}.get(family, {})
+          "hybrid": dict(MAMBA_MOE, ssm=MAMBA_SSM),
+          "audio": dict(is_encoder_decoder=True, n_encoder_layers=2,
+                        frontend="audio_stub"),
+          "vlm": dict(frontend="vision_stub")}[family]
     other = dataclasses.replace(cfg, arch_id=f"{family}-like", family=family,
                                 **kw)
+    if family == "moe":
+        for make in (lambda: lm.init_params(0, other, device="cpu"),
+                     lambda: lm.init_cache(other, 1, 8, device="cpu"),
+                     lambda: ServeEngine(params("llama3.2")[1], other)):
+            with pytest.raises(ValueError, match="cfg.ssm is unset"):
+                make()
+        unknown = dataclasses.replace(cfg, family="snn")
+        with pytest.raises(NotImplementedError, match="'snn'"):
+            lm.init_cache(unknown, 1, 8, device="cpu")
+        return
+    p = lm.init_params(0, other, device="cpu")
+    cache = lm.init_cache(other, 1, 8, device="cpu", enc_len=3)
+    eng = ServeEngine(p, other)
     if family == "hybrid":
-        p = lm.init_params(0, other, device="cpu")
-        cache = lm.init_cache(other, 1, 8, device="cpu")
-        eng = ServeEngine(p, other)
         assert [lm.layer_kind(other, i) for i in range(2)] == [
             ("attn", "dense"), ("ssm", "moe")]
         assert set(p["blocks"]["pos1"]) == {"norm1", "ssm", "norm2", "moe"}
         assert set(cache["blocks"]["pos1"]) == {"conv", "ssm"}
         assert not eng._bucket_prompts
-        return
-    for make in (lambda: lm.init_params(0, other, device="cpu"),
-                 lambda: lm.init_cache(other, 1, 8, device="cpu"),
-                 lambda: ServeEngine(params("llama3.2")[1], other)):
-        if family == "moe":
-            with pytest.raises(ValueError, match="cfg.ssm is unset"):
-                make()
-        else:
-            with pytest.raises(NotImplementedError, match=f"'{family}'"):
-                make()
+    elif family == "audio":
+        assert set(p["blocks"]["pos0"]) == {"norm1", "attn", "cross",
+                                            "norm_cross", "norm2", "ffn"}
+        assert set(p["encoder"]) == {"blocks", "final_norm"}
+        assert p["encoder"]["blocks"]["attn"]["wk"].shape == (2, 128, 128)
+        assert cache["enc_out"].shape == (1, 3, 128)
+        assert not eng._bucket_prompts
+    else:
+        assert set(p) == set(params("llama3.2")[1])
+        assert set(cache) == {"blocks", "len"}
+        patches = torch.zeros((1, 3, 128), dtype=torch.bfloat16)
+        _, filled = lm.prefill(p, {"tokens": torch.arange(5)[None],
+                                   "patches": patches}, other, 16)
+        assert filled["len"].tolist() == [8]
+        assert eng._bucket_prompts
 
 
 def test_prelude_moe_runs_and_matches_jax():

@@ -283,27 +283,49 @@ def test_remat_recomputes_each_super_block(monkeypatch):
 
 
 def test_loss_fn_refuses_the_other_families_by_name():
-    """The encoder-decoder and frontend families are refused by name; a
+    """A family the JAX package's lm does not model is refused by name; a
     MoE stack with Mamba layers (jamba style) without an SSM config raises
     the JAX package's `ValueError`, and with one (a hybrid) its loss is
-    finite and reaches the Mamba layer's weights."""
+    finite and reaches the Mamba layer's weights; an encoder-decoder
+    (audio) stack's loss over stub frames is finite and reaches its
+    encoder and cross-attention weights, and a vision-stub (vlm) stack's
+    over patches ahead of the tokens is finite and moves with the
+    patches."""
     _, cfg = configs("llama3.2")
     _, p = params("llama3.2")
     mamba_moe = dict(attn_layer_period=2, moe=MoEConfig(
         n_experts=4, top_k=1, d_ff=64, every=2))
-    for family in ("moe", "hybrid", "audio", "vlm"):
+    rng = np.random.default_rng(0)
+    for family in ("moe", "hybrid", "audio", "vlm", "snn"):
         kw = {"moe": mamba_moe,
-              "hybrid": dict(mamba_moe, ssm=SSMConfig(d_state=8, dt_rank=16))
-              }.get(family, {})
+              "hybrid": dict(mamba_moe, ssm=SSMConfig(d_state=8, dt_rank=16)),
+              "audio": dict(is_encoder_decoder=True, n_encoder_layers=2,
+                            frontend="audio_stub"),
+              "vlm": dict(frontend="vision_stub")}.get(family, {})
         other = dataclasses.replace(
             cfg, arch_id=f"{family}-like", family=family, **kw)
-        if family == "hybrid":
+        if family in ("hybrid", "audio", "vlm"):
             hp = lm.init_params(0, other, dtype=torch.float32, device="cpu")
-            w = hp["blocks"]["pos1"]["ssm"]["in_proj"].requires_grad_(True)
-            loss, _ = lm.loss_fn(hp, batch(), other)
+            b = batch()
+            if family == "hybrid":
+                ws = [hp["blocks"]["pos1"]["ssm"]["in_proj"]]
+            elif family == "audio":
+                b["frames"] = rng.standard_normal((B, 12, 128)).astype(
+                    np.float32)
+                ws = [hp["encoder"]["blocks"]["attn"]["wq"],
+                      hp["blocks"]["pos0"]["cross"]["wk"]]
+            else:
+                b["patches"] = rng.standard_normal((B, 4, 128)).astype(
+                    np.float32)
+                ws = [hp["embed"]]
+            ws = [w.requires_grad_(True) for w in ws]
+            loss, _ = lm.loss_fn(hp, b, other)
             assert torch.isfinite(loss)
-            (g,) = torch.autograd.grad(loss, [w])
-            assert float(g.abs().sum()) > 0
+            grads = torch.autograd.grad(loss, ws)
+            assert all(float(g.abs().sum()) > 0 for g in grads)
+            if family == "vlm":     # the text attends the patches
+                text_only, _ = lm.loss_fn(hp, batch(), other)
+                assert float(text_only) != float(loss)
         elif family == "moe":
             with pytest.raises(ValueError, match="cfg.ssm is unset"):
                 lm.loss_fn(p, batch(), other)

@@ -27,12 +27,15 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs.base import ASSIGNED_ARCHS as JAX_ASSIGNED_ARCHS  # noqa: E402
 from repro.configs.base import ParallelConfig  # noqa: E402
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import list_archs as jax_list_archs  # noqa: E402
 from repro.configs.base import reduced_config as jax_reduced  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
-from repro_torch.configs.base import (MoEConfig, get_config,  # noqa: E402
+from repro_torch.configs.base import (ASSIGNED_ARCHS,  # noqa: E402
+                                      MoEConfig, get_config, list_archs,
                                       reduced_config)
 from repro_torch.models import layers, lm, rwkv  # noqa: E402
 
@@ -94,10 +97,12 @@ def test_config_matches_jax():
             if dataclasses.is_dataclass(a):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
-    known = ("'llama3-8b', 'llama3.2-1b', 'llama4-maverick-400b-a17b', "
-             "'phi3-medium-14b', 'rwkv6-7b', 'starcoder2-15b'")
-    with pytest.raises(KeyError, match=re.escape(known)):
-        get_config("whisper-large-v3")
+    assert list_archs() == jax_list_archs()
+    assert ASSIGNED_ARCHS == JAX_ASSIGNED_ARCHS
+    with pytest.raises(KeyError) as want:
+        jax_get_config("whisper-large-v9")
+    with pytest.raises(KeyError, match=re.escape(str(want.value)[1:-1])):
+        get_config("whisper-large-v9")
 
 
 def test_rms_norm_matches_jax():
@@ -302,10 +307,11 @@ def test_init_cache_has_the_jax_types():
 
 
 def test_other_families_are_not_ported():
-    """The port runs RWKV, the dense attention family, its MoE variants
-    and the Mamba hybrids; a MoE config with Mamba layers (jamba style,
-    without the RWKV block) and no SSM config is refused with the JAX
-    package's `ValueError`, and an audio config by name."""
+    """The port runs every language model family of the JAX package; a MoE
+    config with Mamba layers (jamba style, without the RWKV block) and no
+    SSM config is refused with the JAX package's `ValueError`, a family the
+    JAX package's lm does not model (the SNN family) by name, and an audio
+    (encoder-decoder) config builds its cache with the encoder output."""
     moe = dataclasses.replace(
         CFG, arch_id="moe-like", family="moe", rwkv=None, attn_layer_period=2,
         moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, every=2))
@@ -313,7 +319,12 @@ def test_other_families_are_not_ported():
         lm.init_params(0, moe, device="cpu")
     with pytest.raises(ValueError, match="cfg.ssm is unset"):
         lm.init_cache(moe, 1, 8, device="cpu")
+    snn = dataclasses.replace(CFG, arch_id="snn-like", family="snn",
+                              rwkv=None)
+    with pytest.raises(NotImplementedError, match="'snn'"):
+        lm.init_cache(snn, 1, 8, device="cpu")
     audio = dataclasses.replace(CFG, arch_id="audio-like", family="audio",
-                                rwkv=None)
-    with pytest.raises(NotImplementedError, match="is not ported"):
-        lm.init_cache(audio, 1, 8, device="cpu")
+                                rwkv=None, is_encoder_decoder=True,
+                                n_encoder_layers=2)
+    assert lm.init_cache(audio, 1, 8, device="cpu", enc_len=5)[
+        "enc_out"].shape == (1, 5, CFG.d_model)
