@@ -260,7 +260,18 @@ Phases, each of which exits non-zero on failure:
      compiled == eager token for token, tokens/s; (c) in float32 at full
      width cut to 2 layers (64 patches + 192 tokens), the prefill on the
      card against the same port code on the CPU, and a prefill then a
-     decode step against a prefill of one more token.
+     decode step against a prefill of one more token;
+ 21. the trace pass (`analysis.check_trace`, `trace_cost`): impulse-imdb
+     and impulse-mnist compiled on the card with validate=True (range,
+     contract and trace passes; the seconds beside a validate=False
+     compile, the trace memo emptied first), then `check_trace` of every
+     int backend (`TRACE_BACKENDS`) on every surface for the card: every
+     check row, the float64-exactness row with its proven bound, one
+     kernel node a surface on the `cuda*` backends and none on `int_ref`,
+     `kernels.LAUNCH_COUNTS` unmoved by the pass; `check_cost_closure` of
+     both programs against the JAX package's counts; and the cost model's
+     bytes and dense MACs of phase 4's calls against the numbers phase 4
+     printed and against a count by formula (`hand_net_bytes`).
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -467,23 +478,40 @@ def device_ms(fn, iters: int) -> tuple:
 
 def net_bound_ms(T: int, B: int, widths: tuple, *, readout: bool,
                  v_init: bool, emit_rasters: bool, macs: float = None,
-                 counter_bytes: int = 0) -> tuple:
-    """Least time the card could take for one fused-network call: input
-    raster, weights, V in and out, rasters and counters each moved once,
-    against 2 int8 operations per multiply-accumulate: ``macs`` (the ones
-    this call's data needs) or the dense T*B*sum(N_i*N_{i+1}).
-    Returns (ms, bound_by)."""
+                 backend: str = "cuda", block_b: int = 8,
+                 gate_granularity: int = 1) -> tuple:
+    """Least time the card could take for one fused-network call of
+    ``backend``: the bytes `trace_cost.dispatch_cost` charges its kernel
+    node (input raster, weights, V in and out, rasters and counters, each
+    moved once) against 2 int8 operations per multiply-accumulate:
+    ``macs`` (the ones this call's data needs) or the node's dense
+    T*B*sum(N_i*N_{i+1}). Returns (ms, bound_by, bytes, dense MACs)."""
+    from repro_torch.analysis.trace_cost import dispatch_cost
+    cost = dispatch_cost(widths, T, B, readout=readout, v_init=v_init,
+                         emit_rasters=emit_rasters, backend=backend,
+                         block_b=block_b, gate_granularity=gate_granularity,
+                         device="cuda")
+    if macs is None:
+        macs = cost.macs
+    t_bytes = cost.hbm_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_INT8_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", cost.hbm_bytes, cost.macs)
+
+
+def hand_net_bytes(T: int, B: int, widths: tuple, *, readout: bool,
+                   v_init: bool, emit_rasters: bool,
+                   counter_bytes: int = 0) -> int:
+    """The bytes of one fused-network call by formula (input raster,
+    weights, V in and out, rasters, ``counter_bytes``): an independent
+    count that phase 21 holds the cost model (`trace_cost`) to on phase
+    4's calls."""
     n_spiking = len(widths) - 2 if readout else len(widths) - 1
     weights = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    moved = (T * B * widths[0] + weights
-             + 4 * B * sum(widths[1:]) * (2 if v_init else 1)
-             + (T * B * sum(widths[1:n_spiking + 1]) if emit_rasters else 0)
-             + counter_bytes)
-    if macs is None:
-        macs = T * B * weights
-    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / PEAK_INT8_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return (T * B * widths[0] + weights
+            + 4 * B * sum(widths[1:]) * (2 if v_init else 1)
+            + (T * B * sum(widths[1:n_spiking + 1]) if emit_rasters else 0)
+            + counter_bytes)
 
 
 def needed_macs(name: str, counters, T: int, B: int, widths: tuple,
@@ -877,13 +905,15 @@ def phase_timing(ops, dev, name: str, B: int, structured: bool = False
     counters = kernel()[2]
     ms, wrapper_ms = device_ms(kernel, 200)
     plain_ms, _ = device_ms(plain, 20)
-    bound_ms, bound_by = net_bound_ms(
+    bound_ms, bound_by, moved, dense_macs = net_bound_ms(
         T, B, IMDB_WIDTHS, readout=True, v_init=True, emit_rasters=True,
         macs=needed_macs(name, counters, T, B, IMDB_WIDTHS, block_b),
-        counter_bytes=counter_bytes(name, B, IMDB_WIDTHS, block_b))
+        backend=BACKEND_OF[name], block_b=block_b,
+        gate_granularity=MODE_KW[name].get("gate_granularity", 1))
     out = {"T": T, "B": B, "structured": structured, "ms": ms,
            "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+           "dense_macs": dense_macs,
            "skipped_share": skipped_share(name, counters, T, B, IMDB_WIDTHS)}
     if name == "fused_snn_net":
         from repro_torch.kernels.fused_snn_net.kernel import dense_plan
@@ -1341,9 +1371,9 @@ def phase_step_timing(dev, label: str, spikes, wq, **kw) -> dict:
     T, B, n_in = spikes.shape
     ms, wrapper_ms = device_ms(lambda: fused_snn_layer(spikes, wq, **kw), 200)
     plain_ms, _ = device_ms(lambda: fused_snn_layer_ref(spikes, wq, **kw), 5)
-    bound_ms, bound_by = net_bound_ms(T, B, (n_in, wq.shape[1]),
-                                      readout=False, v_init=False,
-                                      emit_rasters=True)
+    bound_ms, bound_by, _, _ = net_bound_ms(T, B, (n_in, wq.shape[1]),
+                                            readout=False, v_init=False,
+                                            emit_rasters=True)
     return {"case": label, "T": T, "B": B, "n_in": n_in,
             "n_out": int(wq.shape[1]), "ms": ms, "plain_ms": plain_ms,
             "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
@@ -4235,6 +4265,130 @@ def leaves(tree) -> list:
     return [tree]
 
 
+#: `check_cost_closure` of the two paper programs at batch 8, as the JAX
+#: package's `trace_cost.check_cost_closure` gives them on the same
+#: geometry (acc_w2v, acc_v2v, spike_check, reset_v)
+CLOSURE_WANT = {"impulse-imdb": (421_760, 3_520, 3_520, 0),
+                "impulse-mnist": (10_568_320, 89_120, 81_120, 0)}
+#: the int_ref batch-surface cost (MACs, bytes) at batch 8, as JAX's
+#: `build_cost_report` gives it on the same geometry
+INT_REF_COST_WANT = {"impulse-imdb": (2_344_960, 66_016),
+                     "impulse-mnist": (7_741_440, 198_112)}
+
+
+def phase_trace(dev, phase4: dict) -> dict:
+    """Phase 21: the trace pass of `validate_program` on the card (see the
+    module docstring). ``phase4``: {(kernel name, B): phase 4's row}."""
+    from repro_torch import kernels
+    from repro_torch.analysis import (SURFACES, TRACE_BACKENDS,
+                                      check_cost_closure, check_trace)
+    from repro_torch.analysis import trace_check
+    from repro_torch.analysis.trace_cost import dispatch_cost
+    from repro_torch.configs.impulse_snn import IMDB, MNIST
+    from repro_torch.core import pipeline, snn
+    out = {"programs": {}, "phase4": []}
+    for cfg, init in ((IMDB, snn.init_fc_snn), (MNIST, snn.init_lenet_snn)):
+        params = init(SEED, cfg, device=dev)
+        trace_check._TRACE_CACHE.clear()
+        counts = dict(kernels.LAUNCH_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.compile_network(cfg, params, domain="int", validate=False,
+                                 device=dev)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = pipeline.compile_network(cfg, params, domain="int",
+                                           validate=True, device=dev)
+        validate_s = time.perf_counter() - t0
+        reports = {b: check_trace(program, b) for b in TRACE_BACKENDS}
+        if kernels.LAUNCH_COUNTS != counts:
+            raise AssertionError(f"the trace pass moved the launch counts: "
+                                 f"{counts} -> {kernels.LAUNCH_COUNTS}")
+        n_calls = len(program.int_conv_stack) + 1
+        rows, f64, surfaces = {}, {}, {}
+        for b, rep in reports.items():
+            got = sorted((s.surface, s.call) for s in rep.surfaces)
+            if {s for s, _ in got} != set(SURFACES) or \
+                    len(got) != len(SURFACES) * n_calls:
+                raise AssertionError(f"{cfg.arch_id} {b}: surfaces {got}")
+            want = 0 if b == "int_ref" else 1
+            bad = [(s.surface, s.call, s.launches) for s in rep.surfaces
+                   if len(s.launches) != want]
+            if bad:
+                raise AssertionError(f"{cfg.arch_id} {b}: kernel nodes "
+                                     f"{bad}, want {want} a surface")
+            rows[b] = [[c.prop, c.where, c.detail] for c in rep.checks]
+            f64[b] = [c.detail for c in rep.checks
+                      if c.prop == "float64_exact"]
+            surfaces[b] = [[s.surface, s.call, s.clamps, s.spike_reads,
+                            s.bounds_checked, s.eqns, list(s.launches)]
+                           for s in rep.surfaces]
+        closure = tuple(check_cost_closure(program))
+        if closure != CLOSURE_WANT[cfg.arch_id]:
+            raise AssertionError(f"{cfg.arch_id} closure {closure} != "
+                                 f"{CLOSURE_WANT[cfg.arch_id]}")
+        cost = reports["int_ref"].cost
+        if (cost.macs, cost.hbm_bytes) != INT_REF_COST_WANT[cfg.arch_id]:
+            raise AssertionError(f"{cfg.arch_id} int_ref cost "
+                                 f"{(cost.macs, cost.hbm_bytes)}")
+        out["programs"][cfg.arch_id] = {
+            "compile_validate_false_s": plain_s,
+            "compile_validate_true_s": validate_s,
+            "closure": list(closure),
+            "cost": {b: [rep.cost.macs, rep.cost.hbm_bytes]
+                     for b, rep in reports.items()},
+            "float64_exact": f64, "surfaces": surfaces, "rows": rows}
+    for (name, B), row in phase4.items():
+        cost = dispatch_cost(IMDB_WIDTHS, 10, B, v_init=True,
+                             backend=BACKEND_OF[name], block_b=8,
+                             gate_granularity=MODE_KW[name].get(
+                                 "gate_granularity", 1), device=dev)
+        hand = hand_net_bytes(10, B, IMDB_WIDTHS, readout=True, v_init=True,
+                              emit_rasters=True,
+                              counter_bytes=counter_bytes(name, B,
+                                                          IMDB_WIDTHS, 8))
+        dense = 10 * B * sum(a * b for a, b in zip(IMDB_WIDTHS[:-1],
+                                                  IMDB_WIDTHS[1:]))
+        if (cost.hbm_bytes, cost.macs) != (row["bytes"], row["dense_macs"]) \
+                or cost.hbm_bytes != hand or cost.macs != dense:
+            raise AssertionError(
+                f"{name} B={B}: cost model {cost.hbm_bytes} bytes, "
+                f"{cost.macs} MACs; phase 4 {row['bytes']}, "
+                f"{row['dense_macs']}; formula {hand}, {dense}")
+        out["phase4"].append({
+            "name": name, "B": B, "bytes": cost.hbm_bytes,
+            "dense_macs": cost.macs, "hand_bytes": hand,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "launches": list(cost.launches)})
+    return out
+
+
+def print_trace(res: dict, card: str) -> None:
+    for arch, row in res["programs"].items():
+        print(f"[phase 21] {arch}: compile_network(validate=True) "
+              f"{row['compile_validate_true_s']:.2f} s (range, contract and "
+              f"trace passes, memo empty) vs validate=False "
+              f"{row['compile_validate_false_s']:.3f} s on the host of "
+              f"{card}; LAUNCH_COUNTS unmoved; cost closure "
+              f"{row['closure']}; cost (macs, bytes) per backend "
+              f"{json.dumps(row['cost'])}")
+        for b, details in row["float64_exact"].items():
+            print(f"[phase 21] {arch} {b} float64_exact: "
+                  f"{json.dumps(details)}")
+        for b, surf in row["surfaces"].items():
+            print(f"[phase 21] {arch} {b} surfaces (surface, call, clamps, "
+                  f"SpikeCheck reads, bounds, nodes, kernel nodes): "
+                  f"{json.dumps(surf)}")
+        for b, rows in row["rows"].items():
+            print(f"[phase 21] {arch} {b} rows: {json.dumps(rows)}")
+    for r in res["phase4"]:
+        print(f"[phase 21] phase 4's {r['name']} at K=10, B={r['B']}: cost "
+              f"model {r['bytes']} bytes, {r['dense_macs']} dense MACs == "
+              f"phase 4's == the formula ({r['hand_bytes']} bytes); bound "
+              f"{r['bound_ms']:.4e} ms ({r['bound_by']}); nodes "
+              f"{r['launches']}")
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4302,10 +4456,11 @@ def main() -> int:
         print(f"[phase 3] {backend} profiled drain: {json.dumps(profile)}")
     lap("phase 3")
 
-    entries, serve_ms = [], {}
+    entries, serve_ms, phase4 = [], {}, {}
     for name in REPLACES:
         serve_t = phase_timing(ops, dev, name, 32)
         big_t = phase_timing(ops, dev, name, 4096)
+        phase4[name, 32], phase4[name, 4096] = serve_t, big_t
         serve_ms[name] = serve_t["ms"]
         print(f"[phase 4] {name} at K=10, B=32: {serve_t}")
         print(f"[phase 4] {name} at K=10, B=4096: {big_t}")
@@ -4677,6 +4832,8 @@ def main() -> int:
     print_llava(llava, llava_cfg, card)
     print(f"[phase 20] {json.dumps(llava)}")
     lap("phase 20")
+    print_trace(phase_trace(dev, phase4), card)
+    lap("phase 21")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

@@ -241,7 +241,8 @@ def compile_network(cfg: SNNModelConfig, params: dict, *, domain: str = "float",
 
     ``validate`` (default on, as in the JAX package) runs
     `analysis.validate_program` on the compiled program before returning
-    it: the range pass and the dense ``cuda`` kernel contract for an int
+    it: the range pass, the dense ``cuda`` kernel contract and the trace
+    pass (every int backend's dispatch traced and checked) for an int
     program, the ``float`` contract otherwise. A refused program raises
     the named `AnalysisError` here, not mid-dispatch. The ``cuda``
     contract is stricter than the Pallas one (``smem_budget``,
@@ -864,8 +865,9 @@ def run_int_ref(program: SNNProgram, xs: torch.Tensor, *,
 
 @register_backend("cuda")
 def run_cuda(program: SNNProgram, xs: torch.Tensor) -> NetResult:
-    """The fused-network CUDA kernel: one launch for the fc stack over all
-    timesteps. On CPU tensors its wrapper runs the plain version."""
+    """``program`` on input currents ``xs`` through the fused-network CUDA
+    kernel: one launch for the fc stack over all timesteps (and one per
+    on-macro conv). On CPU tensors its wrapper runs the plain version."""
     return _run_macro_stack(program, xs, use_kernel=True)
 
 
@@ -886,8 +888,9 @@ def run_cuda_sparse(program: SNNProgram, xs: torch.Tensor, *,
 
 @register_backend("ref_events")
 def run_ref_events(program: SNNProgram, xs: torch.Tensor) -> NetResult:
-    """The host spike-list executor: every (timestep, example) frame is
-    compacted to its active rows and AccW2V gathers their weight rows, so
+    """``program`` on input currents ``xs`` through the host spike-list
+    executor: every (timestep, example) frame is compacted to its active
+    rows and AccW2V gathers their weight rows, so
     the work is proportional to events. aux: ``row_events`` (per layer,
     per input row), ``row_event_frames``, ``row_skip_counts`` and
     ``skipped_row_fraction``."""

@@ -3,14 +3,17 @@ the Hopper counterparts of `repro.kernels.fused_snn_net.kernel._net_kernel`
 in its dense, row-block gated and event-list modes.
 
 `fused_snn_net_cuda` checks every tensor (device, dtype, shape,
-contiguity), takes the kernel's shared-memory layout from `launch_plan`
-(the one function that decides which stacks the kernels refuse, shared
-with `repro_torch.analysis.check_kernel_contracts`), allocates the
-outputs, and launches on the current stream of the tensors' device: in the
-gated and event-list modes one CTA per ``block_b`` batch lanes, in the dense
-mode one CTA per `dense_plan` tile (its own lanes and chunk of timesteps;
-the library's own plan, `csrc/dense_plan.h`, is checked against
-`dense_plan` when it is loaded). The library is built with nvcc on first
+contiguity) and calls the mode's custom operator (`OPS`,
+``torch.ops.repro_torch.fused_snn_net``, ``..._gated``, ``..._events``),
+so that a traced dispatch (`repro_torch.analysis.check_trace`) shows each
+launch as one named node. The operator takes the kernel's shared-memory
+layout from `launch_plan` (the one function that decides which stacks the
+kernels refuse, shared with `repro_torch.analysis.check_kernel_contracts`),
+allocates the outputs, and launches on the current stream of the tensors'
+device: in the gated and event-list modes one CTA per ``block_b`` batch
+lanes, in the dense mode one CTA per `dense_plan` tile (its own lanes and
+chunk of timesteps; the library's own plan, `csrc/dense_plan.h`, is
+checked against `dense_plan` when it is loaded). The library is built with nvcc on first
 use (`repro_torch.kernels._build`). Nothing here runs on the CPU: the
 public wrapper `ops.fused_snn_net` sends CPU tensors to the plain version.
 
@@ -21,6 +24,7 @@ gate sites are blocks of 128/G logical fan-in rows (``LANE`` is the macro's
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -461,6 +465,17 @@ def launch_plan(widths: tuple, T: int, B: int, *, mode: str = "dense",
             "skip_off": skip_off, "n_skip_cols": n_skip_cols}
 
 
+@functools.lru_cache(maxsize=1024)
+def _plan(widths: tuple, T: int, B: int, mode: str, block_b: int,
+          gate_granularity: int, neuron: str, clamp_mode: str) -> dict:
+    """`launch_plan`, memoized for the launches of a serving loop, which
+    repeat a few geometries (the wrapper and the operator each ask for
+    it). Callers only read the plan."""
+    return launch_plan(widths, T, B, mode=mode, block_b=block_b,
+                       gate_granularity=gate_granularity, neuron=neuron,
+                       clamp_mode=clamp_mode)
+
+
 def _check_tensor(x: torch.Tensor, what: str, dtype: torch.dtype,
                   shape: tuple, device: torch.device) -> None:
     if x.device != device:
@@ -488,6 +503,12 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     mode's blocks (`skip_layout`) and ``event_crossover`` the event-list
     mode's dense fallback (`dense_thresholds`).
 
+    The launch is one call of the mode's custom operator (`OPS`,
+    ``torch.ops.repro_torch.<kernel name>``), so a traced dispatch shows it
+    as one named node: on fake tensors the operator's fake implementation
+    checks `launch_plan` and makes the outputs' shapes, and nothing
+    launches or loads the library.
+
     Returns (rasters, v_finals, counters): (T, B, N_{i+1}) int8 per spiking
     layer ([] without ``emit_rasters``), (B, N_{i+1}) int32 per layer, and
     None in dense mode; in gated mode the (tiles, total columns) int32 skip
@@ -507,11 +528,8 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         raise ValueError(f"spikes must be (T, B, N0), got {tuple(spikes.shape)}")
     T, B, N0 = spikes.shape
     widths = (N0,) + tuple(w.shape[1] for w in ws)
-    plan = launch_plan(widths, T, B, mode=mode, block_b=block_b,
-                       gate_granularity=gate_granularity, neuron=neuron,
-                       clamp_mode=clamp_mode)
-    n_layers = len(ws)
-    n_spiking = n_layers - 1 if readout else n_layers
+    _plan(widths, T, B, mode, block_b, gate_granularity, neuron, clamp_mode)
+    n_spiking = len(ws) - 1 if readout else len(ws)
     _check_tensor(spikes, "spikes", torch.int8, (T, B, N0), device)
     for i, w in enumerate(ws):
         _check_tensor(w, f"ws[{i}]", torch.int8, (widths[i], widths[i + 1]),
@@ -520,19 +538,63 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         for i, v in enumerate(v_init):
             _check_tensor(v, f"v_init[{i}]", torch.int32,
                           (B, widths[i + 1]), device)
+    out = OPS[mode](spikes, list(ws), [] if v_init is None else list(v_init),
+                    [int(t) for t in thresholds[:n_spiking]],
+                    [int(lk) for lk in leaks[:n_spiking]], neuron,
+                    clamp_mode, readout, emit_rasters, block_b,
+                    gate_granularity, float(event_crossover))
+    rasters, v_out = list(out[0]), list(out[1])
+    counters = (None if mode == "dense" else out[2] if mode == "gated"
+                else (list(out[2]), out[3]))
+    return rasters, v_out, counters
+
+
+def _op_outputs(mode: str, spikes, ws, readout, emit_rasters, block_b,
+                gate_granularity, neuron, clamp_mode) -> tuple:
+    """`launch_plan` of one operator call and fresh outputs in the
+    operator's return layout: rasters, V, then the gated skip counts or
+    the event-list row and fallback counts of the plan's tiles."""
+    T, B, N0 = spikes.shape
+    widths = (N0,) + tuple(w.shape[1] for w in ws)
+    plan = _plan(widths, T, B, mode, block_b, gate_granularity, neuron,
+                 clamp_mode)
+    grid = plan["grid"]
+    n_spiking = len(ws) - 1 if readout else len(ws)
+    v_out = [spikes.new_empty((B, n), dtype=torch.int32) for n in widths[1:]]
+    rasters = ([spikes.new_empty((T, B, n), dtype=torch.int8)
+                for n in widths[1:n_spiking + 1]] if emit_rasters else [])
+    if mode == "dense":
+        return plan, (rasters, v_out)
+    if mode == "gated":
+        return plan, (rasters, v_out, spikes.new_empty(
+            (grid, plan["n_skip_cols"]), dtype=torch.int32))
+    return plan, (rasters, v_out,
+                  [spikes.new_empty((grid, n), dtype=torch.int32)
+                   for n in widths[:-1]],
+                  spikes.new_empty((grid, len(ws)), dtype=torch.int32))
+
+
+def _launch(mode: str, spikes, ws, v_init, thresholds, leaks, neuron,
+            clamp_mode, readout, emit_rasters, block_b, gate_granularity,
+            event_crossover) -> tuple:
+    """The operators' CUDA implementation: fill `NetArgs` from the plan and
+    the tensors, launch on the current stream and count the launch."""
+    device = spikes.device
+    T, B, N0 = spikes.shape
+    widths = (N0,) + tuple(w.shape[1] for w in ws)
+    plan, out = _op_outputs(mode, spikes, ws, readout, emit_rasters,
+                            block_b, gate_granularity, neuron, clamp_mode)
+    rasters, v_out = out[0], out[1]
+    n_layers = len(ws)
+    n_spiking = n_layers - 1 if readout else n_layers
     layout, lanes = plan["layout"], plan["lanes"]
     n_skip_cols, skip_off = plan["n_skip_cols"], plan["skip_off"]
-    grid = -(-B // lanes)
-    v_out = [torch.empty((B, n), dtype=torch.int32, device=device)
-             for n in widths[1:]]
-    rasters = ([torch.empty((T, B, n), dtype=torch.int8, device=device)
-                for n in widths[1:n_spiking + 1]] if emit_rasters else [])
     args = NetArgs()
     args.spikes = spikes.data_ptr()
     for i in range(n_layers):
         args.w[i] = ws[i].data_ptr()
         args.v_out[i] = v_out[i].data_ptr()
-        if v_init is not None:
+        if v_init:
             args.v_init[i] = v_init[i].data_ptr()
         args.wt_off[i] = layout["wt_off"][i]
         args.wt_ld[i] = layout["wt_ld"][i]
@@ -549,8 +611,7 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
     args.neuron = NEURON_CODES[neuron]
     args.wrap = int(clamp_mode == "wrap")
     args.emit_rasters = int(emit_rasters)
-    args.has_v_init = int(v_init is not None)
-    counters = None
+    args.has_v_init = int(bool(v_init))
     if mode == "dense":
         args.tc, args.in_off, args.in_ld = (layout["tc"], layout["in_off"],
                                             layout["in_ld"])
@@ -566,20 +627,14 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         args.list_off, args.list_ld = layout["list_off"], layout["list_ld"]
         args.lcount_off = layout["lcount_off"]
     if mode == "gated":
-        skips = torch.empty((grid, n_skip_cols), dtype=torch.int32,
-                            device=device)
         args.gate_bw = 0 if gate_granularity == 1 else LANE // gate_granularity
         for i, off in enumerate(skip_off):
             args.skip_off[i] = off
         args.n_skip_cols = n_skip_cols
         args.gate_off, args.gate_ld = layout["gate_off"], layout["gate_ld"]
-        args.skips = skips.data_ptr()
-        counters = skips
+        args.skips = out[2].data_ptr()
     elif mode == "events":
-        row_counts = [torch.empty((grid, n), dtype=torch.int32, device=device)
-                      for n in widths[:-1]]
-        fallbacks = torch.empty((grid, n_layers), dtype=torch.int32,
-                                device=device)
+        row_counts, fallbacks = out[2], out[3]
         thr = dense_thresholds(widths[:-1], block_b, event_crossover)
         for i in range(n_layers):
             args.row_off[i] = layout["row_off"][i]
@@ -590,16 +645,56 @@ def fused_snn_net_cuda(spikes: torch.Tensor, ws: list, thresholds: tuple,
         args.tc, args.chunk_ld = layout["tc"], layout["chunk_ld"]
         args.chunk_off[0], args.chunk_off[1] = layout["chunk_off"]
         args.ttot_off = layout["ttot_off"]
-        counters = (row_counts, fallbacks)
 
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_snn_net_launch(ctypes.byref(args), MODE_CODES[mode],
-                                       grid, layout["bytes"], stream)
+                                       plan["grid"], layout["bytes"], stream)
     name = KERNEL_NAMES[mode]
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.fused_snn_net_error_string(err).decode()})")
     kernels.LAUNCH_COUNTS[name] += 1
-    return rasters, v_out, counters
+    return out
+
+
+_OP_SCHEMA = ("(Tensor spikes, Tensor[] ws, Tensor[] v_init, int[] thresholds, "
+              "int[] leaks, str neuron, str clamp_mode, bool readout, "
+              "bool emit_rasters, int block_b, int gate_granularity, "
+              "float event_crossover) -> ")
+_OP_RETURNS = {"dense": "(Tensor[], Tensor[])",
+               "gated": "(Tensor[], Tensor[], Tensor)",
+               "events": "(Tensor[], Tensor[], Tensor[], Tensor)"}
+
+
+def _register(mode: str):
+    """The custom operator ``repro_torch::<kernel name>`` of one mode: its
+    CUDA implementation launches (`_launch`); its fake implementation, the
+    one a trace runs, checks `launch_plan` and returns outputs of the
+    launch's shapes. The kernel writes only its outputs (V comes back in
+    fresh tensors; a caller that keeps V in place copies it), so the
+    operator mutates none of its arguments."""
+
+    def launch(spikes, ws, v_init, thresholds, leaks, neuron, clamp_mode,
+               readout, emit_rasters, block_b, gate_granularity,
+               event_crossover):
+        return _launch(mode, spikes, ws, v_init, thresholds, leaks, neuron,
+                       clamp_mode, readout, emit_rasters, block_b,
+                       gate_granularity, event_crossover)
+
+    def fake(spikes, ws, v_init, thresholds, leaks, neuron, clamp_mode,
+             readout, emit_rasters, block_b, gate_granularity,
+             event_crossover):
+        return _op_outputs(mode, spikes, ws, readout, emit_rasters, block_b,
+                           gate_granularity, neuron, clamp_mode)[1]
+
+    op = torch.library.custom_op(
+        f"repro_torch::{KERNEL_NAMES[mode]}", launch, mutates_args=(),
+        device_types="cuda", schema=_OP_SCHEMA + _OP_RETURNS[mode])
+    op.register_fake(fake)
+    return op
+
+
+#: one custom operator per kernel mode, named as its launch count
+OPS = {mode: _register(mode) for mode in MODE_CODES}

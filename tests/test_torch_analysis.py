@@ -511,7 +511,12 @@ def test_compile_refusals_match_jax_passes(sizes, jax_says, port_says):
                                     validate=False, device="cpu")
     if got is None:
         ranges, contracts, traces = validate_program(prog)
-        assert list(contracts) == ["cuda"] and traces == {}
+        assert list(contracts) == ["cuda"]
+        # the trace pass reports every int backend: traced, host or skipped
+        assert set(traces) == {"int_ref", "cuda", "cuda_sparse",
+                               "cuda_events", "ref_events", "bitmacro"}
+        assert traces["cuda"].cost.macs == 3 * sum(
+            a * b for a, b in zip(sizes[:-1], sizes[1:])) * 8
         assert_same_report(ranges, jax_check(jprog))
 
 
