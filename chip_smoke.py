@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # from the repository root
 
+(``chip_smoke.py --mesh-rank RANK DIR [cpu]`` is one of phase 22's four
+ranks; the script starts them itself.)
+
 Phases, each of which exits non-zero on failure:
 
   1. the card (nvidia-smi name and power limit) and the build of every
@@ -268,10 +271,26 @@ Phases, each of which exits non-zero on failure:
      int backend (`TRACE_BACKENDS`) on every surface for the card: every
      check row, the float64-exactness row with its proven bound, one
      kernel node a surface on the `cuda*` backends and none on `int_ref`,
-     `kernels.LAUNCH_COUNTS` unmoved by the pass; `check_cost_closure` of
+     `kernels.LAUNCH_COUNTS` unmoved by the pass, and the mesh surface on
+     a 2 x 2 mesh (each model rank's row-partial tick, one reduction a
+     layer, no kernel node); `check_cost_closure` of
      both programs against the JAX package's counts; and the cost model's
      bytes and dense MACs of phase 4's calls against the numbers phase 4
-     printed and against a count by formula (`hand_net_bytes`).
+     printed and against a count by formula (`hand_net_bytes`);
+ 22. the SNN mesh path on `torch.distributed` (`run_network(mesh=)`,
+     `SNNServeEngine(mesh=)`): (a) a world of one on NCCL and its (1, 1)
+     mesh, IMDB (B = 32, 60 frames) and impulse-mnist (8 images) through
+     int_ref, cuda, cuda_sparse (G = 8) and cuda_events, each equal to the
+     meshless call bit for bit (rasters, every V, logits, counters) with
+     its launches, and the compiled cuda engine on the mesh (page graphs
+     captured) equal to the meshless one; (b) four gloo ranks spawned on
+     the one card (`--mesh-rank`), all-reduces and all-gathers on CUDA
+     tensors: IMDB on (4, 1), (1, 4) and (2, 2) on every int backend, the
+     conv program on (4, 1) and (2, 2) with cuda, and a (2, 2) cuda_events
+     serving drain (16 requests, 2 pages of 8), each rank holding every
+     global result and the drain's requests and ledger to the single-GPU
+     run; each rank's kernel launches on (4, 1) (one a call) and the zero
+     launches of (1, 4) (the row-partial ticks run no kernel).
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -279,8 +298,9 @@ gated and event-list modes, wkv6 and fused_snn_step) with
 `redesigned_in` and its registers and spills; each fused-network mode
 names its paths and its launches in the conv serving drain
 (`conv_serving_launches`), in the deployment of the trained IMDB net
-(`train_deploy_launches`) and in phase 13's graphed drains
-(`graphed_launches`). The last line is {"ok": true, "device": {...}}.
+(`train_deploy_launches`), in phase 13's graphed drains
+(`graphed_launches`) and on phase 22's meshes (`mesh_launches`). The last
+line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the repository's src/repro_torch
 beside this file, it prints no result and exits 1.
 """
@@ -4305,11 +4325,14 @@ def phase_trace(dev, phase4: dict) -> dict:
             raise AssertionError(f"the trace pass moved the launch counts: "
                                  f"{counts} -> {kernels.LAUNCH_COUNTS}")
         n_calls = len(program.int_conv_stack) + 1
+        # without a mesh, the three dispatch surfaces (phase 22's mesh
+        # surface is traced below, on a 2 x 2 dict mesh)
+        dispatch = {s for s in SURFACES if s != "mesh"}
         rows, f64, surfaces = {}, {}, {}
         for b, rep in reports.items():
             got = sorted((s.surface, s.call) for s in rep.surfaces)
-            if {s for s, _ in got} != set(SURFACES) or \
-                    len(got) != len(SURFACES) * n_calls:
+            if {s for s, _ in got} != dispatch or \
+                    len(got) != len(dispatch) * n_calls:
                 raise AssertionError(f"{cfg.arch_id} {b}: surfaces {got}")
             want = 0 if b == "int_ref" else 1
             bad = [(s.surface, s.call, s.launches) for s in rep.surfaces
@@ -4323,6 +4346,17 @@ def phase_trace(dev, phase4: dict) -> dict:
             surfaces[b] = [[s.surface, s.call, s.clamps, s.spike_reads,
                             s.bounds_checked, s.eqns, list(s.launches)]
                            for s in rep.surfaces]
+        mesh_ticks = {}
+        for b in TRACE_BACKENDS:
+            rep = check_trace(program, b, surfaces=("mesh",),
+                              mesh={"data": 2, "model": 2})
+            ticks = [(s.call, s.reductions, s.clamps, list(s.launches))
+                     for s in rep.surfaces]
+            if len(ticks) != 2 * n_calls or any(t[3] for t in ticks):
+                raise AssertionError(f"{cfg.arch_id} {b}: mesh ticks {ticks}")
+            mesh_ticks[b] = ticks
+        if kernels.LAUNCH_COUNTS != counts:
+            raise AssertionError("the mesh surface moved the launch counts")
         closure = tuple(check_cost_closure(program))
         if closure != CLOSURE_WANT[cfg.arch_id]:
             raise AssertionError(f"{cfg.arch_id} closure {closure} != "
@@ -4337,7 +4371,8 @@ def phase_trace(dev, phase4: dict) -> dict:
             "closure": list(closure),
             "cost": {b: [rep.cost.macs, rep.cost.hbm_bytes]
                      for b, rep in reports.items()},
-            "float64_exact": f64, "surfaces": surfaces, "rows": rows}
+            "float64_exact": f64, "surfaces": surfaces, "rows": rows,
+            "mesh_ticks": mesh_ticks}
     for (name, B), row in phase4.items():
         cost = dispatch_cost(IMDB_WIDTHS, 10, B, v_init=True,
                              backend=BACKEND_OF[name], block_b=8,
@@ -4381,12 +4416,349 @@ def print_trace(res: dict, card: str) -> None:
                   f"{json.dumps(surf)}")
         for b, rows in row["rows"].items():
             print(f"[phase 21] {arch} {b} rows: {json.dumps(rows)}")
+        for b, ticks in row["mesh_ticks"].items():
+            print(f"[phase 21] {arch} {b} mesh surface on a 2 x 2 mesh "
+                  f"(call/rank, reductions, clamps, kernel nodes), traced "
+                  f"for {card}: {json.dumps(ticks)}")
     for r in res["phase4"]:
         print(f"[phase 21] phase 4's {r['name']} at K=10, B={r['B']}: cost "
               f"model {r['bytes']} bytes, {r['dense_macs']} dense MACs == "
               f"phase 4's == the formula ({r['hand_bytes']} bytes); bound "
               f"{r['bound_ms']:.4e} ms ({r['bound_by']}); nodes "
               f"{r['launches']}")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the SNN mesh path (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4                    # gloo ranks spawned on the one card
+MESH_SHAPES = ((4, 1), (1, 4), (2, 2))
+MESH_IMDB_B = 32
+MESH_MNIST_B = 8
+MESH_SLOTS = 8                    # a page of the (2, 2) serving drain
+MESH_REQUESTS = 16
+MESH_TIMEOUT_S = 300              # the four ranks together
+MESH_KW = {"cuda_sparse": {"gate_granularity": GATE_G},
+           "cuda_events": {"event_crossover": CROSSOVER}}
+
+
+def mesh_cases(dev) -> dict:
+    """The programs and inputs of phase 22, the same on every rank: the
+    IMDB stack at full width (B = 32, 6 words x 10 frames) and
+    impulse-mnist (weights and images from seeds)."""
+    from repro_torch.configs.impulse_snn import IMDB, MNIST
+    from repro_torch.core import pipeline, snn
+    from repro_torch.data.synthetic import mnist_like_batch
+    imdb = pipeline.compile_network(IMDB, snn.init_fc_snn(SEED, IMDB),
+                                    domain="int", device=dev, validate=False)
+    words = np.random.default_rng(SEED).random(
+        (MESH_IMDB_B, 6, IMDB_WIDTHS[0])).astype(np.float32) * 1.6
+    mnist = pipeline.compile_network(
+        MNIST, snn.init_lenet_snn(SEED, MNIST, device=dev), domain="int",
+        device=dev, validate=False)
+    x = torch.from_numpy(mnist_like_batch(MESH_MNIST_B, SEED)[0]).to(dev)
+    return {"impulse-imdb": (imdb, pipeline.present_words(
+                torch.from_numpy(words).to(dev), IMDB.timesteps)),
+            "impulse-mnist": (mnist, pipeline.present_static(
+                x, MNIST.timesteps))}
+
+
+def same_net(got, ref, n_model: int, tag: str) -> None:
+    """A mesh `NetResult` against the single-device one, bit for bit: the
+    rasters, every V, v_out, logits and every counter; above model extent
+    1 the gate counters and dense fallbacks are absent by design."""
+    for what, a, b in ([("raster", x, y) for x, y in zip(got.rasters,
+                                                        ref.rasters)]
+                       + [("V", x, y) for x, y in zip(got.v_final,
+                                                      ref.v_final)]
+                       + [("v_out", got.v_out, ref.v_out),
+                          ("logits", got.logits, ref.logits)]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {what} differs from one device")
+    if len(got.rasters) != len(ref.rasters):
+        raise AssertionError(f"{tag}: {len(got.rasters)} rasters, not "
+                             f"{len(ref.rasters)}")
+    want = dict(ref.aux)
+    if n_model > 1:
+        for key in ("skip_counts", "skipped_tile_fraction",
+                    "skipped_block_fraction", "conv_skip_counts",
+                    "event_dense_fallbacks"):
+            want.pop(key, None)
+    if set(got.aux) != set(want):
+        raise AssertionError(f"{tag}: aux keys {sorted(got.aux)} != "
+                             f"{sorted(want)}")
+    for key, b in want.items():
+        a = got.aux[key]
+        pairs = (list(zip(a, b)) if isinstance(b, (list, tuple))
+                 else [(a, b)])
+        for x, y in pairs:
+            pairs2 = (list(zip(x, y)) if isinstance(y, list) else [(x, y)])
+            if not all(np.array_equal(np.asarray(u), np.asarray(v))
+                       for u, v in pairs2):
+                raise AssertionError(f"{tag}: aux[{key!r}] differs from one "
+                                     "device")
+
+
+def mesh_net_runs(pipeline, kernels, cases, meshes, backends, tag) -> dict:
+    """Each (program, mesh, backend): the single-device run, then the mesh
+    run with the launch counts set to 0 just before it and read just
+    after, held to it bit for bit. Returns the rows."""
+    rows = {}
+    for name, (program, xs) in cases.items():
+        for backend, wanted in backends.items():
+            shapes = [s for s in meshes if (name, s, backend) in wanted]
+            if not shapes:
+                continue
+            kw = MESH_KW.get(backend, {})
+            kernels.reset_launch_counts()
+            ref = pipeline.run_network(program, xs, backend, **kw)
+            ref_launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items()
+                            if v}
+            for shape in shapes:
+                mesh = meshes[shape]
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                got = pipeline.run_network(program, xs, backend, mesh=mesh,
+                                           **kw)
+                if xs.device.type == "cuda":
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items()
+                            if v}
+                same_net(got, ref, shape[1],
+                         f"{tag} {name} {shape} {backend}")
+                rows[f"{name} {shape[0]}x{shape[1]} {backend}"] = {
+                    "s": dt, "launches": launches,
+                    "single_device_launches": ref_launches}
+    return rows
+
+
+def mesh_rank(argv) -> int:
+    """One of phase 22's gloo ranks: ``--mesh-rank RANK DIR [DEVICE]``.
+    Joins the world through a FileStore in DIR, runs every mesh case on
+    the card (or on ``cpu``, a rehearsal) against the single-device run,
+    and writes DIR/rank<RANK>.json; a mismatch raises."""
+    rank, out = int(argv[0]), Path(argv[1])
+    device_type = argv[2] if len(argv) > 2 else "cuda"
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve_snn import make_requests
+    from repro_torch.serve import SNNServeEngine
+    t0 = time.perf_counter()
+    torch.set_num_threads(2)
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), MESH_WORLD),
+        rank=rank, world_size=MESH_WORLD)
+    meshes = {s: make_mesh(s, device_type=device_type) for s in MESH_SHAPES}
+    cases = mesh_cases(dev)
+    ping = torch.ones(1, dtype=torch.int32, device=dev)
+    dist.all_reduce(ping)         # the first collective waits for every rank
+    if int(ping) != MESH_WORLD:
+        raise AssertionError(f"rank {rank}: a gloo all-reduce of ones on "
+                             f"{dev} gave {int(ping)}")
+    t_ready = time.perf_counter() - t0
+    every = {("impulse-imdb", s, b) for s in MESH_SHAPES
+             for b in INT_BACKENDS}
+    conv = {("impulse-mnist", s, "cuda") for s in ((4, 1), (2, 2))}
+    backends = {b: every | (conv if b == "cuda" else set())
+                for b in INT_BACKENDS}
+    rows = mesh_net_runs(pipeline, kernels, cases, meshes, backends,
+                         f"rank {rank}")
+    # a cuda_events serving drain on (2, 2): every request and the device
+    # ledger equal the single-device engine's
+    program = cases["impulse-imdb"][0]
+
+    def drain(mesh):
+        eng = SNNServeEngine(program, batch_slots=MESH_SLOTS, pages=2,
+                             megastep=10, backend="cuda_events",
+                             step_kw=MESH_KW["cuda_events"], device=dev,
+                             mesh=mesh, validate=False)
+        for r in make_requests(program, MESH_REQUESTS, 6, 10, 0.85, SEED):
+            eng.submit(r)
+        ts = time.perf_counter()
+        done = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+        return done, eng, time.perf_counter() - ts
+    want, want_eng, _ = drain(None)
+    kernels.reset_launch_counts()
+    got, eng, dt = drain(meshes[2, 2])
+    launches = {k: v for k, v in kernels.LAUNCH_COUNTS.items() if v}
+    bad = [a.rid for a, b in zip(got, want)
+           if not same_request(a, b) or a.finish_clock != b.finish_clock]
+    a, b = eng.device_event_stats(), want_eng.device_event_stats()
+    if (len(got) != MESH_REQUESTS or bad or a.frames != b.frames
+            or not all(np.array_equal(x, y)
+                       for x, y in zip(a.row_events, b.row_events))):
+        raise AssertionError(f"rank {rank}: the (2, 2) cuda_events drain != "
+                             f"one device (requests {bad})")
+    rows["impulse-imdb 2x2 cuda_events serving drain"] = {
+        "s": dt, "launches": launches, "requests": len(got),
+        "compiled": eng._dispatch is not None,
+        "ledger_skipped_row_fraction": eng.device_skipped_row_fraction()}
+    (out / f"rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "coords": meshes[2, 2].coords, "ready_s": t_ready,
+         "s": time.perf_counter() - t0, "rows": rows}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh_one(dev, backend: str = "nccl") -> dict:
+    """Phase 22(a): a world of one (``backend``, NCCL on the card) and its
+    (1, 1) mesh: IMDB and impulse-mnist through int_ref, cuda, cuda_sparse
+    and cuda_events, each equal to the meshless call bit for bit with its
+    launch counts; and the compiled cuda engine on the mesh (its page
+    graphs captured, as a world of one runs no collective) equal to the
+    meshless engine."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve_snn import make_requests
+    from repro_torch.serve import SNNServeEngine
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), device_type=dev.type)
+            cases = mesh_cases(dev)
+            shapes = {b: {(n, (1, 1), b) for n in cases}
+                      for b in ("int_ref", "cuda", "cuda_sparse",
+                                "cuda_events")}
+            rows = mesh_net_runs(pipeline, kernels, cases, {(1, 1): mesh},
+                                 shapes, "world of one")
+            for key, row in rows.items():
+                if row["launches"] != row["single_device_launches"]:
+                    raise AssertionError(
+                        f"{key}: launches {row['launches']} on the mesh, "
+                        f"{row['single_device_launches']} without it")
+            program = cases["impulse-imdb"][0]
+
+            def drain(mesh_):
+                eng = SNNServeEngine(program, batch_slots=MESH_SLOTS,
+                                     pages=2, megastep=10, backend="cuda",
+                                     device=dev, mesh=mesh_, validate=False)
+                for r in make_requests(program, MESH_REQUESTS, 6, 10, 0.85,
+                                       SEED):
+                    eng.submit(r)
+                return (sorted(eng.run_until_drained(),
+                               key=lambda r: r.rid), eng)
+            want, _ = drain(None)
+            got, eng = drain(mesh)
+            bad = [a.rid for a, b in zip(got, want) if not same_request(a, b)]
+            if bad or len(got) != MESH_REQUESTS:
+                raise AssertionError(f"the (1, 1) cuda engine != one device "
+                                     f"(requests {bad})")
+            rows["impulse-imdb 1x1 cuda serving drain"] = {
+                "requests": len(got), "compiled": eng._dispatch is not None,
+                "capturable": mesh.capturable}
+        finally:
+            dist.destroy_process_group()
+    return {"rows": rows, "s": time.perf_counter() - t0,
+            "backend": backend}
+
+
+def start_mesh_ranks(device_type: str = "cuda") -> dict:
+    """Phase 22(b), first half: spawn the four gloo ranks (`mesh_rank`) on
+    the one card, so that their start-up overlaps phase 22(a). Returns the
+    handle `finish_mesh_ranks` takes."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="mesh_ranks")
+    procs = []
+    for rank in range(MESH_WORLD):
+        log = open(os.path.join(d, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(rank), d, device_type],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return {"dir": d, "procs": procs, "t0": time.perf_counter()}
+
+
+def finish_mesh_ranks(handle: dict) -> dict:
+    """Phase 22(b), second half: wait for every rank (at most
+    MESH_TIMEOUT_S from the spawn), kill what is left on failure, and read
+    each rank's rows; each rank held every mesh result to the
+    single-device run itself."""
+    import shutil
+    d, procs = handle["dir"], handle["procs"]
+    deadline = handle["t0"] + MESH_TIMEOUT_S
+    failed = []
+    try:
+        for rank, (p, _) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                failed.append((rank, rc))
+                break
+        if failed:
+            rank = failed[0][0]
+            tail = Path(d, f"rank{rank}.log").read_text()[-3000:]
+            raise AssertionError(f"mesh ranks failed {failed}; rank {rank}:"
+                                 f"\n{tail}")
+        ranks = [json.loads(Path(d, f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(d, ignore_errors=True)
+    return {"ranks": ranks, "s": time.perf_counter() - handle["t0"]}
+
+
+def print_mesh(one: dict, four: dict, card: str) -> dict:
+    """Phase 22's lines; returns each kernel's launches on the mesh path
+    (the world of one, each rank on (4, 1) and on (1, 4))."""
+    for key, row in one["rows"].items():
+        print(f"[phase 22] (a) world of one ({one['backend']}), mesh 1x1, "
+              f"{key}: == one device bit for bit; {json.dumps(row)}")
+    for r in four["ranks"]:
+        launches = {k: row["launches"] for k, row in r["rows"].items()
+                    if " 4x1 " in k or " 1x4 " in k}
+        print(f"[phase 22] (b) rank {r['rank']} {r['coords']}: every mesh "
+              f"result == one device bit for bit, in {r['s']:.1f} s "
+              f"({r['ready_s']:.1f} s to join and build); launches on 4x1 "
+              f"and 1x4: {json.dumps(launches)}")
+    rows0 = four["ranks"][0]["rows"]
+    print(f"[phase 22] (b) rank 0 rows: {json.dumps(rows0)}")
+    print(f"[phase 22] world of one {one['s']:.1f} s; four gloo ranks on "
+          f"one card {four['s']:.1f} s from their spawn, which overlaps the "
+          f"world of one ({card})")
+    mesh_launches = {}
+    for name, backend in BACKEND_OF.items():
+        one_row = one["rows"].get(f"impulse-imdb 1x1 {backend}", {})
+        mesh_launches[name] = {
+            "world_of_one_imdb": one_row.get("launches", {}).get(name, 0),
+            "per_rank_4x1_imdb": [
+                r["rows"][f"impulse-imdb 4x1 {backend}"]["launches"].get(
+                    name, 0) for r in four["ranks"]],
+            "per_rank_1x4_imdb": [
+                r["rows"][f"impulse-imdb 1x4 {backend}"]["launches"].get(
+                    name, 0) for r in four["ranks"]]}
+        if any(mesh_launches[name]["per_rank_1x4_imdb"]):
+            raise AssertionError(f"{name} launched on the 1x4 mesh, whose "
+                                 "row-partial ticks run no kernel")
+        if (min(mesh_launches[name]["per_rank_4x1_imdb"]) < 1
+                or mesh_launches[name]["world_of_one_imdb"] < 1):
+            raise AssertionError(f"the mesh path never launched {name}")
+    return mesh_launches
 
 
 def main() -> int:
@@ -4834,6 +5206,13 @@ def main() -> int:
     lap("phase 20")
     print_trace(phase_trace(dev, phase4), card)
     lap("phase 21")
+    ranks = start_mesh_ranks()    # their start-up overlaps phase 22(a)
+    try:
+        mesh_one = phase_mesh_one(dev)
+    finally:
+        mesh_four = finish_mesh_ranks(ranks)
+    mesh_launches = print_mesh(mesh_one, mesh_four, card)
+    lap("phase 22")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [
@@ -4844,7 +5223,10 @@ def main() -> int:
                 "impulse-imdb trained and deployed (phase 12, "
                 "train_deploy_launches)",
                 "impulse-imdb and impulse-mnist drains as CUDA graph replays "
-                "(phase 13, graphed_launches)"]
+                "(phase 13, graphed_launches)",
+                "the mesh path: a world of one and each data rank of a 4x1 "
+                "mesh (phase 22, mesh_launches)"]
+            entry["mesh_launches"] = mesh_launches[entry["name"]]
             entry["graphed_launches"] = {
                 name: res["backends"][BACKEND_OF[entry["name"]]]["launches"][
                     entry["name"]] for name, res in compiled.items()}
@@ -4865,4 +5247,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_rank(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"]
+             else main())

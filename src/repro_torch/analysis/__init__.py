@@ -13,8 +13,9 @@ Four passes, composable and individually importable:
     wrapper calls (a `ContractReport`, or a `ContractError` naming the
     contract and the call).
   * `check_trace`: aten-graph verification of the dispatch the port runs:
-    every int backend's batch, step and megastep dispatch is traced on
-    fake tensors (`make_fx`, nothing runs) and checked for dtype
+    every int backend's batch, step and megastep dispatch (and, on a mesh
+    of model extent above 1, each model rank's row-partial tick) is traced
+    on fake tensors (`make_fx`, nothing runs) and checked for dtype
     discipline (with the float64 exactness rule of `isa.int_matmul`),
     determinism, clamp count and dominance, index bounds, and each kernel
     launch as one named node held to its plain twin, plus a static
@@ -97,9 +98,9 @@ def validate_program(program, *, frames: Optional[int] = None,
     compile; asking for that backend in ``backends`` raises its
     `ContractError`. Trace results are memoized by geometry, so
     re-validating an unchanged program is free. ``mesh`` (in
-    ``contract_kw``) raises a `TraceError` until multi-GPU execution."""
-    from repro_torch.analysis.trace_check import _no_mesh
-    _no_mesh(contract_kw.pop("mesh", None))
+    ``contract_kw``: an `launch.mesh.SNNMesh` or an ``{axis: extent}``
+    dict) adds the ``mesh_axes``/``mesh_split`` contract rows and the
+    trace pass's mesh surface."""
     if backends is None:
         backends = ("cuda",) if program.domain == "int" else ("float",)
     ranges = check_program(program, frames=frames)
@@ -113,14 +114,16 @@ def validate_program(program, *, frames: Optional[int] = None,
         if trace_backends is None:
             trace_backends = TRACE_BACKENDS + HOST_BACKENDS
         trace_kw = {k: contract_kw[k] for k in
-                    ("gate_granularity", "event_crossover", "block_b")
-                    if k in contract_kw}
+                    ("gate_granularity", "event_crossover", "block_b",
+                     "mesh") if k in contract_kw}
         for b in trace_backends:
             # a backend whose own kernel contract refuses this program
             # (shared memory, layer-count caps, clamp-mode requirements)
             # has no dispatch to trace: record the refusal, don't fail
             try:
                 bkw = dict(trace_kw)
+                if b in HOST_BACKENDS:
+                    bkw.pop("mesh", None)      # their own skip row
                 if b != "cuda_sparse":
                     bkw.pop("gate_granularity", None)
                 if b != "cuda_events":

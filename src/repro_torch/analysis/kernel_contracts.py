@@ -33,11 +33,20 @@ launches.
                     | `dense_plan`, the gated mode's `smem_layout`, the
                     | event-list mode's `event_layout`) fits SMEM_LIMIT
                     | (`launch_plan`)
+  mesh_axes         | (``mesh=``) float and bitmacro have no mesh
+                    | execution; the data and model extents are >= 1
+  mesh_split        | (``mesh=``, CUDA backends) every call's fan-in rows,
+                    | padded to the model extent (`ops.mesh_padded_widths`),
+                    | split evenly into per-rank row tiles, and one rank's
+                    | residency (the call's shared memory with its weight
+                    | tiles cut to 1/n_model: JAX's per-shard formula, held
+                    | to SMEM_LIMIT in place of VMEM) fits
 
 Each on-macro conv runs one call on its (K, batch*P, k*k*C) patch raster;
 the fc stack is one more call on (K, batch, n_in). ``int_ref``,
 ``ref_events`` and ``bitmacro`` launch no kernel and carry only the
-backend, chain-alignment and megastep contracts.
+backend, chain-alignment and megastep contracts. On a mesh each data rank
+launches its share of the lanes, ceil(batch / n_data) a rank.
 """
 from __future__ import annotations
 
@@ -50,8 +59,10 @@ from repro_torch.analysis.intervals import AnalysisError
 from repro_torch.core.pipeline import BACKENDS, STREAM_BACKENDS
 from repro_torch.kernels.fused_snn_net.kernel import (GATE_GRANULARITIES,
                                                       SMEM_LIMIT,
-                                                      KernelRefused,
+                                                      KernelRefused, _align16,
                                                       launch_plan)
+from repro_torch.kernels.fused_snn_net.ops import mesh_padded_widths
+from repro_torch.launch.mesh import mesh_extents
 
 CUDA_BACKENDS = ("cuda", "cuda_sparse", "cuda_events")
 
@@ -138,13 +149,20 @@ def _program_calls(program, batch: int) -> list:
     return calls
 
 
+def _weight_bytes(layout: dict, widths: tuple) -> int:
+    """Shared-memory bytes of a call's weight tiles in its ``layout``."""
+    return sum(_align16(n_out * ld * 4)
+               for n_out, ld in zip(widths[1:], layout["wt_ld"]))
+
+
 def check_kernel_contracts(program, backend: str, *,
                            frames: Optional[int] = None, batch: int = 1,
                            block_b: int = 8, gate_granularity: int = 1,
                            event_crossover: float = 1.0,
                            use_sparse: bool = False,
                            emit_rasters: bool = True,
-                           streaming: bool = False) -> ContractReport:
+                           streaming: bool = False,
+                           mesh=None) -> ContractReport:
     """Verify every contract of dispatching ``program`` on ``backend`` with
     these options; raise `ContractError` naming the contract and the call
     otherwise.
@@ -156,7 +174,13 @@ def check_kernel_contracts(program, backend: str, *,
     `pipeline.stream_megastep` does. ``emit_rasters`` is recorded: the
     kernels write rasters to global memory, so it moves no shared memory.
     Returns the `ContractReport` of the checks and of each call with its
-    shared-memory bytes."""
+    shared-memory bytes.
+
+    ``mesh`` (an `launch.mesh.SNNMesh` or an ``{axis: extent}`` dict, no
+    process group needed) adds the mesh contracts: float and bitmacro
+    refuse a mesh, each data rank's calls are checked at its share of the
+    lanes, and each call's model-parallel row split keeps its chain
+    alignment and fits one rank's shared memory (``mesh_split``)."""
     if frames is None:
         frames = int(program.timesteps)
     checks: list = []
@@ -184,6 +208,24 @@ def check_kernel_contracts(program, backend: str, *,
         raise ContractError(
             "backend", "bitmacro executes silicon wrap arithmetic; compile "
             "the program with clamp_mode='wrap'", where="backend")
+    n_data = n_model = 1
+    if mesh is not None:
+        if backend in ("float", "bitmacro"):
+            raise ContractError(
+                "mesh_axes", f"backend {backend!r} has no mesh execution "
+                "(float reductions are not order-exact; bitmacro state "
+                "lives in host BitMacro objects)", where="mesh")
+        sizes = mesh_extents(mesh)
+        n_data, n_model = sizes.get("data", 1), sizes.get("model", 1)
+        if n_data < 1 or n_model < 1:
+            raise ContractError(
+                "mesh_axes", f"axis extents must be >= 1, got data={n_data} "
+                f"model={n_model}", where="mesh")
+        checks.append(ContractCheck(
+            "mesh_axes", "mesh",
+            f"data={n_data} (lanes/banks partition) x model={n_model} "
+            f"(row-tiled fan-in partition); axes {sorted(sizes)}"))
+        batch = -(-batch // n_data)        # a data rank's lanes
     _check_chain(program, checks)
     if backend not in CUDA_BACKENDS:
         return ContractReport(backend=backend, block_b=block_b, frames=frames,
@@ -231,6 +273,31 @@ def check_kernel_contracts(program, backend: str, *,
             checks.append(ContractCheck(
                 "skip_layout", name, f"{plan['n_skip_cols']} gate columns "
                 f"at granularity {gate_granularity}"))
+        if mesh is not None:
+            mw = mesh_padded_widths(widths, n_model)
+            rows = tuple(w // n_model for w in mw[:-1])
+            if any(w % n_model for w in mw):
+                raise ContractError(       # unreachable by construction
+                    "mesh_split", f"padded widths {mw} do not divide "
+                    f"n_model={n_model}", where=name)
+            # one rank's residency: its weight tiles shrink to 1/n_model
+            # (each rank holds its row tile); spike and V blocks stay full
+            # width (the input is replicated, the partial V is full width
+            # before the all-reduce)
+            w_bytes = _weight_bytes(plan["layout"], widths)
+            smem_shard = smem - w_bytes + -(-w_bytes // n_model)
+            if smem_shard > SMEM_LIMIT:
+                raise ContractError(
+                    "mesh_split", f"one model rank holds {smem_shard} bytes "
+                    f"(weights/{n_model} + full-width spike/V blocks) > "
+                    f"budget {SMEM_LIMIT}", where=name)
+            checks.append(ContractCheck(
+                "mesh_split", name,
+                f"fan-in rows {mw[:-1]} split {n_model}-way into "
+                f"{rows}-row shard tiles (chain alignment preserved: "
+                f"every shard slices the same padded fan-in; the all-reduce "
+                f"reassembles the full width); per-shard residency "
+                f"{smem_shard} bytes <= {SMEM_LIMIT}"))
         calls.append(KernelCall(
             name=name, mode=mode, widths=tuple(int(w) for w in widths),
             frames=frames, lanes=lanes, cta_lanes=plan["lanes"],

@@ -7,7 +7,9 @@ backend's real dispatch of each fused call (``conv[i]`` and ``fc_stack``):
 `ops.fused_snn_net` on (spikes, ws) (batch), its ``v_init`` step entry
 (step) and the K-frame megastep (megastep: a conv's im2col patch lowering
 ahead of the call, the readout trajectory ``v_init + cumsum(raster @
-W_ro)`` behind the fc stack's, `pipeline.stream_megastep`), is traced to an
+W_ro)`` behind the fc stack's, `pipeline.stream_megastep`), and with a
+mesh of model extent above 1 each model rank's row-partial tick (mesh:
+`ops.mesh_rowpartial_tick`, the all-reduce one node), is traced to an
 aten graph with `torch.fx.experimental.proxy_tensor.make_fx` on fake
 tensors of the program's device (or any other: the tests trace a fake
 ``cuda`` device on a host without one), and statically checked:
@@ -30,7 +32,10 @@ tensors of the program's device (or any other: the tests trace a fake
                    | V_MIN, ``remainder`` by V_SPAN), every one in the
                    | program's mode, none inside a ``torch.cond``/
                    | ``while_loop`` subgraph; every SpikeCheck (``ge``)
-                   | chain meets a clamp before it reaches a product
+                   | chain meets a clamp before it reaches a product or
+                   | the cross-rank reduction; no clamp lies upstream of
+                   | a reduction (``repro_torch.accv2v_all_reduce``): the
+                   | AccV2V reduction sums *unclamped* partials
   bounds           | every static ``slice``/``select``/``narrow`` lies
                    | within its input's shape, and every ``index``/
                    | ``gather``/``index_select`` index has an interval
@@ -54,9 +59,11 @@ node, the graph path and the backend/surface/call. The companion
 bytes) whose instruction tally closes exactly against
 `pipeline.count_network_instructions`.
 
-The mesh surface (the model-parallel row-partial tick, and its rule that
-the cross-shard reduction sums unclamped partials) comes with multi-GPU
-execution; until then ``mesh=`` raises a named `TraceError`.
+The mesh surface is traced when ``mesh`` (an `launch.mesh.SNNMesh` or
+an ``{axis: extent}`` dict; no process group needed) has a model extent
+above 1: one graph per model rank, each with one reduction node per
+layer. Unlike the JAX package, ``check_trace`` traces no mesh surface when
+``mesh`` is not given (JAX defaults to a 2 x 2 mesh).
 
 Entry points: `check_trace(program, backend)` (per-backend `TraceReport`,
 memoized by geometry) and the low-level `check_graph(graph, expect)` that
@@ -81,8 +88,11 @@ TRACE_BACKENDS = ("int_ref", "cuda", "cuda_sparse", "cuda_events")
 #: int backends that execute on the host (numpy / BitMacro objects): no
 #: graph exists; `check_trace` returns a named skip row for them
 HOST_BACKENDS = ("ref_events", "bitmacro")
-#: the dispatch surfaces one backend trace covers
-SURFACES = ("batch", "step", "megastep")
+#: the dispatch surfaces one backend trace covers ("mesh" only with a
+#: mesh of model extent above 1)
+SURFACES = ("batch", "step", "megastep", "mesh")
+#: the cross-rank AccV2V reduction's operator (`ops.accv2v_all_reduce`)
+_REDUCE_OP = "accv2v_all_reduce"
 #: float64 represents every integer below this magnitude exactly
 F64_EXACT = 2 ** 53
 
@@ -138,6 +148,7 @@ class TraceExpectation:
     n_spiking: int = 1
     mesh_axes: tuple = ()          # the mesh surface's axes (multi-GPU)
     extra_clamps: int = 0          # heads beyond the neuron contract
+    reductions: int = 0            # cross-rank reductions a mesh tick makes
 
     @property
     def expected_clamps(self) -> int:
@@ -157,6 +168,7 @@ class SurfaceTrace:
     bounds_checked: int
     eqns: int                      # graph nodes, the kernel twins' included
     launches: tuple = ()           # kernel nodes, by kernel name
+    reductions: int = 0            # cross-rank reduction nodes (mesh)
 
 
 @dataclass(frozen=True)
@@ -230,6 +242,13 @@ def _kernel_name(node) -> Optional[str]:
             and t.namespace == _KERNEL_NS and t._opname in _KERNEL_MODES):
         return t._opname
     return None
+
+
+def _is_reduction(node) -> bool:
+    """True for a node of the cross-rank reduction operator."""
+    t = node.target
+    return (node.op == "call_function" and isinstance(t, torch._ops.OpOverload)
+            and t.namespace == _KERNEL_NS and t._opname == _REDUCE_OP)
 
 
 def _arg(node, i: int, name: str, default=None):
@@ -821,11 +840,19 @@ def _upstream(x, region, limit: int = 4000):
         stack.extend((n, r) for n in a.all_input_nodes)
 
 
-def _check_dominance(root, expect: TraceExpectation, checks: list) -> int:
+def _check_dominance(root, expect: TraceExpectation, checks: list) -> tuple:
     """Every SpikeCheck (``ge``) must read a clamped V: its upstream chain
-    may not reach a product without passing a clamp head."""
-    n_ge = 0
+    may not reach a product or a cross-rank reduction without passing a
+    clamp head. Symmetrically, no clamp may lie upstream of a reduction
+    before its product: the AccV2V reduction sums unclamped int32 partials
+    and the one clamp composes after the full sum. Returns (SpikeChecks,
+    reductions)."""
+    n_ge = n_red = 0
     for node, region in _walk(root):
+        if _is_reduction(node):
+            n_red += 1
+            _check_unclamped_partial(node, region, expect)
+            continue
         if _aten(node) != "ge":
             continue
         n_ge += 1
@@ -835,10 +862,46 @@ def _check_dominance(root, expect: TraceExpectation, checks: list) -> int:
                     f"clamp: SpikeCheck {_label(node)} at {_at(region)} "
                     f"reads the product {_label(d)} with no V-word clamp in "
                     "between", where=expect.where)
+            if _is_reduction(d):
+                raise TraceError(
+                    f"clamp: SpikeCheck {_label(node)} at {_at(region)} "
+                    f"reads the cross-rank reduction {_label(d)} with no "
+                    "V-word clamp in between — on the mesh path the clamp "
+                    "must run AFTER the reduction", where=expect.where)
     checks.append(TraceCheck(
         "clamp_dominance", expect.where,
-        f"{n_ge} SpikeCheck read(s) dominated by a clamp"))
-    return n_ge
+        f"{n_ge} SpikeCheck read(s) dominated by a clamp"
+        + (f"; {n_red} cross-rank reduction(s) of unclamped partials"
+           if n_red else "")))
+    return n_ge, n_red
+
+
+def _check_unclamped_partial(node, region, expect: TraceExpectation
+                             ) -> None:
+    """Walk a reduction's operand upstream to its product: a V-word clamp
+    on the way means the partial was clamped before the sum."""
+    stack, seen = [(node.args[0], region)], set()
+    while stack:
+        a, r = stack.pop()
+        if not isinstance(a, torch.fx.Node) or (id(r), a) in seen:
+            continue
+        seen.add((id(r), a))
+        if a.op == "placeholder":
+            if a in r.bindings and r.parent is not None:
+                stack.append((r.bindings[a], r.parent))
+            continue
+        if a.op != "call_function":
+            continue
+        if _clamp_kind(a, r) is not None:
+            raise TraceError(
+                f"clamp: V-word clamp {_label(a)} upstream of the cross-rank "
+                f"reduction {_label(node)} at {_at(region)} — row-tile "
+                "partials must reduce UNCLAMPED (int32 addition is "
+                "associative; clamp_v composes only after the full AccV2V "
+                "sum)", where=expect.where)
+        if _aten(a) in _PRODUCT_OPS or _is_reduction(a):
+            continue               # the partial's source
+        stack.extend((n, r) for n in a.all_input_nodes)
 
 
 def _norm(i: int, size: int) -> int:
@@ -998,7 +1061,8 @@ def check_graph(graph, expect: TraceExpectation, *, steps: int = 1
                 ) -> tuple:
     """Run every trace pass over one traced dispatch (a `GraphModule` from
     `make_fx`) of ``steps`` timesteps: kernel nodes, dtype and
-    determinism, clamp count and placement, clamp dominance, bounds.
+    determinism, clamp count and placement, clamp dominance (the
+    cross-rank reductions' unclamped partials among it), bounds.
     Returns ``(checks, stats)`` where ``stats`` is a `SurfaceTrace`-shaped
     dict; raises `TraceError` (naming the property, the aten op and its
     node, and ``expect.where``) on the first violation. This is the
@@ -1010,11 +1074,12 @@ def check_graph(graph, expect: TraceExpectation, *, steps: int = 1
         _check_kernels(root, expect, checks)
     n_nodes = _check_dtypes(root, expect, checks)
     n_clamps = _check_clamps(root, expect, checks, steps, twin_clamps)
-    n_ge = _check_dominance(root, expect, checks)
+    n_ge, n_red = _check_dominance(root, expect, checks)
     n_bounds = _check_bounds(root, expect, checks)
     return checks, dict(clamps=n_clamps, spike_reads=n_ge + twin_ge,
                         bounds_checked=n_bounds + twin_bounds,
-                        eqns=n_nodes + twin_nodes, launches=tuple(launches))
+                        eqns=n_nodes + twin_nodes, launches=tuple(launches),
+                        reductions=n_red)
 
 
 # ---------------------------------------------------------------------------
@@ -1206,9 +1271,48 @@ def _dispatch(program, backend: str, ths: tuple, lks: tuple, readout: bool,
     return run
 
 
+def _mesh_ticks(program, backend: str, name: str, widths: tuple,
+                n_spiking: int, ths: tuple, lks: tuple, *, batch: int,
+                mesh_axes: tuple, device) -> list:
+    """The mesh surface of one fused call: each model rank's row-partial
+    tick (`ops.mesh_rowpartial_tick`) traced on fake tensors, its
+    all-reduce one node. Empty below model extent 2."""
+    from repro_torch.kernels.fused_snn_net.ops import (mesh_padded_widths,
+                                                       mesh_rowpartial_tick)
+    nm = int(dict(mesh_axes).get("model", 1))
+    if nm < 2:
+        return []
+    pw = mesh_padded_widths(widths, nm)
+    use_events = backend == "cuda_events"
+    specs = (((batch, pw[0]), torch.int8),
+             [((pw[i] // nm, pw[i + 1]), torch.int8)
+              for i in range(len(widths) - 1)],
+             [((batch, w), torch.int32) for w in pw[1:]])
+    out = []
+    for rank in range(nm):
+        def tick(frame, ws_l, vs, _rank=rank):
+            counts = (tuple(torch.zeros((w,), dtype=torch.int32,
+                                        device=frame.device)
+                            for w in widths[:len(ws_l)])
+                      if use_events else ())
+            return mesh_rowpartial_tick(
+                vs, counts, frame, ws_l, widths=widths, n_spiking=n_spiking,
+                thresholds=ths, leaks=lks, neuron=program.neuron,
+                clamp_mode=program.clamp_mode, use_events=use_events,
+                model_rank=_rank, group="model")
+        g = trace(tick, specs, device)
+        out.append(("mesh", f"{name}/model{rank}", g, TraceExpectation(
+            where=f"{backend}:mesh:{name}:model{rank}",
+            neuron=program.neuron, clamp_mode=program.clamp_mode,
+            n_spiking=n_spiking, mesh_axes=tuple(mesh_axes),
+            reductions=len(widths) - 1), 1))
+    return out
+
+
 def _trace_surfaces(program, backend: str, surfaces: tuple, *, batch: int,
                     block_b: int, megastep_k: int, gate_granularity: int,
-                    event_crossover: float, device) -> list:
+                    event_crossover: float, device,
+                    mesh_axes: tuple = ()) -> list:
     """[(surface, call, graph, TraceExpectation, steps), ...] for every
     requested dispatch surface of ``backend`` traced on ``device``."""
     from repro_torch.core import mapping
@@ -1267,6 +1371,10 @@ def _trace_surfaces(program, backend: str, surfaces: tuple, *, batch: int,
             g = trace(fn, (s_spec, w_spec, v_spec), device)
             out.append((surface, name, g, TraceExpectation(
                 where=f"{backend}:{surface}:{name}", **expect_kw), k))
+        if "mesh" in surfaces:
+            out.extend(_mesh_ticks(program, backend, name, widths, n_spiking,
+                                   ths, lks, batch=batch,
+                                   mesh_axes=mesh_axes, device=device))
     return out
 
 
@@ -1288,14 +1396,6 @@ def _geometry_signature(program, backend, surfaces, batch, block_b,
 _TRACE_CACHE: dict = {}
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise TraceError(
-            f"mesh: the mesh surface (the model-parallel row-partial tick "
-            f"and its unclamped cross-shard reduction) comes with multi-GPU "
-            f"execution; got mesh={mesh!r}", where="mesh")
-
-
 def check_trace(program, backend: str = "cuda", *,
                 surfaces: tuple = SURFACES, batch: Optional[int] = None,
                 block_b: int = 8, megastep_k: int = 2,
@@ -1313,8 +1413,11 @@ def check_trace(program, backend: str = "cuda", *,
     must show up as one kernel node, elsewhere the wrapper's plain version
     runs. ``batch`` (default ``block_b``) sizes the traced dispatch;
     ``with_cost`` attaches the `trace_cost.TraceCostReport` built from the
-    batch surface. ``mesh`` raises a `TraceError` until multi-GPU
-    execution. Results are memoized by geometry (``use_cache``)."""
+    batch surface. ``mesh`` (an `launch.mesh.SNNMesh` or an ``{axis:
+    extent}`` dict) adds the mesh surface when its model extent is above
+    1: each model rank's row-partial tick, checked for one reduction node
+    per layer, unclamped partials and a clamp between every reduction and
+    its SpikeCheck. Results are memoized by geometry (``use_cache``)."""
     if backend in HOST_BACKENDS:
         return TraceReport(
             backend=backend, surfaces=(), cost=None,
@@ -1331,7 +1434,14 @@ def check_trace(program, backend: str = "cuda", *,
         raise TraceError(
             f"trace: program domain {program.domain!r} — the trace "
             "contract covers int-domain dispatches only", where=backend)
-    _no_mesh(mesh)
+    mesh_axes = ()
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_extents
+        sizes = mesh_extents(mesh)
+        if any(v < 1 for v in sizes.values()):
+            raise TraceError(f"mesh: axis extents must be >= 1, got "
+                             f"{sizes}", where="mesh")
+        mesh_axes = tuple(sorted(sizes.items()))
     bad = [s for s in surfaces if s not in SURFACES]
     if bad:
         raise TraceError(f"trace: unknown surface(s) {bad}; have "
@@ -1340,7 +1450,7 @@ def check_trace(program, backend: str = "cuda", *,
         batch = block_b
     device = torch.device(program.device if device is None else device)
     key = _geometry_signature(program, backend, surfaces, batch, block_b,
-                              megastep_k, (), gate_granularity,
+                              megastep_k, mesh_axes, gate_granularity,
                               event_crossover, device) + (bool(with_cost),)
     if use_cache and key in _TRACE_CACHE:
         return _TRACE_CACHE[key]
@@ -1350,7 +1460,8 @@ def check_trace(program, backend: str = "cuda", *,
         traced = _trace_surfaces(
             program, backend, tuple(surfaces), batch=batch, block_b=block_b,
             megastep_k=megastep_k, gate_granularity=gate_granularity,
-            event_crossover=event_crossover, device=device)
+            event_crossover=event_crossover, device=device,
+            mesh_axes=mesh_axes)
     except KernelRefused as e:
         raise TraceError(f"launch: the kernel refuses the {backend} "
                          f"dispatch ({e.contract}): {e}",
@@ -1362,6 +1473,17 @@ def check_trace(program, backend: str = "cuda", *,
     batch_graphs = {}
     for surface, call, graph, expect, steps in traced:
         cs, st = check_graph(graph, expect, steps=steps)
+        if surface == "mesh":
+            if st["launches"] or st["reductions"] != expect.reductions:
+                raise TraceError(
+                    f"mesh: the row-partial tick has {st['reductions']} "
+                    f"reduction node(s) and {len(st['launches'])} kernel "
+                    f"node(s); it must reduce each of its "
+                    f"{expect.reductions} layer(s) once and launch nothing",
+                    where=expect.where)
+            checks.extend(cs)
+            stats.append(SurfaceTrace(surface=surface, call=call, **st))
+            continue
         if len(st["launches"]) != want_launches:
             raise TraceError(
                 f"launch: {len(st['launches'])} kernel node(s) "

@@ -14,8 +14,10 @@ Layout:  <dir>/step_<N>/
 
 Leaf keys are `repro_torch.tree` paths joined by "/": a dict key as
 itself, a list index as its number, a NamedTuple field as ``.field``, in
-JAX's leaf order. bf16 leaves are stored as their uint16 bits and rebuilt
-with ``Tensor.view(torch.bfloat16)``; no ml_dtypes is needed.
+JAX's leaf order. bfloat16 leaves are stored as their uint16 bits and
+float8_e4m3fn / float8_e5m2 leaves as their uint8 bits, each named by its
+dtype in the manifest, and rebuilt with ``Tensor.view``; no ml_dtypes is
+needed.
 """
 from __future__ import annotations
 
@@ -38,20 +40,35 @@ def _flatten(tree) -> tuple[list, list]:
             [leaf for _, leaf in flat])
 
 
+#: dtypes numpy's npz cannot hold: manifest name -> (torch dtype, the
+#: signed torch view and the unsigned numpy view of its bits), as the JAX
+#: package stores them
+_BIT_VIEWS = {
+    "bfloat16": (torch.bfloat16, torch.int16, np.uint16),
+    "float8_e4m3fn": (torch.float8_e4m3fn, torch.int8, np.uint8),
+    "float8_e5m2": (torch.float8_e5m2, torch.int8, np.uint8),
+}
+_VIEW_NAMES = {dtype: name for name, (dtype, _, _) in _BIT_VIEWS.items()}
+
+
 def _to_host(x) -> tuple[np.ndarray, str]:
     """(storable numpy array, manifest dtype string) of a leaf."""
     if torch.is_tensor(x):
         x = x.detach().cpu()
-        if x.dtype == torch.bfloat16:
-            return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        name = _VIEW_NAMES.get(x.dtype)
+        if name is not None:
+            _, signed, bits = _BIT_VIEWS[name]
+            return x.view(signed).numpy().view(bits), name
         x = x.numpy()
     x = np.asarray(x)
     return x, str(x.dtype)
 
 
 def _from_host(x: np.ndarray, dtype: str) -> torch.Tensor:
-    if dtype == "bfloat16":
-        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    if dtype in _BIT_VIEWS:
+        torch_dtype, signed, _ = _BIT_VIEWS[dtype]
+        signed_np = np.int16 if signed == torch.int16 else np.int8
+        return torch.from_numpy(x.view(signed_np)).view(torch_dtype)
     return torch.from_numpy(x)
 
 

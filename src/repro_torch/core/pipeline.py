@@ -49,6 +49,12 @@ carrying every layer's V as a `StreamState` (a conv's V map enters its
 call flattened to (B*P, C), in `mapping.im2col_raster`'s frame order); the
 float backend streams too, one eager `_float_step` a tick.
 
+With ``mesh=`` (an `launch.mesh.SNNMesh`, int backends only) every int
+backend, `stream_step`, `stream_megastep` and so the serving engine run on
+`torch.distributed`: lanes over the data ranks, the macro's row-tiled
+fan-in over the model ranks (`kernels.fused_snn_net.ops.
+fused_snn_net_mesh`), bit for bit the single-device run.
+
 Instruction counting is a program-level pass over the spike rasters
 (`count_network_instructions`, `SparsityReport.instruction_counts`), so
 every backend reports the same energy-model inputs by construction.
@@ -73,7 +79,9 @@ from repro_torch.kernels.fused_snn_net.events import (EventStats,
                                                       fused_snn_net_events)
 from repro_torch.kernels.fused_snn_net.kernel import GATE_GRANULARITIES, LANE
 from repro_torch.kernels.fused_snn_net.ops import (
-    fused_snn_net, fused_snn_net_device_events, fused_snn_net_ref)
+    DeviceEventCounts, LaneSplit, fused_snn_net, fused_snn_net_device_events,
+    fused_snn_net_mesh_local, fused_snn_net_ref, gather_counters,
+    gather_lanes, lane_shard, lane_split)
 
 # ---------------------------------------------------------------------------
 # Program representation
@@ -508,13 +516,47 @@ def _host_events(spikes: torch.Tensor, ws: list, *, v_init=None, **kw):
             [torch.from_numpy(v).to(dev) for v in vs], stats)
 
 
+def _host_events_sharded(spikes: torch.Tensor, ws: list, *,
+                         split: LaneSplit, v_init=None, **kw) -> tuple:
+    """``ref_events`` under a mesh. The host spike-list executor has no
+    device placement, so the lane split happens on the host: each data
+    rank runs the executor on its own contiguous lane slice (``spikes`` and
+    ``v_init`` hold the rank's lanes, the first ``split.real`` of them
+    real), and the rasters and V, padded back to the rank's lanes, are
+    reassembled in lane order by the caller's all-gather. The per-slice
+    `events.EventStats` merge exactly: row events and frames add (lanes
+    never interact). The model axis is a no-op for a host executor: row
+    tiles are a device concept. (The JAX package runs the slices one after
+    another in one process; here each rank runs its own.) Returns
+    (rasters, v_finals, counters) with the counters as
+    ``{"row_events": per layer (1, n_in) int64, "dense_fallbacks": (1,
+    0)}`` on the device, for `ops.gather_counters`."""
+    real, lanes = split.real, split.lanes
+    rasters, vs, stats = _host_events(
+        spikes[:, :real], ws,
+        v_init=None if v_init is None else [v[:real] for v in v_init], **kw)
+    pad = lanes - real
+    if pad:
+        rasters = [torch.cat([r, r.new_zeros((r.shape[0], pad,
+                                              *r.shape[2:]))], dim=1)
+                   for r in rasters]
+        vs = [torch.cat([v, v.new_zeros((pad, *v.shape[1:]))]) for v in vs]
+    dev = spikes.device
+    counters = {"row_events": [torch.from_numpy(np.asarray(r, np.int64))
+                               .to(dev)[None] for r in stats.row_events],
+                "dense_fallbacks": torch.zeros((1, 0), dtype=torch.int32,
+                                               device=dev)}
+    return rasters, vs, counters
+
+
 def _run_layers(program: SNNProgram, spikes: torch.Tensor, ws: list,
                 thresholds: tuple, leaks: tuple, *, readout: bool,
                 use_kernel: bool, emit_rasters: bool,
                 v_init: Optional[list] = None, use_sparse: bool = False,
                 gate_granularity: int = 1, use_events: bool = False,
                 event_crossover: float = 1.0, block_b: int = 8,
-                fold_events: bool = True) -> tuple:
+                fold_events: bool = True, mesh=None,
+                split: Optional[LaneSplit] = None) -> tuple:
     """One fused-stack dispatch of weights ``ws`` on a (T, B, d) raster.
     ``use_events`` runs the event-list kernel (``use_kernel``) or the host
     executor, and returns an `events.EventStats` (the kernel's
@@ -523,10 +565,22 @@ def _run_layers(program: SNNProgram, spikes: torch.Tensor, ws: list,
     wrapper (``use_kernel``) or its plain version, gated with
     ``use_sparse``. The plain version's tile is the whole batch (the JAX
     reference's layout), the kernel's ``block_b`` lanes. Returns
-    (per-spiking-layer rasters, per-layer final V, counters)."""
+    (per-spiking-layer rasters, per-layer final V, counters).
+
+    With ``mesh``, ``spikes`` and ``v_init`` hold this rank's lanes as
+    ``split`` places them, and so do the rasters and V returned; the
+    counters come back global (every rank's blocks stacked in lane order
+    over the data group; the event counters folded over all lanes)."""
     kw = dict(thresholds=thresholds, leaks=leaks, neuron=program.neuron,
               clamp_mode=program.clamp_mode, emit_rasters=emit_rasters,
               readout=readout, v_init=v_init)
+    if mesh is not None:
+        return _run_layers_mesh(spikes, ws, kw, mesh=mesh, split=split,
+                                use_kernel=use_kernel, use_sparse=use_sparse,
+                                gate_granularity=gate_granularity,
+                                use_events=use_events,
+                                event_crossover=event_crossover,
+                                block_b=block_b, fold_events=fold_events)
     if use_events and use_kernel:
         return fused_snn_net_device_events(
             spikes, ws, block_b=block_b, event_crossover=event_crossover,
@@ -541,6 +595,35 @@ def _run_layers(program: SNNProgram, spikes: torch.Tensor, ws: list,
     return fused_snn_net_ref(spikes, ws, th, lk, use_sparse=use_sparse,
                              gate_granularity=gate_granularity,
                              block_b=max(int(spikes.shape[1]), 1), **kw)
+
+
+def _run_layers_mesh(spikes: torch.Tensor, ws: list, kw: dict, *, mesh,
+                     split: LaneSplit, use_kernel: bool, use_sparse: bool,
+                     gate_granularity: int, use_events: bool,
+                     event_crossover: float, block_b: int,
+                     fold_events: bool) -> tuple:
+    """`_run_layers` on a mesh (see there): the host executor's lane split
+    (`_host_events_sharded`) or `ops.fused_snn_net_mesh_local`, then the
+    counters gathered over the data group."""
+    if use_events and not use_kernel:
+        rasters, vs, counters = _host_events_sharded(spikes, ws, split=split,
+                                                     **kw)
+    else:
+        th, lk = kw.pop("thresholds"), kw.pop("leaks")
+        rasters, vs, counters = fused_snn_net_mesh_local(
+            spikes, ws, mesh=mesh, thresholds=th, leaks=lk,
+            block_b=block_b, use_kernel=use_kernel, use_sparse=use_sparse,
+            gate_granularity=gate_granularity, use_events=use_events,
+            event_crossover=event_crossover, lanes=split.real, **kw)
+    counters = gather_counters(counters, mesh)
+    if use_events:
+        counts = DeviceEventCounts(
+            row_events=counters["row_events"],
+            dense_fallbacks=counters["dense_fallbacks"],
+            frames=int(spikes.shape[0]) * split.total)
+        counters = (counts.fold() if fold_events or not use_kernel
+                    else counts)
+    return rasters, vs, counters
 
 
 def _run_fc_stack(program: SNNProgram, spikes: torch.Tensor, **flags
@@ -578,10 +661,13 @@ def _conv_front_end(program: SNNProgram, spikes_enc: torch.Tensor, *,
         out_hw = mapping.conv_out_hw(tuple(cur.shape[2:4]), k, spec.stride)
         vi = (None if v_init is None else
               [v_init[ci].reshape(-1, spec.n_out)])
+        call = dict(flags)
+        if call.get("split") is not None:    # P patch frames an example
+            call["split"] = flags["split"].scaled(out_hw[0] * out_hw[1])
         rasters, v, skips = _run_layers(
             program, patches, [mapping.pack_conv_weights(spec.w)],
             (spec.threshold,), (spec.leak,), readout=False,
-            emit_rasters=True, v_init=vi, **flags)
+            emit_rasters=True, v_init=vi, **call)
         cur = rasters[0].reshape(t_total, batch, *out_hw, spec.n_out)
         maps.append(cur)
         v_convs.append(v[0].reshape(batch, *out_hw, spec.n_out))
@@ -636,22 +722,35 @@ def _on_macro(program: SNNProgram, spikes_enc: torch.Tensor,
 
 
 def _run_macro_stack(program: SNNProgram, xs: torch.Tensor, *,
-                     use_kernel: bool, **flags) -> NetResult:
+                     use_kernel: bool, mesh=None, **flags) -> NetResult:
     """Shared executor of every backend: the f32 encoder pass, the on-macro
     conv front end (when there is one), then the fc stack (``flags``: the
     mode options of `_run_layers`), with the gate or event counters
     attached to ``aux``; a gated run's conv counters go to
-    ``aux["conv_skip_counts"]``, one entry per conv layer."""
+    ``aux["conv_skip_counts"]``, one entry per conv layer.
+
+    With ``mesh``, each rank takes its lanes of the global ``xs`` and runs
+    the encoder (per lane, so bit-exact on any split) and every on-macro
+    call on them; the rasters and V come back global through an
+    all-gather over the data group."""
+    flags = dict(use_kernel=use_kernel, **flags)
+    if mesh is not None:
+        split = lane_split(xs.shape[1], mesh)
+        xs = lane_shard(xs, 1, split)
+        flags.update(mesh=mesh, split=split)
     spikes_enc, v_enc = encode(program, xs)
     conv_maps, v_convs, conv_skips, _, rasters_fc, v_stack, skips = \
-        _on_macro(program, spikes_enc, True, dict(use_kernel=use_kernel,
-                                                  **flags))
-    v_out = v_stack[-1]
+        _on_macro(program, spikes_enc, True, flags)
+    rasters = [spikes_enc] + conv_maps + list(rasters_fc)
+    v_final = [v_enc] + v_convs + list(v_stack)
+    if mesh is not None:
+        rasters = [gather_lanes(r, 1, split, mesh) for r in rasters]
+        v_final = [gather_lanes(v, 0, split, mesh) for v in v_final]
+    v_out = v_final[-1]
     # rasters[i] is the input raster of macro-stack layer i: spike maps for
     # the convs (the last conv's map, flattened, is the fc stack's input)
     res = NetResult(v_out=v_out, logits=program.logits(v_out),
-                    v_final=[v_enc] + v_convs + list(v_stack),
-                    rasters=[spikes_enc] + conv_maps + list(rasters_fc))
+                    v_final=v_final, rasters=rasters)
     if flags.get("use_events"):
         return _attach_event_stats(res, conv_skips, skips)
     res = _attach_skips(res, skips, xs.shape[0],
@@ -855,60 +954,71 @@ def run_float(program: SNNProgram, xs: torch.Tensor, *,
 
 @register_backend("int_ref")
 def run_int_ref(program: SNNProgram, xs: torch.Tensor, *,
-                use_sparse: bool = False) -> NetResult:
+                use_sparse: bool = False, mesh=None) -> NetResult:
     """Word-level ISA semantics in plain torch ops, on any device.
     ``use_sparse`` adds the gate counters at granularity 1, the whole
-    batch one tile."""
+    batch one tile. ``mesh`` runs the macro stack on a mesh, bit for bit
+    the single-device run (`run_network`)."""
     return _run_macro_stack(program, xs, use_kernel=False,
-                            use_sparse=use_sparse)
+                            use_sparse=use_sparse, mesh=mesh)
 
 
 @register_backend("cuda")
-def run_cuda(program: SNNProgram, xs: torch.Tensor) -> NetResult:
+def run_cuda(program: SNNProgram, xs: torch.Tensor, *, mesh=None
+             ) -> NetResult:
     """``program`` on input currents ``xs`` through the fused-network CUDA
     kernel: one launch for the fc stack over all timesteps (and one per
-    on-macro conv). On CPU tensors its wrapper runs the plain version."""
-    return _run_macro_stack(program, xs, use_kernel=True)
+    on-macro conv). On CPU tensors its wrapper runs the plain version.
+    ``mesh``: each data rank launches the kernel on its lanes (model extent
+    1), or the ranks run the row-partial ticks (`run_network`)."""
+    return _run_macro_stack(program, xs, use_kernel=True, mesh=mesh)
 
 
 @register_backend("cuda_sparse")
 def run_cuda_sparse(program: SNNProgram, xs: torch.Tensor, *,
-                    block_b: int = 8, gate_granularity: int = 1
+                    block_b: int = 8, gate_granularity: int = 1, mesh=None
                     ) -> NetResult:
     """The row-block gated kernel: per (timestep, layer, tile of
     ``block_b`` lanes, block of 128/G fan-in rows) the product runs only if
     the block holds a spike; the neuron update runs every timestep, so
     results equal every dense backend. aux: ``skip_counts`` ((tiles,
     n_layers) at G = 1, a per-layer list of (tiles, n_blocks) at G in
-    {2, 4, 8}) and ``skipped_tile_fraction`` / ``skipped_block_fraction``."""
+    {2, 4, 8}) and ``skipped_tile_fraction`` / ``skipped_block_fraction``;
+    on a ``mesh`` of model extent 1 the data ranks' tiles in lane order,
+    above it none (`run_network`)."""
     return _run_macro_stack(program, xs, use_kernel=True, use_sparse=True,
                             block_b=block_b,
-                            gate_granularity=gate_granularity)
+                            gate_granularity=gate_granularity, mesh=mesh)
 
 
 @register_backend("ref_events")
-def run_ref_events(program: SNNProgram, xs: torch.Tensor) -> NetResult:
+def run_ref_events(program: SNNProgram, xs: torch.Tensor, *, mesh=None
+                   ) -> NetResult:
     """``program`` on input currents ``xs`` through the host spike-list
     executor: every (timestep, example) frame is compacted to its active
     rows and AccW2V gathers their weight rows, so
     the work is proportional to events. aux: ``row_events`` (per layer,
     per input row), ``row_event_frames``, ``row_skip_counts`` and
-    ``skipped_row_fraction``."""
-    return _run_macro_stack(program, xs, use_kernel=False, use_events=True)
+    ``skipped_row_fraction``. ``mesh``: each data rank runs the executor
+    on its lanes and the counters add (`_host_events_sharded`)."""
+    return _run_macro_stack(program, xs, use_kernel=False, use_events=True,
+                            mesh=mesh)
 
 
 @register_backend("cuda_events")
 def run_cuda_events(program: SNNProgram, xs: torch.Tensor, *,
-                    block_b: int = 8, event_crossover: float = 1.0
-                    ) -> NetResult:
+                    block_b: int = 8, event_crossover: float = 1.0,
+                    mesh=None) -> NetResult:
     """The event-list kernel: each lane's active rows are compacted on the
     card and their weight rows gathered; a tile of ``block_b`` lanes whose
     event count is above ``event_crossover`` of its capacity takes the
     dense product (the same values either way; 1.0 never does). aux: as
     ``ref_events`` (the kernel's row counters equal its executor's) plus
-    ``event_dense_fallbacks`` per layer."""
+    ``event_dense_fallbacks`` per layer (none on a ``mesh`` of model extent
+    above 1, whose row-partial ticks have no fallback; `run_network`)."""
     return _run_macro_stack(program, xs, use_kernel=True, use_events=True,
-                            block_b=block_b, event_crossover=event_crossover)
+                            block_b=block_b, event_crossover=event_crossover,
+                            mesh=mesh)
 
 
 def _bitmacro_layer(inp: np.ndarray, wq: np.ndarray, threshold: int,
@@ -1018,18 +1128,42 @@ def run_bitmacro(program: SNNProgram, xs: torch.Tensor) -> NetResult:
     return res
 
 
+def _no_mesh(backend: str) -> ValueError:
+    return ValueError(
+        f"backend {backend!r} has no mesh execution: float reductions are "
+        "not bitwise order-exact across shards and bitmacro state lives in "
+        "host BitMacro objects; use an int device backend (int_ref/cuda/"
+        "cuda_sparse/ref_events/cuda_events)")
+
+
 def run_network(program: SNNProgram, xs: torch.Tensor,
                 backend: str = "int_ref", **kw) -> NetResult:
     """Execute ``program`` on per-timestep input currents ``xs``
     (T_total, B, d) f32 on the program's device, through ``backend``
     (``kw``: that backend's options); every layer's input raster comes
     back in `NetResult.rasters`. Only the ``float`` backend runs a float
-    program (raises `ValueError` otherwise)."""
+    program (raises `ValueError` otherwise).
+
+    ``mesh`` (int backends only): an `launch.mesh.SNNMesh` with "data"
+    and/or "model" axes. Every rank passes the global ``xs`` and gets the
+    global result: lanes split over the data ranks and come back by an
+    all-gather; the row-tiled fan-in splits over the model ranks, whose
+    unclamped int32 partial V one integer all-reduce adds before the one
+    clamp. The rasters, every V, ``v_out``, the logits and the row-event
+    counters equal the single-device run bit for bit; the gate counters
+    are the data ranks' tiles in lane order (model extent 1; equal to the
+    single-device ones when ``block_b`` divides the per-rank batch) and
+    absent above model extent 1, where there is no dense fallback either.
+    The float backend's f32 reductions are not order-exact and the
+    bitmacro oracle is host-side state: both reject a mesh with
+    `ValueError`."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown backend {backend!r}; have {sorted(BACKENDS)}")
     if backend != "float" and program.domain != "int":
         raise ValueError(f"backend {backend!r} needs an int-domain program "
                          "(compile_network(..., domain='int'))")
+    if backend in ("float", "bitmacro") and kw.pop("mesh", None) is not None:
+        raise _no_mesh(backend)
     return BACKENDS[backend](program, xs, **kw)
 
 
@@ -1132,11 +1266,41 @@ def init_stream_state(program: SNNProgram, batch: int,
     return StreamState(vs=vs, t=0)
 
 
+def _mesh_stream_in(state: StreamState, frames: torch.Tensor,
+                    lane_dim: int, mesh) -> tuple:
+    """The rank's view of a streaming call on ``mesh``: the `LaneSplit` of
+    the global ``frames``' lanes (dimension ``lane_dim``), whether
+    ``state`` is replicated (its leaves hold every lane: what
+    `dist.sharding.snn_state_specs` places when the lanes do not divide
+    the data extent) or the rank's shard, the rank's state and its frames.
+    Raises `ValueError` for a state placed neither way."""
+    split = lane_split(frames.shape[lane_dim], mesh)
+    lanes = {int(v.shape[0]) for v in state.vs}
+    replicated = split.n_data > 1 and lanes == {split.total}
+    if not replicated and lanes != {split.lanes}:
+        raise ValueError(
+            f"a streaming state on {mesh} must hold this rank's "
+            f"{split.lanes} lanes (its shard) or all {split.total} "
+            f"(replicated), got leaves of {sorted(lanes)} lanes")
+    vs = (tuple(lane_shard(v, 0, split) for v in state.vs) if replicated
+          else state.vs)
+    return (split, replicated, state._replace(vs=vs),
+            lane_shard(frames, lane_dim, split))
+
+
+def _mesh_state_out(vs: tuple, split: LaneSplit, replicated: bool, mesh
+                    ) -> tuple:
+    """The new state's leaves in the placement the call's state came in."""
+    if not replicated:
+        return tuple(vs)
+    return tuple(gather_lanes(v, 0, split, mesh) for v in vs)
+
+
 def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
                 backend: str = "int_ref", *, emit_rasters: bool = True,
                 use_sparse: bool = False, block_b: int = 8,
-                gate_granularity: int = 1, event_crossover: float = 1.0
-                ) -> tuple[StreamState, StreamOut]:
+                gate_granularity: int = 1, event_crossover: float = 1.0,
+                mesh=None) -> tuple[StreamState, StreamOut]:
     """Advance every stream one tick on a (B, *in_shape) current ``frame``:
     (state, frame) -> (new state, StreamOut). Each on-macro conv and the
     fc stack resume from the carried V through the kernels' ``v_init``
@@ -1145,8 +1309,18 @@ def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
     ``block_b`` sets the kernels' tile, ``gate_granularity`` the gated
     blocks and ``event_crossover`` the event kernel's dense fallback. On
     ``float`` the tick is one `_float_step` and ``rasters`` holds every
-    neuron layer's f32 spikes."""
+    neuron layer's f32 spikes.
+
+    ``mesh`` (an `launch.mesh.SNNMesh`; not on ``float``, which raises
+    `ValueError`) runs the tick's on-macro calls on the mesh, bit for bit
+    the single-device tick (`run_network`). ``frame`` is global; ``state``
+    is the rank's shard as `dist.sharding.snn_state_specs` places it (the
+    rank's lanes when they divide the data extent, every lane otherwise),
+    and the new state comes back placed the same way; the `StreamOut`
+    (V, logits, rasters, counters) is global."""
     _check_stream(program, backend)
+    if backend == "float" and mesh is not None:
+        raise _no_mesh(backend)
     if backend == "float":
         vs, spikes = _float_step(program, list(state.vs), frame)
         v_out = vs[-1]
@@ -1155,6 +1329,10 @@ def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
                           rasters=list(spikes) if emit_rasters else None))
     flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
                           event_crossover)
+    if mesh is not None:
+        split, replicated, state, frame = _mesh_stream_in(state, frame, 0,
+                                                          mesh)
+        flags.update(mesh=mesh, split=split)
     v_enc, spikes_enc = encoder_step(program, state.vs[0], frame)
     conv_maps, v_convs, conv_skips, _, rasters_fc, v_stack, skips = \
         _on_macro(program, spikes_enc[None], emit_rasters, flags, state)
@@ -1162,9 +1340,14 @@ def stream_step(program: SNNProgram, state: StreamState, frame: torch.Tensor,
     if emit_rasters:
         rasters = ([spikes_enc] + [m[0] for m in conv_maps]
                    + [r[0] for r in rasters_fc])
+    new_vs = (v_enc,) + tuple(v_convs) + tuple(v_stack)
     v_out = v_stack[-1]
-    return (StreamState(vs=(v_enc,) + tuple(v_convs) + tuple(v_stack),
-                        t=state.t + 1),
+    if mesh is not None:
+        if rasters is not None:
+            rasters = [gather_lanes(r, 0, split, mesh) for r in rasters]
+        v_out = gather_lanes(v_out, 0, split, mesh)
+        new_vs = _mesh_state_out(new_vs, split, replicated, mesh)
+    return (StreamState(vs=new_vs, t=state.t + 1),
             StreamOut(v_out=v_out, logits=program.logits(v_out),
                       rasters=rasters, skips=skips,
                       conv_skips=conv_skips or None))
@@ -1174,8 +1357,8 @@ def stream_megastep(program: SNNProgram, state: StreamState,
                     frames, backend: str = "int_ref", *, active=None,
                     emit_rasters: bool = True, use_sparse: bool = False,
                     block_b: int = 8, gate_granularity: int = 1,
-                    event_crossover: float = 1.0, fold_events: bool = True
-                    ) -> tuple[StreamState, MegastepOut]:
+                    event_crossover: float = 1.0, fold_events: bool = True,
+                    mesh=None) -> tuple[StreamState, MegastepOut]:
     """Advance every stream K ticks with one dispatch per on-macro conv and
     one for the fc stack: (state, (K, B, *in_shape) current block) -> (new
     state, MegastepOut). Integer arithmetic is exact, so one K-frame call
@@ -1197,8 +1380,17 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     ``fold()`` gives the `EventStats`), so the block runs without a copy
     to the host, as a CUDA graph must. On ``float`` the block is K eager
     `_float_step` ticks, equal to K `stream_step` calls bit for bit, and
-    ``rasters`` holds every neuron layer's (K, B, ...) f32 spikes."""
+    ``rasters`` holds every neuron layer's (K, B, ...) f32 spikes.
+
+    ``mesh`` runs the block's on-macro calls on the mesh (not on
+    ``float``: `ValueError`), bit for bit the single-device block.
+    ``frames`` and ``active`` are global; ``state`` is the rank's shard as
+    `stream_step` takes it and comes back placed the same way; the
+    `MegastepOut` (trajectories, ``frames_consumed``, rasters, counters)
+    is global."""
     _check_stream(program, backend)
+    if backend == "float" and mesh is not None:
+        raise _no_mesh(backend)
     frames = torch.as_tensor(frames, device=program.device)
     if frames.dim() < 3:
         raise ValueError(f"stream_megastep takes a (K, B, *in_shape) frame "
@@ -1222,6 +1414,10 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     flags = _stream_flags(backend, use_sparse, block_b, gate_granularity,
                           event_crossover)
     flags["fold_events"] = fold_events
+    if mesh is not None:
+        split, replicated, state, frames = _mesh_stream_in(state, frames, 1,
+                                                           mesh)
+        flags.update(mesh=mesh, split=split)
     v_enc, spk = state.vs[0], []
     for t in range(k):
         v_enc, s = encoder_step(program, v_enc, frames[t])
@@ -1233,15 +1429,20 @@ def stream_megastep(program: SNNProgram, state: StreamState,
     v_traj = state.vs[-1][None] + torch.cumsum(
         int_matmul(ro_in, program.fc_stack[-1].w), dim=0, dtype=torch.int32)
     v_out = v_stack[-1]
-    return (StreamState(vs=(v_enc,) + tuple(v_convs) + tuple(v_stack),
-                        t=state.t + k),
+    new_vs = (v_enc,) + tuple(v_convs) + tuple(v_stack)
+    rasters = ([spikes_enc] + list(conv_maps) + list(rasters_fc)
+               if emit_rasters else None)
+    if mesh is not None:
+        v_traj = gather_lanes(v_traj, 1, split, mesh)
+        v_out = gather_lanes(v_out, 0, split, mesh)
+        if rasters is not None:
+            rasters = [gather_lanes(r, 1, split, mesh) for r in rasters]
+        new_vs = _mesh_state_out(new_vs, split, replicated, mesh)
+    return (StreamState(vs=new_vs, t=state.t + k),
             MegastepOut(v_out=v_out, logits=program.logits(v_out),
                         v_out_traj=v_traj,
                         logits_traj=program.logits(v_traj),
-                        frames_consumed=consumed,
-                        rasters=([spikes_enc] + list(conv_maps)
-                                 + list(rasters_fc)
-                                 if emit_rasters else None),
+                        frames_consumed=consumed, rasters=rasters,
                         skips=skips, conv_skips=conv_skips or None))
 
 

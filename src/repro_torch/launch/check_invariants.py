@@ -5,6 +5,7 @@ of the two paper configs, and the trace matrix.
     python -m repro_torch.launch.check_invariants --lint-only   # AST lint only
     python -m repro_torch.launch.check_invariants --analyze-only
     python -m repro_torch.launch.check_invariants --trace       # + trace matrix
+    python -m repro_torch.launch.check_invariants --mesh        # + mesh rows
 
 (from the repository root with ``PYTHONPATH=src``). Three parts:
 
@@ -18,7 +19,14 @@ of the two paper configs, and the trace matrix.
     int backend and surface, traced for the CPU and for a CUDA device (fake
     tensors: nothing runs, so no card is needed), then the cost model's
     dense instruction counts closed exactly against the executed pipeline
-    counter. There is no ``--mesh`` until multi-GPU execution.
+    counter.
+  * mesh (``--mesh``): the mesh-execution contract rows (``mesh_axes`` and
+    one ``mesh_split`` per call) of both programs on every CUDA backend
+    for each of `MESH_SHAPES`, and the trace pass's mesh surface (each
+    model rank's row-partial tick) on every int backend under
+    `TRACE_MESH`, for the CPU and a CUDA device; dict-form meshes, so no
+    process group is needed. With ``--trace`` the trace matrix runs every
+    surface under `TRACE_MESH`.
 
 Exit status 0 iff every check passes; each violation or error is printed
 on its own line.
@@ -79,9 +87,60 @@ def run_analysis(programs: list) -> int:
     return failures
 
 
-def run_trace(programs: list) -> int:
-    """The trace matrix (every program x int backend x device) and the
-    cost closure; return the number of failures."""
+#: the mesh shapes the mesh contract rows are validated on
+MESH_SHAPES = ({"data": 4, "model": 1}, {"data": 1, "model": 4},
+               {"data": 2, "model": 2})
+#: the mesh the trace pass's mesh surface is traced under
+TRACE_MESH = {"data": 2, "model": 2}
+
+
+def run_mesh(programs: list) -> int:
+    """The mesh contract rows of every program on `MESH_SHAPES` and the
+    mesh surface under `TRACE_MESH`; return the number of failures."""
+    from repro_torch.analysis import (CUDA_BACKENDS, TRACE_BACKENDS,
+                                      AnalysisError, check_kernel_contracts,
+                                      check_trace)
+    failures = 0
+    for name, program in programs:
+        for shape in MESH_SHAPES:
+            for b in CUDA_BACKENDS:
+                try:
+                    rep = check_kernel_contracts(program, b, mesh=shape)
+                except AnalysisError as e:
+                    failures += 1
+                    print(f"mesh {name} {shape} x {b}: FAIL "
+                          f"{type(e).__name__}: {e}")
+                    continue
+                rows = [c for c in rep.checks
+                        if c.contract in ("mesh_axes", "mesh_split")]
+                if len(rows) != 1 + len(rep.calls):
+                    failures += 1
+                    print(f"mesh {name} {shape} x {b}: FAIL expected "
+                          f"{1 + len(rep.calls)} mesh rows, got {len(rows)}")
+                    continue
+            print(f"mesh {name} {shape}: ok — {len(rows)} mesh-contract "
+                  f"row(s) on each of {list(CUDA_BACKENDS)}")
+        for device in ("cpu", "cuda"):
+            for b in TRACE_BACKENDS:
+                try:
+                    rep = check_trace(program, b, surfaces=("mesh",),
+                                      mesh=TRACE_MESH, device=device)
+                except AnalysisError as e:
+                    failures += 1
+                    print(f"mesh trace {name} x {b} ({device}): FAIL "
+                          f"{type(e).__name__}: {e}")
+                    continue
+                print(f"mesh trace {name} x {b} ({device}): ok — "
+                      f"{len(rep.surfaces)} rank tick(s), "
+                      f"{sum(s.reductions for s in rep.surfaces)} "
+                      f"reduction(s) of unclamped partials")
+    return failures
+
+
+def run_trace(programs: list, mesh=None) -> int:
+    """The trace matrix (every program x int backend x device, with the
+    mesh surface under ``mesh`` when given) and the cost closure; return
+    the number of failures."""
     from repro_torch.analysis import (TRACE_BACKENDS, AnalysisError,
                                       check_cost_closure, check_trace)
     failures = 0
@@ -89,7 +148,7 @@ def run_trace(programs: list) -> int:
         for device in ("cpu", "cuda"):
             for b in TRACE_BACKENDS:
                 try:
-                    rep = check_trace(program, b, device=device)
+                    rep = check_trace(program, b, device=device, mesh=mesh)
                 except AnalysisError as e:
                     failures += 1
                     print(f"trace {name} x {b} ({device}): FAIL "
@@ -119,6 +178,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true",
                     help="also trace both programs on every int backend and "
                          "close the static cost model")
+    ap.add_argument("--mesh", action="store_true",
+                    help="also check the mesh contract rows and the trace "
+                         "pass's mesh surface")
     args = ap.parse_args(argv)
     n = 0
     if not args.analyze_only:
@@ -126,8 +188,10 @@ def main(argv=None) -> int:
     if not args.lint_only:
         programs = list(committed_programs())
         n += run_analysis(programs)
+        if args.mesh:
+            n += run_mesh(programs)
         if args.trace:
-            n += run_trace(programs)
+            n += run_trace(programs, TRACE_MESH if args.mesh else None)
     if n:
         return 1
     print("check_invariants: all clear")

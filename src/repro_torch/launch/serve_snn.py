@@ -6,6 +6,8 @@ continuous-batching engine (`repro_torch.serve.SNNServeEngine`).
     PYTHONPATH=src python -m repro_torch.launch.serve_snn --double-buffer \
         --poisson-gap 4 --stop-threshold 1.0 --megastep 10 --pages 2 \
         --slots 32 --requests 64
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.serve_snn --mesh 2,2 --device cpu --quick
 
 ``--arch`` names the network (default ``impulse-imdb``, as in the JAX
 launcher); its FC stack comes from `snn.init_fc_snn`, so an arch with a
@@ -28,6 +30,11 @@ gap in frame ticks (default: every request arrives at once),
 ``--double-buffer`` stages the next frame block while this one computes,
 and ``--quick`` serves 3 requests of 2 words on 2 slots. ``--device``
 defaults to ``cuda``; ``--device cpu`` runs the plain versions on the CPU.
+``--mesh DATA,MODEL`` serves on a mesh of DATA x MODEL ranks
+(`launch.mesh.mesh_from_env`): under ``torchrun`` with that many
+processes (NCCL on CUDA, gloo on the CPU), or alone for ``--mesh 1,1``; a
+mesh of another size than the world is refused. Every rank
+serves the same requests; rank 0 prints.
 """
 from __future__ import annotations
 
@@ -113,7 +120,23 @@ def main(argv=None) -> list:
                     help="reduced sizes (3 requests, 2 words, 2 slots)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve on a (data, model) mesh of DATA*MODEL ranks "
+                         "(run under torchrun with that many processes)")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import mesh_from_env
+        shape = tuple(int(v) for v in args.mesh.split(","))
+        if len(shape) != 2:
+            raise SystemExit(f"--mesh takes DATA,MODEL, got {args.mesh!r}")
+        try:
+            mesh = mesh_from_env(
+                shape, device_type="cpu" if args.device == "cpu" else "cuda")
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+        if args.device != "cpu":
+            args.device = str(mesh.device)
     if args.quick:
         args.requests, args.words, args.slots = 3, 2, 2
     step_kw = {}
@@ -128,7 +151,8 @@ def main(argv=None) -> list:
     eng = SNNServeEngine(program, batch_slots=args.slots, backend=args.backend,
                          step_kw=step_kw, pages=args.pages,
                          megastep=args.megastep,
-                         double_buffer=args.double_buffer, device=args.device)
+                         double_buffer=args.double_buffer, device=args.device,
+                         mesh=mesh)
     for req in make_requests(program, args.requests, args.words,
                              cfg.timesteps, args.sparsity, args.seed,
                              args.stop_threshold,
@@ -139,12 +163,15 @@ def main(argv=None) -> list:
     if program.device.type == "cuda":
         torch.cuda.synchronize(program.device)
     dt = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return done
     frames = sum(r.ticks for r in done)
     rep = eng.aggregate_report()
     print(f"served {len(done)} requests, {frames} frames in {dt:.3f}s "
           f"({frames / dt:.1f} frames/s, {frames / cfg.timesteps / dt:.1f} "
           f"words/s on {program.device}; backend {args.backend}, "
-          f"K={args.megastep}, {args.pages} page(s) x {args.slots} lanes)")
+          f"K={args.megastep}, {args.pages} page(s) x {args.slots} lanes"
+          + (f", mesh {mesh}" if mesh is not None else "") + ")")
     lats = [r.latency_ticks for r in done if r.latency_ticks is not None]
     if lats:
         print(f"latency (frame ticks, arrival->finish): "

@@ -133,16 +133,23 @@ class PageMegastep:
     through `engine.lane_scatter`). On CUDA it is one graph per page, so
     the outputs of one page survive the dispatch of the next. The
     ``cuda_events`` counters come back unfolded, as
-    `ops.DeviceEventCounts`; the caller folds them after the replay."""
+    `ops.DeviceEventCounts`; the caller folds them after the replay.
+
+    With ``mesh`` the body is `pipeline.stream_megastep(mesh=)`: the
+    buffers hold the page's ``batch`` global lanes and ``state`` is the
+    rank's shard; the caller captures only a mesh whose collectives a
+    graph can record (`launch.mesh.SNNMesh.capturable`)."""
 
     def __init__(self, program: SNNProgram, state: StreamState, backend: str,
-                 megastep: int, *, emit_rasters: bool, step_kw: dict):
+                 megastep: int, *, emit_rasters: bool, step_kw: dict,
+                 batch: Optional[int] = None, mesh=None):
         if backend not in GRAPHED_BACKENDS:
             raise ValueError(f"backend {backend!r} has no compiled megastep; "
                              f"have {GRAPHED_BACKENDS}")
         dev = program.device
         self.vs = state.vs
-        batch = int(state.vs[0].shape[0])
+        if batch is None:
+            batch = int(state.vs[0].shape[0])
         self.frames = torch.zeros((megastep, batch, *program.in_shape),
                                   dtype=torch.float32, device=dev)
         self.active = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -151,7 +158,7 @@ class PageMegastep:
             st, out = pipeline.stream_megastep(
                 program, StreamState(vs=self.vs), self.frames, backend,
                 active=self.active, emit_rasters=emit_rasters,
-                fold_events=False, **step_kw)
+                fold_events=False, mesh=mesh, **step_kw)
             for dst, src in zip(self.vs, st.vs):
                 dst.copy_(src)
             return out

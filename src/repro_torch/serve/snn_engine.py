@@ -56,7 +56,15 @@ SNN's counterpart of an LM's KV-cache lane). The engine keeps:
     lanes are silent, so the ledger equals the summed per-request tallies
     whenever no request finishes mid-block (a finished lane's remaining
     ticks of the block, its ghost ticks, reach the ledger but not the
-    request's report; a conv layer can fire on them).
+    request's report; a conv layer can fire on them);
+  * ``mesh`` (an `launch.mesh.SNNMesh`): the pool is partitioned. Each
+    page's state is placed by `dist.sharding.snn_state_specs`, so a rank
+    holds only its lanes of it (every lane when the page's lanes do not
+    divide the data extent), and every megastep runs on the mesh: lanes
+    over the data ranks, the row-tiled fan-in over the model ranks. Every
+    rank runs the same scheduler on the same requests and sees the global
+    block outputs, so every per-request result and both ledgers equal the
+    single-device engine's.
 """
 from __future__ import annotations
 
@@ -72,6 +80,8 @@ from repro_torch.analysis import (RangeError, check_kernel_contracts,
                                   check_program)
 from repro_torch.core import pipeline
 from repro_torch.core.pipeline import SNNProgram, SparsityReport
+from repro_torch.dist.sharding import shard_state
+from repro_torch.kernels.fused_snn_net.ops import lane_split
 from repro_torch.kernels.fused_snn_net.events import EventStats
 from repro_torch.serve import graphed
 from repro_torch.serve.engine import SlotEngine, lane_scatter
@@ -200,7 +210,14 @@ class SNNServeEngine(SlotEngine):
     The class attribute ``_compiled`` (True) selects the compiled
     static-buffer dispatch on the backends of `graphed.GRAPHED_BACKENDS`;
     a subclass that sets it False dispatches `pipeline.stream_megastep`
-    eagerly, the form the compiled one is held against."""
+    eagerly, the form the compiled one is held against.
+
+    ``mesh`` (an `launch.mesh.SNNMesh` on the engine's device type)
+    partitions the pool (see the module docs); ``float`` rejects it with
+    `ValueError`. A page keeps its CUDA graph only where the mesh's
+    collectives can be captured (`SNNMesh.capturable`: NCCL, or a mesh of
+    extent 1 that runs none); on a gloo mesh the engine dispatches every
+    megastep eagerly, with the same results."""
 
     _compiled = True
 
@@ -208,7 +225,7 @@ class SNNServeEngine(SlotEngine):
                  backend: str = "int_ref", track_events: bool = True,
                  step_kw: Optional[dict] = None, pages: int = 1,
                  megastep: int = 1, double_buffer: bool = False,
-                 validate: bool = True, device=None):
+                 validate: bool = True, device=None, mesh=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if pages < 1:
@@ -218,10 +235,19 @@ class SNNServeEngine(SlotEngine):
         if backend not in pipeline.STREAM_BACKENDS:
             raise KeyError(f"unknown streaming backend {backend!r}; have "
                            f"{pipeline.STREAM_BACKENDS}")
+        if mesh is not None and backend == "float":
+            raise ValueError(
+                "backend 'float' has no mesh execution: float reductions "
+                "are not order-exact, so a sharded engine could not stay "
+                "bit-identical to the single-device path")
         self.device = resolve_device(device)
         if program.device != self.device:
             raise ValueError(f"the program lives on {program.device} but the "
                              f"engine serves on {self.device}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device_type} but the "
+                             f"engine serves on {self.device}")
+        self.mesh = mesh
         self.program = program
         self.backend = backend
         self.B = batch_slots                  # lanes per page
@@ -234,12 +260,17 @@ class SNNServeEngine(SlotEngine):
         if validate:
             check_kernel_contracts(
                 program, backend, frames=megastep, batch=batch_slots,
-                streaming=True, emit_rasters=track_events, **self.step_kw)
+                streaming=True, emit_rasters=track_events, mesh=mesh,
+                **self.step_kw)
             self.max_safe_ticks = check_program(
                 program, frames=1).max_safe_frames
         self.states = [pipeline.init_stream_state(program, batch_slots,
                                                   backend)
                        for _ in range(pages)]
+        self._split = None                # this rank's lanes of a page
+        if mesh is not None:
+            self.states = [shard_state(st, mesh) for st in self.states]
+            self._split = lane_split(batch_slots, mesh)
         self._fresh = pipeline.init_stream_state(program, 1, backend)
         self.slots = [_Slot() for _ in range(pages * batch_slots)]
         self.queue = _ArrivalQueue()
@@ -262,10 +293,12 @@ class SNNServeEngine(SlotEngine):
         self.device_dense_fallbacks: Optional[list] = None
         self.device_ticks = 0             # frame ticks dispatched, all pages
         self._dispatch = None             # per page: its compiled megastep
-        if self._compiled and backend in graphed.GRAPHED_BACKENDS:
+        if (self._compiled and backend in graphed.GRAPHED_BACKENDS
+                and (mesh is None or mesh.capturable)):
             self._dispatch = [graphed.PageMegastep(
                 program, st, backend, megastep, emit_rasters=track_events,
-                step_kw=self.step_kw) for st in self.states]
+                step_kw=self.step_kw, batch=batch_slots, mesh=mesh)
+                for st in self.states]
         self._admit_seq = 0
         self._staged: dict = {}           # page -> (meta, block, counts, upload)
         self._uploads = None              # per page: two `_Upload`s (CUDA)
@@ -330,12 +363,23 @@ class SNNServeEngine(SlotEngine):
                     self.finished.append(req)
                     continue
                 page, lane = divmod(i, self.B)
-                lane_scatter(self._fresh.vs, self.states[page].vs, lane)
+                self._reseed(page, lane)
                 self.slots[i] = _Slot(req=req, serial=self._admit_seq,
                                       row_events=[np.zeros(n, np.int64)
                                                   for n in self._n_in])
                 self._admit_seq += 1
                 break
+
+    def _reseed(self, page: int, lane: int) -> None:
+        """Write fresh (zero) state into lane ``lane`` of page ``page``: on
+        a mesh, into the rank's shard when the rank holds that lane (every
+        rank holds it when the page is replicated)."""
+        vs = self.states[page].vs
+        if self._split is not None and int(vs[0].shape[0]) != self.B:
+            lane -= self._split.lo
+            if not 0 <= lane < self._split.per:
+                return
+        lane_scatter(self._fresh.vs, vs, lane)
 
     # -- per-slot event accounting ------------------------------------------
     def _account(self, rasters: list, served: list) -> None:
@@ -519,7 +563,8 @@ class SNNServeEngine(SlotEngine):
             with torch.no_grad():
                 self.states[page], out = pipeline.stream_megastep(
                     self.program, state, block, self.backend, active=counts,
-                    emit_rasters=self.track_events, **self.step_kw)
+                    emit_rasters=self.track_events, mesh=self.mesh,
+                    **self.step_kw)
         if up is not None:
             up.read.record(torch.cuda.current_stream(self.device))
         return out
@@ -591,7 +636,7 @@ class SNNServeEngine(SlotEngine):
             self.finished.append(req)
             # idle lanes are silent: re-seed the vacated lane with zero
             # state so deeper layers cannot keep leaking or firing
-            lane_scatter(self._fresh.vs, self.states[page].vs, lane)
+            self._reseed(page, lane)
             self.slots[i] = _Slot()
 
     # -- workload accounting -------------------------------------------------

@@ -141,13 +141,19 @@ def test_unclamped_spike_check_and_rng_rejected():
 
 
 def test_unknown_backend_float_domain_and_mesh_rejected():
+    """An unknown backend and a float program are refused by name; a mesh
+    is not (since the mesh path): ``mesh=`` adds the mesh surface, each
+    model rank's row-partial tick."""
     program = _program((9, 7, 2), "if")
     with pytest.raises(TraceError, match="no int-domain trace"):
         check_trace(program, "no_such_backend")
-    with pytest.raises(TraceError, match="mesh: the mesh surface"):
-        check_trace(program, "cuda", mesh={"data": 2, "model": 2})
-    with pytest.raises(TraceError, match="mesh: the mesh surface"):
-        validate_program(program, mesh={"model": 2})
+    rep = check_trace(program, "cuda", mesh={"data": 2, "model": 2})
+    assert [s.call for s in rep.surfaces if s.surface == "mesh"] == \
+        ["fc_stack/model0", "fc_stack/model1"]
+    _, contracts, traces = validate_program(program, mesh={"model": 2})
+    assert any(c.contract == "mesh_split" for c in contracts["cuda"].checks)
+    assert all(any(s.surface == "mesh" for s in traces[b].surfaces)
+               for b in TRACE_BACKENDS)
     float_prog = pipeline.compile_network(
         _cfg((9, 7, 2)), snn.init_fc_snn(0, _cfg((9, 7, 2)), device="cpu"),
         validate=False, device="cpu")
@@ -272,6 +278,13 @@ def _jax_program(name, seed=0):
         cfg, params = JIMDB, jsnn.init_fc_snn(key, JIMDB)
     elif name == "mnist":
         cfg, params = JMNIST, jsnn.init_lenet_snn(key, JMNIST)
+    elif name == "lenet-s":        # tests/test_mesh_snn.py's conv program
+        cfg = JCfg(arch_id="lenet-s", conv_spec=((4, 3, 1), (6, 3, 2)),
+                   in_shape=(8, 8, 1), layer_sizes=(4 * 4 * 6, 10, 3),
+                   spiking=JSpiking(neuron="rmp", timesteps=2, threshold=1.0,
+                                    leak=0.0625, w_bits=6, v_bits=11),
+                   timesteps=2, task="multiclass")
+        params = jsnn.init_lenet_snn(key, cfg)
     elif name == "lenet":          # tests/test_trace_check.py's conv program
         cfg = JCfg(arch_id="trace-lenet", conv_spec=((4, 3, 1), (6, 3, 2)),
                    in_shape=(10, 10, 1), layer_sizes=(5 * 5 * 6, 16, 4),
@@ -412,6 +425,118 @@ def test_check_invariants_gate():
     from repro_torch.launch.check_invariants import main
     assert main(["--lint-only"]) == 0
     assert main(["--analyze-only"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh surface
+# ---------------------------------------------------------------------------
+
+MESH = {"data": 2, "model": 2}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("name", ["imdb", "lenet-s"])
+def test_mesh_surface_reduces_each_layer_once_per_rank(name, device):
+    """On a (2, 2) mesh every int backend's trace gains one graph per
+    model rank and fused call, each with one reduction node per layer, no
+    kernel node, the call's clamp heads, and the reduction-dominance row;
+    nothing launches."""
+    program = _carry(_jax_program(name))
+    before = dict(kernels.LAUNCH_COUNTS)
+    for backend in TRACE_BACKENDS:
+        rep = check_trace(program, backend, mesh=MESH, device=device)
+        calls = {s.call for s in rep.surfaces if s.surface != "mesh"}
+        mesh = [s for s in rep.surfaces if s.surface == "mesh"]
+        assert sorted(s.call for s in mesh) == sorted(
+            f"{c}/model{r}" for c in calls for r in range(2))
+        for s in mesh:
+            n_layers = (3 if name == "imdb" else 2) \
+                if s.call.startswith("fc_stack") else 1
+            assert s.reductions == n_layers and s.launches == ()
+            assert s.clamps == 2 * (n_layers - s.call.startswith(
+                "fc_stack"))           # rmp: 2 heads a spiking layer
+        rows = [c for c in rep.checks if c.prop == "clamp_dominance"
+                and ":mesh:" in c.where]
+        assert rows and all("cross-rank reduction(s) of unclamped "
+                            "partials" in c.detail for c in rows)
+    assert kernels.LAUNCH_COUNTS == before
+
+
+def _tick_specs(n=2):
+    return (((4, 16), I8), [((16 // n, 8), I8), ((8 // n, 3), I8)],
+            [((4, 8), I32), ((4, 3), I32)])
+
+
+def test_mesh_tick_with_clamp_before_the_reduction_rejected(monkeypatch):
+    """A row-partial tick whose partial V is clamped before the cross-rank
+    all-reduce is refused by name: the reduction must sum unclamped
+    partials. A SpikeCheck that reads the reduction with no clamp between
+    is refused too."""
+    from repro_torch.kernels.fused_snn_net import ops
+    real = ops.accv2v_all_reduce
+    monkeypatch.setattr(ops, "accv2v_all_reduce", lambda p, g: real(
+        quant.clamp_v(p, "saturate"), g))
+
+    def tick(frame, ws_l, vs):
+        return ops.mesh_rowpartial_tick(
+            vs, (), frame, ws_l, widths=(16, 8, 3), n_spiking=1,
+            thresholds=(3,), leaks=(1,), neuron="if", clamp_mode="saturate",
+            use_events=False, model_rank=1, group="model")
+    graph = trace(tick, _tick_specs(), "cpu")
+    with pytest.raises(TraceError, match=r"clamp: V-word clamp "
+                       r"'aten.clamp.default' .* upstream of the cross-rank "
+                       r"reduction 'repro_torch.accv2v_all_reduce"):
+        check_graph(graph, TraceExpectation(where="bad", neuron="if",
+                                            extra_clamps=2))
+    monkeypatch.setattr(ops, "accv2v_all_reduce", real)
+    checks, st = check_graph(trace(tick, _tick_specs(), "cpu"),
+                             TraceExpectation(where="ok", neuron="if"))
+    assert st["reductions"] == 2
+
+    def reads_sum(x, w, v):
+        total = real(ops.int_matmul(x, w), "model")
+        return quant.clamp_v(v + total, "saturate"), (v + total) >= 3
+    with pytest.raises(TraceError, match=r"SpikeCheck .* reads the "
+                       r"cross-rank reduction"):
+        check_graph(trace(reads_sum, (((4, 16), I8), ((16, 8), I8),
+                                      ((4, 8), I32)), "cpu"),
+                    TraceExpectation(where="bad", neuron="if"))
+
+
+def _split_rows(checks, rename=None) -> dict:
+    """{call: the mesh_split row's split} and the mesh_axes row."""
+    out = {}
+    for c in checks:
+        if c.contract == "mesh_axes":
+            out["mesh"] = c.detail
+        elif c.contract == "mesh_split":
+            call = (rename or {}).get(c.where, c.where)
+            out[call] = c.detail.split("-row shard tiles")[0]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (1, 4), (2, 2)])
+@pytest.mark.parametrize("name", ["imdb", "lenet-s"])
+def test_validate_program_mesh_rows_equal_jax(name, shape):
+    """`validate_program(mesh=)` returns the ``mesh_axes`` row and a
+    ``mesh_split`` row per call whose padded fan-in rows and per-rank row
+    tiles are JAX's `check_kernel_contracts(mesh=)`'s on the same
+    program; the trace pass runs clear with the mesh surface."""
+    from repro.analysis import check_kernel_contracts as jax_contracts
+    jprog = _jax_program(name)
+    mesh = {"data": shape[0], "model": shape[1]}
+    _, contracts, traces = validate_program(_carry(jprog), mesh=mesh)
+    want = _split_rows(jax_contracts(jprog, "pallas", mesh=mesh).checks)
+    got = _split_rows(contracts["cuda"].checks, {"fc": "fc_stack"})
+    assert got == want and len(got) == 1 + (2 if name == "lenet-s" else 1)
+    assert all(traces[b].surfaces for b in TRACE_BACKENDS)
+    assert all(any(s.surface == "mesh" for s in traces[b].surfaces)
+               == (shape[1] > 1) for b in TRACE_BACKENDS)
+
+
+def test_check_invariants_mesh_runs_clear():
+    from repro_torch.launch.check_invariants import main
+    assert main(["--analyze-only", "--mesh"]) == 0
 
 
 @pytest.fixture
