@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repository root
 
 (``chip_smoke.py --mesh-rank RANK DIR [cpu]`` is one of phase 22's four
-ranks; the script starts them itself.)
+ranks, ``--lm-mesh-rank RANK DIR [cpu]`` one of phase 23's; the script
+starts them itself.)
 
 Phases, each of which exits non-zero on failure:
 
@@ -290,7 +291,25 @@ Phases, each of which exits non-zero on failure:
      serving drain (16 requests, 2 pages of 8), each rank holding every
      global result and the drain's requests and ledger to the single-GPU
      run; each rank's kernel launches on (4, 1) (one a call) and the zero
-     launches of (1, 4) (the row-partial ticks run no kernel).
+     launches of (1, 4) (the row-partial ticks run no kernel);
+ 23. LM sharding on `torch.distributed` (DTensor), llama3.2-1b at every
+     published width (d_model 2,048, vocab 128,256, tied) on 2 of its 16
+     layers, float32 weights drawn on the card, B = 8, T = 256, AdamW,
+     fsdp, sequence parallel, vocab chunking 2, remat per block: (a) a
+     world of one on NCCL, the sharded step on its (1, 1) mesh against the
+     plain step (bit for bit or not, printed); then four gloo ranks on the
+     one card (``--lm-mesh-rank``; `dist.collectives` carries DTensor's
+     collectives): (c) `compressed_psum_mean` over (4, 1) on each rank's
+     gradient tree (its quarter of the batch), 6 steps of error feedback
+     against the float32 mean, with the dtype and bytes that crossed the
+     wire; (b) two sharded steps on (2, 2) against the single-device
+     steps rank 0 runs: losses and gradient norms within 1e-5 relative,
+     the clipped step-1 gradient (AdamW's first moment) within 1e-4
+     relative L2 a leaf, every parameter within Adam's bound of 2 lr a
+     step, the placements kept, and the CPU tests' 1e-5 rule reported
+     (seconds a step, each rank's peak memory); (d) GPipe on ("pipe",) x
+     4, tanh(x @ w) with w (2,048, 2,048), 8 microbatches of 4, bit for
+     bit the sequential composition rank 0 computes.
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -4695,7 +4714,7 @@ def finish_mesh_ranks(handle: dict) -> dict:
     single-device run itself."""
     import shutil
     d, procs = handle["dir"], handle["procs"]
-    deadline = handle["t0"] + MESH_TIMEOUT_S
+    deadline = handle["t0"] + handle.get("timeout", MESH_TIMEOUT_S)
     failed = []
     try:
         for rank, (p, _) in enumerate(procs):
@@ -4705,14 +4724,15 @@ def finish_mesh_ranks(handle: dict) -> dict:
                 rc = "timeout"
             if rc != 0:
                 failed.append((rank, rc))
-                break
+                if rc == "timeout":
+                    break
         if failed:
-            rank = failed[0][0]
-            tail = Path(d, f"rank{rank}.log").read_text()[-3000:]
-            raise AssertionError(f"mesh ranks failed {failed}; rank {rank}:"
-                                 f"\n{tail}")
+            tails = "\n".join(
+                f"rank {r}:\n" + Path(d, f"rank{r}.log").read_text()[-2000:]
+                for r, _ in failed)
+            raise AssertionError(f"mesh ranks failed {failed}\n{tails}")
         ranks = [json.loads(Path(d, f"rank{r}.json").read_text())
-                 for r in range(MESH_WORLD)]
+                 for r in range(handle.get("world", MESH_WORLD))]
     finally:
         for p, log in procs:
             if p.poll() is None:
@@ -4759,6 +4779,518 @@ def print_mesh(one: dict, four: dict, card: str) -> dict:
                 or mesh_launches[name]["world_of_one_imdb"] < 1):
             raise AssertionError(f"the mesh path never launched {name}")
     return mesh_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 23: LM sharding (DTensor on torch.distributed)
+# ---------------------------------------------------------------------------
+
+LM_MESH_WORLD = 4                 # gloo ranks spawned on the one card
+LM_MESH_ARCH = "llama3.2-1b"
+LM_MESH_LAYERS = 2                # of 16, at every published width
+LM_MESH_B = 8
+LM_MESH_SEQ = 256
+LM_MESH_LR = 1e-3
+LM_MESH_STEPS = 2
+LM_MESH_COMPRESS_STEPS = 6
+PIPE_D = 2048                     # GPipe stage: tanh(x @ w), w (d, d)
+PIPE_MICRO = 8
+PIPE_B = 4
+LM_MESH_TIMEOUT_S = 300           # the four ranks together
+LM_MESH_LOSS_RTOL = 1e-5          # the CPU tests' rule (ROADMAP, AdamW)
+LM_MESH_ATOL = 1e-5
+LM_MESH_G_MIN = 1e-7
+LM_MESH_STABLE_SHARE = 0.85
+LM_MESH_GRAD_RL2 = 1e-4           # each gradient leaf, as phase 15's
+
+
+def lm_mesh_setup(dev):
+    """Phase 23's model, run and batch, the same on every rank:
+    llama3.2-1b at every published width cut to LM_MESH_LAYERS layers,
+    float32 weights drawn on the card from the seed, AdamW at a constant
+    LM_MESH_LR, fsdp, sequence parallel, vocab chunking 2, remat per
+    block; B = 8, T = 256 tokens from `io_spec.materialize`."""
+    from repro_torch.configs.base import (ParallelConfig, RunConfig,
+                                          ShapeConfig, get_config)
+    from repro_torch.models import io_spec, lm
+    cfg = dataclasses.replace(get_config(LM_MESH_ARCH),
+                              n_layers=LM_MESH_LAYERS)
+    shape = ShapeConfig("phase23", LM_MESH_SEQ, LM_MESH_B, "train")
+    parallel = ParallelConfig(remat="block", fsdp=True, seq_parallel=True,
+                              vocab_chunking=2)
+    run = RunConfig(model=cfg, shape=shape, parallel=parallel,
+                    optimizer="adamw", learning_rate=LM_MESH_LR,
+                    warmup_steps=1)
+    params = lm.init_params(SEED, cfg, dtype=torch.float32, device=dev)
+    batch = io_spec.materialize(io_spec.train_batch_spec(cfg, shape), SEED,
+                                device=dev)
+    return run, params, batch
+
+
+def lm_mesh_steps(run, params, batch, mesh=None) -> dict:
+    """LM_MESH_STEPS AdamW steps of `make_train_step` from ``params`` on
+    ``batch``: on one device, or with ``mesh`` placed by `param_specs` and
+    `batch_specs` under `activation_rules`. Returns the state, the metrics,
+    each step's seconds and AdamW's first moment after step 1 (0.1 x the
+    clipped step-1 gradient; global tensors, gathered on a mesh)."""
+    from repro_torch.dist import sharding
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_state import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
+    opt = make_optimizer("adamw", LM_MESH_LR, 0.1)
+    rules = contextlib.nullcontext()
+    if mesh is not None:
+        params = sharding.place_tree(params, mesh, sharding.param_specs(
+            params, mesh, run.parallel))
+        batch = sharding.place_tree(batch, mesh, sharding.batch_specs(
+            batch, mesh, run.parallel))
+        rules = sharding.activation_rules(mesh, run.parallel)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32,
+                                   device=batch["tokens"].device))
+    step = make_train_step(run, opt)
+    metrics, seconds, m1 = [], [], None
+    with rules:
+        for i in range(LM_MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                m1 = tree_leaves(sharding.gather_tree(state.opt_state["m"]))
+    return {"state": state, "metrics": metrics, "seconds": seconds,
+            "m1": m1}
+
+
+def clipped_from_moments(m1: list, m2: list) -> list:
+    """Each step's clipped gradient leaves, read back from AdamW's first
+    moments (m1 = 0.1 g1, m2 = 0.9 m1 + 0.1 g2)."""
+    g1 = [m / 0.1 for m in m1]
+    g2 = [(b - 0.9 * a) / 0.1 for a, b in zip(m1, m2)]
+    return [g1, g2]
+
+
+def grad_rule(got: list, want: list, tag: str) -> dict:
+    """Each leaf of the clipped step-1 gradient (AdamW's first moment
+    after step 1) within LM_MESH_GRAD_RL2 relative L2 (float64 on the
+    card)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        den = float(b.double().norm())
+        r = float((a.double() - b.double()).norm()) / den if den else 0.0
+        worst = max(worst, r)
+    if not worst <= LM_MESH_GRAD_RL2:
+        raise AssertionError(f"{tag}: a gradient leaf differs by relative "
+                             f"L2 {worst:.3e}")
+    return {"grad_max_rel_l2": worst}
+
+
+def adamw_rule(got, want, clipped) -> dict:
+    """The CPU tests' rule on two parameter trees after the steps: every
+    element within 2 lr a step (Adam's bound, gated), and the report of
+    its scale-bound part: the elements whose clipped |g| is at least
+    ``g_min`` at every step (1e-7, the CPU tests' threshold, and 1e-6),
+    their share and how many of them differ by more than 1e-5, with the
+    worst such element and its clipped gradients."""
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+    worst = 0.0
+    total = 0
+    rows = {g: {"stable": 0, "over_1e-5": 0, "max_abs_diff": 0.0,
+                "worst": None} for g in (LM_MESH_G_MIN, 10 * LM_MESH_G_MIN)}
+    for i, ((path, a), b) in enumerate(zip(tree_flatten_with_paths(got),
+                                           tree_leaves(want))):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        total += d.numel()
+        for g_min, row in rows.items():
+            ok = torch.ones_like(d, dtype=torch.bool)
+            for c in clipped:
+                ok &= c[i].abs() >= g_min
+            row["stable"] += int(ok.sum())
+            n = int((d[ok] > LM_MESH_ATOL).sum())
+            row["over_1e-5"] += n
+            if bool(ok.any()):
+                s = float(d[ok].max())
+                if s > row["max_abs_diff"]:
+                    at = int(torch.where(ok, d, torch.zeros_like(d)).argmax())
+                    row["max_abs_diff"] = s
+                    row["worst"] = {
+                        "leaf": "/".join(map(str, path)),
+                        "got": float(a.flatten()[at]),
+                        "want": float(b.flatten()[at]),
+                        "clipped_g": [float(c[i].flatten()[at])
+                                      for c in clipped]}
+    for row in rows.values():
+        row["share"] = row["stable"] / total
+    out = {"max_abs_diff": worst, "params": total,
+           "by_g_min": {f"{g:g}": row for g, row in rows.items()}}
+    if worst > 2 * LM_MESH_STEPS * LM_MESH_LR:
+        raise AssertionError(f"phase 23: a parameter moved past Adam's "
+                             f"bound: {out}")
+    return out
+
+
+def same_metrics(got: list, want: list, tag: str) -> dict:
+    """Losses and grad norms within LM_MESH_LOSS_RTOL relative."""
+    rel = 0.0
+    for a, b in zip(got, want):
+        for key in ("loss", "grad_norm"):
+            r = abs(a[key] - b[key]) / abs(b[key])
+            if not r <= LM_MESH_LOSS_RTOL:
+                raise AssertionError(f"{tag}: {key} {a[key]} vs {b[key]} "
+                                     f"(rel {r:.2e})")
+            rel = max(rel, r)
+    return {"max_rel_diff_loss_grad_norm": rel}
+
+
+def phase_lm_mesh_one(dev, backend: str = "nccl") -> dict:
+    """Phase 23(a): a world of one (NCCL on the card) and its (1, 1) mesh:
+    the sharded step of (b)'s model equals the plain step on the card
+    (whether bit for bit is printed; else to the CPU tests' rule)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    free_cuda()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), device_type=dev.type)
+            run, params, batch = lm_mesh_setup(dev)
+            plain = lm_mesh_steps(run, params, batch)
+            sharded = lm_mesh_steps(run, params, batch, mesh)
+            gathered = sharding.gather_tree(sharded["state"].params)
+            got = tree_leaves(gathered)
+            want = tree_leaves(plain["state"].params)
+            bit_equal = (sharded["metrics"] == plain["metrics"] and all(
+                torch.equal(a, b) for a, b in zip(got, want)))
+            out = {"bit_equal": bit_equal,
+                   "losses": [m["loss"] for m in sharded["metrics"]],
+                   "plain_losses": [m["loss"] for m in plain["metrics"]],
+                   "seconds": sharded["seconds"],
+                   "plain_seconds": plain["seconds"],
+                   "max_abs_diff": max(float((a - b).abs().max())
+                                       for a, b in zip(got, want))}
+            if not bit_equal:
+                out.update(same_metrics(sharded["metrics"],
+                                        plain["metrics"], "world of one"))
+                out.update(grad_rule(sharded["m1"], plain["m1"],
+                                     "world of one"))
+                out.update(adamw_rule(gathered, want, clipped_from_moments(
+                    plain["m1"], tree_leaves(plain["state"].opt_state["m"]))))
+            del plain, sharded, gathered, got, want, params
+        finally:
+            dist.destroy_process_group()
+    free_cuda()
+    out["s"] = time.perf_counter() - t0
+    out["backend"] = backend
+    return out
+
+
+def _allocated(device_type: str):
+    return torch.cuda.memory_allocated() if device_type == "cuda" else None
+
+
+def lm_mesh_rank_step(rank: int, dev, m22, row: dict) -> None:
+    """Phase 23(b) on one rank: the sharded step on (2, 2) (rank 0 also
+    the single-device step, and holds one to the other)."""
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.tree import tree_leaves
+    run, params, batch = lm_mesh_setup(dev)
+    if rank == 0:
+        single = lm_mesh_steps(run, params, batch)
+        row["single_seconds"] = single["seconds"]
+        want = tree_leaves(single["state"].params)
+        clipped = clipped_from_moments(
+            single["m1"], tree_leaves(single["state"].opt_state["m"]))
+        want_metrics, want_m1 = single["metrics"], single["m1"]
+        del single
+    counts0 = dict(collectives.COUNTS)
+    t0 = time.perf_counter()
+    sharded = lm_mesh_steps(run, params, batch, m22)
+    row["sharded_s"] = time.perf_counter() - t0
+    row["collectives_per_2_steps"] = {
+        k: v - counts0.get(k, 0) for k, v in collectives.COUNTS.items()}
+    row["seconds"] = sharded["seconds"]
+    row["metrics"] = sharded["metrics"]
+    specs = sharding.param_specs(params, m22, run.parallel)
+    bad = [i for i, (x, s) in enumerate(zip(
+        tree_leaves(sharded["state"].params), _spec_list(specs)))
+        if tuple(x.placements) != tuple(s)]
+    if bad:
+        raise AssertionError(f"rank {rank}: leaves {bad} left their "
+                             "param_specs placements")
+    t0 = time.perf_counter()
+    gathered = sharding.gather_tree(sharded["state"].params)
+    row["gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        row.update(same_metrics(sharded["metrics"], want_metrics,
+                                "phase 23(b)"))
+        row.update(grad_rule(sharded["m1"], want_m1, "phase 23(b)"))
+        row.update(adamw_rule(gathered, want, clipped))
+        row["single_metrics"] = want_metrics
+        del want, clipped, want_m1
+    del gathered, sharded
+
+
+def lm_mesh_rank_compress(rank: int, dev, m41, row: dict) -> None:
+    """Phase 23(c) on one rank: `compressed_psum_mean` over the 4 data
+    ranks of (4, 1) on this rank's gradient tree (the loss of its quarter
+    of (b)'s batch at (b)'s initial weights), LM_MESH_COMPRESS_STEPS steps
+    of error feedback against the float32 mean. The reduction is per leaf
+    (one int8 tensor and one scale each), so the steps run leaf by leaf,
+    each leaf as a tree of its own: the same values as the whole tree at
+    once, with one leaf's buffers live at a time (four ranks share the
+    card)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.compress import compressed_psum_mean
+    from repro_torch.tree import tree_leaves
+    run, params, batch = lm_mesh_setup(dev)
+    quarter = LM_MESH_B // 4
+    part = {k: v[rank * quarter:(rank + 1) * quarter]
+            for k, v in batch.items()}
+    _, _, grads = loss_and_grads(params, part, run.model, run.parallel)
+    del params, batch, part
+    wire = []
+    all_gather = dist.all_gather
+
+    def recording(tensor_list, tensor, group=None, async_op=False):
+        wire.append((str(tensor.dtype), tensor.numel()
+                     * tensor.element_size()))
+        return all_gather(tensor_list, tensor, group=group,
+                          async_op=async_op)
+    steps = LM_MESH_COMPRESS_STEPS
+    errs, avg_err, cs = [0.0] * steps, 0.0, time.perf_counter()
+    dist.all_gather = recording
+    try:
+        for g in tree_leaves(grads):
+            true = g.clone()
+            dist.all_reduce(true)
+            true.div_(4)
+            residual = {"g": torch.zeros_like(g)}
+            acc = torch.zeros_like(g)
+            for i in range(steps):
+                mean, residual = compressed_psum_mean({"g": g}, residual,
+                                                      "data", m41)
+                errs[i] = max(errs[i],
+                              float((mean["g"] - true).abs().max()))
+                acc.add_(mean["g"])
+                del mean
+            avg_err = max(avg_err,
+                          float((acc.div_(steps) - true).abs().max()))
+            del true, residual, acc
+    finally:
+        dist.all_gather = all_gather
+    torch.cuda.synchronize()
+    if not (errs[0] < 0.05 and avg_err < errs[0]):
+        raise AssertionError(f"rank {rank}: compressed mean errors "
+                             f"{errs[0]} first, {avg_err} averaged")
+    dtypes = sorted({d for d, _ in wire})
+    row["compress"] = {
+        "first_err": errs[0], "avg_err": avg_err, "errs": errs,
+        "s": time.perf_counter() - cs, "wire_dtypes": dtypes,
+        "wire_bytes_per_step": sum(b for _, b in wire) // steps,
+        "int8_bytes_per_step": sum(b for d, b in wire
+                                   if d == "torch.int8") // steps,
+        "float32_bytes_of_the_same": sum(
+            g.numel() * 4 for g in tree_leaves(grads))}
+    if "torch.int8" not in dtypes:
+        raise AssertionError(f"rank {rank}: no int8 crossed the wire")
+
+
+def lm_mesh_rank(argv) -> int:
+    """One of phase 23's gloo ranks: ``--lm-mesh-rank RANK DIR [DEVICE]``.
+    Joins the world through a FileStore in DIR, runs (c)
+    `compressed_psum_mean` over (4, 1) (`lm_mesh_rank_compress`), waits
+    for DIR/go (written when 23(a) has freed the card's memory), runs (b)
+    the sharded step on (2, 2) (`lm_mesh_rank_step`) and (d) GPipe on
+    ("pipe",) x 4 (rank 0 also the sequential composition); writes
+    DIR/rank<RANK>.json; a mismatch raises."""
+    rank, out = int(argv[0]), Path(argv[1])
+    device_type = argv[2] if len(argv) > 2 else "cuda"
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.dist.pipeline import make_pipeline_fn, ring_of
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    torch.set_num_threads(2)
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), LM_MESH_WORLD),
+        rank=rank, world_size=LM_MESH_WORLD)
+    m22 = make_mesh((2, 2), device_type=device_type)
+    m41 = make_mesh((4, 1), device_type=device_type)
+    pipe_mesh = make_mesh((4,), ("pipe",), device_type=device_type)
+    row: dict = {"rank": rank, "coords": m22.coords,
+                 "ready_s": time.perf_counter() - t0}
+    if device_type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # (c) (a few GB a rank, leaf by leaf) while 23(a) runs in the main
+    # process, then (b) once 23(a) has freed the card, then (d); (b) and
+    # (c) each in a function of their own, whose tensors go at the return
+    lm_mesh_rank_compress(rank, dev, m41, row)
+    free_cuda()
+    row["allocated_after_c"] = _allocated(device_type)
+    deadline = time.perf_counter() + LM_MESH_TIMEOUT_S
+    while not (out / "go").exists():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"rank {rank}: no go from phase 23(a)")
+        time.sleep(0.05)
+    row["go_s"] = time.perf_counter() - t0
+    lm_mesh_rank_step(rank, dev, m22, row)
+    free_cuda()
+    row["allocated_after_b"] = _allocated(device_type)
+
+    # (d) GPipe on ("pipe",) x 4 against the sequential composition
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    Ws = torch.randn((4, PIPE_D, PIPE_D), generator=gen, device=dev) \
+        / math.sqrt(PIPE_D)
+    xs = torch.randn((PIPE_MICRO, PIPE_B, PIPE_D), generator=gen,
+                     device=dev)
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+    pipe = make_pipeline_fn(stage, pipe_mesh, "pipe", PIPE_MICRO)
+    ps = time.perf_counter()
+    got = pipe(Ws, xs)
+    torch.cuda.synchronize()
+    row["gpipe"] = {"s": time.perf_counter() - ps,
+                    "ring": ring_of(pipe_mesh)}
+    if rank == 0:
+        seq = []
+        for m in range(PIPE_MICRO):
+            x = xs[m]
+            for s in range(4):
+                x = stage(Ws[s], x)
+            seq.append(x)
+        seq = torch.stack(seq)
+        row["gpipe"]["bit_equal"] = bool(torch.equal(got, seq))
+        row["gpipe"]["max_abs_diff"] = float((got - seq).abs().max())
+        if not row["gpipe"]["bit_equal"]:
+            raise AssertionError("phase 23(d): GPipe != the sequential "
+                                 f"composition ({row['gpipe']})")
+    row["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if device_type == "cuda" else None)
+    row["s"] = time.perf_counter() - t0
+    (out / f"rank{rank}.json").write_text(json.dumps(row))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spec_list(specs) -> list:
+    """The placement tuples of a spec tree, in leaf order."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_list(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_list(v)]
+    return [specs]
+
+
+def start_lm_mesh_ranks(device_type: str = "cuda") -> dict:
+    """Phase 23(b)-(d), first half: spawn the four gloo ranks
+    (`lm_mesh_rank`), which start up and run (c) while 23(a) runs, then
+    wait for its go."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="lm_mesh_ranks")
+    # four ranks share one card: let each return freed blocks whole
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = []
+    for rank in range(LM_MESH_WORLD):
+        log = open(os.path.join(d, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--lm-mesh-rank", str(rank), d, device_type],
+            stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    return {"dir": d, "procs": procs, "t0": time.perf_counter(),
+            "world": LM_MESH_WORLD, "timeout": LM_MESH_TIMEOUT_S}
+
+
+def phase_lm_mesh(dev) -> dict:
+    """Phase 23: (a) in this process while the four ranks start, then
+    (b)-(d) on the ranks; each holds its own results."""
+    t0 = time.perf_counter()
+    free_cuda()
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    handle = start_lm_mesh_ranks(dev.type)
+    try:
+        one = phase_lm_mesh_one(dev)
+    finally:
+        Path(handle["dir"], "go").write_text("go")
+        four = finish_mesh_ranks(handle)
+    return {"one": one, "four": four, "s": time.perf_counter() - t0,
+            "main_process_bytes": held}
+
+
+def print_lm_mesh(res: dict, card: str) -> None:
+    one, four = res["one"], res["four"]
+    print(f"[phase 23] (a) world of one ({one['backend']}), mesh 1x1, "
+          f"{LM_MESH_ARCH} at full width on {LM_MESH_LAYERS} layers, "
+          f"float32, B = {LM_MESH_B}, T = {LM_MESH_SEQ}: sharded step == "
+          f"plain step on the card, bit for bit: {one['bit_equal']}; "
+          f"{json.dumps(one)} ({card})")
+    r0 = four["ranks"][0]
+    rule = r0["by_g_min"]
+    print(f"[phase 23] (b) 4 gloo ranks on one card, mesh 2x2 (fsdp, seq "
+          f"parallel, vocab chunking 2, remat per block), {LM_MESH_STEPS} "
+          f"AdamW steps: losses {[m['loss'] for m in r0['metrics']]} vs "
+          f"single device {[m['loss'] for m in r0['single_metrics']]} "
+          f"(loss and grad norm rel "
+          f"{r0['max_rel_diff_loss_grad_norm']:.2e}, tol "
+          f"{LM_MESH_LOSS_RTOL}); clipped step-1 gradient (AdamW's m1) max "
+          f"rel L2 "
+          f"{r0['grad_max_rel_l2']:.2e} (tol {LM_MESH_GRAD_RL2}); largest "
+          f"parameter |diff| {r0['max_abs_diff']:.3e} (bound "
+          f"{2 * LM_MESH_STEPS * LM_MESH_LR:g}); of {r0['params']} "
+          f"parameters, clipped |g| >= 1e-7 at both steps: "
+          f"{rule['1e-07']['stable']} ({rule['1e-07']['share']:.4f}), "
+          f"{rule['1e-07']['over_1e-5']} over 1e-5 (max "
+          f"{rule['1e-07']['max_abs_diff']:.3e}); >= 1e-6: "
+          f"{rule['1e-06']['stable']}, {rule['1e-06']['over_1e-5']} over "
+          f"1e-5 (max {rule['1e-06']['max_abs_diff']:.3e}); seconds a step "
+          f"{[round(s, 3) for s in r0['seconds']]} (single device "
+          f"{[round(s, 3) for s in r0['single_seconds']]}; placing, the "
+          f"steps and the first moment's gather {r0['sharded_s']:.2f} s, "
+          f"the parameters' gather {r0['gather_s']:.2f} s); peak bytes per "
+          f"rank {[r['peak_bytes'] for r in four['ranks']]}; functional "
+          f"collectives in 2 steps "
+          f"{json.dumps(r0['collectives_per_2_steps'])} ({card})")
+    print(f"[phase 23] (b) the CPU tests' parameter rule at full width: "
+          f"{json.dumps(rule)}")
+    for r in four["ranks"]:
+        c = r["compress"]
+        print(f"[phase 23] (c) rank {r['rank']}: compressed_psum_mean over "
+              f"4 data ranks, {LM_MESH_COMPRESS_STEPS} steps: first_err "
+              f"{c['first_err']:.3e}, avg_err {c['avg_err']:.3e}; wire "
+              f"{c['wire_dtypes']}, {c['wire_bytes_per_step']} bytes a "
+              f"step ({c['int8_bytes_per_step']} int8) against "
+              f"{c['float32_bytes_of_the_same']} in float32; {c['s']:.2f} "
+              f"s; bytes held after (c) / (b) {r['allocated_after_c']} / "
+              f"{r['allocated_after_b']}")
+    print(f"[phase 23] (d) GPipe on pipe x 4, tanh(x @ w), w "
+          f"({PIPE_D}, {PIPE_D}) float32, {PIPE_MICRO} microbatches of "
+          f"{PIPE_B}: == the sequential composition bit for bit "
+          f"{json.dumps(r0['gpipe'])}")
+    print(f"[phase 23] world of one {one['s']:.1f} s; four ranks "
+          f"{four['s']:.1f} s from their spawn (their start-up and (c) "
+          f"overlap (a); the go after {r0['go_s']:.1f} s); "
+          f"phase {res['s']:.1f} s; the main process held "
+          f"{res.get('main_process_bytes')} bytes on the card meanwhile "
+          f"({card})")
 
 
 def main() -> int:
@@ -5213,6 +5745,8 @@ def main() -> int:
         mesh_four = finish_mesh_ranks(ranks)
     mesh_launches = print_mesh(mesh_one, mesh_four, card)
     lap("phase 22")
+    print_lm_mesh(phase_lm_mesh(dev), card)
+    lap("phase 23")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [
@@ -5247,5 +5781,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_rank(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"]
-             else main())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lm-mesh-rank"]:
+        sys.exit(lm_mesh_rank(sys.argv[2:]))
+    sys.exit(main())

@@ -14,7 +14,10 @@ Layout:  <dir>/step_<N>/
 
 Leaf keys are `repro_torch.tree` paths joined by "/": a dict key as
 itself, a list index as its number, a NamedTuple field as ``.field``, in
-JAX's leaf order. bfloat16 leaves are stored as their uint16 bits and
+JAX's leaf order. A tree of DTensors (a sharded train state) is saved as
+its global tensors, gathered on every rank and written by rank 0 alone;
+`restore(shardings=, mesh=)` places each leaf onto the current mesh,
+whatever mesh wrote it (the elastic restart). bfloat16 leaves are stored as their uint16 bits and
 float8_e4m3fn / float8_e5m2 leaves as their uint8 bits, each named by its
 dtype in the manifest, and rebuilt with ``Tensor.view``; no ml_dtypes is
 needed.
@@ -84,9 +87,17 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         """Write ``tree`` as step ``step`` in the background (``blocking``:
         wait for it). Waits for the previous save first, and raises its
-        error if it failed."""
+        error if it failed. DTensor leaves are gathered to their global
+        tensors (a collective: every rank of their mesh calls `save`),
+        and only global rank 0 writes them."""
+        from torch.distributed.tensor import DTensor
         self.wait()
         keys, leaves = _flatten(tree)
+        sharded = any(isinstance(x, DTensor) for x in leaves)
+        leaves = [x.full_tensor() if isinstance(x, DTensor) else x
+                  for x in leaves]
+        if sharded and _rank() != 0:
+            return
         host = [_to_host(x) for x in leaves]
 
         def _write():
@@ -150,13 +161,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, *, like: Any = None
-                ) -> tuple[int, Any]:
+    def restore(self, step: Optional[int] = None, *, like: Any = None,
+                shardings: Any = None, mesh=None) -> tuple[int, Any]:
         """Load step ``step`` (default: the latest). With ``like``, a tree
         of tensors, the leaves come back in its structure, each with its
         dtype and on its device (raises `ValueError` when the leaf keys
         differ from the manifest's); without it, as a list of CPU
-        tensors."""
+        tensors. ``shardings``, a tree of placements of ``like``'s
+        structure (e.g. `dist.sharding.param_specs` on ``mesh``, the
+        current mesh), places each leaf onto ``mesh`` as a DTensor: the
+        elastic-restart path."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -176,4 +190,18 @@ class CheckpointManager:
         leaves = [x.to(device=lk.device, dtype=lk.dtype)
                   if torch.is_tensor(lk) else x
                   for x, lk in zip(leaves, like_leaves)]
-        return step, tree_unflatten_like(like, leaves)
+        tree = tree_unflatten_like(like, leaves)
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore(shardings=) needs the mesh the "
+                                 "placements are on (mesh=)")
+            from repro_torch.dist.sharding import place_tree
+            tree = place_tree(tree, mesh, shardings)
+        return step, tree
+
+
+def _rank() -> int:
+    """This process's global rank (0 without a process group)."""
+    import torch.distributed as dist
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)

@@ -207,10 +207,18 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The train step's batch and memory policies and the prefill's
-    attention form, with the JAX package's names and defaults. Its sharding
-    and layout policies (fsdp, sequence and expert parallelism, scanned
-    layers) come with multi-GPU execution."""
+    """How logical axes map onto a mesh (`dist.sharding`), the train step's
+    batch and memory policies and the prefill's attention form, with the
+    JAX package's names and defaults. The sharding fields act only inside
+    `dist.sharding.activation_rules` and in the spec builders; without a
+    mesh they change nothing. JAX's ``scan_layers`` and
+    ``unroll_time_scans`` are not carried: the port runs its layers and its
+    time scans as Python loops (no ``lax.scan`` to choose), and the
+    unrolled scans only serve JAX's TPU dry-run accounting."""
+    fsdp: bool = True               # shard weights' leading axis over data
+    seq_parallel: bool = True       # boundary activations' seq over model
+    expert_parallel: bool = True    # JAX's name only: JAX reads it nowhere
+                                    #   (experts shard by `_param_rule`)
     remat: str = "block"            # none | block | full: recompute each
                                     #   super-block in the backward pass
     microbatches: int = 1           # gradient accumulation splits
@@ -221,6 +229,10 @@ class ParallelConfig:
     moe_gather_dispatch: bool = False  # JAX's gather-only MoE dispatch;
                                        #   the port's one dispatch gives
                                        #   its result (`moe_ffn`)
+    moe_constraints: bool = False   # pin the MoE bucket tensors to
+                                    #   (batch, experts) under a mesh
+    state_constraints: bool = False  # pin the Mamba scan tensors to
+                                     #   (batch, ffn); remat each chunk
     wkv_chunk: int = 64             # chunk of the differentiable wkv6 form
                                     #   the loss takes: JAX's `ops.wkv6`
                                     #   default (the JAX config has no

@@ -1,7 +1,15 @@
-"""Distributed execution. `sharding` places the SNN mesh path's tensors on
-an `launch.mesh.SNNMesh` (the SNN rows of the JAX package's sharding
-rules: `ShardingError`, `_fit`, `logical_spec`, `snn_state_specs`);
-`compress.fake_compress` is the single-device numerics of the int8
-gradient wire. The LM rules (`param_specs`, `batch_specs`, `cache_specs`,
-`activation_rules`, `constrain`), `dist/pipeline.py` and the int8-wire
-reduction come with LM sharding."""
+"""Distribution layer on `torch.distributed`: sharding rules, wire
+compression, pipeline parallelism.
+
+  * sharding    -- logical-axis -> mesh placement rules (DTensor
+    placements on an `launch.mesh.SNNMesh`): the SNN mesh path's lanes and
+    row tiles, and LM sharding's `param_specs`, `batch_specs`,
+    `cache_specs`, `logits_spec`, `place_tree`/`gather_tree`, and the
+    `activation_rules` context with `constrain`, which model code calls
+    freely (the identity unless rules are active).
+  * compress    -- `compressed_psum_mean`, the int8-wire gradient mean with
+    error feedback, and the single-device `fake_compress`.
+  * pipeline    -- `make_pipeline_fn`, GPipe over one mesh axis.
+  * collectives -- the functional collectives through blocking calls,
+    which DTensor needs on a gloo group with CUDA tensors.
+"""

@@ -1,39 +1,71 @@
-"""Sharding rules of the SNN mesh path: logical axes to mesh placements,
-with divisibility fitting.
+"""Sharding rules: logical axes to mesh placements, with divisibility
+fitting, for the SNN mesh path and for LM sharding.
 
 A placement is torch's DTensor form: one `Shard(dim)` or `Replicate()` for
-each mesh dimension, in the mesh's axis order. Every rule goes through
-`_fit`: a per-dimension proposal (a mesh axis name, a tuple of names, or
-None) is kept only when the dimension divides the product of the proposed
-extents, and otherwise degrades to replication, logged on the
-``repro_torch.dist.sharding`` logger with the axis and the extents; a
-*required* axis that cannot shard raises `ShardingError` instead.
+each mesh dimension, in the mesh's axis order (the port's counterpart of a
+JAX ``PartitionSpec``; with the mesh's `DeviceMesh` it is a
+``NamedSharding``). The module has three layers, as the JAX package's:
 
-The SNN logical axes map the IMPULSE macro onto the mesh: ``lane`` and
-``bank`` (serving lanes, frame banks: the batch) partition over the data
-axis, since lanes never interact; ``macro_row_tile`` (the row-tiled
-fan-in) over the model axis, each model rank owning a row tile and adding
-its unclamped int32 partial V in the cross-rank AccV2V reduction.
+  1. `_fit(axes, shape, mesh)`, the one primitive every rule goes through:
+     a per-dimension proposal (a mesh axis name, a tuple of names, or
+     None) is kept only when the dimension divides the product of the
+     proposed extents, and otherwise degrades to replication, logged on
+     the ``repro_torch.dist.sharding`` logger with the axis and the
+     extents; a *required* axis that cannot shard raises `ShardingError`.
+  2. spec builders, trees of placements: `param_specs` (tensor-parallel on
+     each parameter's last axis, FSDP on its first), `batch_specs` (the
+     batch over data, the sequence over model under sequence
+     parallelism), `cache_specs` (heads, axis 2, over model),
+     `logits_spec`, `replicated`, `logical_spec`/`logical_sharding` and
+     the SNN streaming state's `snn_state_specs`. `place_tree` puts a tree
+     of global tensors onto a mesh by such a tree (`distribute_tensor` a
+     leaf, the port's ``jax.device_put(x, sharding)``) and `gather_tree`
+     gathers one back (``full_tensor``).
+  3. `activation_rules(mesh, parallel)` and `constrain(x, logical_axes)`:
+     a thread-local context that maps *logical* activation axes onto the
+     mesh. `constrain` is the identity outside the context and on a plain
+     tensor, and redistributes a DTensor inside it (the port's
+     ``with_sharding_constraint``), so model code pins activations
+     unconditionally and every single-device path is unchanged.
 
-A mesh is an `launch.mesh.SNNMesh` or a plain ``{axis: extent}`` dict.
+The logical axes: ``batch``, ``lane`` and ``bank`` (serving lanes, frame
+banks) partition over data; ``vocab``, ``experts``, ``ffn``, ``heads``,
+``embed`` and ``seq`` (only under ``parallel.seq_parallel``) over model,
+and so does ``macro_row_tile``, the row-tiled fan-in of the IMPULSE macro
+(each model rank owns a row tile and adds its unclamped int32 partial V in
+the cross-rank AccV2V reduction).
+
+A mesh is an `launch.mesh.SNNMesh` or, for the spec builders, a plain
+``{axis: extent}`` dict; placing and constraining need the mesh's
+`DeviceMesh`.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
-from typing import Any
+import threading
+from typing import Any, Optional
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.launch.mesh import mesh_extents
 from repro_torch.tree import tree_map
 
 logger = logging.getLogger("repro_torch.dist.sharding")
 
-#: logical axis -> mesh axis (the SNN rows; the LM rows come with LM
-#: sharding)
+#: logical axis -> mesh axis: "batch" always to data, the model-parallel
+#: names onto the model axis, the SNN axes as the module says
 _LOGICAL_TO_MESH = {
     "batch": "data",
+    "vocab": "model",
+    "experts": "model",
+    "ffn": "model",
+    "heads": "model",
+    "embed": "model",
+    "seq": "model",          # only applied when parallel.seq_parallel
+    # --- SNN axes (core.pipeline / serve.snn_engine) ---
     "macro_row_tile": "model",
     "bank": "data",
     "lane": "data",
@@ -136,6 +168,135 @@ def logical_spec(mesh, logical_axes: tuple, shape: tuple, *,
     return _fit(prop, tuple(shape), mesh, required=tuple(req_mesh))
 
 
+def logical_sharding(mesh, logical_axes: tuple, shape: tuple, *,
+                     required: tuple = ()) -> tuple:
+    """`logical_spec`'s placements: the form `place_tree` and
+    `distribute_tensor` take with the mesh's `DeviceMesh` (JAX's
+    ``NamedSharding`` of the spec; a torch placement names no mesh)."""
+    return logical_spec(mesh, logical_axes, shape, required=required)
+
+
+def replicated(mesh) -> tuple:
+    """Full replication on ``mesh``: `Replicate()` on every axis."""
+    return tuple(Replicate() for _ in _axis_names(mesh))
+
+
+# ---------------------------------------------------------------------------
+# parameter / batch / cache placement
+# ---------------------------------------------------------------------------
+
+def _param_rule(shape: tuple, parallel) -> tuple:
+    """The generic parameter rule: tensor-parallel on the trailing (output)
+    axis, FSDP on the leading (input) axis; `_fit` drops what does not
+    divide, so one rule covers embeddings, dense kernels, stacked layers
+    and experts, and norm scales."""
+    if len(shape) == 0:
+        return ()
+    if len(shape) == 1:
+        return ("data",) if parallel.fsdp else (None,)
+    prop: list = [None] * len(shape)
+    prop[-1] = "model"
+    if parallel.fsdp:
+        prop[0] = "data"
+    return tuple(prop)
+
+
+def param_specs(params: Any, mesh, parallel) -> Any:
+    """A tree of parameters (tensors, ``meta`` tensors too) -> the tree of
+    their placements on ``mesh``."""
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        return _fit(_param_rule(shape, parallel), shape, mesh)
+    return tree_map(spec, params)
+
+
+def batch_specs(batch: Any, mesh, parallel) -> Any:
+    """Placements of an input ``batch`` tree: each leaf's leading axis over
+    data and, with ``parallel.seq_parallel``, its sequence axis (axis 1)
+    over model."""
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        prop: list = [None] * len(shape)
+        if len(shape) >= 1:
+            prop[0] = "data"
+        if parallel.seq_parallel and len(shape) >= 2:
+            prop[1] = "model"
+        return _fit(tuple(prop), shape, mesh)
+    return tree_map(spec, batch)
+
+
+def cache_specs(cache: Any, mesh, parallel, cfg=None) -> Any:
+    """Placements of a K/V, latent or state ``cache`` tree: the batch over
+    data and, where a leaf has three axes or more, axis 2 (the heads of a
+    (B, S, H, D) layout) over model when it divides (``parallel`` and
+    ``cfg`` are JAX's, kept for rule variants)."""
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        prop: list = [None] * len(shape)
+        if len(shape) >= 1:
+            prop[0] = "data"
+        if len(shape) >= 3:
+            prop[2] = "model"
+        return _fit(tuple(prop), shape, mesh)
+    return tree_map(spec, cache)
+
+
+def logits_spec(mesh, shape: tuple) -> tuple:
+    """Placements of (batch, vocab) logits of ``shape``: batch over data,
+    vocab over model."""
+    return _fit(("data", "model"), tuple(shape), mesh)
+
+
+def device_mesh_of(mesh):
+    """The `DeviceMesh` that DTensors of ``mesh`` (an `SNNMesh`) live on.
+    A dict or a mesh built without a process group has none: raises
+    `ValueError` (placing onto it would have no ranks to place on)."""
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None:
+        raise ValueError(
+            f"{mesh!r} has no DeviceMesh: LM placements need a mesh made by "
+            "launch.mesh.make_mesh over an initialized process group (a "
+            "world of one for a (1, 1) mesh)")
+    return dm
+
+
+def place_tree(tree: Any, mesh, specs: Any) -> Any:
+    """Each leaf of ``tree``, a global tensor (the same on every rank), as
+    a DTensor on ``mesh`` with its placements in ``specs`` (a tree of
+    ``tree``'s structure, e.g. `param_specs`'): every rank keeps its own
+    shard, cut locally (no collective)."""
+    dm = device_mesh_of(mesh)
+    return tree_map(lambda x, p: distribute_tensor(
+        x, dm, list(p), src_data_rank=None), tree, specs)
+
+
+def gather_tree(tree: Any) -> Any:
+    """`place_tree`'s inverse: every DTensor leaf of ``tree`` as its
+    global tensor on every rank (``full_tensor``, an all-gather); other
+    leaves as they are."""
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)
+
+
+def replicated_call(fn, *args):
+    """``fn`` on the global values of its DTensor arguments: each is
+    redistributed to replicated and ``fn`` runs on its local (= global)
+    tensor on every rank; tensor outputs come back as replicated DTensors
+    of the first DTensor argument's mesh. For operations without a DTensor
+    sharding rule (a sort-based dispatch); differentiable, and the values
+    are ``fn``'s own."""
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    rep = [Replicate()] * mesh.ndim
+    local = [a.redistribute(mesh, rep).to_local()
+             if isinstance(a, DTensor) else a for a in args]
+    out = fn(*local)
+
+    def wrap(t):
+        return (DTensor.from_local(t, mesh, rep, run_check=False)
+                if torch.is_tensor(t) else t)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
 def snn_state_specs(state: Any, mesh) -> Any:
     """Placements of a streaming state (`core.pipeline.StreamState`): every
     tensor leaf's leading axis is the serving lane and shards over the
@@ -170,3 +331,75 @@ def shard_state(state: Any, mesh) -> Any:
     vs = tuple(local_shard(v, p, mesh).clone()
                for v, p in zip(state.vs, specs.vs))
     return state._replace(vs=vs)
+
+
+# ---------------------------------------------------------------------------
+# activation rules context + constrain
+# ---------------------------------------------------------------------------
+
+class _Rules(threading.local):
+    mesh: Optional[Any] = None
+    parallel: Any = None
+
+
+_RULES = _Rules()
+
+
+@contextlib.contextmanager
+def activation_rules(mesh, parallel):
+    """Activate logical-axis constraints onto ``mesh`` (an `SNNMesh` with
+    a `DeviceMesh`), read under the ``parallel`` flags, for the code run
+    inside the context on this thread (a checkpointed region's recompute
+    takes them along through `recompute_contexts`). Outside it `constrain`
+    is the identity."""
+    prev = (_RULES.mesh, _RULES.parallel)
+    _RULES.mesh, _RULES.parallel = mesh, parallel
+    try:
+        yield
+    finally:
+        _RULES.mesh, _RULES.parallel = prev
+
+
+def recompute_contexts():
+    """``context_fn`` of `torch.utils.checkpoint`: (the forward's context,
+    the recompute's), the recompute re-entering the rules active at the
+    forward. Autograd recomputes a checkpointed region on its device
+    thread (CUDA), where the thread-local rules are not set, and a
+    recompute must place its activations as the forward did."""
+    return (contextlib.nullcontext(),
+            activation_rules(_RULES.mesh, _RULES.parallel))
+
+
+def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    """Pin an activation's logical axes onto the active mesh. ``x`` itself
+    when no rules are active or when ``x`` is a plain tensor; a DTensor is
+    redistributed to `_fit`'s placements of the resolved axes (a value
+    moves between ranks, never changes). Entries of ``logical_axes`` are
+    logical names ("batch", "seq", "vocab", "experts", "ffn", "heads"), a
+    mesh axis name, tuples of names, or None; "seq" resolves to nothing
+    unless ``parallel.seq_parallel``."""
+    mesh, parallel = _RULES.mesh, _RULES.parallel
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    sizes = mesh_extents(mesh)
+
+    def to_mesh(name):
+        if name is None:
+            return None
+        if isinstance(name, tuple):
+            resolved = tuple(m for m in (to_mesh(n) for n in name)
+                             if m is not None)
+            return resolved or None
+        if (name == "seq" and parallel is not None
+                and not parallel.seq_parallel):
+            return None
+        return _LOGICAL_TO_MESH.get(name, name if name in sizes else None)
+
+    prop = tuple(to_mesh(n) for n in logical_axes)
+    placements = _fit(prop, tuple(x.shape), mesh)
+    if tuple(x.placements) == placements:
+        return x
+    out = x.redistribute(device_mesh_of(mesh), placements)
+    # a permuted global layout (an einsum's output) with freshly cut local
+    # shards trips DTensor's view rules in the next op: lay it out anew
+    return out if out.is_contiguous() else out.contiguous()

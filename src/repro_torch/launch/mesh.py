@@ -1,27 +1,40 @@
-"""Device meshes of the SNN mesh path on `torch.distributed`.
+"""Device meshes on `torch.distributed`, shared by the SNN mesh path and
+LM sharding.
 
-A mesh lays the ranks of one process group out row-major on named axes;
-the SNN path uses two:
+A mesh lays the ranks of one process group out row-major on named axes:
 
   data   -- serving lanes and macro banks (the batch), split over data
-            ranks: lanes never interact;
+            ranks: lanes never interact; for a language model the batch,
+            and under FSDP each parameter's leading axis;
   model  -- the macro's row-tiled fan-in, split over model ranks: each
             holds a row tile of every layer's weights and the tiles'
-            unclamped int32 partial V add up in one integer all-reduce.
+            unclamped int32 partial V add up in one integer all-reduce;
+            for a language model the tensor-parallel (last) axis of each
+            parameter, the vocabulary, the heads, and the sequence under
+            sequence parallelism.
 
 `make_mesh` and `make_host_mesh` build an `SNNMesh` over the default
 process group, whose size must equal the mesh's: one sub-group per axis
-(the ranks that differ only along it), made collectively on every rank. A
-mesh whose extents are all 1 needs no process group and runs no
-collective. The device type is explicit: ``"cuda"`` (the rank's current
-CUDA device) unless the caller asks for ``"cpu"``; collectives run on the
-tensors of that device through whatever backend the group was built with
-(NCCL, or gloo, which takes CPU and CUDA tensors), and nothing falls back
-to the host.
+(the ranks that differ only along it), made collectively on every rank,
+and a `torch.distributed.device_mesh.DeviceMesh` over the same ranks in
+the same layout (``device_mesh``), on which `dist.sharding` places
+DTensors. A mesh whose extents are all 1 needs no process group and runs
+no collective; without one it has no DeviceMesh (``device_mesh`` None),
+and the LM placements refuse it by name (`dist.sharding.device_mesh_of`):
+a world of one (``init_process_group`` with world size 1) gives it one.
+The device type is explicit: ``"cuda"`` (the rank's current CUDA device)
+unless the caller asks for ``"cpu"``; collectives run on the tensors of
+that device through whatever backend the group was built with (NCCL, or
+gloo, which takes CPU and CUDA tensors), and nothing falls back to the
+host.
+
+`make_production_mesh` is the JAX package's production geometry, (16, 16)
+on ("data", "model") or (2, 16, 16) on ("pod", "data", "model"); its TPU
+hardware constants are not carried over.
 
 A plain ``{axis: extent}`` dict stands in for a mesh wherever only the
 geometry matters (`analysis.check_kernel_contracts`, `check_trace`,
-`dist.sharding`): `mesh_extents` reads either.
+`dist.sharding`'s spec builders): `mesh_extents` reads either.
 """
 from __future__ import annotations
 
@@ -46,17 +59,20 @@ class SNNMesh:
 
     ``device`` is where the mesh's tensors and collectives live;
     ``capturable`` says whether its collectives can be recorded in a CUDA
-    graph (an NCCL group on a CUDA device, or no collective at all)."""
+    graph (an NCCL group on a CUDA device, or no collective at all);
+    ``device_mesh`` is the `DeviceMesh` of the same ranks and axis names
+    (None without a process group), where DTensors live."""
 
     def __init__(self, shape: tuple, axis_names: tuple, *, device_type: str,
                  rank: int = 0, groups: Optional[dict] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, device_mesh=None):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         self.device_type = device_type
         self.rank = rank
         self.backend = backend
         self.groups = dict(groups or {})
+        self.device_mesh = device_mesh
         coords, r = [], rank
         for size in reversed(self.shape):
             coords.append(r % size)
@@ -113,11 +129,15 @@ def make_mesh(shape: tuple, axes: tuple = AXES, *, device_type: str = "cuda"
     """An `SNNMesh` of ``shape`` on the named ``axes`` over the default
     process group (one rank a mesh point, row-major). Every rank must call
     it, in the same order as every other collective: each axis's
-    sub-groups are made with `torch.distributed.new_group`.
+    sub-groups are made with `torch.distributed.new_group`, then the
+    `DeviceMesh` of the same layout (``device_mesh``), which makes its own.
+    A gloo group on CUDA installs `dist.collectives` (DTensor's functional
+    collectives through gloo's blocking calls, which take CUDA tensors).
 
     ``device_type`` is ``"cuda"`` (each rank on its current CUDA device)
-    or ``"cpu"``. A mesh of extent 1 everywhere needs no process group.
-    Raises `ValueError` when the mesh's size is not the group's."""
+    or ``"cpu"``. A mesh of extent 1 everywhere needs no process group
+    (and then has no DeviceMesh). Raises `ValueError` when the mesh's size
+    is not the group's."""
     import torch.distributed as dist
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes)
@@ -156,7 +176,24 @@ def make_mesh(shape: tuple, axes: tuple = AXES, *, device_type: str = "cuda"
             if rank in ranks:
                 mesh.groups[axis] = group
                 _GROUPS[mesh.group_key(axis)] = group
+    if device_type == "cuda" and backend == "gloo":
+        from repro_torch.dist import collectives
+        collectives.install("CUDA")
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh.device_mesh = DeviceMesh(
+        device_type, torch.arange(size).reshape(shape), mesh_dim_names=axes)
     return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> SNNMesh:
+    """The JAX package's production mesh: (16, 16) on ("data", "model"),
+    or with ``multi_pod`` (2, 16, 16) on ("pod", "data", "model"), over
+    the default process group. Raises `make_mesh`'s `ValueError` when the
+    world is another size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def make_host_mesh(n_devices: int = 0, model: int = 1, *,

@@ -12,11 +12,15 @@ in bf16 would be another function).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.sharding import constrain, replicated_call
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -256,6 +260,11 @@ def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     if use_rope and cfg.rope_theta > 0 and kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # under a mesh the heads come out of the tensor-parallel projections
+    # sharded; the score products flatten (batch, heads) into one batch
+    # axis, which DTensor cannot do with both sharded: gather the heads
+    # (the identity without active rules)
+    q, k, v = (constrain(t, ("batch", None, None, None)) for t in (q, k, v))
     if q_chunk and T > 1:
         out = blocked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                                 kv_block=kv_block)
@@ -425,7 +434,8 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, k: int
 
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
-            groups: Optional[int] = None, gather_dispatch: bool = False
+            groups: Optional[int] = None, constraints: bool = False,
+            gather_dispatch: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k routing with capacity, as the JAX package's
     ``moe_ffn``: float32 router softmax, top-k gates renormalised, the
@@ -437,18 +447,54 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
     all E experts in three batched products and combined by `_combine`
     in JAX's order of adds, the same on every run. Every shape is fixed by
     (x.shape, cfg, capacity_factor): no host sync, so a decode tick can be
-    a CUDA graph. ``gather_dispatch`` is taken for
-    the JAX signature and gives the same result: the JAX package's gather
-    form only works round an XLA lowering of wide scatters under a mesh,
-    which PyTorch does not have, so the port has the one dispatch. Returns
-    (out, load-balance aux float32)."""
+    a CUDA graph. ``constraints`` pins the bucket tensors ``be`` and ``h``
+    to (batch groups, experts) under `dist.sharding.activation_rules`
+    (expert parallelism; the identity otherwise); on a DTensor ``x`` the
+    dispatch (`_route`) and the combine run replicated
+    (`dist.sharding.replicated_call`) and the expert products sharded.
+    ``gather_dispatch`` is taken for the JAX signature and gives the same
+    result: the JAX package's gather form only works round an XLA lowering
+    of wide scatters under a mesh, which PyTorch does not have, so the
+    port has the one dispatch. Returns (out, load-balance aux float32)."""
     m = cfg.moe
     B, T, d = x.shape
     k, E = m.top_k, m.n_experts
     G = groups if groups else (B if T > 1 else 1)
     n = B * T // G
-    xg = x.reshape(G, n, d)
-    logits = torch.einsum("gnd,de->gne", xg.float(), p["router"])
+    cap = max(int(np.ceil(n * k / E * capacity_factor)), 4)
+    route, combine = _route, _gather_combine
+    if isinstance(x, DTensor):
+        # the sort-based dispatch and the ordered combine have no DTensor
+        # sharding rules: run them on the global values, replicated
+        route, combine = (partial(replicated_call, _route),
+                          partial(replicated_call, _gather_combine))
+    buckets, dest, keep, gate_sorted, order, lb_loss = route(
+        x.reshape(G, n, d), p["router"], k, cap)
+    be = buckets.reshape(G, E, cap, d)
+    if constraints:
+        be = constrain(be, ("batch", "experts", None, None))
+    ex = p["experts"]
+    h = (F.silu(torch.einsum("gecd,edf->gecf", be, ex["gate"]))
+         * torch.einsum("gecd,edf->gecf", be, ex["up"]))
+    if constraints:
+        h = constrain(h, ("batch", "experts", None, None))
+    ye = torch.einsum("gecf,efd->gecd", h, ex["down"]).reshape(G, E * cap, d)
+    out = combine(ye, dest, keep, gate_sorted, order, k, x.dtype
+                  ).reshape(B, T, d)
+    if "shared" in p:
+        out = out + ffn(x, p["shared"], "swiglu")
+    return out, lb_loss.float()
+
+
+def _route(xg: torch.Tensor, router: torch.Tensor, k: int, cap: int):
+    """`moe_ffn`'s routing and dispatch of the grouped tokens ``xg`` (G,
+    n, d): the float32 router softmax, the top-k gates renormalised, the
+    Switch load-balance aux, the stable sort by expert and the (G, E * cap,
+    d) buckets (overflow in a trash slot, dropped). Returns (buckets,
+    dest, keep, gate_sorted, order, lb_loss)."""
+    G, n, d = xg.shape
+    E = router.shape[1]
+    logits = torch.einsum("gnd,de->gne", xg.float(), router)
     probs = torch.softmax(logits, dim=-1)                     # (G, n, E)
     gate_vals, eidx = _topk_first(probs, k)                   # (G, n, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -459,15 +505,14 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
     lb_loss = E * torch.mean(torch.mean(probs, dim=1)
                              * torch.mean(assign, dim=1))
 
-    cap = max(int(np.ceil(n * k / E * capacity_factor)), 4)
     flat_e = eidx.reshape(G, n * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)        # group-local
     e_sorted = torch.gather(flat_e, 1, order)
     tok_sorted = order // k
     gate_sorted = torch.gather(gate_vals.reshape(G, n * k), 1, order)
-    experts = torch.arange(E, device=x.device).expand(G, E).contiguous()
+    experts = torch.arange(E, device=xg.device).expand(G, E).contiguous()
     starts = torch.searchsorted(e_sorted, experts)            # (G, E)
-    slot = (torch.arange(n * k, device=x.device)[None]
+    slot = (torch.arange(n * k, device=xg.device)[None]
             - torch.gather(starts, 1, e_sorted))
     keep = slot < cap
     # overflow goes to a trash slot so it cannot clobber a real token
@@ -476,21 +521,22 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
 
     gathered = torch.gather(xg, 1, tok_sorted[..., None].expand(-1, -1, d))
     gathered = torch.where(keep[..., None], gathered,
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    buckets = torch.zeros((G, E * cap + 1, d), dtype=x.dtype,
-                          device=x.device).scatter_(
+                           torch.zeros((), dtype=xg.dtype, device=xg.device))
+    buckets = torch.zeros((G, E * cap + 1, d), dtype=xg.dtype,
+                          device=xg.device).scatter_(
         1, dest[..., None].expand(-1, -1, d), gathered)[:, :-1]
-    be = buckets.reshape(G, E, cap, d)
-    ex = p["experts"]
-    h = (F.silu(torch.einsum("gecd,edf->gecf", be, ex["gate"]))
-         * torch.einsum("gecd,edf->gecf", be, ex["up"]))
-    ye = torch.einsum("gecf,efd->gecd", h, ex["down"]).reshape(G, E * cap, d)
+    return buckets, dest, keep, gate_sorted, order, lb_loss
 
-    safe_dest = torch.clamp(dest, max=E * cap - 1)            # trash masked
+
+def _gather_combine(ye: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+                    gate_sorted: torch.Tensor, order: torch.Tensor, k: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Each routed place's expert output ``ye`` (G, E * cap, d) gathered
+    and gated, then `_combine`d per token in ``dtype``. Returns (G, n,
+    d)."""
+    d = ye.shape[-1]
+    safe_dest = torch.clamp(dest, max=ye.shape[1] - 1)        # trash masked
     weight = (gate_sorted * keep)[..., None].to(ye.dtype)
     contrib = (torch.gather(ye, 1, safe_dest[..., None].expand(-1, -1, d))
-               * weight).to(x.dtype)
-    out = _combine(contrib, order, k).reshape(B, T, d)
-    if "shared" in p:
-        out = out + ffn(x, p["shared"], "swiglu")
-    return out, lb_loss.float()
+               * weight).to(dtype)
+    return _combine(contrib, order, k)

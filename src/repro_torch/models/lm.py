@@ -64,10 +64,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.dist.sharding import (constrain, recompute_contexts,
+                                       replicated_call)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
@@ -303,7 +306,22 @@ def params_from_jax(tree, device=None):
 # ---------------------------------------------------------------------------
 
 def _norm(x, w, cfg: ModelConfig):
-    return L.rms_norm(x, w, cfg.norm_eps)
+    """RMS norm. Its output feeds projections that read every position, so
+    under sequence parallelism the sequence is gathered here (Megatron's
+    all-gather after the sequence-parallel norm; DTensor cannot flatten a
+    sequence-sharded activation into a product's rows); the identity
+    without active rules."""
+    return constrain(L.rms_norm(x, w, cfg.norm_eps), ("batch", None, None))
+
+
+def _residual(x, h):
+    """``x + h`` in ``x``'s type. Under a mesh ``h``, a projection's
+    output, is pinned to (batch, ...) first, so the gradient it takes from
+    the sequence-sharded residual stream is gathered before the
+    projection's backward reads it (DTensor cannot flatten a
+    sequence-sharded gradient into the product's rows); the identity
+    without active rules."""
+    return x + constrain(h, ("batch", None, None)).to(x.dtype)
 
 
 def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool,
@@ -357,7 +375,9 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
         if decode:
             h, new_cache = M.mamba_decode(h_in, p["ssm"], cfg, st)
         else:
-            h, new_cache = M.mamba_forward(h_in, p["ssm"], cfg, st)
+            h, new_cache = M.mamba_forward(
+                h_in, p["ssm"], cfg, st,
+                constraints=parallel.state_constraints if parallel else False)
     elif cfg.mla is not None:
         h, latent = L.mla_attention(
             h_in, p["attn"], cfg, positions,
@@ -387,22 +407,24 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
             cache["k"][:, :T].copy_(k)
             cache["v"][:, :T].copy_(v)
             new_cache = {"k": cache["k"], "v": cache["v"]}
-    x = x + h.to(x.dtype)
+    x = _residual(x, h)
     if mixer == "attn" and cfg.is_encoder_decoder and enc_out is not None:
         h = L.attention(_norm(x, p["norm_cross"], cfg), p["cross"], cfg,
                         positions, causal=False, kv_x=enc_out)
-        x = x + h.to(x.dtype)
+        x = _residual(x, h)
 
     h_in = _norm(x, p["norm2"], cfg)
     if f == "moe":
-        h, lb = L.moe_ffn(h_in, p["moe"], cfg)
+        h, lb = L.moe_ffn(h_in, p["moe"], cfg,
+                          constraints=(parallel.moe_constraints if parallel
+                                       else False))
         aux = aux + lb
     elif f == "spiking":
         h, rate = S.spiking_ffn(h_in, p["ffn"], cfg)
         aux = aux + rate
     else:
         h = L.ffn(h_in, p["ffn"], cfg.ffn_type)
-    x = x + h.to(x.dtype)
+    x = _residual(x, h)
     return x, new_cache, aux
 
 
@@ -437,6 +459,9 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
         aux_total = aux_total + aux
 
     def super_block(x, aux_total, p_s, c_s, s, enc_out):
+        # boundary activations: batch over data, seq over model (sequence
+        # parallelism); the identity without active rules
+        x = constrain(x, ("batch", "seq", None))
         c_new = {}
         for j in range(sp):
             x, c_new[f"pos{j}"], aux = _apply_block(
@@ -456,7 +481,8 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
                else tree_map(lambda a: a[s], cache_blocks))
         if remat:
             x, aux_total = checkpoint(recomputed, x, aux_total, p_s, s,
-                                      enc_out, use_reentrant=False)
+                                      enc_out, use_reentrant=False,
+                                      context_fn=recompute_contexts)
             continue
         x, aux_total, c_new = super_block(x, aux_total, p_s, c_s, s, enc_out)
         olds.append(c_s)
@@ -504,7 +530,8 @@ def _run_encoder(params, frames, cfg: ModelConfig,
     remat = train and parallel.remat != "none" and torch.is_grad_enabled()
     for i in range(cfg.n_encoder_layers):
         p = tree_map(lambda a: a[i], enc["blocks"])
-        x = (checkpoint(layer, x, p, use_reentrant=False) if remat
+        x = (checkpoint(layer, x, p, use_reentrant=False,
+                        context_fn=recompute_contexts) if remat
              else layer(x, p))
     return _norm(x, enc["final_norm"], cfg)
 
@@ -522,7 +549,13 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
     the tokens (T' = P + T) when the batch has them; ``enc_src`` is None
     otherwise."""
     check_family(cfg)
-    x = params["embed"][batch["tokens"]]
+    embed, tokens = params["embed"], batch["tokens"]
+    if isinstance(embed, DTensor):
+        # the lookup's backward (an accumulating index_put) has no sound
+        # DTensor rule in every torch: look up in the replicated table
+        x = replicated_call(_lookup, embed, tokens)
+    else:
+        x = embed[tokens]
     if cfg.is_encoder_decoder:
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model).to(
             device=x.device, dtype=x.dtype)[None]
@@ -532,6 +565,10 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     return x, positions, None
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embed[tokens]
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -580,7 +617,8 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
                          f"sequence length, got T={T}")
 
     def ce(xc, tc):
-        lp = torch.log_softmax(_logits(params, xc, cfg), dim=-1)
+        lg = constrain(_logits(params, xc, cfg), ("batch", None, "vocab"))
+        lp = torch.log_softmax(lg, dim=-1)
         return -torch.gather(lp, -1, tc[..., None])[..., 0]
 
     if n_chunks == 1:
@@ -591,7 +629,8 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
                   targets[:, i * step:(i + 1) * step])
                  for i in range(n_chunks)]
         if torch.is_grad_enabled():
-            losses = torch.cat([checkpoint(ce, xc, tc, use_reentrant=False)
+            losses = torch.cat([checkpoint(ce, xc, tc, use_reentrant=False,
+                                           context_fn=recompute_contexts)
                                 for xc, tc in parts], dim=1)
         else:
             losses = torch.cat([ce(xc, tc) for xc, tc in parts], dim=1)

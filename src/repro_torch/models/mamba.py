@@ -22,9 +22,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain, recompute_contexts
 from repro_torch.models.layers import dense_init, gen_device
 
 CHUNK = 128                       # the JAX package's scan chunk
@@ -129,24 +131,40 @@ def _combine(p, q):
     return [la1 + la2, torch.exp(la2) * b1 + b2]
 
 
+def _scan_chunk(h, la, b, cc):
+    """One chunk of the scan: the associative scan of (``la``, ``b``) with
+    the carry-in ``h`` added, read out through ``cc``. Returns (h at the
+    chunk's end, y of the chunk)."""
+    la_cum, b_scan = associative_scan(_combine, (la, b), axis=1)
+    h_all = b_scan + torch.exp(la_cum) * h[:, None]         # carry-in
+    return h_all[:, -1], torch.einsum("btdn,btn->btd", h_all, cc)
+
+
 def _ssm_chunked(a_log_dt: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-                 h0: torch.Tensor, chunk: int):
+                 h0: torch.Tensor, chunk: int, remat_chunks: bool = False):
     """Selective scan. a_log_dt (= dt * A, the log decay) and bx (= dt * B
     * x): both (B, T, d_in, N) float32; c: (B, T, N); h0: (B, d_in, N).
     A loop over T / chunk chunks carrying h, an associative scan inside
-    each. Returns (y (B, T, d_in), h_T)."""
+    each. Returns (y (B, T, d_in), h_T).
+
+    ``remat_chunks`` (with grad mode on): each chunk body is recomputed in
+    the backward pass (`torch.utils.checkpoint`, JAX's ``jax.checkpoint``
+    of the chunk), which keeps only the (B, d_in, N) chunk-boundary states
+    instead of the (B, T, d_in, N) scan residuals; the values are the
+    same."""
     B, T, d_in, N = bx.shape
     if T % chunk != 0:
         raise ValueError(f"chunked ssm scan needs T % chunk == 0, got "
                          f"T={T}, chunk={chunk}")
+    remat = remat_chunks and torch.is_grad_enabled()
     h, ys = h0, []
     for i in range(T // chunk):
         part = slice(i * chunk, (i + 1) * chunk)
-        la_cum, b_scan = associative_scan(
-            _combine, (a_log_dt[:, part], bx[:, part]), axis=1)
-        h_all = b_scan + torch.exp(la_cum) * h[:, None]     # carry-in
-        ys.append(torch.einsum("btdn,btn->btd", h_all, c[:, part]))
-        h = h_all[:, -1]
+        args = (h, a_log_dt[:, part], bx[:, part], c[:, part])
+        h, y = (checkpoint(_scan_chunk, *args, use_reentrant=False,
+                           context_fn=recompute_contexts) if remat
+                else _scan_chunk(*args))
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
@@ -156,12 +174,16 @@ def _split_proj(proj: torch.Tensor, s) -> tuple:
 
 
 def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                  state: Optional[dict] = None, chunk: int = CHUNK):
+                  state: Optional[dict] = None, chunk: int = CHUNK,
+                  constraints: bool = False):
     """x: (B, T, d). state: {"conv": (B, d_conv - 1, d_in), "ssm": (B,
     d_in, N) float32} or None (zeros). The scan runs over T padded to a
     multiple of ``chunk`` with a zero log decay and a zero input, so the
     padded steps keep h. Returns (out (B, T, d), new_state): the conv
-    state in the activations' type, the SSM state float32."""
+    state in the activations' type, the SSM state float32.
+    ``constraints`` pins the (B, T, d_in, N) scan tensors to (batch, ffn)
+    under `dist.sharding.activation_rules` (the identity otherwise) and
+    recomputes each scan chunk in the backward pass (``remat_chunks``)."""
     s = cfg.ssm
     B, T, _ = x.shape
     d_in = s.expand * cfg.d_model
@@ -177,13 +199,16 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
     h0 = (torch.zeros((B, d_in, s.d_state), dtype=torch.float32,
                       device=x.device)
           if state is None else state["ssm"])
+    if constraints:
+        la = constrain(la, ("batch", None, "ffn", None))
+        bx = constrain(bx, ("batch", None, "ffn", None))
     c_pad = c_mat.float()
     pad = (-T) % chunk
     if pad:
         la = F.pad(la, (0, 0, 0, 0, 0, pad))
         bx = F.pad(bx, (0, 0, 0, 0, 0, pad))
         c_pad = F.pad(c_pad, (0, 0, 0, pad))
-    y, h = _ssm_chunked(la, bx, c_pad, h0, chunk)
+    y, h = _ssm_chunked(la, bx, c_pad, h0, chunk, remat_chunks=constraints)
     y = y[:, :T] + xs.float() * p["d_skip"]
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return out, {"conv": conv_new, "ssm": h}

@@ -1,10 +1,13 @@
 """Train state and the train step builder (microbatching, gradient
-clipping, optional int8 gradient compression)."""
+clipping, optional int8 gradient compression), on one device or sharded
+over a mesh (DTensor parameters, `dist.sharding`)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig
@@ -58,7 +61,20 @@ def make_train_step(run: RunConfig, opt, loss_fn: Callable | None = None,
     ``step``, as detached tensors.
 
     ``loss_fn`` None means the language-model loss, `lm.loss_fn` of
-    ``run.model`` under ``run.parallel``."""
+    ``run.model`` under ``run.parallel``.
+
+    Sharded: the same step runs on DTensor parameters (placed by
+    `dist.sharding.param_specs` with `place_tree`) and a batch placed by
+    `batch_specs`, called inside `dist.sharding.activation_rules(mesh,
+    run.parallel)` so the model's `constrain` sites pin activations. The
+    whole step then runs under torch's ``implicit_replication``, entered
+    here, so the plain tensors made inside the model and the optimizer
+    (RoPE tables, positions, masks, the aux accumulators, the step count
+    and learning rate) act as replicated. Each gradient is redistributed
+    to its parameter's placements, the optimizer state (``opt.init`` of
+    DTensors) follows them, the global-norm clip reduces across ranks,
+    and ``loss`` and ``grad_norm`` come back as full values on every
+    rank."""
     parallel = run.parallel
     if loss_fn is None:
         cfg = run.model
@@ -70,20 +86,33 @@ def make_train_step(run: RunConfig, opt, loss_fn: Callable | None = None,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         loss, aux = loss_fn(tree_unflatten_like(params, leaves), batch)
+        if isinstance(loss, DTensor):
+            loss = loss.redistribute(placements=[Replicate()]
+                                     * loss.device_mesh.ndim)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _like(g, p)
                  for p, g in zip(leaves, grads)]
         return loss.detach(), aux, tree_unflatten_like(params, grads)
 
     def train_step(state: TrainState, batch: dict):
+        sharded = any(isinstance(p, DTensor)
+                      for p in tree_leaves(state.params))
+        with _replicating(sharded):
+            new, metrics = step(state, batch)
+        if sharded:
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+        return new, metrics
+
+    def step(state: TrainState, batch: dict):
         mb = parallel.microbatches
         if mb > 1:
             def part(x, i):
                 n = x.shape[0] // mb
                 return x.reshape((mb, n) + tuple(x.shape[1:]))[i]
             loss = torch.zeros((), device=state.step.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             for i in range(mb):
                 m_loss, _, m_grads = grads_of(
                     state.params, tree_map(lambda x: part(x, i), batch))
@@ -105,3 +134,18 @@ def make_train_step(run: RunConfig, opt, loss_fn: Callable | None = None,
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
+
+
+def _like(g, p):
+    """A gradient with its parameter's placements (itself when plain)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _replicating(sharded: bool):
+    """``implicit_replication()`` for a sharded step, else nothing."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()

@@ -64,17 +64,21 @@ def tree_unflatten_like(tree: Any, leaves: list) -> Any:
     if len(paths) != len(leaves):
         raise ValueError(f"the tree has {len(paths)} leaves, got "
                          f"{len(leaves)}")
-    values = dict(zip(paths, leaves))
+    return _build(tree, (), dict(zip(paths, leaves)))
 
-    def build(t, prefix):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(v, prefix + (k,)) for k, v in t.items()}
-        if _is_namedtuple(t):
-            return type(t)(*[build(v, prefix + (f".{n}",))
-                             for n, v in zip(t._fields, t)])
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v, prefix + (i,)) for i, v in enumerate(t))
-        return values[prefix]
-    return build(tree, ())
+
+def _build(t: Any, prefix: tuple, values: dict) -> Any:
+    """`tree_unflatten_like`'s recursion, at module level: a nested
+    recursive function would be a reference cycle holding every leaf (on a
+    card, its memory) until the garbage collector runs."""
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _build(v, prefix + (k,), values) for k, v in t.items()}
+    if _is_namedtuple(t):
+        return type(t)(*[_build(v, prefix + (f".{n}",), values)
+                         for n, v in zip(t._fields, t)])
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, prefix + (i,), values)
+                       for i, v in enumerate(t))
+    return values[prefix]

@@ -1,0 +1,271 @@
+"""One rank of the port's LM sharding world (not collected by pytest).
+
+    python tests/torch_lm_sharding_worker.py SPEC RANK WORLD STORE OUT
+
+`tests/test_torch_lm_sharding.py` writes SPEC (``torch.save`` of a dict:
+the reduced llama3.2-1b parameters carried across from JAX, the MoE and
+Mamba blocks with their inputs, the gradient rows and the GPipe stages),
+then starts WORLD of these processes. Each joins a gloo process group
+through a `FileStore` at STORE, builds the meshes (2, 2) and (4, 1) on
+("data", "model") and (4,) on ("pipe",), all on the CPU, runs every case
+through the port's entry points and writes its results to OUT/rank<RANK>.pt.
+Nothing here imports JAX: the test process holds the results against the
+port's single-process calls and against the JAX package.
+
+Cases, in the order every rank runs them:
+
+  mesh      the DeviceMesh each `make_mesh` built, `make_production_mesh`'s
+            refusal, and `constrain` outside the rules on a DTensor;
+  train     two steps of `make_train_step` on DTensor parameters and batch
+            on (2, 2) under `activation_rules`: metrics, every parameter
+            gathered, and the placements of parameters and moments;
+  ckpt      the step-2 parameters saved from (2, 2) (rank 0 writes),
+            restored onto (4, 1) with ``shardings=``;
+  moe       `moe_ffn(constraints=True)` on DTensors on (2, 2);
+  mamba     `mamba_forward(constraints=True)` on DTensors on (2, 2), with
+            the gradient of a scalar loss;
+  compress  six steps of `compressed_psum_mean` over the 4 ranks of (4, 1)
+            on this rank's gradient row, and what crossed the wire;
+  pipe      `make_pipeline_fn` on ("pipe",) x 4 with each ring, and the
+            sequential composition computed here.
+"""
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return x
+
+
+def _placements(tree):
+    """Each leaf's placements as strings (None for a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+    return [tuple(str(p) for p in x.placements) if isinstance(x, DTensor)
+            else None for x in tree_leaves(tree)]
+
+
+def case_mesh(meshes):
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {name: {"mesh": m.device_mesh.mesh.tolist(),
+                  "names": list(m.device_mesh.mesh_dim_names),
+                  "device_type": m.device_mesh.device_type,
+                  "coords": dict(m.coords)}
+           for name, m in meshes.items()}
+    try:
+        make_production_mesh(device_type="cpu")
+        out["production"] = None
+    except ValueError as e:
+        out["production"] = str(e)
+    dt = sharding.place_tree(torch.arange(8.0), meshes["2x2"],
+                             sharding.logical_spec(meshes["2x2"], ("batch",),
+                                                   (8,)))
+    out["constrain_identity"] = sharding.constrain(dt, ("seq",)) is dt
+    return out
+
+
+def case_train(spec, mesh):
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.dist import sharding
+    from repro_torch.models import io_spec, lm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.train_state import TrainState, make_train_step
+    cfg, shape, parallel = spec["cfg"], spec["shape"], spec["parallel"]
+    run = RunConfig(model=cfg, shape=shape, parallel=parallel,
+                    optimizer="adamw", learning_rate=1e-3, warmup_steps=1)
+    opt = make_optimizer("adamw", 1e-3, 0.1)
+    params = lm.params_from_jax(spec["params"], device="cpu")
+    specs = sharding.param_specs(params, mesh, parallel)
+    params = sharding.place_tree(params, mesh, specs)
+    batch = io_spec.materialize(io_spec.train_batch_spec(cfg, shape), 0,
+                                device="cpu")
+    batch = sharding.place_tree(batch, mesh,
+                                sharding.batch_specs(batch, mesh, parallel))
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    step_fn = make_train_step(run, opt)
+    metrics, seconds = [], []
+    with sharding.activation_rules(mesh, parallel):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return state, {
+        "metrics": metrics, "seconds": seconds,
+        "params": [_np(x) for x in
+                   _leaves(sharding.gather_tree(state.params))],
+        "placements": _placements(state.params),
+        "specs": [tuple(str(p) for p in s) for s in _spec_leaves(specs)],
+        "m_placements": _placements(state.opt_state["m"]),
+        "v_placements": _placements(state.opt_state["v"]),
+        "batch_placements": _placements(batch)}
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _spec_leaves(specs):
+    """The placement tuples of a spec tree, in leaf order (a tuple of
+    placements is one leaf)."""
+    from torch.distributed.tensor import Placement
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    if isinstance(specs, list) or (isinstance(specs, tuple) and specs
+                                   and not isinstance(specs[0], Placement)):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [specs]
+
+
+def case_ckpt(spec, state, m22, m41, ckpt_dir):
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.dist import sharding
+    parallel = spec["parallel"]
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    mgr.save(2, state.params, blocking=True)
+    dist.barrier()
+    like = sharding.gather_tree(state.params)
+    step, restored = mgr.restore(
+        like=like, shardings=sharding.param_specs(like, m41, parallel),
+        mesh=m41)
+    back = sharding.gather_tree(restored)
+    return {"step": step, "placements": _placements(restored),
+            "specs41": [tuple(str(p) for p in s) for s in _spec_leaves(
+                sharding.param_specs(like, m41, parallel))],
+            "equal": all(torch.equal(a, b) for a, b in
+                         zip(_leaves(back), _leaves(like)))}
+
+
+def case_moe(spec, mesh):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import layers
+    cfg, p, x = spec["moe_cfg"], spec["moe_p"], spec["moe_x"]
+    parallel = spec["block_parallel"]
+    dp = sharding.place_tree(p, mesh, sharding.param_specs(p, mesh,
+                                                           parallel))
+    dx = sharding.place_tree(x, mesh, sharding.logical_spec(
+        mesh, ("batch", "seq", None), tuple(x.shape)))
+    with sharding.activation_rules(mesh, parallel), implicit_replication():
+        out, lb = layers.moe_ffn(dx, dp, cfg, constraints=True)
+    return {"out": _np(out.full_tensor()), "placements": str(out.placements),
+            "lb": _np(lb.full_tensor() if isinstance(lb, DTensor) else lb)}
+
+
+def case_mamba(spec, mesh):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import mamba
+    cfg, p, x = spec["mamba_cfg"], spec["mamba_p"], spec["mamba_x"]
+    parallel = spec["block_parallel"]
+    dp = sharding.place_tree(p, mesh, sharding.param_specs(p, mesh,
+                                                           parallel))
+    dx = sharding.place_tree(x, mesh, sharding.logical_spec(
+        mesh, ("batch", "seq", None), tuple(x.shape)))
+    leaves = [dx.detach().requires_grad_(True)] + [
+        t.detach().requires_grad_(True) for t in _leaves(dp)]
+    from repro_torch.tree import tree_unflatten_like
+    with sharding.activation_rules(mesh, parallel), implicit_replication():
+        out, st = mamba.mamba_forward(
+            leaves[0], tree_unflatten_like(dp, leaves[1:]), cfg,
+            constraints=True)
+        loss = (out.float() ** 2).mean()
+        grads = torch.autograd.grad(loss, leaves)
+    return {"out": _np(out.full_tensor()),
+            "conv": _np(st["conv"].full_tensor()),
+            "ssm": _np(st["ssm"].full_tensor()),
+            "grads": [_np(g.full_tensor()) for g in grads]}
+
+
+def case_compress(spec, mesh, rank):
+    from repro_torch.dist.compress import compressed_psum_mean
+    g = {"w": spec["compress_g"][rank].clone()}
+    r = {"w": torch.zeros_like(g["w"])}
+    wire = []
+    all_gather = dist.all_gather
+
+    def recording(tensor_list, tensor, group=None, async_op=False):
+        wire.append((str(tensor.dtype), tensor.numel()
+                     * tensor.element_size()))
+        return all_gather(tensor_list, tensor, group=group,
+                          async_op=async_op)
+    means, residuals = [], []
+    dist.all_gather = recording
+    try:
+        for _ in range(6):
+            out, r = compressed_psum_mean(g, r, "data", mesh)
+            means.append(_np(out["w"]))
+            residuals.append(_np(r["w"]))
+    finally:
+        dist.all_gather = all_gather
+    return {"means": means, "residuals": residuals, "wire": wire}
+
+
+def case_pipe(spec, mesh):
+    from repro_torch.dist import pipeline
+    Ws, xs = spec["pipe_ws"], spec["pipe_xs"]
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+    out = {}
+    ring_of = pipeline.ring_of
+    for ring in ("p2p", "all_gather"):
+        # the CPU takes point to point; the all-gather ring is what a gloo
+        # mesh on CUDA takes, run here by selecting it
+        pipeline.ring_of = lambda m, ring=ring: ring
+        try:
+            out[ring] = _np(pipeline.make_pipeline_fn(
+                stage, mesh, "pipe", xs.shape[0])(Ws, xs))
+        finally:
+            pipeline.ring_of = ring_of
+    seq = []
+    for m in range(xs.shape[0]):
+        x = xs[m]
+        for s in range(Ws.shape[0]):
+            x = stage(Ws[s], x)
+        seq.append(x)
+    out["sequential"] = _np(torch.stack(seq))
+    return out
+
+
+def main(argv) -> int:
+    spec_path, rank, world, store_path, out_dir = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    from repro_torch.launch.mesh import make_mesh
+    spec = torch.load(spec_path, weights_only=False)
+    meshes = {"2x2": make_mesh((2, 2), device_type="cpu"),
+              "4x1": make_mesh((4, 1), device_type="cpu"),
+              "pipe": make_mesh((4,), ("pipe",), device_type="cpu")}
+    t0 = time.perf_counter()
+    results = {"mesh": case_mesh(meshes)}
+    state, results["train"] = case_train(spec, meshes["2x2"])
+    results["ckpt"] = case_ckpt(spec, state, meshes["2x2"], meshes["4x1"],
+                                f"{out_dir}/ckpt")
+    results["moe"] = case_moe(spec, meshes["2x2"])
+    results["mamba"] = case_mamba(spec, meshes["2x2"])
+    results["compress"] = case_compress(spec, meshes["4x1"], rank)
+    results["pipe"] = case_pipe(spec, meshes["pipe"])
+    results["seconds"] = time.perf_counter() - t0
+    torch.save(results, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
