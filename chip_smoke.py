@@ -116,16 +116,24 @@ Phases, each of which exits non-zero on failure:
      same port code on the CPU (loss within 1e-4 relative, each gradient
      within 1e-3 relative L2, differing raster sites counted), TF32 off,
      and the float backend on the int program == `int_ref` == `cuda`; (b)
-     400 steps at `benchmarks/fig9_accuracy.py`'s settings through
-     `make_train_step` and `train_loop` (the loss must fall; cut, and said
-     so, if it would not end inside the time limit), the median step time
-     and a profiled step, then the LSTM baseline and the Fig. 9b row; (c)
+     the train step eager and compiled (`compile_train_step`: forward,
+     backward and AdamW as one CUDA graph) from one state over one batch
+     stream, 10 steps each after a second eager run of 5: after 5 steps
+     the compiled run equal to the eager one bit for bit (parameters,
+     moments, steps, losses, gradient norms; where two eager runs differ,
+     within twice their difference), each run's ms a step, profiled step
+     (idle share, device ops: one replay's) and peak bytes; then 400
+     compiled steps at `benchmarks/fig9_accuracy.py`'s settings through
+     `train_loop` (the loss must fall; cut, and said so, if it would not
+     end inside the time limit), the median step time and a profiled
+     step, then the LSTM baseline, compiled, and the Fig. 9b row; (c)
      the trained program on every backend and on `float` equal to
      `int_ref` on 1,024 eval reviews, its sparsity, instruction counts and
      energy, and 64 reviews served on `cuda` equal to an `int_ref` engine;
-     (d) a checkpointed `train_loop` stopped at 10 steps and resumed; (e)
-     12 impulse-mnist `lenet_loss` steps, finite, and the trained conv
-     program on `cuda` == `int_ref`;
+     (d) a checkpointed `train_loop` over the compiled step stopped at 10
+     steps and resumed (the restored state copied into the step's
+     buffers); (e) 12 compiled impulse-mnist `lenet_loss` steps, finite,
+     and the trained conv program on `cuda` == `int_ref`;
  13. the compiled dispatch and the double buffer: phase 3's IMDB drain and
      phase 10's conv drain on `int_ref`, `cuda`, `cuda_sparse` and
      `cuda_events`, each eager (`stream_megastep`), graphed (one CUDA
@@ -162,26 +170,33 @@ Phases, each of which exits non-zero on failure:
      default `make_train_step`; AdamW with b2 0.95, weight decay 0.1 and a
      cosine warm-up; remat per block): (a) llama3.2-1b at full width (16 x
      2048, 32/8 heads of 64, SwiGLU 8192, vocab 128256, tied embeddings),
-     bf16 weights drawn on the card from seed 0, 20 steps at B = 8, seq
-     256: every loss and gradient norm finite, the mean of the last 5
-     losses below the first 5's, the median ms a step, a profiled step,
-     the peak memory and the state's bytes; then in float32 at full width
+     bf16 weights drawn on the card from seed 0 (the one start state of
+     every run), 20 steps at B = 8, seq 256, eager and compiled (as
+     phase 12(b): a second eager run of 5 steps, the compiled run equal
+     to the eager one after 5 steps bit for bit or within twice the eager
+     runs' own difference, remat recomputed inside the capture), each
+     with its median ms a step, profiled step (idle share, device ops)
+     and peak memory: every loss and gradient norm finite, the mean of
+     the last 5 eager losses below the first 5's, the state's bytes;
+     then in float32 at full width
      cut to 2 layers (B = 2, seq 64): loss and gradients on the card
      against the same port code on the CPU, vocab_chunking 4 against 0,
      remat against none and microbatches 2 against 1, at the CPU tests'
      tolerances; (b) the same model with the spiking FFN, 10 steps at B =
-     4, seq 128: the loss finite, aux > 0, every FFN layer's gradient
+     4, seq 128, eager and compiled as in (a): the loss finite, aux > 0,
+     every FFN layer's gradient
      finite and non-zero, ms a step, peak memory and
      `examples/spiking_ffn_lm.py`'s sparsity and macro-energy line (a
      model of the silicon); (c) rwkv6-7b at full width cut to 4 of its 32
      layers, 10 steps at B = 4, seq 256 through the differentiable chunked
-     wkv6 in chunks of 16: no wkv6 launch in the steps, non-zero gradients
+     wkv6 in chunks of 16, eager and compiled as in (a): no wkv6 launch in
+     the steps, non-zero gradients
      upstream of the recurrence (wr, wk, wv, the decay LoRA, bonus) in
      every layer, the loss at JAX's chunk of 64 reported beside it, and a
      prefill on the trained weights through the kernel, one launch a
      layer, each within 2e-4 of `wkv6_sequential`; (d) `python -m
-     repro_torch.launch.train --arch llama3.2-1b --steps 10` as a
-     subprocess: exit 0 and its lines;
+     repro_torch.launch.train --arch llama3.2-1b --steps 10` (a compiled
+     step) as a subprocess: exit 0 and its lines;
  16. the MoE super-block, which launches no port kernel: (a)
      llama4-maverick-400b-a17b with every published width (5120, 40 query
      and 8 KV heads of 128, dense d_ff 16,384, 128 routed experts of d_ff
@@ -395,6 +410,8 @@ EVAL_BATCH, EVAL_SEED = 1024, 99_991
 SERVE_REVIEWS = 64
 LENET_STEPS, LENET_BATCH = 12, 16
 TRAIN_DEADLINE_S = 600            # seconds after the script starts
+COMPARE_STEPS = 5                 # eager and compiled steps held bit for bit
+SNN_COMPARE_STEPS = 10            # the SNN's eager and compiled runs
 # card against CPU, same port code: cuBLAS and the CPU BLAS sum f32 terms in
 # different orders, and a V within an ulp of its threshold can flip a spike
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RL2 = 1e-4, 1e-3
@@ -2029,19 +2046,133 @@ def profile_step(fn) -> dict:
             "kernels": sum(1 for name, _ in ops if not name.startswith("Mem"))}
 
 
+def timed_steps(dev, step, state, batch_of, steps: int, *,
+                profile: bool = True, at_compare=None) -> dict:
+    """``steps`` calls of ``step`` (eager, or compiled: a graph replay
+    after the first call, which captures) from ``state``, batch s =
+    ``batch_of(s)`` on the card before its step and each step ending in
+    `torch.cuda.synchronize()`: the losses and gradient norms, ms a step
+    and the median of the last half, ``at_compare(state)`` after
+    COMPARE_STEPS steps, a profiled further step (for a compiled step one
+    replay) and the run's peak bytes allocated (its start state included,
+    other live tensors not) and the peak reserved. The state stays in the
+    result."""
+    torch.cuda.synchronize()
+    others = torch.cuda.memory_allocated() - tree_bytes(state)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for s in range(steps):
+        batch = batch_of(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if s + 1 == COMPARE_STEPS and at_compare is not None:
+            at_compare(state)
+    out = {"steps": steps, "losses": losses, "grad_norms": norms,
+           "ms_per_step": ms,
+           "median_ms_per_step": float(np.median(ms[steps // 2:]))}
+    if profile:
+        batch = batch_of(steps)
+        out["profiled_step"] = profile_step(lambda: step(state, batch))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - others
+    out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    out["state"] = state
+    return out
+
+
+def state_differences(x, y) -> dict:
+    """{leaf path: largest |x - y|} over the leaves of two train states
+    that differ."""
+    from repro_torch.tree import tree_flatten_with_paths
+    out = {}
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(x),
+                                 tree_flatten_with_paths(y)):
+        if not torch.equal(a, b):
+            out["/".join(map(str, path))] = float(
+                (a.double() - b.double()).abs().max())
+    return out
+
+
+def metric_differences(x: dict, y: dict) -> dict:
+    """{metric[i]: |x - y|} over the first COMPARE_STEPS losses and
+    gradient norms of two `timed_steps` runs that differ."""
+    return {f"{key}[{i}]": abs(x[key][i] - y[key][i])
+            for key in ("losses", "grad_norms") for i in range(COMPARE_STEPS)
+            if x[key][i] != y[key][i]}
+
+
+def eager_vs_compiled(dev, step, start: list, batch_of, steps: int) -> dict:
+    """The eager ``step`` and `compile_train_step` of it from one state,
+    the `TrainState` on the card that ``start`` holds (no run changes it:
+    an eager step builds new tensors, the compiled one copies it into its
+    buffers), over one batch stream: ``eager_ref`` (COMPARE_STEPS steps,
+    not profiled), then ``compiled`` and ``eager`` (``steps`` steps each;
+    the eager run takes the state out of ``start``, so that it is freed
+    after its first step as in an eager loop, and keeps its own). After COMPARE_STEPS steps each is held to
+    ``eager_ref`` on the card: the compiled run must equal it bit for bit
+    (state leaves, losses, gradient norms) where the two eager runs agree;
+    where they differ (an atomic sum in a backward), each differing value
+    of the compiled run must lie within twice the eager runs' own
+    difference, and none may differ where they agree. A capture error
+    raises: there is no eager fallback."""
+    from repro_torch.train import compile_train_step
+    runs = {"eager_ref": timed_steps(dev, step, start[0], batch_of,
+                                     COMPARE_STEPS, profile=False)}
+    ref = runs["eager_ref"].pop("state")
+    leaf_diffs = {}
+    for label in ("compiled", "eager"):
+        free_cuda()
+        fn = compile_train_step(step, dev) if label == "compiled" else step
+        runs[label] = timed_steps(
+            dev, fn, start.pop() if label == "eager" else start[0],
+            batch_of, steps,
+            at_compare=lambda state, label=label: leaf_diffs.__setitem__(
+                label, state_differences(state, ref)))
+        if label == "compiled":
+            # no reference to the graph may outlive ``fn``: its private
+            # memory pool is freed with it
+            if next(iter(fn.graphs.values()))[1].graph is None:
+                raise AssertionError("the compiled train step captured no "
+                                     "CUDA graph")
+            del runs[label]["state"]
+        del fn
+    del ref
+    own = {**leaf_diffs["eager"],
+           **metric_differences(runs["eager"], runs["eager_ref"])}
+    got = {**leaf_diffs["compiled"],
+           **metric_differences(runs["compiled"], runs["eager_ref"])}
+    bad = sorted(set(got) - set(own)) + [k for k in got
+                                         if k in own and got[k] > 2 * own[k]]
+    compare = {"steps": COMPARE_STEPS, "bit_for_bit": not got,
+               "eager_repeat_differs": own, "compiled_differs": got}
+    if bad:
+        raise AssertionError(f"the compiled train step != the eager one "
+                             f"beyond the eager runs' own difference at "
+                             f"{bad}: {compare}")
+    return {"compare": compare, **runs}
+
+
 def train_run(dev, loss_fn, params, batch_fn, steps: int, *,
-              log_every: int = 1, ckpt_dir=None, start=None):
+              log_every: int = 1, ckpt_dir=None, start=None, step=None):
     """``steps`` AdamW steps (lr 5e-3, no decay, no clip: the Fig. 9
-    benchmark's optimizer) through `make_train_step` and `train_loop`,
-    batch s from ``batch_fn(s)``; ``start`` continues a `TrainState`."""
+    benchmark's optimizer) through `make_train_step`, compiled
+    (`compile_train_step`: one CUDA graph a step), and `train_loop`, batch
+    s from ``batch_fn(s)``; ``start`` continues a `TrainState` and
+    ``step`` a compiled step (its state is its buffers)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.optim import adamw
-    from repro_torch.train import (LoopConfig, TrainState, make_train_step,
-                                   train_loop)
+    from repro_torch.train import (LoopConfig, TrainState, compile_train_step,
+                                   make_train_step, train_loop)
     opt = adamw(lambda s: TRAIN_LR, weight_decay=0.0)
-    run = RunConfig(model=None, shape=None)
-    step = make_train_step(run, opt, loss_fn, max_grad_norm=math.inf)
+    if step is None:
+        step = compile_train_step(make_train_step(
+            RunConfig(model=None, shape=None), opt, loss_fn,
+            max_grad_norm=math.inf), dev)
     state = start if start is not None else TrainState(
         params, opt.init(params), torch.zeros((), dtype=torch.int32,
                                               device=dev))
@@ -2059,17 +2190,52 @@ def accuracy(logits: torch.Tensor, y: torch.Tensor) -> float:
     return float(((logits > 0) == (y > 0.5)).float().mean())
 
 
+def phase_snn_compiled(dev) -> dict:
+    """Phase 12(b), first: the IMDB SNN's train step at phase 12(b)'s
+    settings (AdamW lr 5e-3 without decay, no clip, B = 128, 12 words,
+    batch s from seed s) eager and compiled from one state (seed 0) over
+    one batch stream (`eager_vs_compiled`, SNN_COMPARE_STEPS steps): equal
+    bit for bit, each run's ms a step, profiled step and peak bytes."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import snn
+    from repro_torch.data.synthetic import (make_sentiment_vocab,
+                                            sentiment_batch)
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainState, make_train_step
+    cfg = imdb_train_cfg()
+    ds = make_sentiment_vocab(0)
+    opt = adamw(lambda s: TRAIN_LR, weight_decay=0.0)
+    step = make_train_step(RunConfig(model=None, shape=None), opt,
+                           lambda p, b: snn.sentiment_loss(
+                               p, b["x"], b["y"], cfg, device=dev),
+                           max_grad_norm=math.inf)
+    params = snn.init_fc_snn(SEED, cfg, device=dev)
+    start = [TrainState(params, opt.init(params),
+                        torch.zeros((), dtype=torch.int32, device=dev))]
+    del params
+
+    def batch_of(s):
+        return {k: torch.from_numpy(v).to(dev) for k, v in zip(
+            ("x", "y"), sentiment_batch(ds, TRAIN_BATCH, TRAIN_WORDS,
+                                        seed=s))}
+    out = eager_vs_compiled(dev, step, start, batch_of, SNN_COMPARE_STEPS)
+    del out["eager"]["state"]
+    return out
+
+
 def phase_train(dev, deadline: float) -> dict:
     """Phase 12(b): the IMDB SNN trained at `benchmarks/fig9_accuracy.py`'s
     settings (threshold 0.5, batch 128, 12 words, AdamW lr 5e-3 without
-    decay, 400 steps, batch s from seed s), then the LSTM baseline the
-    same way; the Fig. 9b row on the eval batch (1,024 reviews, seed
-    99,991). The steps are cut, and the cut printed, if 400 would not end
-    before ``deadline`` (a `time.perf_counter` value)."""
+    decay, 400 steps, batch s from seed s) through the compiled step, then
+    the LSTM baseline the same way; the Fig. 9b row on the eval batch
+    (1,024 reviews, seed 99,991). The steps are cut, and the cut printed,
+    if 400 would not end before ``deadline`` (a `time.perf_counter`
+    value)."""
     from repro_torch.core import snn
     from repro_torch.data.synthetic import (make_sentiment_vocab,
                                             sentiment_batch)
     from repro_torch.models import lstm_baseline as lstm
+    from repro_torch.tree import tree_map
     cfg = imdb_train_cfg()
     ds = make_sentiment_vocab(0)
 
@@ -2095,7 +2261,7 @@ def phase_train(dev, deadline: float) -> dict:
               f"({per_step * 1e3:.1f} ms a step) to end inside the time "
               "limit")
     res, _ = train_run(dev, snn_loss, params, batch_fn, steps,
-                       start=first.state)
+                       start=first.state, step=step)
     train_s = time.perf_counter() - t0
     hist = first.metrics_history + res.metrics_history
     losses = [m["loss"] for m in hist]
@@ -2106,7 +2272,9 @@ def phase_train(dev, deadline: float) -> dict:
     if not tail < head:
         raise AssertionError(f"the loss did not fall: first 25 steps "
                              f"{head:.4f}, last 25 {tail:.4f}")
-    trained = res.state.params
+    # the compiled step's state is its buffers, which the profiled step
+    # advances
+    trained = tree_map(lambda x: x.clone(), res.state.params)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
     prof = profile_step(lambda: step(res.state, batch))
     xb, yb = sentiment_batch(ds, EVAL_BATCH, TRAIN_WORDS, seed=EVAL_SEED)
@@ -2136,6 +2304,33 @@ def phase_train(dev, deadline: float) -> dict:
                   "gap_pp": 100 * (acc_lstm - acc_snn), "lstm_s": lstm_s,
                   "lstm_last_loss": lres.metrics_history[-1]["loss"]},
         "params": trained, "eval": (x, y, logits)}
+
+
+def print_compiled(tag: str, res: dict, card: str) -> None:
+    """`eager_vs_compiled`'s runs: ms a step (median of the last half;
+    the compiled run's first step is its capture), the profiled step's
+    idle share and device ops (one graph replay for the compiled step),
+    the peak bytes, and the comparison."""
+    for label in ("eager", "compiled"):
+        r, p = res[label], res[label]["profiled_step"]
+        print(f"{tag} {label} step: median {r['median_ms_per_step']:.3f} ms "
+              f"a step (last {r['steps'] - r['steps'] // 2} of "
+              f"{r['steps']}; first {r['ms_per_step'][0]:.1f} ms); profiled "
+              f"step {p['wall_ms']:.3f} ms, device busy "
+              f"{p['device_busy_ms']:.3f} ms, idle "
+              f"{p['device_idle_share']:.4f}, {p['device_ops']} device ops; "
+              f"peak {r['peak_bytes']} bytes allocated, "
+              f"{r['peak_reserved_bytes']} reserved ({card})")
+    c = res["compare"]
+    print(f"{tag} compiled vs eager after {c['steps']} steps from one state "
+          f"and batch stream: "
+          + ("bit for bit" if c["bit_for_bit"] else
+             "within twice the eager runs' own difference")
+          + f" (eager repeat differs at {len(c['eager_repeat_differs'])} "
+          f"values, compiled at {len(c['compiled_differs'])}): "
+          f"{json.dumps(c)}")
+    print(f"{tag} runs: " + json.dumps({k: v for k, v in res.items()
+                                         if k != "compare"}))
 
 
 def phase_deploy(dev, params, x, y, float_logits) -> dict:
@@ -2294,6 +2489,8 @@ def phase_lenet_train(dev) -> dict:
             torch.equal(p, q) for p, q in zip(a.rasters, b.rasters))):
         raise AssertionError("the trained conv program on cuda != int_ref")
     return {"losses": losses, "s": time.perf_counter() - t0,
+            "ms_per_step": [1e3 * m["sec_per_step"]
+                            for m in res.metrics_history],
             "cuda_equals_int_ref": True}
 
 
@@ -2836,46 +3033,41 @@ def tree_bytes(tree) -> int:
                if torch.is_tensor(x))
 
 
-def train_lm(dev, run, steps: int, *, profile: bool = True) -> dict:
-    """``steps`` train steps of ``run`` from `init_train_state` (bf16
-    weights drawn on the card from seed 0), each batch on the card before
-    its step and each step ending in `torch.cuda.synchronize()`: the
-    losses and gradient norms (all finite), the median ms a step of the
-    last half, a profiled step, the peak memory and the state's bytes.
-    The state stays in the result."""
+def train_lm(dev, run, steps: int) -> dict:
+    """``run``'s train step from `init_train_state` (bf16 weights drawn on
+    the card from seed 0, the one start state), eager and compiled
+    (`eager_vs_compiled`: ``steps`` steps each, one batch stream): the
+    eager run's losses and gradient norms (all finite),
+    median ms a step of the last half, profiled step and peak memory, the
+    state's bytes, the compiled run's the same (its losses finite too)
+    and the comparison after COMPARE_STEPS steps. The eager run's state
+    stays in the result."""
     from repro_torch.train import init_train_state, make_train_step
     free_cuda()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, opt = init_train_state(SEED, run, total_steps=steps, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    step = make_train_step(run, opt)
-    cfg, B, seq = run.model, run.shape.global_batch, run.shape.seq_len
-    losses, norms, ms = [], [], []
-    for s in range(steps):
-        batch = lm_batch(cfg, B, seq, s, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"{cfg.arch_id}: a loss or grad norm is not "
-                             f"finite: {losses}, {norms}")
     out = {"params": sum(a.numel() for a in leaves(state.params)),
-           "init_s": init_s, "steps": steps, "losses": losses,
-           "grad_norms": norms, "ms_per_step": ms,
-           "median_ms_per_step": float(np.median(ms[steps // 2:])),
+           "init_s": init_s,
            "state_bytes": tree_bytes(state.params) + tree_bytes(
                state.opt_state)}
-    if profile:
-        batch = lm_batch(cfg, B, seq, steps, dev)
-        out["profiled_step"] = profile_step(lambda: step(state, batch))
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    out["state"] = state
+    cfg, B, seq = run.model, run.shape.global_batch, run.shape.seq_len
+    t0 = time.perf_counter()
+    start = [state]
+    del state
+    res = eager_vs_compiled(dev, make_train_step(run, opt), start,
+                            lambda s: lm_batch(cfg, B, seq, s, dev), steps)
+    out["eager_vs_compiled_s"] = time.perf_counter() - t0
+    for label in ("eager", "compiled"):
+        r = res[label]
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"{cfg.arch_id} ({label}): a loss or grad "
+                                 f"norm is not finite: {r['losses']}, "
+                                 f"{r['grad_norms']}")
+    out["state"] = res["eager"].pop("state")
+    out.update(res["eager"])
+    out["compiled_runs"] = res
     return out
 
 
@@ -3003,9 +3195,10 @@ def spiking_energy(params, cfg, B: int, seq: int, dev) -> dict:
 
 def phase_lm_train(dev, cfg) -> dict:
     """Phase 15(a): ``cfg`` (llama3.2-1b) at full width, bf16, trained
-    LM_TRAIN_STEPS steps at B = LM_TRAIN_B, seq LM_TRAIN_SEQ: every loss
-    finite and the mean of the last 5 below the first 5's; then the
-    float32 checks of `lm_checks_f32`."""
+    LM_TRAIN_STEPS steps at B = LM_TRAIN_B, seq LM_TRAIN_SEQ, eager and
+    compiled (`train_lm`): every loss finite and the mean of the last 5
+    eager ones below the first 5's; then the float32 checks of
+    `lm_checks_f32`."""
     out = train_lm(dev, lm_run(cfg, LM_TRAIN_B, LM_TRAIN_SEQ,
                                LM_TRAIN_STEPS), LM_TRAIN_STEPS)
     del out["state"]
@@ -3022,8 +3215,8 @@ def phase_lm_train(dev, cfg) -> dict:
 
 def phase_spiking_train(dev, cfg) -> dict:
     """Phase 15(b): ``cfg`` with the spiking FFN at full width, bf16,
-    SPK_TRAIN_STEPS steps at B = SPK_TRAIN_B, seq SPK_TRAIN_SEQ; then on
-    the trained weights: the loss finite, aux > 0 and every FFN leaf's
+    SPK_TRAIN_STEPS steps at B = SPK_TRAIN_B, seq SPK_TRAIN_SEQ, eager and
+    compiled (`train_lm`); then on the eager run's trained weights: the loss finite, aux > 0 and every FFN leaf's
     gradient (each layer's slice) finite and non-zero; and the example's
     sparsity and macro-energy line."""
     out = train_lm(dev, lm_run(cfg, SPK_TRAIN_B, SPK_TRAIN_SEQ,
@@ -3055,8 +3248,8 @@ def phase_rwkv_train(dev, cfg) -> dict:
     RWKV_TRAIN_LAYERS layers (AdamW's float32 moments alone for 7.6 B
     parameters exceed the card's 80 GB), bf16, RWKV_TRAIN_STEPS steps at
     B = RWKV_TRAIN_B, seq RWKV_TRAIN_SEQ through the differentiable
-    chunked wkv6 in chunks of RWKV_TRAIN_CHUNK: no wkv6 launch in the
-    steps; on the trained weights every leaf upstream of the recurrence
+    chunked wkv6 in chunks of RWKV_TRAIN_CHUNK, eager and compiled
+    (`train_lm`): no wkv6 launch in the steps; on the trained weights every leaf upstream of the recurrence
     (wr, wk, wv, decay_w1, decay_w2, bonus, each layer) gets a non-zero
     gradient; the loss at JAX's chunk of 64 on the first batch (reported);
     then a prefill on the trained weights launches the kernel once a layer,
@@ -5565,6 +5758,7 @@ def main() -> int:
           f"{step_vs_cpu['raster_sites_differing']} of "
           f"{step_vs_cpu['raster_sites']}; the float backend on the int "
           f"program == int_ref == cuda on the card")
+    print_compiled("[phase 12] (b) IMDB SNN", phase_snn_compiled(dev), card)
     # the training phase must leave about 4 minutes of the script's first
     # 10 for the LSTM baseline, the deployment and the last phases
     train = phase_train(dev, deadline=start + TRAIN_DEADLINE_S)
@@ -5573,7 +5767,7 @@ def main() -> int:
     for i, loss in train["loss_every_50"].items():
         print(f"[phase 12] (b) step {i}: loss {loss:.4f}")
     fig9 = train["fig9b"]
-    print(f"[phase 12] (b) {train['steps']} steps, loss first 25 "
+    print(f"[phase 12] (b) {train['steps']} compiled steps, loss first 25 "
           f"{train['loss_first25']:.4f} -> last 25 {train['loss_last25']:.4f};"
           f" median {train['median_ms_per_step']:.1f} ms a step; profiled "
           f"step {json.dumps(train['profiled_step'])} ({card})")
@@ -5647,6 +5841,8 @@ def main() -> int:
     lap("phase 14")
     lm_train = phase_lm_train(dev, get_config(SPIKING_ARCH))
     checks = lm_train.pop("f32_checks")
+    print_compiled(f"[phase 15] (a) {SPIKING_ARCH}",
+                   lm_train.pop("compiled_runs"), card)
     prof = lm_train.pop("profiled_step")
     print(f"[phase 15] (a) {SPIKING_ARCH} at full width: {lm_train['params']}"
           f" params (bf16), AdamW (b2 0.95, wd 0.1, lr {LM_TRAIN_LR}, cosine "
@@ -5667,6 +5863,8 @@ def main() -> int:
           f"{LM_MB_LOSS_RTOL} / "
           f"{LM_MB_ATOL}): {json.dumps(checks)}")
     spk_train = phase_spiking_train(dev, spk_cfg)
+    print_compiled(f"[phase 15] (b) {SPIKING_ARCH} + spiking FFN",
+                   spk_train.pop("compiled_runs"), card)
     prof = spk_train.pop("profiled_step")
     print(f"[phase 15] (b) {SPIKING_ARCH} + spiking FFN {SPIKING} at full "
           f"width: {spk_train['params']} params (bf16), B = {SPK_TRAIN_B}, "
@@ -5685,6 +5883,8 @@ def main() -> int:
           f"{e['edp_reduction_vs_dense_firing'] * 100:.1f}%")
     print(f"[phase 15] (b) {json.dumps(spk_train)}")
     rwkv_train = phase_rwkv_train(dev, cfg)
+    print_compiled(f"[phase 15] (c) {cfg.arch_id}",
+                   rwkv_train.pop("compiled_runs"), card)
     prof = rwkv_train.pop("profiled_step")
     print(f"[phase 15] (c) {cfg.arch_id} at full width cut to "
           f"{RWKV_TRAIN_LAYERS} of {cfg.n_layers} layers (AdamW's float32 "

@@ -5,9 +5,9 @@ Layout:  <dir>/step_<N>/
             manifest.json            leaf keys, shapes, dtypes, "format": 1
             shard_0.npz              leaf i as array "a<i>"
 
-  * async  -- the device-to-host copy happens on the caller's thread (a
-    consistent snapshot); serialization and fsync on a background thread,
-    at most one save in flight.
+  * async  -- the copy to the host happens on the caller's thread (a
+    consistent snapshot, taken of host tensors too); serialization and
+    fsync on a background thread, at most one save in flight.
   * atomic -- writes go to step_<N>.tmp, then one os.rename; a crash
     mid-save never corrupts the latest complete checkpoint.
   * keep-N -- older steps are removed after a successful save.
@@ -57,7 +57,9 @@ _VIEW_NAMES = {dtype: name for name, (dtype, _, _) in _BIT_VIEWS.items()}
 def _to_host(x) -> tuple[np.ndarray, str]:
     """(storable numpy array, manifest dtype string) of a leaf."""
     if torch.is_tensor(x):
-        x = x.detach().cpu()
+        # a copy even of a host tensor: a compiled train step overwrites
+        # its state in place while the write is in flight
+        x = x.detach().to("cpu", copy=True)
         name = _VIEW_NAMES.get(x.dtype)
         if name is not None:
             _, signed, bits = _BIT_VIEWS[name]

@@ -1,1 +1,2 @@
-"""Synthetic inputs made from a seed (numpy only)."""
+"""Data on the host, in numpy: synthetic inputs made from a seed, the
+deterministic loader, and the real-IMDB and real-MNIST hooks."""

@@ -49,6 +49,7 @@ from typing import Any, Optional
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import mesh_extents
 from repro_torch.tree import tree_map
@@ -368,6 +369,18 @@ def recompute_contexts():
     recompute must place its activations as the forward did."""
     return (contextlib.nullcontext(),
             activation_rules(_RULES.mesh, _RULES.parallel))
+
+
+def recomputed(fn, *args):
+    """``fn(*args)`` recomputed in the backward pass (the JAX package's
+    ``jax.checkpoint``): non-reentrant `torch.utils.checkpoint` under
+    `recompute_contexts`. The RNG state is not stashed: no loss draws
+    random numbers inside a recomputed region, so the recompute's values
+    are the forward's without it, and stashing reads the CUDA generator,
+    which a CUDA graph capture (a compiled train step) forbids."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=recompute_contexts)
 
 
 def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:

@@ -13,8 +13,11 @@ the JAX launcher, ``--reduced`` is a ``store_true`` flag whose default is
 already True, so no command line trains the full config (full width trains
 through `chip_smoke.py`). Weights are bf16, drawn from ``--seed``; the
 optimizer is ``--optimizer`` at ``--lr`` with a cosine warm-up over a tenth
-of the steps; batches come from `data.lm_batch_fn`. ``--device`` defaults
-to ``cuda``; ``--device cpu`` runs the same code on the CPU.
+of the steps; batches come from `data.lm_batch_fn`. The step is compiled
+(`train.compile_train_step`: one CUDA graph of forward, backward and the
+optimizer, as the JAX launcher jits it with the state donated).
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the same code on
+the CPU (the same static-buffer plumbing, without a graph).
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ import torch
 from repro_torch.configs.base import (ParallelConfig, RunConfig, ShapeConfig,
                                       get_config, reduced_config)
 from repro_torch.data.loader import ShardedLoader, lm_batch_fn
-from repro_torch.train import (LoopConfig, init_train_state, make_train_step,
-                               train_loop)
+from repro_torch.train import (LoopConfig, compile_train_step,
+                               init_train_state, make_train_step, train_loop)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,7 +66,7 @@ def main(argv=None):
     state, opt = init_train_state(args.seed, run, total_steps=args.steps,
                                   device=args.device)
     device = state.step.device
-    step_fn = make_train_step(run, opt)
+    step_fn = compile_train_step(make_train_step(run, opt), device)
     batches = lm_batch_fn(cfg.vocab_size, args.batch, args.seq, args.seed)
     loader = ShardedLoader(batches, num_shards=1)
     loop_cfg = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,

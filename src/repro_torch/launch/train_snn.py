@@ -3,14 +3,18 @@
 GloVe-100d words -> encoder(100) -> FC128 -> FC128 -> 1 readout, RMP
 neurons, 6-bit QAT weights, 11-bit V, 10 timesteps a word, membrane state
 persisting across words; 29,312 trainable weights (paper: 29.3K). The data
-is the structure-matched synthetic task (`data.synthetic`), batch s drawn
-from seed s. Training runs through `train.make_train_step` (surrogate
-gradients, AdamW without decay) and `train.train_loop` (``--ckpt-dir``:
-checkpoints every 50 steps, resumed on restart). Then the float/QAT network
-and its deployed integer program on ``--backend`` are evaluated on 512
-reviews: accuracies and their agreement, the per-layer spike sparsity
-(Fig. 11a), the instruction counts and macro energy per inference, and with
-``--trace`` the output V per word (Fig. 10).
+is real IMDB + GloVe when `data.imdb.available()` (``REPRO_IMDB_DIR``,
+``REPRO_GLOVE_PATH``): 2,000 training reviews, batch s drawn with numpy
+seed s, the first 512 the eval set, as the JAX example does; otherwise the
+structure-matched synthetic task (`data.synthetic`), batch s drawn from
+seed s. Training runs through `train.make_train_step` (surrogate
+gradients, AdamW without decay), compiled by `train.compile_train_step`
+(one CUDA graph a step on the card), and `train.train_loop`
+(``--ckpt-dir``: checkpoints every 50 steps, resumed on restart). Then the
+float/QAT network and its deployed integer program on ``--backend`` are
+evaluated on 512 reviews: accuracies and their agreement, the per-layer
+spike sparsity (Fig. 11a), the instruction counts and macro energy per
+inference, and with ``--trace`` the output V per word (Fig. 10).
 
     PYTHONPATH=src python -m repro_torch.launch.train_snn --device cpu --steps 25
     PYTHONPATH=src python -m repro_torch.launch.train_snn --steps 300 --backend cuda_events
@@ -23,16 +27,19 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.configs.impulse_snn import IMDB
 from repro_torch.core import energy, snn
+from repro_torch.data import imdb
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import make_sentiment_vocab, sentiment_batch
 from repro_torch.optim import adamw
-from repro_torch.train import LoopConfig, TrainState, make_train_step, train_loop
+from repro_torch.train import (LoopConfig, TrainState, compile_train_step,
+                               make_train_step, train_loop)
 
 EVAL_BATCH, EVAL_SEED = 512, 10_001
 BACKENDS = ("int_ref", "cuda", "cuda_sparse", "cuda_events")
@@ -58,20 +65,35 @@ def main(argv=None) -> tuple:
     device = resolve_device(args.device)
     cfg = IMDB
 
-    print("data: synthetic (structure-matched)")
-    ds = make_sentiment_vocab(args.seed)
+    use_real = imdb.available()
+    print("data: " + ("real IMDB+GloVe" if use_real
+                      else "synthetic (structure-matched)"))
+    if use_real:
+        xs_all, ys_all = imdb.vectorize(imdb.load_reviews("train", 2000),
+                                        imdb.load_glove(), args.words)
+
+        def batch_of(s):
+            idx = np.random.default_rng(s).integers(0, len(xs_all),
+                                                    args.batch)
+            return xs_all[idx], ys_all[idx]
+    else:
+        ds = make_sentiment_vocab(args.seed)
+
+        def batch_of(s):
+            return sentiment_batch(ds, args.batch, args.words, seed=s)
     params = snn.init_fc_snn(args.seed, cfg, device=device)
     print(f"trainable params: {snn.param_count(params)} (paper: 29.3K); "
           f"LSTM baseline: 247.8K (8.5x)")
     opt = adamw(lambda s: args.lr, weight_decay=0.0)
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "imdb_train", args.words * cfg.timesteps, args.batch, "train"))
-    step = make_train_step(run, opt, lambda p, b: snn.sentiment_loss(
-        p, b["x"], b["y"], cfg, device=device))
+    step = compile_train_step(make_train_step(
+        run, opt, lambda p, b: snn.sentiment_loss(p, b["x"], b["y"], cfg,
+                                                  device=device)), device)
     state = TrainState(params, opt.init(params),
                        torch.zeros((), dtype=torch.int32, device=device))
-    loader = ShardedLoader(lambda s, shard, n: dict(zip(
-        ("x", "y"), sentiment_batch(ds, args.batch, args.words, seed=s))))
+    loader = ShardedLoader(lambda s, shard, n: dict(zip(("x", "y"),
+                                                        batch_of(s))))
     t0 = time.time()
 
     def log(m):
@@ -90,7 +112,8 @@ def main(argv=None) -> tuple:
     params = res.state.params
 
     # ---- eval: the float/QAT network against the deployed int program ----
-    xb, yb = sentiment_batch(ds, EVAL_BATCH, args.words, seed=EVAL_SEED)
+    xb, yb = ((xs_all[:EVAL_BATCH], ys_all[:EVAL_BATCH]) if use_real else
+              sentiment_batch(ds, EVAL_BATCH, args.words, seed=EVAL_SEED))
     x = torch.from_numpy(xb).to(device)
     y = torch.from_numpy(yb).to(device)
     with torch.no_grad():

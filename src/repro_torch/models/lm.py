@@ -65,12 +65,10 @@ from typing import Optional
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.dist.sharding import (constrain, recompute_contexts,
-                                       replicated_call)
+from repro_torch.dist.sharding import constrain, recomputed, replicated_call
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
@@ -471,7 +469,7 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
             aux_total = aux_total + aux
         return x, aux_total, c_new
 
-    def recomputed(x, aux_total, p_s, s, enc_out):
+    def block_of(x, aux_total, p_s, s, enc_out):
         return super_block(x, aux_total, p_s, None, s, enc_out)[:2]
 
     olds, news = [], []
@@ -480,9 +478,8 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
         c_s = (None if cache_blocks is None
                else tree_map(lambda a: a[s], cache_blocks))
         if remat:
-            x, aux_total = checkpoint(recomputed, x, aux_total, p_s, s,
-                                      enc_out, use_reentrant=False,
-                                      context_fn=recompute_contexts)
+            x, aux_total = recomputed(block_of, x, aux_total, p_s, s,
+                                      enc_out)
             continue
         x, aux_total, c_new = super_block(x, aux_total, p_s, c_s, s, enc_out)
         olds.append(c_s)
@@ -530,9 +527,7 @@ def _run_encoder(params, frames, cfg: ModelConfig,
     remat = train and parallel.remat != "none" and torch.is_grad_enabled()
     for i in range(cfg.n_encoder_layers):
         p = tree_map(lambda a: a[i], enc["blocks"])
-        x = (checkpoint(layer, x, p, use_reentrant=False,
-                        context_fn=recompute_contexts) if remat
-             else layer(x, p))
+        x = recomputed(layer, x, p) if remat else layer(x, p)
     return _norm(x, enc["final_norm"], cfg)
 
 
@@ -629,9 +624,8 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
                   targets[:, i * step:(i + 1) * step])
                  for i in range(n_chunks)]
         if torch.is_grad_enabled():
-            losses = torch.cat([checkpoint(ce, xc, tc, use_reentrant=False,
-                                           context_fn=recompute_contexts)
-                                for xc, tc in parts], dim=1)
+            losses = torch.cat([recomputed(ce, xc, tc) for xc, tc in parts],
+                               dim=1)
         else:
             losses = torch.cat([ce(xc, tc) for xc, tc in parts], dim=1)
     mean = losses.mean()

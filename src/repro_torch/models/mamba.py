@@ -22,11 +22,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constrain, recompute_contexts
+from repro_torch.dist.sharding import constrain, recomputed
 from repro_torch.models.layers import dense_init, gen_device
 
 CHUNK = 128                       # the JAX package's scan chunk
@@ -161,8 +160,7 @@ def _ssm_chunked(a_log_dt: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     for i in range(T // chunk):
         part = slice(i * chunk, (i + 1) * chunk)
         args = (h, a_log_dt[:, part], bx[:, part], c[:, part])
-        h, y = (checkpoint(_scan_chunk, *args, use_reentrant=False,
-                           context_fn=recompute_contexts) if remat
+        h, y = (recomputed(_scan_chunk, *args) if remat
                 else _scan_chunk(*args))
         ys.append(y)
     return torch.cat(ys, dim=1), h

@@ -54,11 +54,18 @@ class Graphed:
     off; each call replays the graph and returns the capture's outputs,
     which the next replay overwrites. On the CPU each call runs
     ``body()``. ``body`` must take its inputs from static tensors
-    and write its results into static tensors or return them."""
+    and write its results into static tensors or return them.
+
+    ``body`` runs with autograd off unless ``autograd`` is set (a train
+    step: forward, backward and the optimizer in one graph). Then the
+    warm-up's freed memory (its activations, gradients and new state) is
+    handed back to the device before the capture, since the graph's
+    private memory pool cannot reuse the blocks cached for it."""
 
     def __init__(self, body: Callable, device: torch.device,
-                 keep: tuple = ()):
+                 keep: tuple = (), autograd: bool = False):
         self.body = body
+        self.autograd = autograd
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: dict = {}
         if device.type != "cuda":
@@ -68,10 +75,14 @@ class Graphed:
         side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side), torch.no_grad():
+        with torch.cuda.stream(side), torch.set_grad_enabled(autograd):
             body()
             for t, s in zip(keep, saved):
                 t.copy_(s)
+            saved = s = None
+            if autograd:
+                side.synchronize()
+                torch.cuda.empty_cache()
             before = dict(kernels.LAUNCH_COUNTS)
             # no automatic collection while capturing: one that frees
             # another graph held in a reference cycle destroys it
@@ -96,7 +107,7 @@ class Graphed:
 
     def __call__(self):
         if self.graph is None:
-            with torch.no_grad():
+            with torch.set_grad_enabled(self.autograd):
                 return self.body()
         self.graph.replay()
         for name, n in self.launches.items():
