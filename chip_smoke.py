@@ -324,7 +324,19 @@ Phases, each of which exits non-zero on failure:
      step, the placements kept, and the CPU tests' 1e-5 rule reported
      (seconds a step, each rank's peak memory); (d) GPipe on ("pipe",) x
      4, tanh(x @ w) with w (2,048, 2,048), 8 microbatches of 4, bit for
-     bit the sequential composition rank 0 computes.
+     bit the sequential composition rank 0 computes;
+ 24. the multi-GPU dry-run (`launch.dryrun`): (a) ``python -m
+     repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
+     --mesh single`` as a subprocess (a fake process group of 256 ranks
+     over fake CUDA tensors): one GPU's flops, bytes, collective bytes,
+     peak against the card's memory and the dominant roofline term, its
+     argument and output bytes equal to the JAX package's committed
+     artifact; (b) the same counter on a world of one over phase 15(a)'s
+     eager train step: the largest roofline term at most the measured
+     median step, the counted peak within 10 % of the card's; (c)
+     `llama3.2-1b` `train_4k` on (16, 16) at 2 layers traced on fake CUDA
+     tensors and on the CPU path a torch without CUDA takes for a train
+     cell: equal flops, bytes, collectives, operators and memory.
 
 Each phase prints its seconds (`[time]` lines). Then one `kernels` JSON
 line with all five kernels, each redesigned for this card (the dense,
@@ -5486,6 +5498,166 @@ def print_lm_mesh(res: dict, card: str) -> None:
           f"({card})")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the multi-GPU dry-run (fake process group, fake CUDA tensors)
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELL = ("llama3.2-1b", "decode_32k", "single")
+DRYRUN_JAX = "artifacts/dryrun/single/llama3.2-1b__decode_32k.json"
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_PEAK_RTOL = 0.10           # counted peak against the card's
+#: phase 24(c): a train cell cut to DRYRUN_DEPTH layers, traced on fake
+#: CUDA tensors and on the CPU path a torch without CUDA takes
+DRYRUN_TRAIN_CELL = ("llama3.2-1b", "train_4k", "single")
+DRYRUN_DEPTH = 2
+DRYRUN_DEVICES = r"""
+import dataclasses, json, sys
+from repro_torch.launch import dryrun as d
+arch, shape, mesh_kind, depth = sys.argv[1:5]
+run = d.make_run(arch, shape)
+run = dataclasses.replace(run, model=dataclasses.replace(
+    run.model, n_layers=int(depth)))
+out = {}
+for dev in ("cuda", "cpu"):
+    r = d.trace_cell(run, d.mesh_for(mesh_kind, dev), dev)
+    out[dev] = {k: r[k] for k in ("flops", "bytes", "coll", "memory",
+                                  "peak", "ops")}
+print(json.dumps(out))
+"""
+
+
+def dryrun_cell(out_dir: Path) -> dict:
+    """Phase 24(a): `python -m repro_torch.launch.dryrun` on DRYRUN_CELL in
+    a subprocess (its fake process group of 256 ranks shares no process
+    with phases 22-23's groups): the cell's JSON, its argument and output
+    bytes equal to the JAX package's committed artifact (the same
+    placements give the same bytes) and its ``hbm_bytes`` the card's."""
+    arch, shape, mesh = DRYRUN_CELL
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
+        env=env, cwd=root, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"phase 24(a): the dry-run exited "
+                             f"{out.returncode}: {out.stdout[-2000:]} "
+                             f"{out.stderr[-3000:]}")
+    cell = json.loads((out_dir / mesh / f"{arch}__{shape}.json").read_text())
+    want = json.loads((root / DRYRUN_JAX).read_text())["memory"]
+    for key in ("argument_bytes", "output_bytes"):
+        if cell["memory"][key] != want[key]:
+            raise AssertionError(f"phase 24(a): {key} {cell['memory'][key]}"
+                                 f" != the JAX artifact's {want[key]}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if cell["hbm_bytes"] != total:
+        raise AssertionError(f"phase 24(a): hbm_bytes {cell['hbm_bytes']} "
+                             f"is not the card's {total}")
+    return {"cell": cell, "s": seconds, "jax_memory": want}
+
+
+def dryrun_devices() -> dict:
+    """Phase 24(c): DRYRUN_TRAIN_CELL at DRYRUN_DEPTH layers traced twice in
+    one subprocess (a fake process group of 256 ranks): on fake CUDA
+    tensors over a "cuda" mesh, as on this card, and on fake CPU tensors
+    over a "cpu" mesh, the path a torch built without CUDA takes for a
+    train cell (`dryrun.trace_device`). Flops, bytes, collectives by kind,
+    operators and memory must be equal: the CPU-traced train cells then
+    count what the card's path would."""
+    arch, shape, mesh = DRYRUN_TRAIN_CELL
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", DRYRUN_DEVICES, arch, shape, mesh,
+         str(DRYRUN_DEPTH)], env=env, cwd=root, capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"phase 24(c): the traces exited "
+                             f"{out.returncode}: {out.stdout[-2000:]} "
+                             f"{out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError(f"phase 24(c): the train cell counts "
+                             f"otherwise on fake CUDA tensors {got['cuda']}"
+                             f" than on the CPU path {got['cpu']}")
+    return {"counts": got["cuda"], "s": seconds}
+
+
+def dryrun_vs_card(dev, cfg, lm_train: dict) -> dict:
+    """Phase 24(b): the dry-run's counter on a world of one (no mesh, fake
+    tensors on the card) over phase 15(a)'s eager train step (the same
+    run: ``cfg`` at full width, B = LM_TRAIN_B, seq LM_TRAIN_SEQ), against
+    what phase 15(a) measured on the card: the largest roofline term at
+    most the median eager step (a roofline is a lower bound), and the
+    counted peak within DRYRUN_PEAK_RTOL of the step's peak allocated."""
+    from repro_torch.launch import dryrun
+    run = lm_run(cfg, LM_TRAIN_B, LM_TRAIN_SEQ, LM_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    counted = dryrun.trace_cell(run, None, dev)
+    seconds = time.perf_counter() - t0
+    terms = dryrun.roofline(counted["flops"], counted["bytes"],
+                            sum(counted["coll"].values()))
+    step_ms = lm_train["median_ms_per_step"]
+    peak = lm_train["peak_bytes"]
+    out = {"flops": counted["flops"], "bytes": counted["bytes"],
+           "ops": counted["ops"], "memory": counted["memory"],
+           "counted_peak_bytes": counted["peak"], "roofline_terms_s": terms,
+           "eager_median_ms": step_ms, "card_peak_bytes": peak,
+           "peak_rel_diff": counted["peak"] / peak - 1.0, "s": seconds}
+    if max(terms.values()) * 1e3 > step_ms:
+        raise AssertionError(f"phase 24(b): the roofline term "
+                             f"{max(terms.values()) * 1e3:.3f} ms exceeds "
+                             f"the measured eager step {step_ms:.3f} ms")
+    if abs(out["peak_rel_diff"]) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"phase 24(b): counted peak {counted['peak']} "
+                             f"bytes vs the card's {peak}: "
+                             f"{out['peak_rel_diff']:+.4f}")
+    if any(counted["coll"].values()):
+        raise AssertionError(f"phase 24(b): collectives on a world of one: "
+                             f"{counted['coll']}")
+    return out
+
+
+def print_dryrun(a: dict, b: dict, c: dict, card: str) -> None:
+    cell = a["cell"]
+    print(f"[phase 24] (a) {cell['arch']} {cell['shape']} on "
+          f"{cell['mesh']} ({cell['chips']} fake ranks, rank 0 = one GPU): "
+          f"flops {cell['flops_per_device']:.6e}, bytes "
+          f"{cell['bytes_per_device']:.6e}, collective bytes "
+          f"{cell['collective_bytes_per_device']:.6e} "
+          f"{json.dumps(cell['collectives'])}, peak "
+          f"{cell['peak_bytes_per_device']} of hbm_bytes "
+          f"{cell['hbm_bytes']} (fits {cell['fits_hbm']}), terms "
+          f"{json.dumps(cell['roofline_terms_s'])}, dominant "
+          f"{cell['dominant']}; a model at datasheet peaks, not a "
+          f"measurement")
+    print(f"[phase 24] (a) memory {json.dumps(cell['memory'])}: argument "
+          f"and output bytes == the JAX artifact's "
+          f"({a['jax_memory']['argument_bytes']}, "
+          f"{a['jax_memory']['output_bytes']}); subprocess {a['s']:.1f} s "
+          f"(trace {cell['compile_s']} s)")
+    print(f"[phase 24] (b) phase 15(a)'s eager step counted on one GPU: "
+          f"flops {b['flops']:.6e}, bytes {b['bytes']:.6e}, {b['ops']} ops, "
+          f"terms {json.dumps(b['roofline_terms_s'])} <= measured median "
+          f"{b['eager_median_ms']:.3f} ms; counted peak "
+          f"{b['counted_peak_bytes']} vs the card's {b['card_peak_bytes']} "
+          f"({b['peak_rel_diff']:+.4f}, tol {DRYRUN_PEAK_RTOL}); trace "
+          f"{b['s']:.1f} s ({card})")
+    arch, shape, mesh = DRYRUN_TRAIN_CELL
+    k = c["counts"]
+    print(f"[phase 24] (c) {arch} {shape} on {mesh} at {DRYRUN_DEPTH} "
+          f"layers: fake CUDA == CPU path: flops {k['flops']:.6e}, bytes "
+          f"{k['bytes']:.6e}, {k['ops']} ops, collectives "
+          f"{json.dumps(k['coll'])}, memory {json.dumps(k['memory'])}; "
+          f"subprocess {c['s']:.1f} s")
+    print(f"[phase 24] {json.dumps({'a': a['cell'], 'b': b, 'c': c})}")
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5947,6 +6119,13 @@ def main() -> int:
     lap("phase 22")
     print_lm_mesh(phase_lm_mesh(dev), card)
     lap("phase 23")
+    dry_a = dryrun_cell(Path(__file__).resolve().parent / "build"
+                        / "dryrun_torch")
+    free_cuda()
+    dry_c = dryrun_devices()
+    dry_b = dryrun_vs_card(dev, get_config(SPIKING_ARCH), lm_train)
+    print_dryrun(dry_a, dry_b, dry_c, card)
+    lap("phase 24")
     for entry in entries:
         if entry["name"] in BACKEND_OF:
             entry["paths"] = [

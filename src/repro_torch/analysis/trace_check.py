@@ -72,6 +72,7 @@ the negative-path tests drive with deliberately broken functions.
 """
 from __future__ import annotations
 
+import contextlib
 import operator
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -1086,10 +1087,11 @@ def check_graph(graph, expect: TraceExpectation, *, steps: int = 1
 # tracing
 # ---------------------------------------------------------------------------
 
-def _index(x, idx):
-    """``x[idx]`` for int, slice, None and Ellipsis indices, as the aten
-    ops the indexing records (`Tensor.__getitem__` on a fake CUDA tensor
-    needs a CUDA device guard, which a torch without CUDA lacks)."""
+def aten_index(x, idx):
+    """``x[idx]`` as the aten ops the indexing records: int, slice, None
+    and Ellipsis indices, then any tensor (or list) indices in one
+    ``aten.index`` (`Tensor.__getitem__` on a fake CUDA tensor needs a CUDA
+    device guard, which a torch without CUDA lacks)."""
     aten = torch.ops.aten
     if not isinstance(idx, tuple):
         idx = (idx,)
@@ -1097,13 +1099,16 @@ def _index(x, idx):
     def consumes(i):
         return i is not None and i is not Ellipsis
 
-    dim = 0
+    dim, tensors = 0, {}
     for k, i in enumerate(idx):
         if i is None:
             x = aten.unsqueeze.default(x, dim)
             dim += 1
         elif i is Ellipsis:        # the dims the later indices leave
             dim = x.dim() - sum(1 for j in idx[k + 1:] if consumes(j))
+        elif torch.is_tensor(i) or isinstance(i, list):
+            tensors[dim] = torch.as_tensor(i, device=x.device)
+            dim += 1
         elif isinstance(i, (int, np.integer)):
             x = aten.select.int(x, dim, int(i))
         elif isinstance(i, slice):
@@ -1113,28 +1118,49 @@ def _index(x, idx):
             dim += 1
         else:
             raise TypeError(f"the trace cannot index with {type(i).__name__}")
+    if tensors:
+        x = aten.index.Tensor(x, [tensors.get(d)
+                                  for d in range(max(tensors) + 1)])
     return x
 
 
-class _FakeDeviceIndexing(torch.overrides.TorchFunctionMode):
-    """Indexing, index assignment and ``copy_`` of fake tensors of a device
-    this torch was not built for, as the aten ops they record."""
+def _setitem(x, idx, value) -> None:
+    view = aten_index(x, idx)
+    if isinstance(value, torch.Tensor):
+        torch.ops.aten.copy_.default(view, value)
+    else:
+        torch.ops.aten.fill_.Scalar(view, value)
 
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is torch.Tensor.__getitem__:
-            return _index(*args)
-        if func is torch.Tensor.__setitem__:
-            x, idx, value = args
-            view = _index(x, idx)
-            if isinstance(value, torch.Tensor):
-                torch.ops.aten.copy_.default(view, value)
-            else:
-                torch.ops.aten.fill_.Scalar(view, value)
-            return None
-        if func is torch.Tensor.copy_:
-            return torch.ops.aten.copy_.default(*args, **kwargs)
-        return func(*args, **kwargs)
+
+def _contiguous(x, memory_format=torch.contiguous_format):
+    if x.is_contiguous(memory_format=memory_format):
+        return x
+    return torch.ops.aten.clone.default(x, memory_format=memory_format)
+
+
+#: `torch.Tensor` methods whose Python bindings take a device guard, as
+#: the aten ops they record
+_GUARDED = {"__getitem__": aten_index, "__setitem__": _setitem,
+            "copy_": lambda x, src, non_blocking=False:
+                torch.ops.aten.copy_.default(x, src, non_blocking),
+            "contiguous": _contiguous}
+
+
+@contextlib.contextmanager
+def fake_device_indexing():
+    """Indexing, index assignment, ``copy_`` and ``contiguous`` of fake
+    tensors of a device this torch was not built for, as the aten ops they
+    record: `_GUARDED` stands in for `torch.Tensor`'s methods for the
+    duration (they are `TensorBase`'s, so removing ours restores them).
+    A torch-function mode would not do: DTensor calls them inside its own
+    dispatch, where no such mode is active."""
+    for name, fn in _GUARDED.items():
+        setattr(torch.Tensor, name, fn)
+    try:
+        yield
+    finally:
+        for name in _GUARDED:
+            delattr(torch.Tensor, name)
 
 
 def trace(fn, specs, device) -> torch.fx.GraphModule:
@@ -1160,7 +1186,7 @@ def trace(fn, specs, device) -> torch.fx.GraphModule:
     def run(*a):
         if device.type == "cpu":
             return fn(*a)
-        with _FakeDeviceIndexing():
+        with fake_device_indexing():
             return fn(*a)
 
     before = dict(kernels.LAUNCH_COUNTS)

@@ -205,6 +205,15 @@ class ShapeConfig:
     kind: str                       # train | prefill | decode
 
 
+#: the assigned input-shape cells, the JAX package's `SHAPES`
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """How logical axes map onto a mesh (`dist.sharding`), the train step's

@@ -4,7 +4,8 @@ compression, pipeline parallelism.
   * sharding    -- logical-axis -> mesh placement rules (DTensor
     placements on an `launch.mesh.SNNMesh`): the SNN mesh path's lanes and
     row tiles, and LM sharding's `param_specs`, `batch_specs`,
-    `cache_specs`, `logits_spec`, `place_tree`/`gather_tree`, and the
+    `cache_specs` (a serving step's cache: `serve_cache_specs`),
+    `logits_spec`, `place_tree`/`gather_tree`, and the
     `activation_rules` context with `constrain`, which model code calls
     freely (the identity unless rules are active).
   * compress    -- `compressed_psum_mean`, the int8-wire gradient mean with

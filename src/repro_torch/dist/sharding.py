@@ -15,7 +15,8 @@ JAX ``PartitionSpec``; with the mesh's `DeviceMesh` it is a
   2. spec builders, trees of placements: `param_specs` (tensor-parallel on
      each parameter's last axis, FSDP on its first), `batch_specs` (the
      batch over data, the sequence over model under sequence
-     parallelism), `cache_specs` (heads, axis 2, over model),
+     parallelism), `cache_specs` (heads, axis 2, over model; a serving
+     step's stacked cache by `serve_cache_specs`),
      `logits_spec`, `replicated`, `logical_spec`/`logical_sharding` and
      the SNN streaming state's `snn_state_specs`. `place_tree` puts a tree
      of global tensors onto a mesh by such a tree (`distribute_tensor` a
@@ -43,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import threading
 from typing import Any, Optional
 
@@ -52,7 +54,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import mesh_extents
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 logger = logging.getLogger("repro_torch.dist.sharding")
 
@@ -279,6 +281,24 @@ def gather_tree(tree: Any) -> Any:
                     else x, tree)
 
 
+def _register_flip_rule() -> None:
+    """DTensor's rule for ``aten.flip`` (``cumsum``'s backward reverses
+    with it; torch 2.11's DTensor has no rule, 2.13's allows the same
+    placements): replicated, or sharded on a dimension it does not
+    reverse."""
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.flip.default)
+    def rule(x, dims):
+        flipped = {d % x.ndim for d in dims}
+        return [([Replicate()], [Replicate(), None])] + [
+            ([Shard(d)], [Shard(d), None]) for d in range(x.ndim)
+            if d not in flipped]
+
+
+_register_flip_rule()
+
+
 def replicated_call(fn, *args):
     """``fn`` on the global values of its DTensor arguments: each is
     redistributed to replicated and ``fn`` runs on its local (= global)
@@ -383,6 +403,53 @@ def recomputed(fn, *args):
                       context_fn=recompute_contexts)
 
 
+def whole_axis(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``x`` with axis ``dim`` whole on every rank: a DTensor sharded there
+    is redistributed to replication on those mesh axes (its other
+    placements kept; DTensor cannot unbind a sharded axis); any other
+    tensor as it is."""
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Shard) and p.dim == dim for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in x.placements])
+
+
+def _laid_out(x: DTensor) -> DTensor:
+    """``x`` with a contiguous local shard and contiguous global strides
+    (a copy of the shard only when it is not contiguous)."""
+    from torch.distributed.tensor._utils import compute_global_tensor_info
+    local = x.to_local().contiguous()
+    shape, stride = compute_global_tensor_info(local, x.device_mesh,
+                                               x.placements)
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _laid_out(g) if isinstance(g, DTensor) else g.contiguous()
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient comes back with a contiguous local shard and
+    contiguous global strides when ``x`` is a DTensor that requires one. A
+    permuted gradient's layout is otherwise decided twice, on the global
+    shape by DTensor and on the shard by the operator, and the two can
+    differ (the next view of the shard then fails). A plain tensor is
+    returned as it is."""
+    if isinstance(x, DTensor) and x.requires_grad:
+        return _ContiguousGrad.apply(x)
+    return x
+
+
 def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
     """Pin an activation's logical axes onto the active mesh. ``x`` itself
     when no rules are active or when ``x`` is a plain tensor; a DTensor is
@@ -416,3 +483,177 @@ def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
     # a permuted global layout (an einsum's output) with freshly cut local
     # shards trips DTensor's view rules in the next op: lay it out anew
     return out if out.is_contiguous() else out.contiguous()
+
+
+def split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """``x`` (..., H * head_dim) as (..., H, head_dim). Under active rules,
+    a DTensor whose last axis is sharded over extents that do not divide
+    H is gathered on that axis first: DTensor cannot cut a sharded axis
+    into heads unevenly (XLA reshards there by itself). The plain reshape
+    otherwise."""
+    n_heads = x.shape[-1] // head_dim
+    mesh = _RULES.mesh
+    if mesh is not None and isinstance(x, DTensor):
+        sizes = mesh_extents(mesh)
+        last = x.dim() - 1
+        extent = 1
+        for name, p in zip(_axis_names(mesh), x.placements):
+            if isinstance(p, Shard) and p.dim == last:
+                extent *= sizes[name]
+        if n_heads % extent:
+            placements = tuple(Replicate() if isinstance(p, Shard)
+                               and p.dim == last else p
+                               for p in x.placements)
+            x = x.redistribute(device_mesh_of(mesh), placements)
+    return x.reshape(tuple(x.shape[:-1]) + (n_heads, head_dim))
+
+
+# ---------------------------------------------------------------------------
+# serving caches under a mesh
+# ---------------------------------------------------------------------------
+
+def serve_cache_specs(cache: Any, mesh, parallel, cfg=None) -> Any:
+    """Placements a serving step keeps its cache in: `cache_specs`, except
+    that a stacked leaf (``cache["blocks"]``, the layer axis first) keeps
+    the layer axis whole and puts the mesh axes `cache_specs` gives it on
+    the batch (axis 1) where they divide it (else replicated): a layer's
+    slice is then a view of this rank's shard, which the step writes in
+    place. Where the extents divide, a rank holds as many bytes as under
+    `cache_specs` (JAX's rule, whose stacked layer axis is scanned)."""
+    specs = cache_specs(cache, mesh, parallel, cfg)
+    if not isinstance(cache, dict) or "blocks" not in cache:
+        return specs
+    sizes, names = mesh_extents(mesh), _axis_names(mesh)
+
+    def per_layer(leaf, placements):
+        on1 = math.prod(sizes[n] for n, p in zip(names, placements)
+                        if isinstance(p, Shard) and p.dim == 1)
+        out = []
+        for n, p in zip(names, placements):
+            if isinstance(p, Shard) and p.dim == 0:
+                if leaf.dim() > 1 and leaf.shape[1] % (on1 * sizes[n]) == 0:
+                    on1 *= sizes[n]
+                    p = Shard(1)
+                else:
+                    p = Replicate()
+            out.append(p)
+        return tuple(out)
+    specs = dict(specs)
+    specs["blocks"] = tree_map(per_layer, cache["blocks"], specs["blocks"])
+    return specs
+
+
+def cache_zeros(make, like, cfg=None) -> Any:
+    """A zero serving cache: ``make(device)`` (e.g. `lm.init_cache` of the
+    right sizes) on ``like``'s device, or, under active rules with
+    ``like`` a DTensor, the same tree as DTensors placed by
+    `serve_cache_specs` on the active mesh, each rank allocating only its
+    shards."""
+    mesh = _RULES.mesh
+    if mesh is None or not isinstance(like, DTensor):
+        return make(like.device)
+    from torch.distributed.tensor import zeros
+    meta = make(torch.device("meta"))
+    dm = device_mesh_of(mesh)
+    return tree_map(lambda m, p: zeros(tuple(m.shape), dtype=m.dtype,
+                                       device_mesh=dm, placements=list(p)),
+                    meta, serve_cache_specs(meta, mesh, _RULES.parallel,
+                                            cfg))
+
+
+def placed_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to ``like``'s placements when both are DTensors
+    whose placements differ; ``x`` itself otherwise."""
+    if (isinstance(x, DTensor) and isinstance(like, DTensor)
+            and tuple(x.placements) != tuple(like.placements)):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
+def check_layer_sliceable(tree: Any) -> None:
+    """Raise `ValueError` when a DTensor leaf of a stacked cache tree
+    shards its layer axis (0): its layer slice would be a gathered copy,
+    and the step's in-place writes would be lost (`serve_cache_specs`
+    places a cache for the step)."""
+    for x in tree_leaves(tree):
+        if isinstance(x, DTensor) and any(
+                isinstance(p, Shard) and p.dim == 0
+                and x.device_mesh.size(i) > 1
+                for i, p in enumerate(x.placements)):
+            raise ValueError(
+                f"a stacked cache leaf of shape {tuple(x.shape)} is sharded "
+                f"on its layer axis ({x.placements}): place the cache by "
+                "serve_cache_specs")
+
+
+def _local_box(x: DTensor) -> tuple:
+    """(local shape, global offset) of this rank's shard of ``x``, by
+    `torch.chunk`'s split (a ceiling piece a rank), mesh dimension by mesh
+    dimension, from the mesh coordinate (no tensor is read)."""
+    shape, off = list(x.shape), [0] * x.dim()
+    coord = x.device_mesh.get_coordinate()
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            n, k = shape[p.dim], x.device_mesh.size(i)
+            piece = -(-n // k)
+            start = min(coord[i] * piece, n)
+            off[p.dim] += start
+            shape[p.dim] = max(0, min(piece, n - start))
+    return tuple(shape), tuple(off)
+
+
+def _full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def put_rows(cache: torch.Tensor, pos: torch.Tensor,
+             row: torch.Tensor) -> None:
+    """``cache[b, pos[b]] = row[b]`` in place for every lane b of a (B, S,
+    ...) cache whose ``pos[b]`` < S; a lane at or past S writes nothing
+    (JAX's out-of-bounds scatter). On a DTensor cache each rank writes the
+    rows that fall in its shard of (B, S, ...), from the gathered
+    positions and rows (one token a lane)."""
+    B, S = cache.shape[0], cache.shape[1]
+    if not isinstance(cache, DTensor):
+        b_idx = torch.arange(B, device=cache.device)
+        at = pos.long().clamp(max=S - 1)
+        inside = (pos < S).reshape((B,) + (1,) * (row.dim() - 1))
+        cache.index_put_((b_idx, at), torch.where(inside, row,
+                                                  cache[b_idx, at]))
+        return
+    shape, off = _local_box(cache)
+    local = cache.to_local()
+    lanes = slice(off[0], off[0] + shape[0])
+    at = _full(pos).long()[lanes] - off[1]
+    r = _full(row).to(local.dtype)[lanes]
+    for d in range(1, r.dim()):
+        r = r.narrow(d, off[d + 1], shape[d + 1])
+    ok = ((at >= 0) & (at < shape[1])).reshape(
+        (shape[0],) + (1,) * (r.dim() - 1))
+    at = at.clamp(0, max(shape[1] - 1, 0))
+    b_idx = torch.arange(shape[0], device=local.device)
+    local.index_put_((b_idx, at), torch.where(ok, r, local[b_idx, at]))
+
+
+def put_prefix(cache: torch.Tensor, x: torch.Tensor) -> None:
+    """``cache[:, :T] = x`` in place for x (B, T, ...) and a (B, S, ...)
+    cache, T <= S. On a DTensor cache ``x`` is placed as the cache but
+    whole along axis 1, and each rank copies the part of its shard's
+    positions that lies below T."""
+    T = x.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, :T].copy_(x)
+        return
+    want = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in cache.placements]
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, cache.device_mesh,
+                               [Replicate()] * cache.device_mesh.ndim,
+                               run_check=False)
+    xl = x.redistribute(cache.device_mesh, want).to_local()
+    shape, off = _local_box(cache)
+    lo, hi = off[1], min(off[1] + shape[1], T)
+    if hi > lo:
+        cache.to_local().narrow(1, 0, hi - lo).copy_(
+            xl.narrow(1, lo, hi - lo).to(cache.dtype))
+

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _build
+from repro_torch.kernels.wkv6.ref import wkv6_sequential
 
 NAME = "wkv6"
 HEAD_SIZES = (16, 32, 64)     # the K and V the kernel is instantiated for
@@ -82,7 +83,7 @@ def _check(x: torch.Tensor, what: str, shape: tuple,
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what} must have shape {tuple(shape)}, got "
                          f"{tuple(x.shape)}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous and 16-byte aligned")
 
 
@@ -91,6 +92,11 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA float32 tensors: r, k, w (BH, T, K);
     v (BH, T, V); u (BH, K); s0 (BH, K, V). Returns (y (BH, T, V),
     s_out (BH, K, V)), float32.
+
+    The launch is the custom operator ``torch.ops.repro_torch.wkv6``
+    (`OP`): on fake tensors its fake implementation gives the outputs'
+    shapes and launches nothing, and on DTensors it runs on each rank's
+    shard of the B*H rows (or replicated).
 
     Raises `ValueError` on a tensor the kernel does not take (K or V outside
     `HEAD_SIZES`, T < 1, wrong device, dtype, shape or layout), and in grad
@@ -122,6 +128,20 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            (w, "w", (BH, T, K)), (v, "v", (BH, T, V)),
                            (u, "u", (BH, K)), (s0, "s0", (BH, K, V))):
         _check(x, what, shape, device)
+    return OP(r, k, v, w, u, s0)
+
+
+def _launch(r, k, v, w, u, s0) -> tuple:
+    """`OP`'s CUDA implementation: the alignment check, the outputs, the
+    launch on the current stream and its count."""
+    for x, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w"), (u, "u"),
+                    (s0, "s0")):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what} must be contiguous and 16-byte "
+                             "aligned")
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    device = r.device
     y = torch.empty((BH, T, V), dtype=torch.float32, device=device)
     s_out = torch.empty((BH, K, V), dtype=torch.float32, device=device)
     lib = _lib()
@@ -136,3 +156,40 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({lib.wkv6_error_string(err).decode()})")
     kernels.LAUNCH_COUNTS[NAME] += 1
     return y, s_out
+
+
+def _fake(r, k, v, w, u, s0) -> tuple:
+    """`OP`'s fake implementation: the outputs' shapes and type."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    return r.new_empty((BH, T, V)), r.new_empty((BH, K, V))
+
+
+#: the launch as a custom operator, so that a trace on fake tensors (the
+#: dry-run, `launch.dryrun`) records one node and launches nothing
+OP = torch.library.custom_op(
+    "repro_torch::wkv6", _launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor s0)"
+           " -> (Tensor, Tensor)")
+OP.register_fake(_fake)
+#: on the CPU the operator is the plain version: `ops.wkv6` takes it for
+#: DTensors on a CPU mesh, which then run it on each rank's rows
+OP.register_kernel("cpu")(wkv6_sequential)
+
+
+def _register_sharding() -> None:
+    """DTensor's rule for `OP`: every operand and both outputs replicated,
+    or all sharded on the B*H rows, which the recurrence keeps apart."""
+    import torch.distributed as dist
+    if not dist.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.wkv6.default)
+    def rule(r, k, v, w, u, s0):
+        return [([Replicate()] * 2, [Replicate()] * 6),
+                ([Shard(0)] * 2, [Shard(0)] * 6)]
+
+
+_register_sharding()

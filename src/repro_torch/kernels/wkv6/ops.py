@@ -3,7 +3,8 @@
 `wkv6` takes model-layout tensors (B, T, H, K/V) and an optional carried
 state and moves them to the (B*H, T, K/V) float32 layout. By default it runs
 the CUDA kernel (`kernel.wkv6_cuda`) on CUDA tensors or its plain version
-(`ref.wkv6_sequential`) on CPU tensors, and never falls back from one to
+(`ref.wkv6_sequential`, through the operator `kernel.OP` for DTensors)
+on CPU tensors, and never falls back from one to
 the other: a CUDA input that the kernel refuses raises. The kernel takes
 any T, so there is no padding to a chunk.
 
@@ -19,8 +20,9 @@ jnp and not Pallas.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels.wkv6.kernel import OP, wkv6_cuda
 from repro_torch.kernels.wkv6.ref import wkv6_chunked, wkv6_sequential
 
 
@@ -62,7 +64,9 @@ def wkv6(r, k, v, w, u, s0=None, *, use_kernel: bool = True,
     if not use_kernel:
         y, s_out = _chunked(*args, chunk)
     elif r.device.type == "cpu":
-        y, s_out = wkv6_sequential(*args)
+        # a DTensor takes the operator, whose rule keeps each rank's rows
+        y, s_out = (OP if isinstance(args[0], DTensor)
+                    else wkv6_sequential)(*args)
     else:
         y, s_out = wkv6_cuda(*args)
     return from_bh_layout(y[:, :T], s_out, B, H)

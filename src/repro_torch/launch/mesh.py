@@ -29,8 +29,10 @@ gloo, which takes CPU and CUDA tensors), and nothing falls back to the
 host.
 
 `make_production_mesh` is the JAX package's production geometry, (16, 16)
-on ("data", "model") or (2, 16, 16) on ("pod", "data", "model"); its TPU
-hardware constants are not carried over.
+on ("data", "model") or (2, 16, 16) on ("pod", "data", "model"); beside
+it stand the card's constants for the roofline terms of `launch.dryrun`
+(the NVIDIA H100 SXM5 80GB at 700 W; the JAX package's TPU constants are
+not carried over).
 
 A plain ``{axis: extent}`` dict stands in for a mesh wherever only the
 geometry matters (`analysis.check_kernel_contracts`, `check_trace`,
@@ -49,6 +51,25 @@ AXES = ("data", "model")
 #: all-reduce groups by key, for the `accv2v_all_reduce` operator (an
 #: operator's arguments cannot hold a process group)
 _GROUPS: dict = {}
+
+# NVIDIA H100 SXM5 80GB (700 W) datasheet rates, one GPU: the roofline
+# terms of `launch.dryrun`
+PEAK_FLOPS_BF16 = 989.4e12      # dense bf16 tensor-core flop/s
+HBM_BW = 3.35e12                # HBM3 bytes/s
+#: one GPU's 400 Gb/s NDR InfiniBand port, bytes/s: with nodes of 8 GPUs
+#: every axis of (16, 16) and (2, 16, 16) crosses nodes (data has stride
+#: 16, model spans 2 nodes), so collectives run at this rate and not at
+#: NVLink's 450e9 bytes/s a direction inside a node
+NET_BW = 50e9
+
+
+def hbm_bytes() -> int:
+    """One GPU's memory (JAX's ``HBM_BYTES``): the card's total memory
+    where there is one, else the datasheet's 80e9 bytes. A function, so
+    that importing the module never initializes CUDA."""
+    if torch.cuda.is_available():
+        return int(torch.cuda.get_device_properties(0).total_memory)
+    return int(80e9)
 
 
 class SNNMesh:

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.sharding import constrain, replicated_call
+from repro_torch.dist.sharding import (constrain, contiguous_grad, put_rows,
+                                      replicated_call, split_heads)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -254,9 +255,9 @@ def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     src = x if kv_x is None else kv_x
     S = src.shape[1]
     causal = causal and kv_x is None
-    q = (x @ p["wq"]).reshape(B, T, -1, hd)
-    k = (src @ p["wk"]).reshape(B, S, -1, hd)
-    v = (src @ p["wv"]).reshape(B, S, -1, hd)
+    q = split_heads(x @ p["wq"], hd)
+    k = split_heads(src @ p["wk"], hd)
+    v = split_heads(src @ p["wv"], hd)
     if use_rope and cfg.rope_theta > 0 and kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -290,24 +291,22 @@ def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,
     and ``cache`` returned untouched."""
     B, T, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, T, -1, hd)
+    q = split_heads(x @ p["wq"], hd)
+    # the heads gathered as `attention` gathers them (identity w/o rules)
+    q = constrain(q, ("batch", None, None, None))
     if cross_kv is not None:
         k, v = cross_kv
         out = _sdpa(q, k, v, causal=False)
         return out.reshape(B, T, -1) @ p["wo"], cache
-    k_new = (x @ p["wk"]).reshape(B, T, -1, hd)
-    v_new = (x @ p["wv"]).reshape(B, T, -1, hd)
+    k_new = split_heads(x @ p["wk"], hd)
+    v_new = split_heads(x @ p["wv"], hd)
     if use_rope and cfg.rope_theta > 0:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        q = constrain(apply_rope(q, pos[:, None], cfg.rope_theta),
+                      ("batch", None, None, None))
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
-    S = k_cache.shape[1]
-    b_idx = torch.arange(B, device=x.device)
-    at = pos.long().clamp(max=S - 1)
-    inside = (pos < S)[:, None, None]
     for c, new in ((k_cache, k_new), (v_cache, v_new)):
-        row = torch.where(inside, new[:, 0].to(c.dtype), c[b_idx, at])
-        c.index_put_((b_idx, at), row)
+        put_rows(c, pos, new[:, 0].to(c.dtype))
     out = _sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
     return out.reshape(B, T, -1) @ p["wo"], {"k": k_cache, "v": v_cache}
 
@@ -349,7 +348,7 @@ def mla_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
     m = cfg.mla
     B, T, _ = x.shape
     nh, r = cfg.n_heads, m.kv_lora_rank
-    q = (x @ p["wq"]).reshape(B, T, nh, m.nope_head_dim + m.rope_head_dim)
+    q = split_heads(x @ p["wq"], m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = (x @ p["w_dkv"]).split([r, m.rope_head_dim], dim=-1)
@@ -358,24 +357,25 @@ def mla_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
     if latent_cache is None:
         latent, kv_len, causal = latent_new, None, True
     else:
-        S = latent_cache.shape[1]
-        b_idx = torch.arange(B, device=x.device)
-        at = pos.long().clamp(max=S - 1)
-        row = torch.where((pos < S)[:, None],
-                          latent_new[:, 0].to(latent_cache.dtype),
-                          latent_cache[b_idx, at])
-        latent_cache.index_put_((b_idx, at), row)
+        put_rows(latent_cache, pos, latent_new[:, 0].to(latent_cache.dtype))
         latent, kv_len, causal = latent_cache, pos + 1, False
     # a bf16 cache under float32 weights is promoted, as JAX promotes it
     latent_w = latent.to(torch.promote_types(latent.dtype, p["w_uk"].dtype))
+    # the up-projections flatten (lanes, positions) into rows, which DTensor
+    # cannot do with the positions sharded: the lanes over data only (the
+    # identity without active rules)
+    latent_w = constrain(latent_w, ("batch", None, None))
     c_all, kr_all = latent_w.split([r, m.rope_head_dim], dim=-1)
     S = c_all.shape[1]
-    k_nope = (c_all @ p["w_uk"]).reshape(B, S, nh, m.nope_head_dim)
-    v = (c_all @ p["w_uv"]).reshape(B, S, nh, m.v_head_dim)
+    k_nope = split_heads(c_all @ p["w_uk"], m.nope_head_dim)
+    v = split_heads(c_all @ p["w_uv"], m.v_head_dim)
     k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
         B, S, nh, m.rope_head_dim)], dim=-1)
-    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k_full, v,
-                causal=causal, q_pos=positions, kv_len=kv_len)
+    # heads gathered as `attention` gathers them (identity w/o rules)
+    q_full, k_full, v = (constrain(t, ("batch", None, None, None)) for t in
+                         (torch.cat([q_nope, q_rope], dim=-1), k_full, v))
+    out = _sdpa(q_full, k_full, v, causal=causal, q_pos=positions,
+                kv_len=kv_len)
     return out.reshape(B, T, nh * m.v_head_dim) @ p["wo"], latent
 
 
@@ -474,16 +474,31 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
     if constraints:
         be = constrain(be, ("batch", "experts", None, None))
     ex = p["experts"]
-    h = (F.silu(torch.einsum("gecd,edf->gecf", be, ex["gate"]))
-         * torch.einsum("gecd,edf->gecf", be, ex["up"]))
+    h = (F.silu(_experts(be, ex["gate"])) * _experts(be, ex["up"]))
     if constraints:
         h = constrain(h, ("batch", "experts", None, None))
-    ye = torch.einsum("gecf,efd->gecd", h, ex["down"]).reshape(G, E * cap, d)
+    ye = _experts(h, ex["down"]).reshape(G, E * cap, d)
     out = combine(ye, dest, keep, gate_sorted, order, k, x.dtype
                   ).reshape(B, T, d)
     if "shared" in p:
         out = out + ffn(x, p["shared"], "swiglu")
     return out, lb_loss.float()
+
+
+def _experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Every expert's product: x (G, E, cap, a) by w (E, a, b) -> (G, E,
+    cap, b), ``einsum("gecd,edf->gecf")``. On DTensors the experts-first
+    layout that the einsum takes inside is made explicitly, with a copy:
+    the einsum's backward views a permuted gradient whose local shard is
+    laid out otherwise than DTensor's global strides say, and fails; the
+    gradient of ``x`` comes back laid out (`contiguous_grad`)."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("gecd,edf->gecf", x, w)
+    G, E, C, a = x.shape
+    xe = contiguous_grad(x).permute(1, 0, 2, 3).contiguous().reshape(
+        E, G * C, a)
+    y = torch.bmm(xe, w)
+    return y.reshape(E, G, C, -1).permute(1, 0, 2, 3).contiguous()
 
 
 def _route(xg: torch.Tensor, router: torch.Tensor, k: int, cap: int):

@@ -68,7 +68,10 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.dist.sharding import constrain, recomputed, replicated_call
+from repro_torch.dist.sharding import (cache_zeros, check_layer_sliceable,
+                                      constrain, placed_as, put_prefix,
+                                      recomputed, replicated_call,
+                                      split_heads, whole_axis)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
@@ -337,10 +340,10 @@ def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool,
                            chunk=wkv_chunk)
     else:
         h, st = R.time_mix(h_in, p["rwkv"]["tm"], cfg, st)
-    x = x + h.to(x.dtype)
+    x = _residual(x, h)
     h, shift_cm = R.channel_mix(_norm(x, p["norm2"], cfg), p["rwkv"]["cm"],
                                 None if cache is None else cache["shift_cm"])
-    x = x + h.to(x.dtype)
+    x = _residual(x, h)
     return x, {"shift_tm": st["shift"], "wkv": st["wkv"], "shift_cm": shift_cm}
 
 
@@ -384,7 +387,7 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
         new_cache = None
         if cache is not None:
             if not decode:                          # prefill: fill the cache
-                cache["latent"][:, :latent.shape[1]].copy_(latent)
+                put_prefix(cache["latent"], latent)
             new_cache = {"latent": cache["latent"]}
     elif decode:
         h, new_cache = L.attention_decode(
@@ -397,13 +400,12 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
         new_cache = None
         if cache is not None:                       # prefill: fill the cache
             hd = cfg.head_dim
-            B, T, _ = h_in.shape
-            k = (h_in @ p["attn"]["wk"]).reshape(B, T, -1, hd)
-            v = (h_in @ p["attn"]["wv"]).reshape(B, T, -1, hd)
+            k = split_heads(h_in @ p["attn"]["wk"], hd)
+            v = split_heads(h_in @ p["attn"]["wv"], hd)
             if cfg.rope_theta > 0:
                 k = L.apply_rope(k, positions, cfg.rope_theta)
-            cache["k"][:, :T].copy_(k)
-            cache["v"][:, :T].copy_(v)
+            put_prefix(cache["k"], k)
+            put_prefix(cache["v"], v)
             new_cache = {"k": cache["k"], "v": cache["v"]}
     x = _residual(x, h)
     if mixer == "attn" and cfg.is_encoder_decoder and enc_out is not None:
@@ -426,6 +428,18 @@ def _apply_block(x, p, cfg: ModelConfig, idx: int, positions, *,
     return x, new_cache, aux
 
 
+def _unstack(tree, n: int) -> list:
+    """The n per-layer trees of a tree of stacked leaves, each leaf
+    `unbind` once: the gradient of the n slices is one stack of theirs,
+    where n separate indexings would each add a zero tensor of the whole
+    stack in the backward pass (a cost quadratic in depth). A stack
+    sharded on its layer axis is gathered once first (`whole_axis`)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][s] for k in tree} for s in range(n)]
+    return list(whole_axis(tree).unbind(0))
+
+
 def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
                pos=None, enc_out=None,
                parallel: Optional[ParallelConfig] = None,
@@ -445,6 +459,8 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
     off = n_prelude(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_blocks = None if cache is None else cache["blocks"]
+    if cache_blocks is not None:
+        check_layer_sliceable(cache_blocks)
     remat = train and parallel.remat != "none" and torch.is_grad_enabled()
 
     new_pre = []
@@ -473,8 +489,9 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
         return super_block(x, aux_total, p_s, None, s, enc_out)[:2]
 
     olds, news = [], []
+    per_block = _unstack(params["blocks"], n_super(cfg))
     for s in range(n_super(cfg)):
-        p_s = tree_map(lambda a: a[s], params["blocks"])
+        p_s = per_block[s]
         c_s = (None if cache_blocks is None
                else tree_map(lambda a: a[s], cache_blocks))
         if remat:
@@ -491,7 +508,8 @@ def _run_stack(params, x, cfg: ModelConfig, positions, *, cache=None,
         def restack(full, *entries):
             if all(new is old for old, new in zip(entries[:n], entries[n:])):
                 return full
-            return torch.stack(entries[n:])
+            # a leaf made anew (a recurrent state) keeps the cache's layout
+            return placed_as(torch.stack(entries[n:]), full)
         new_cache = dict(cache)
         new_cache["blocks"] = tree_map(restack, cache_blocks, *olds, *news)
         if new_pre:
@@ -521,12 +539,14 @@ def _run_encoder(params, frames, cfg: ModelConfig,
                         causal=False, use_rope=False,
                         q_chunk=parallel.attn_q_chunk,
                         kv_block=parallel.attn_kv_block)
-        x = x + h
-        return x + L.ffn(_norm(x, p["norm2"], cfg), p["ffn"], cfg.ffn_type)
+        # each projection's output pinned as `_residual` pins it (in its
+        # own type; the identity without active rules)
+        x = x + constrain(h, ("batch", None, None))
+        h = L.ffn(_norm(x, p["norm2"], cfg), p["ffn"], cfg.ffn_type)
+        return x + constrain(h, ("batch", None, None))
 
     remat = train and parallel.remat != "none" and torch.is_grad_enabled()
-    for i in range(cfg.n_encoder_layers):
-        p = tree_map(lambda a: a[i], enc["blocks"])
+    for p in _unstack(enc["blocks"], cfg.n_encoder_layers):
         x = recomputed(layer, x, p) if remat else layer(x, p)
     return _norm(x, enc["final_norm"], cfg)
 
@@ -708,9 +728,9 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int,
     x, positions, enc_src = _embed_inputs(params, batch, cfg)
     B, T = x.shape[:2]
     enc_out = None
-    cache = init_cache(cfg, B, max_len, device=x.device,
-                       enc_len=(enc_src.shape[1] if cfg.is_encoder_decoder
-                                else 0))
+    enc_len = enc_src.shape[1] if cfg.is_encoder_decoder else 0
+    cache = cache_zeros(lambda dev: init_cache(cfg, B, max_len, device=dev,
+                                               enc_len=enc_len), x, cfg)
     if cfg.is_encoder_decoder:
         enc_out = _run_encoder(params, enc_src, cfg, parallel)
         cache["enc_out"] = enc_out

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain, split_heads
 from repro_torch.kernels.wkv6.ops import wkv6, wkv6_decode_step
 from repro_torch.models.layers import dense_init, gen_device, normal
 
@@ -85,7 +86,7 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, n_heads: int,
                 eps: float = 1e-5) -> torch.Tensor:
     B, T, d = y.shape
-    yh = y.reshape(B, T, n_heads, d // n_heads).float()
+    yh = split_heads(y, d // n_heads).float()
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + eps)
@@ -94,9 +95,8 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, n_heads: int,
 
 def _mix_inputs(x: torch.Tensor, xx: torch.Tensor, p: dict) -> tuple:
     """ddlerp: the five token-shift mixes (r, k, v, g, w) of (B, T, d) x."""
-    B, T, _ = x.shape
     base = x + xx * p["mu"][0]
-    a = torch.tanh(base @ p["ddlerp_w1"]).reshape(B, T, N_MIX, LORA_R)
+    a = split_heads(torch.tanh(base @ p["ddlerp_w1"]), LORA_R)
     mix = torch.einsum("btnr,nrd->btnd", a, p["ddlerp_w2"]) + p["mu"][None, None]
     xs = x[:, :, None, :] + xx[:, :, None, :] * mix           # (B, T, 5, d)
     return xs.unbind(2)
@@ -120,12 +120,18 @@ def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
     H, K = cfg.n_heads, cfg.rwkv.head_size
     prev = _token_shift(x, None if state is None else state["shift"])
     xr, xk, xv, xg, xw = _mix_inputs(x, prev - x, p)
-    r = (xr @ p["wr"]).reshape(B, T, H, K)
-    k = (xk @ p["wk"]).reshape(B, T, H, K)
-    v = (xv @ p["wv"]).reshape(B, T, H, K)
+    r = split_heads(xr @ p["wr"], K)
+    k = split_heads(xk @ p["wk"], K)
+    v = split_heads(xv @ p["wv"], K)
     g = F.silu(xg @ p["wg"])
-    w = _decay(xw, p).reshape(B, T, H, K)
-    s0 = None if state is None else state["wkv"]
+    w = split_heads(_decay(xw, p), K)
+    # the recurrence flattens (lanes, heads) into rows, which DTensor
+    # cannot do with both sharded: gather the heads (the identity without
+    # active rules)
+    r, k, v, w = (constrain(t, ("batch", None, None, None))
+                  for t in (r, k, v, w))
+    s0 = None if state is None else constrain(state["wkv"],
+                                              ("batch", None, None, None))
     y, s_new = wkv6(r, k, v, w, p["bonus"], s0=s0, use_kernel=use_kernel,
                     chunk=chunk)
     y = y.reshape(B, T, d)
@@ -141,13 +147,19 @@ def time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
     H, K = cfg.n_heads, cfg.rwkv.head_size
     prev = state["shift"][:, None].to(x.dtype)
     xr, xk, xv, xg, xw = (m[:, 0] for m in _mix_inputs(x, prev - x, p))
-    r = (xr @ p["wr"]).reshape(B, H, K)
-    k = (xk @ p["wk"]).reshape(B, H, K)
-    v = (xv @ p["wv"]).reshape(B, H, K)
+    r = split_heads(xr @ p["wr"], K)
+    k = split_heads(xk @ p["wk"], K)
+    v = split_heads(xv @ p["wv"], K)
     g = F.silu(xg @ p["wg"])
-    w = _decay(xw, p).reshape(B, H, K)
+    w = split_heads(_decay(xw, p), K)
+    # the step's products flatten (lanes, heads) into one batch axis, which
+    # DTensor cannot do with both sharded: gather the heads (the identity
+    # without active rules)
+    r, k, v, w = (constrain(t, ("batch", None, None)) for t in (r, k, v, w))
     y, s_new = wkv6_decode_step(r.float(), k.float(), v.float(), w,
-                                p["bonus"], state["wkv"])
+                                p["bonus"], constrain(state["wkv"],
+                                                      ("batch", None, None,
+                                                       None)))
     y = y.reshape(B, 1, d).to(x.dtype)
     out = (_group_norm(y, p["gn_scale"], H) * g[:, None]) @ p["wo"]
     return out, {"shift": x[:, -1], "wkv": s_new}

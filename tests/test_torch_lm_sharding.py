@@ -11,7 +11,9 @@ changing them.
   started once for the file by the module fixture, a `FileStore` under
   ``tmp_path``, ``OMP_NUM_THREADS=1``; the ranks import no JAX) runs the
   sharded train step, the elastic checkpoint restore, the MoE and Mamba
-  blocks under `activation_rules`, `compressed_psum_mean` and GPipe.
+  blocks and the experts' products with their gradients under
+  `activation_rules`, the serving models' prefill and decode steps on
+  (2, 2) and (1, 4) with their caches, `compressed_psum_mean` and GPipe.
 * The JAX oracles of the world's cases (the sharded train step of
   `tests/test_distribution.py` on (2, 2), `compressed_psum_mean` on 4
   shards, `make_pipeline_fn` on 4 stages) run in one subprocess with 4
@@ -57,7 +59,13 @@ STEP_ATOL = 1e-5
 ADAM_G_MIN = 1e-7
 ADAM_STABLE_SHARE = 0.85
 BLOCK_RTOL = 1e-5          # float32 rounding of a resharded block
+SERVE_LOGIT_RTOL = 1e-4    # float32 logits after a bf16 cache
+BF16_RTOL = 2.0 ** -7      # one bf16 rounding of a cache leaf's value
 ARCHS = ("llama3.2-1b", "deepseek-v2-lite-16b", "jamba-v0.1-52b")
+#: serving: GQA attention, MLA with its prelude and MoE, RWKV
+SERVE_ARCHS = ("llama3.2-1b", "deepseek-v2-lite-16b", "rwkv6-7b")
+SERVE_PARALLEL = ParallelConfig()            # the dry-run's DEFAULT_SERVE
+SERVE_B, SERVE_T, SERVE_MAX_LEN, SERVE_STEPS = 4, 8, 16, 2
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +373,21 @@ class _Setup:
                                               torch.float32)
         self.mamba_x = torch.from_numpy(rng.standard_normal(
             (4, 40, self.mamba_cfg.d_model)).astype(np.float32))
+        self.experts_x = torch.from_numpy(rng.standard_normal(
+            (4, 4, 3, 8)).astype(np.float32))
+        self.experts_w = torch.from_numpy(rng.standard_normal(
+            (4, 8, 6)).astype(np.float32))
+        self.serve = {}
+        for arch in SERVE_ARCHS:
+            cfg = reduced_config(get_config(arch))
+            tokens = [torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (SERVE_B, t)).astype(np.int32))
+                for t in (SERVE_T,) + (1,) * SERVE_STEPS]
+            self.serve[arch] = {
+                "cfg": cfg, "max_len": SERVE_MAX_LEN,
+                "params": lm.init_params(0, cfg, dtype=torch.float32,
+                                         device="cpu"),
+                "prompt": tokens[0], "steps": tokens[1:]}
         # tests/test_distribution.py's inputs, on 4 shards
         self.compress_g = np.random.default_rng(0).standard_normal(
             (WORLD, 64)).astype(np.float32)
@@ -379,6 +402,8 @@ class _Setup:
                 "moe_cfg": self.moe_cfg, "moe_p": self.moe_p,
                 "moe_x": self.moe_x, "mamba_cfg": self.mamba_cfg,
                 "mamba_p": self.mamba_p, "mamba_x": self.mamba_x,
+                "experts_x": self.experts_x, "experts_w": self.experts_w,
+                "serve": self.serve, "serve_parallel": SERVE_PARALLEL,
                 "compress_g": torch.from_numpy(self.compress_g),
                 "pipe_ws": torch.from_numpy(self.pipe_ws),
                 "pipe_xs": torch.from_numpy(self.pipe_xs)}
@@ -590,6 +615,80 @@ def test_moe_constraints_equal_the_plain_call(world, setup):
         assert _rel(m["out"], want.numpy()) <= BLOCK_RTOL
         assert float(m["lb"]) == pytest.approx(float(want_lb),
                                                rel=BLOCK_RTOL)
+
+
+def test_experts_equal_the_plain_einsum_with_gradients(world, setup):
+    """`layers._experts` on DTensors (the buckets over (batch, experts),
+    the weights' experts over model) under `activation_rules` == the plain
+    ``einsum("gecd,edf->gecf")`` within float32 rounding, and so are the
+    gradients of a scalar loss for both operands (the backward pass lays
+    the permuted gradient out, `contiguous_grad`)."""
+    x = setup.experts_x.clone().requires_grad_(True)
+    w = setup.experts_w.clone().requires_grad_(True)
+    y = torch.einsum("gecd,edf->gecf", x, w)
+    gx, gw = torch.autograd.grad((y ** 2).sum(), [x, w])
+    for r in world.ranks:
+        e = r["experts"]
+        assert _rel(e["y"], y.detach().numpy()) <= BLOCK_RTOL
+        assert _rel(e["gx"], gx.numpy()) <= BLOCK_RTOL
+        assert _rel(e["gw"], gw.numpy()) <= BLOCK_RTOL
+
+
+@pytest.fixture(scope="module")
+def serve_single(setup):
+    """Each serving model's prefill and decode steps in one process on
+    plain tensors: the logits of every call and the last cache's leaves."""
+    out = {}
+    for arch, s in setup.serve.items():
+        cfg = s["cfg"]
+        with torch.no_grad():
+            lg, cache = lm.prefill(s["params"], {"tokens": s["prompt"]}, cfg,
+                                   s["max_len"], SERVE_PARALLEL)
+            logits = [lg]
+            for t in s["steps"]:
+                lg, cache = lm.decode_step(s["params"], t, cache, cfg,
+                                           SERVE_PARALLEL)
+                logits.append(lg)
+        out[arch] = {"logits": [x.numpy() for x in logits],
+                     "cache": [x.float().numpy() for x in tree_leaves(cache)]}
+    return out
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_sharded_serve_equals_one_process(world, serve_single, mesh, arch):
+    """`lm.prefill` then two `lm.decode_step` calls on DTensors under
+    `activation_rules`, against the same calls in one process: every
+    call's logits within float32 rounding, and every leaf of the last
+    cache (K/V or MLA latent written row by row into a cache whose
+    positions shard over model, the prelude's, the RWKV state, the
+    lengths) within one bf16 rounding of the bf16 leaves' values. After
+    the prefill and after the last step every DTensor leaf of the cache is
+    where `serve_cache_specs` places it (the layer axis whole, the batch
+    over data; a state made anew laid out so too); on (1, 4) the 2 K/V heads are gathered before
+    they are split. Placed by `cache_specs` (the layer axis over data on
+    (2, 2)) the step refuses the cache by name."""
+    want = serve_single[arch]
+    for r in world.ranks:
+        got = r["serve"][mesh][arch]
+        assert len(got["logits"]) == len(want["logits"]) == 1 + SERVE_STEPS
+        for g, w in zip(got["logits"], want["logits"]):
+            assert _rel(g, w) <= SERVE_LOGIT_RTOL
+        assert len(got["cache"]) == len(want["cache"])
+        for g, w in zip(got["cache"], want["cache"]):
+            g = g.astype(np.float32)
+            assert g.shape == w.shape
+            assert np.allclose(g, w, rtol=BF16_RTOL, atol=BF16_RTOL
+                               * np.abs(w).max()), _rel(g, w)
+        for placements in (got["placements"], got["decoded"]):
+            placed = [(p, s) for p, s in zip(placements, got["specs"])
+                      if p is not None]
+            assert len(placed) >= len(got["cache"]) - 1  # all but "len"
+            assert all(p == s for p, s in placed), placed
+        if mesh == "2x2":
+            assert "serve_cache_specs" in got["refusal"]
+        else:
+            assert got["refusal"] is None
 
 
 def test_mamba_constraints_equal_the_plain_call(world, setup):

@@ -6,8 +6,8 @@
 the reduced llama3.2-1b parameters carried across from JAX, the MoE and
 Mamba blocks with their inputs, the gradient rows and the GPipe stages),
 then starts WORLD of these processes. Each joins a gloo process group
-through a `FileStore` at STORE, builds the meshes (2, 2) and (4, 1) on
-("data", "model") and (4,) on ("pipe",), all on the CPU, runs every case
+through a `FileStore` at STORE, builds the meshes (2, 2), (4, 1) and
+(1, 4) on ("data", "model") and (4,) on ("pipe",), all on the CPU, runs every case
 through the port's entry points and writes its results to OUT/rank<RANK>.pt.
 Nothing here imports JAX: the test process holds the results against the
 port's single-process calls and against the JAX package.
@@ -22,6 +22,14 @@ Cases, in the order every rank runs them:
   ckpt      the step-2 parameters saved from (2, 2) (rank 0 writes),
             restored onto (4, 1) with ``shardings=``;
   moe       `moe_ffn(constraints=True)` on DTensors on (2, 2);
+  experts   `layers._experts` on DTensors on (2, 2) (experts over model)
+            and the gradients of a scalar loss;
+  serve     for each serving model (GQA attention, MLA with its prelude
+            and MoE, RWKV), on (2, 2) and on (1, 4) (heads that 4 does not
+            divide): `lm.prefill` and two `lm.decode_step` calls under
+            `activation_rules`, the logits and every cache leaf gathered,
+            the cache's placements, and the refusal of a cache whose
+            stacked layer axis is sharded (`cache_specs`' placement);
   mamba     `mamba_forward(constraints=True)` on DTensors on (2, 2), with
             the gradient of a scalar loss;
   compress  six steps of `compressed_psum_mean` over the 4 ranks of (4, 1)
@@ -163,6 +171,80 @@ def case_moe(spec, mesh):
             "lb": _np(lb.full_tensor() if isinstance(lb, DTensor) else lb)}
 
 
+def case_experts(spec, mesh):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import layers
+    x, w = spec["experts_x"], spec["experts_w"]
+    parallel = spec["block_parallel"]
+    dx = sharding.place_tree(x, mesh, sharding.logical_spec(
+        mesh, ("batch", "experts", None, None), tuple(x.shape)))
+    dw = sharding.place_tree(w, mesh, sharding.logical_spec(
+        mesh, ("experts", None, None), tuple(w.shape)))
+    dx, dw = (t.detach().requires_grad_(True) for t in (dx, dw))
+    with sharding.activation_rules(mesh, parallel), implicit_replication():
+        y = layers._experts(dx, dw)
+        gx, gw = torch.autograd.grad((y ** 2).sum(), [dx, dw])
+    return {"y": _np(y.full_tensor()), "gx": _np(gx.full_tensor()),
+            "gw": _np(gw.full_tensor()),
+            "placements": [str(t.placements) for t in (y, gx, gw)]}
+
+
+def case_serve(spec, mesh):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import lm
+    parallel = spec["serve_parallel"]
+    out = {}
+    for arch, s in spec["serve"].items():
+        cfg = s["cfg"]
+        params = sharding.place_tree(s["params"], mesh, sharding.param_specs(
+            s["params"], mesh, parallel))
+
+        def placed(t):
+            return sharding.place_tree(t, mesh, sharding.batch_specs(
+                t, mesh, parallel))
+        logits = []
+        with torch.no_grad(), sharding.activation_rules(mesh, parallel), \
+                implicit_replication():
+            lg, cache = lm.prefill(params, {"tokens": placed(s["prompt"])},
+                                   cfg, s["max_len"], parallel)
+            logits.append(lg)
+            meta = lm.init_cache(cfg, s["prompt"].shape[0], s["max_len"],
+                                 device="meta")
+            placements = _placements(cache)
+            want = _spec_leaves(sharding.serve_cache_specs(
+                meta, mesh, parallel, cfg))
+            for t in s["steps"]:
+                lg, cache = lm.decode_step(params, placed(t), cache, cfg,
+                                           parallel)
+                logits.append(lg)
+            decoded = _placements(cache)
+            # the same cache placed by `cache_specs`: its stacked layer
+            # axis is sharded on (2, 2), and the step refuses it
+            jax_placed = sharding.place_tree(
+                sharding.gather_tree(cache), mesh,
+                sharding.cache_specs(meta, mesh, parallel, cfg))
+            try:
+                lm.decode_step(params, placed(s["steps"][0]), jax_placed,
+                               cfg, parallel)
+                refusal = None
+            except ValueError as e:
+                refusal = str(e)
+        out[arch] = {
+            "logits": [_np(x.full_tensor() if isinstance(x, DTensor) else x)
+                       for x in logits],
+            "cache": [_np(x.float()) for x in
+                      _leaves(sharding.gather_tree(cache))],
+            "placements": placements, "decoded": decoded,
+            "specs": [tuple(str(p) for p in w) for w in want],
+            "refusal": refusal}
+    return out
+
+
 def case_mamba(spec, mesh):
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -250,6 +332,7 @@ def main(argv) -> int:
     spec = torch.load(spec_path, weights_only=False)
     meshes = {"2x2": make_mesh((2, 2), device_type="cpu"),
               "4x1": make_mesh((4, 1), device_type="cpu"),
+              "1x4": make_mesh((1, 4), device_type="cpu"),
               "pipe": make_mesh((4,), ("pipe",), device_type="cpu")}
     t0 = time.perf_counter()
     results = {"mesh": case_mesh(meshes)}
@@ -257,6 +340,9 @@ def main(argv) -> int:
     results["ckpt"] = case_ckpt(spec, state, meshes["2x2"], meshes["4x1"],
                                 f"{out_dir}/ckpt")
     results["moe"] = case_moe(spec, meshes["2x2"])
+    results["experts"] = case_experts(spec, meshes["2x2"])
+    results["serve"] = {name: case_serve(spec, meshes[name])
+                        for name in ("2x2", "1x4")}
     results["mamba"] = case_mamba(spec, meshes["2x2"])
     results["compress"] = case_compress(spec, meshes["4x1"], rank)
     results["pipe"] = case_pipe(spec, meshes["pipe"])
