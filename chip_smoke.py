@@ -322,9 +322,13 @@ Phases, each of which exits non-zero on failure:
      the clipped step-1 gradient (AdamW's first moment) within 1e-4
      relative L2 a leaf, every parameter within Adam's bound of 2 lr a
      step, the placements kept, and the CPU tests' 1e-5 rule reported
-     (seconds a step, each rank's peak memory); (d) GPipe on ("pipe",) x
-     4, tanh(x @ w) with w (2,048, 2,048), 8 microbatches of 4, bit for
-     bit the sequential composition rank 0 computes;
+     (seconds a step, each rank's peak memory, the float32 score bytes a
+     rank computes a call, here and in (a)); (d) one rwkv6-7b prefill at
+     every width on 2 of 32 layers (float32, B = 2, T = 256) on (1, 4),
+     each rank launching wkv6 on its 16 of the 64 heads, against the
+     prefill rank 0 runs in one process within 2e-4; (e) GPipe on
+     ("pipe",) x 4, tanh(x @ w) with w (2,048, 2,048), 8 microbatches of
+     4, bit for bit the sequential composition rank 0 computes;
  24. the multi-GPU dry-run (`launch.dryrun`): (a) ``python -m
      repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
      --mesh single`` as a subprocess (a fake process group of 256 ranks
@@ -5007,6 +5011,12 @@ LM_MESH_ATOL = 1e-5
 LM_MESH_G_MIN = 1e-7
 LM_MESH_STABLE_SHARE = 0.85
 LM_MESH_GRAD_RL2 = 1e-4           # each gradient leaf, as phase 15's
+#: 23(d): one rwkv6-7b prefill at every published width on (1, 4), each
+#: model rank on 16 of the 64 heads
+LM_MESH_RWKV_ARCH = "rwkv6-7b"
+LM_MESH_RWKV_LAYERS = 2           # of 32
+LM_MESH_RWKV_B = 2
+LM_MESH_RWKV_SEQ = 256
 
 
 def lm_mesh_setup(dev):
@@ -5150,6 +5160,25 @@ def same_metrics(got: list, want: list, tag: str) -> dict:
     return {"max_rel_diff_loss_grad_norm": rel}
 
 
+@contextlib.contextmanager
+def score_bytes():
+    """The bytes of the float32 score tensor each `layers._sdpa` call
+    makes on the tensors it is given (a rank's own heads under
+    `sharding.head_local`): B x H x T x S x 4 a call, in call order (a
+    remat's recompute calls again)."""
+    from repro_torch.models import layers
+    calls, sdpa = [], layers._sdpa
+
+    def recorded(q, k, v, **kw):
+        calls.append(q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * 4)
+        return sdpa(q, k, v, **kw)
+    layers._sdpa = recorded
+    try:
+        yield calls
+    finally:
+        layers._sdpa = sdpa
+
+
 def phase_lm_mesh_one(dev, backend: str = "nccl") -> dict:
     """Phase 23(a): a world of one (NCCL on the card) and its (1, 1) mesh:
     the sharded step of (b)'s model equals the plain step on the card
@@ -5171,7 +5200,8 @@ def phase_lm_mesh_one(dev, backend: str = "nccl") -> dict:
             mesh = make_mesh((1, 1), device_type=dev.type)
             run, params, batch = lm_mesh_setup(dev)
             plain = lm_mesh_steps(run, params, batch)
-            sharded = lm_mesh_steps(run, params, batch, mesh)
+            with score_bytes() as scores:
+                sharded = lm_mesh_steps(run, params, batch, mesh)
             gathered = sharding.gather_tree(sharded["state"].params)
             got = tree_leaves(gathered)
             want = tree_leaves(plain["state"].params)
@@ -5183,7 +5213,9 @@ def phase_lm_mesh_one(dev, backend: str = "nccl") -> dict:
                    "seconds": sharded["seconds"],
                    "plain_seconds": plain["seconds"],
                    "max_abs_diff": max(float((a - b).abs().max())
-                                       for a, b in zip(got, want))}
+                                       for a, b in zip(got, want)),
+                   "score_bytes_a_call": max(scores),
+                   "score_calls": len(scores)}
             if not bit_equal:
                 out.update(same_metrics(sharded["metrics"],
                                         plain["metrics"], "world of one"))
@@ -5220,8 +5252,11 @@ def lm_mesh_rank_step(rank: int, dev, m22, row: dict) -> None:
         del single
     counts0 = dict(collectives.COUNTS)
     t0 = time.perf_counter()
-    sharded = lm_mesh_steps(run, params, batch, m22)
+    with score_bytes() as scores:
+        sharded = lm_mesh_steps(run, params, batch, m22)
     row["sharded_s"] = time.perf_counter() - t0
+    row["score_bytes_a_call"] = max(scores)
+    row["score_calls"] = len(scores)
     row["collectives_per_2_steps"] = {
         k: v - counts0.get(k, 0) for k, v in collectives.COUNTS.items()}
     row["seconds"] = sharded["seconds"]
@@ -5244,6 +5279,82 @@ def lm_mesh_rank_step(rank: int, dev, m22, row: dict) -> None:
         row["single_metrics"] = want_metrics
         del want, clipped, want_m1
     del gathered, sharded
+
+
+def lm_mesh_rank_rwkv(rank: int, dev, m14, row: dict) -> None:
+    """Phase 23(d) on one rank: one `lm.prefill` of LM_MESH_RWKV_ARCH at
+    every published width on LM_MESH_RWKV_LAYERS layers (float32 weights
+    drawn on the card from the seed, B = LM_MESH_RWKV_B, T =
+    LM_MESH_RWKV_SEQ) on DTensors of (1, 4) under `activation_rules`:
+    `time_mix` runs the wkv6 kernel on this rank's 16 of the 64 heads
+    (`sharding.head_local`), one launch a layer of B x 16 rows. Rank 0
+    also runs the prefill in one process and holds the gathered logits
+    and cache to it, within WKV_TOL (float32 leaves) or one bf16 rounding
+    (bf16 leaves)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import (ParallelConfig, ShapeConfig,
+                                          get_config)
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.models import io_spec, lm
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(LM_MESH_RWKV_ARCH),
+                              n_layers=LM_MESH_RWKV_LAYERS)
+    parallel = ParallelConfig()
+    B, T = LM_MESH_RWKV_B, LM_MESH_RWKV_SEQ
+    params = lm.init_params(SEED, cfg, dtype=torch.float32, device=dev)
+    batch = io_spec.materialize(io_spec.prefill_batch_spec(
+        cfg, ShapeConfig("phase23d", T, B, "prefill")), SEED, device=dev)
+    rows, launch = [], wkv_ops.wkv6_cuda
+
+    def recorded(r, *args):
+        rows.append(r.shape[0])
+        return launch(r, *args)
+    t0 = time.perf_counter()
+    wkv_ops.wkv6_cuda = recorded
+    try:
+        if rank == 0:
+            with torch.no_grad():
+                want = lm.prefill(params, batch, cfg, T, parallel)
+            row["rwkv_single_rows"], rows[:] = rows[:], []
+        placed = sharding.place_tree(params, m14, sharding.param_specs(
+            params, m14, parallel))
+        tokens = sharding.place_tree(batch, m14, sharding.batch_specs(
+            batch, m14, parallel))
+        before = kernels.LAUNCH_COUNTS["wkv6"]
+        with torch.no_grad(), sharding.activation_rules(m14, parallel), \
+                implicit_replication():
+            logits, cache = lm.prefill(placed, tokens, cfg, T, parallel)
+        torch.cuda.synchronize()
+        launches = kernels.LAUNCH_COUNTS["wkv6"] - before
+    finally:
+        wkv_ops.wkv6_cuda = launch
+    got = [logits.full_tensor()] + tree_leaves(sharding.gather_tree(cache))
+    heads = cfg.n_heads // m14.shape[1]
+    out = {"launches": launches, "rows": rows[:], "heads_a_rank": heads,
+           "of_heads": cfg.n_heads, "s": time.perf_counter() - t0}
+    if launches != LM_MESH_RWKV_LAYERS or rows != [B * heads] * launches:
+        raise AssertionError(f"rank {rank}: phase 23(d) launched wkv6 "
+                             f"{launches} times on rows {rows}, expected "
+                             f"{LM_MESH_RWKV_LAYERS} of {B * heads}")
+    if rank == 0:
+        worst = 0.0
+        for a, b in zip(got, [want[0]] + tree_leaves(want[1])):
+            tol = WKV_TOL if b.dtype == torch.float32 else 2.0 ** -7
+            den = float(b.float().abs().max())
+            rel = float((a.float() - b.float()).abs().max()) / den \
+                if den else 0.0
+            if not rel <= tol:
+                raise AssertionError(f"phase 23(d): a leaf of shape "
+                                     f"{tuple(b.shape)} differs by {rel:.3e}"
+                                     f" (tol {tol:g})")
+            if b.dtype == torch.float32:
+                worst = max(worst, rel)
+        out["max_rel_diff_float32"] = worst
+        out["single_rows"] = row.pop("rwkv_single_rows")
+    row["rwkv"] = out
 
 
 def lm_mesh_rank_compress(rank: int, dev, m41, row: dict) -> None:
@@ -5317,8 +5428,9 @@ def lm_mesh_rank(argv) -> int:
     Joins the world through a FileStore in DIR, runs (c)
     `compressed_psum_mean` over (4, 1) (`lm_mesh_rank_compress`), waits
     for DIR/go (written when 23(a) has freed the card's memory), runs (b)
-    the sharded step on (2, 2) (`lm_mesh_rank_step`) and (d) GPipe on
-    ("pipe",) x 4 (rank 0 also the sequential composition); writes
+    the sharded step on (2, 2) (`lm_mesh_rank_step`), (d) an rwkv6-7b
+    prefill on (1, 4) (`lm_mesh_rank_rwkv`) and (e) GPipe on ("pipe",) x
+    4 (rank 0 also the sequential composition); writes
     DIR/rank<RANK>.json; a mismatch raises."""
     rank, out = int(argv[0]), Path(argv[1])
     device_type = argv[2] if len(argv) > 2 else "cuda"
@@ -5338,6 +5450,7 @@ def lm_mesh_rank(argv) -> int:
         rank=rank, world_size=LM_MESH_WORLD)
     m22 = make_mesh((2, 2), device_type=device_type)
     m41 = make_mesh((4, 1), device_type=device_type)
+    m14 = make_mesh((1, 4), device_type=device_type)
     pipe_mesh = make_mesh((4,), ("pipe",), device_type=device_type)
     row: dict = {"rank": rank, "coords": m22.coords,
                  "ready_s": time.perf_counter() - t0}
@@ -5345,8 +5458,9 @@ def lm_mesh_rank(argv) -> int:
         torch.cuda.reset_peak_memory_stats()
 
     # (c) (a few GB a rank, leaf by leaf) while 23(a) runs in the main
-    # process, then (b) once 23(a) has freed the card, then (d); (b) and
-    # (c) each in a function of their own, whose tensors go at the return
+    # process, then (b) once 23(a) has freed the card, then (d) and (e);
+    # (b)-(d) each in a function of their own, whose tensors go at the
+    # return
     lm_mesh_rank_compress(rank, dev, m41, row)
     free_cuda()
     row["allocated_after_c"] = _allocated(device_type)
@@ -5359,8 +5473,10 @@ def lm_mesh_rank(argv) -> int:
     lm_mesh_rank_step(rank, dev, m22, row)
     free_cuda()
     row["allocated_after_b"] = _allocated(device_type)
+    lm_mesh_rank_rwkv(rank, dev, m14, row)
+    free_cuda()
 
-    # (d) GPipe on ("pipe",) x 4 against the sequential composition
+    # (e) GPipe on ("pipe",) x 4 against the sequential composition
     gen = torch.Generator(device=dev).manual_seed(SEED)
     Ws = torch.randn((4, PIPE_D, PIPE_D), generator=gen, device=dev) \
         / math.sqrt(PIPE_D)
@@ -5386,7 +5502,7 @@ def lm_mesh_rank(argv) -> int:
         row["gpipe"]["bit_equal"] = bool(torch.equal(got, seq))
         row["gpipe"]["max_abs_diff"] = float((got - seq).abs().max())
         if not row["gpipe"]["bit_equal"]:
-            raise AssertionError("phase 23(d): GPipe != the sequential "
+            raise AssertionError("phase 23(e): GPipe != the sequential "
                                  f"composition ({row['gpipe']})")
     row["peak_bytes"] = (torch.cuda.max_memory_allocated()
                          if device_type == "cuda" else None)
@@ -5407,7 +5523,7 @@ def _spec_list(specs) -> list:
 
 
 def start_lm_mesh_ranks(device_type: str = "cuda") -> dict:
-    """Phase 23(b)-(d), first half: spawn the four gloo ranks
+    """Phase 23(b)-(e), first half: spawn the four gloo ranks
     (`lm_mesh_rank`), which start up and run (c) while 23(a) runs, then
     wait for its go."""
     import tempfile
@@ -5427,7 +5543,7 @@ def start_lm_mesh_ranks(device_type: str = "cuda") -> dict:
 
 def phase_lm_mesh(dev) -> dict:
     """Phase 23: (a) in this process while the four ranks start, then
-    (b)-(d) on the ranks; each holds its own results."""
+    (b)-(e) on the ranks; each holds its own results."""
     t0 = time.perf_counter()
     free_cuda()
     held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
@@ -5449,6 +5565,12 @@ def print_lm_mesh(res: dict, card: str) -> None:
           f"plain step on the card, bit for bit: {one['bit_equal']}; "
           f"{json.dumps(one)} ({card})")
     r0 = four["ranks"][0]
+    print(f"[phase 23] (a) float32 score bytes a call of `_sdpa` (B x H x "
+          f"T x S x 4 of the heads a rank computes) in the "
+          f"{LM_MESH_ARCH} step: world of one {one['score_bytes_a_call']} "
+          f"({one['score_calls']} calls); the (2, 2) ranks of (b) "
+          f"{[r['score_bytes_a_call'] for r in four['ranks']]} "
+          f"({r0['score_calls']} calls each)")
     rule = r0["by_g_min"]
     print(f"[phase 23] (b) 4 gloo ranks on one card, mesh 2x2 (fsdp, seq "
           f"parallel, vocab chunking 2, remat per block), {LM_MESH_STEPS} "
@@ -5486,7 +5608,18 @@ def print_lm_mesh(res: dict, card: str) -> None:
               f"{c['float32_bytes_of_the_same']} in float32; {c['s']:.2f} "
               f"s; bytes held after (c) / (b) {r['allocated_after_c']} / "
               f"{r['allocated_after_b']}")
-    print(f"[phase 23] (d) GPipe on pipe x 4, tanh(x @ w), w "
+    rw = r0["rwkv"]
+    print(f"[phase 23] (d) {LM_MESH_RWKV_ARCH} at full width on "
+          f"{LM_MESH_RWKV_LAYERS} layers, float32, one prefill of B = "
+          f"{LM_MESH_RWKV_B}, T = {LM_MESH_RWKV_SEQ} on 4 gloo ranks, mesh "
+          f"1x4: == one process within {WKV_TOL} (float32 logits and wkv "
+          f"state max rel {rw['max_rel_diff_float32']:.3e}); wkv6 launches "
+          f"a rank {[r['rwkv']['launches'] for r in four['ranks']]} on rows "
+          f"{[r['rwkv']['rows'] for r in four['ranks']]} "
+          f"({rw['heads_a_rank']} of {rw['of_heads']} heads a rank; one "
+          f"process {rw['single_rows']}); seconds a rank "
+          f"{[round(r['rwkv']['s'], 2) for r in four['ranks']]} ({card})")
+    print(f"[phase 23] (e) GPipe on pipe x 4, tanh(x @ w), w "
           f"({PIPE_D}, {PIPE_D}) float32, {PIPE_MICRO} microbatches of "
           f"{PIPE_B}: == the sequential composition bit for bit "
           f"{json.dumps(r0['gpipe'])}")
@@ -6117,7 +6250,8 @@ def main() -> int:
         mesh_four = finish_mesh_ranks(ranks)
     mesh_launches = print_mesh(mesh_one, mesh_four, card)
     lap("phase 22")
-    print_lm_mesh(phase_lm_mesh(dev), card)
+    lm_mesh = phase_lm_mesh(dev)
+    print_lm_mesh(lm_mesh, card)
     lap("phase 23")
     dry_a = dryrun_cell(Path(__file__).resolve().parent / "build"
                         / "dryrun_torch")
@@ -6151,6 +6285,8 @@ def main() -> int:
                 "prefill_on_trained"]["wkv6_launches"]
             entry["train_step_launches"] = rwkv_train[
                 "wkv6_launches_in_training"]
+            entry["lm_mesh_launches"] = [
+                r["rwkv"]["launches"] for r in lm_mesh["four"]["ranks"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

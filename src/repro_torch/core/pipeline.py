@@ -106,6 +106,12 @@ class LayerSpec:
     quantize: bool = True         # float (QAT) domain: fake-quant this w
     state_shape: tuple = ()       # per-example V shape ((H, W, C) for convs)
 
+    @property
+    def tiling(self) -> mapping.FCTiling:
+        """This layer's macro-grid tiling (row and column tile counts of
+        its n_in x n_out weight block, `mapping.fc_tiling`)."""
+        return mapping.fc_tiling(self.n_in, self.n_out)
+
 
 @dataclass(frozen=True)
 class SNNProgram:
@@ -164,6 +170,25 @@ class SNNProgram:
         if self.domain != "int":
             return v_out
         return v_out.to(torch.float32) * self.layers[-1].scale
+
+    # -- streaming execution, the module functions as methods (JAX's API)
+    def init_state(self, batch: int, backend: str = "float") -> StreamState:
+        """Fresh per-layer membrane state for ``batch`` streams
+        (`init_stream_state`)."""
+        return init_stream_state(self, batch, backend)
+
+    def step(self, state: StreamState, frame: torch.Tensor,
+             backend: str = "float", **kw) -> tuple[StreamState, StreamOut]:
+        """Advance every stream one tick on a (B, ...) current frame
+        (`stream_step`)."""
+        return stream_step(self, state, frame, backend, **kw)
+
+    def megastep(self, state: StreamState, frames, backend: str = "float",
+                 **kw) -> tuple[StreamState, MegastepOut]:
+        """Advance every stream K ticks on a (K, B, ...) ``frames`` block
+        in one ``backend`` dispatch (`stream_megastep`; ``kw`` passes
+        through)."""
+        return stream_megastep(self, state, frames, backend, **kw)
 
 
 @dataclass

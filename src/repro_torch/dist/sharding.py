@@ -28,6 +28,10 @@ JAX ``PartitionSpec``; with the mesh's `DeviceMesh` it is a
      tensor, and redistributes a DTensor inside it (the port's
      ``with_sharding_constraint``), so model code pins activations
      unconditionally and every single-device path is unchanged.
+     `head_local(fn, args, ...)` runs attention's score products and the
+     RWKV recurrence with each model rank on its own heads (JAX's
+     placement: XLA keeps the heads where the projections shard them),
+     `fn` itself outside the rules.
 
 The logical axes: ``batch``, ``lane`` and ``bank`` (serving lanes, frame
 banks) partition over data; ``vocab``, ``experts``, ``ffn``, ``heads``,
@@ -506,6 +510,102 @@ def split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
                                for p in x.placements)
             x = x.redistribute(device_mesh_of(mesh), placements)
     return x.reshape(tuple(x.shape[:-1]) + (n_heads, head_dim))
+
+
+def head_branch(n_heads: int, kv_heads: int, model: int) -> str:
+    """How `head_local` places ``n_heads`` query heads that read
+    ``kv_heads`` group heads (GQA) on a model extent ``model``:
+    ``"local"`` when the group heads divide it (every input on its own
+    heads), ``"grouped"`` when the query heads divide it and it divides
+    the group heads' count (each rank's queries read one group head),
+    ``"gathered"`` otherwise (every head on every model rank)."""
+    if kv_heads % model == 0:
+        return "local"
+    if n_heads % model == 0 and model % kv_heads == 0:
+        return "grouped"
+    return "gathered"
+
+
+def head_local(fn, args: tuple, axes: tuple, out_axes: tuple):
+    """``fn(*args)`` with each model rank on its own heads, as JAX's
+    attention and RWKV recurrence run (XLA keeps the heads where the
+    tensor-parallel projections put them, on model).
+
+    ``args``: tensors, or None for an absent one; ``axes``: one layout per
+    argument, naming each dimension ``"batch"``, ``"heads"``,
+    ``"kv_heads"`` (a GQA group's K or V) or None; the first argument
+    carries the batch and the query heads. ``out_axes``: the layout of
+    ``fn``'s output, or a tuple of layouts for a tuple of outputs.
+
+    Outside the rules, or with no DTensor argument, this is ``fn(*args)``.
+    Under them every argument is placed with its batch over data and its
+    heads over model where `_fit` says the extents divide (a sequence-
+    sharded input is resharded to its heads, an all-to-all, and a plain
+    tensor acts as replicated), ``fn`` runs on the local tensors, and its
+    outputs come back as DTensors with the batch and heads so placed. The
+    branch is `head_branch`'s: in ``"grouped"`` K and V stay whole over
+    model and each rank slices the one group head its queries read (q
+    head h reads group head h // (H / KV)); ``"gathered"`` is logged with
+    the shape. Differentiable: an input replicated on a mesh axis that
+    splits the work (K and V over model when grouped, RWKV's bonus over
+    data) takes a partial gradient there."""
+    mesh = _RULES.mesh
+    if mesh is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    model = mesh_extents(mesh).get("model", 1)
+    q = args[0]
+    n_heads = q.shape[axes[0].index("heads")]
+    kv_heads = next((a.shape[ax.index("kv_heads")] for a, ax in
+                     zip(args, axes) if a is not None and "kv_heads" in ax),
+                    n_heads)
+    branch = head_branch(n_heads, kv_heads, model)
+    if branch == "gathered":
+        logger.warning(
+            "sharding.head_local: %d query heads of %d groups (shape %s) "
+            "do not split over model extent %d; gathering every head onto "
+            "each model rank", n_heads, kv_heads, tuple(q.shape), model)
+    heads = _LOGICAL_TO_MESH["heads"]
+    to_mesh = {"batch": _LOGICAL_TO_MESH["batch"],
+               "heads": None if branch == "gathered" else heads,
+               "kv_heads": heads if branch == "local" else None}
+    dm = device_mesh_of(mesh)
+    present = [i for i, a in enumerate(args) if a is not None]
+    ins = [args[i] if isinstance(args[i], DTensor) else DTensor.from_local(
+        args[i], dm, [Replicate()] * dm.ndim, run_check=False)
+        for i in present]
+    in_pl = [_fit(tuple(to_mesh.get(n) for n in axes[i]),
+                  tuple(args[i].shape), mesh) for i in present]
+    work = in_pl[0]
+    grad_pl = [tuple(p if isinstance(p, Shard) else
+                     Partial() if isinstance(w, Shard) else Replicate()
+                     for p, w in zip(pl, work)) for pl in in_pl]
+    lead = axes[0]
+    layouts = out_axes if isinstance(out_axes[0], tuple) else (out_axes,)
+    out_pl = tuple(tuple(Shard(layout.index(lead[w.dim]))
+                         if isinstance(w, Shard) else Replicate()
+                         for w in work) for layout in layouts)
+    group = (mesh.coord(heads) // (model // kv_heads)
+             if branch == "grouped" else None)
+
+    def local(*xs):
+        full = [None] * len(args)
+        for i, x in zip(present, xs):
+            if x.requires_grad:
+                # a product's gradient comes back permuted; its DTensor
+                # would take contiguous strides for it (`contiguous_grad`)
+                x = _ContiguousGrad.apply(x)
+            if group is not None and "kv_heads" in axes[i]:
+                x = x.narrow(axes[i].index("kv_heads"), group, 1)
+            full[i] = x
+        return fn(*full)
+    # one output takes a list of placements: local_map reads a tuple as
+    # one placement list per output
+    out_pl = out_pl if layouts is out_axes else list(out_pl[0])
+    return local_map(local, out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=dm,
+                     redistribute_inputs=True)(*ins)
 
 
 # ---------------------------------------------------------------------------

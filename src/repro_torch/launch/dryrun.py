@@ -46,7 +46,9 @@ runs on its local tensors, after DTensor has placed it:
                 is not counted. JAX parses the compiled HLO
                 (``parse_collectives``); here the collectives are seen as
                 they run, so there is no HLO parsing by design;
-  memory        a live-storage tracker: ``argument_bytes`` (parameters or
+  memory        a live-storage tracker (``meta`` tensors, which a sharded
+                cache's layout is computed on, hold none and are not
+                counted at all): ``argument_bytes`` (parameters or
                 train state, batch, cache), ``output_bytes`` (with XLA's
                 8-byte index table a leaf of a tuple output, so the two
                 packages' lines compare byte for byte), ``alias_bytes``
@@ -488,6 +490,8 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         name = func._schema.name.split("::")[-1]
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
+        if outs and all(t.is_meta for t in outs):
+            return          # shapes only (a cache's layout): no memory, no work
         for t in outs:
             self.register(t)
         if ns in ("_c10d_functional", "c10d", "_dtensor"):

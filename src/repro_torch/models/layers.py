@@ -20,8 +20,13 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.sharding import (constrain, contiguous_grad, put_rows,
-                                      replicated_call, split_heads)
+from repro_torch.dist.sharding import (constrain, contiguous_grad,
+                                      head_local, put_rows, replicated_call,
+                                      split_heads)
+
+#: `head_local` layouts: (B, T, H, D) queries, (B, S, KV, D) keys/values
+_QH = ("batch", None, "heads", None)
+_KVH = ("batch", None, "kv_heads", None)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -261,16 +266,15 @@ def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     if use_rope and cfg.rope_theta > 0 and kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    # under a mesh the heads come out of the tensor-parallel projections
-    # sharded; the score products flatten (batch, heads) into one batch
-    # axis, which DTensor cannot do with both sharded: gather the heads
-    # (the identity without active rules)
-    q, k, v = (constrain(t, ("batch", None, None, None)) for t in (q, k, v))
-    if q_chunk and T > 1:
-        out = blocked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                                kv_block=kv_block)
-    else:
-        out = _sdpa(q, k, v, causal=causal, q_pos=positions)
+
+    def scores(q, k, v):
+        if q_chunk and T > 1:
+            return blocked_attention(q, k, v, causal=causal,
+                                     q_chunk=q_chunk, kv_block=kv_block)
+        return _sdpa(q, k, v, causal=causal, q_pos=positions)
+    # under a mesh each model rank runs its own heads, as the
+    # tensor-parallel projections left them (`fn(q, k, v)` without rules)
+    out = head_local(scores, (q, k, v), (_QH, _KVH, _KVH), _QH)
     return out.reshape(B, T, -1) @ p["wo"]
 
 
@@ -366,16 +370,19 @@ def mla_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
     # identity without active rules)
     latent_w = constrain(latent_w, ("batch", None, None))
     c_all, kr_all = latent_w.split([r, m.rope_head_dim], dim=-1)
-    S = c_all.shape[1]
     k_nope = split_heads(c_all @ p["w_uk"], m.nope_head_dim)
     v = split_heads(c_all @ p["w_uv"], m.v_head_dim)
-    k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
-        B, S, nh, m.rope_head_dim)], dim=-1)
-    # heads gathered as `attention` gathers them (identity w/o rules)
-    q_full, k_full, v = (constrain(t, ("batch", None, None, None)) for t in
-                         (torch.cat([q_nope, q_rope], dim=-1), k_full, v))
-    out = _sdpa(q_full, k_full, v, causal=causal, q_pos=positions,
-                kv_len=kv_len)
+
+    def scores(q_nope, q_rope, k_nope, kr, v, kv_len):
+        # the one rope key broadcast over this rank's heads
+        k_full = torch.cat([k_nope, kr[:, :, None, :].expand(
+            *k_nope.shape[:3], m.rope_head_dim)], dim=-1)
+        return _sdpa(torch.cat([q_nope, q_rope], dim=-1), k_full, v,
+                     causal=causal, q_pos=positions, kv_len=kv_len)
+    # each model rank on its own heads, as `attention` (identity w/o rules)
+    out = head_local(scores, (q_nope, q_rope, k_nope, kr_all, v, kv_len),
+                     (_QH, _QH, _QH, ("batch", None, None), _QH,
+                      ("batch",)), _QH)
     return out.reshape(B, T, nh * m.v_head_dim) @ p["wo"], latent
 
 

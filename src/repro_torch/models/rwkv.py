@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constrain, split_heads
+from repro_torch.dist.sharding import constrain, head_local, split_heads
 from repro_torch.kernels.wkv6.ops import wkv6, wkv6_decode_step
 from repro_torch.models.layers import dense_init, gen_device, normal
 
@@ -125,15 +125,16 @@ def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
     v = split_heads(xv @ p["wv"], K)
     g = F.silu(xg @ p["wg"])
     w = split_heads(_decay(xw, p), K)
-    # the recurrence flattens (lanes, heads) into rows, which DTensor
-    # cannot do with both sharded: gather the heads (the identity without
-    # active rules)
-    r, k, v, w = (constrain(t, ("batch", None, None, None))
-                  for t in (r, k, v, w))
-    s0 = None if state is None else constrain(state["wkv"],
-                                              ("batch", None, None, None))
-    y, s_new = wkv6(r, k, v, w, p["bonus"], s0=s0, use_kernel=use_kernel,
-                    chunk=chunk)
+
+    def recurrence(r, k, v, w, u, s0):
+        return wkv6(r, k, v, w, u, s0=s0, use_kernel=use_kernel, chunk=chunk)
+    # under a mesh each model rank runs the recurrence on its own heads
+    # (B_local x H_local rows), as the projections left them
+    th, sh = ("batch", None, "heads", None), ("batch", "heads", None, None)
+    y, s_new = head_local(
+        recurrence, (r, k, v, w, p["bonus"],
+                     None if state is None else state["wkv"]),
+        (th, th, th, th, ("heads", None), sh), (th, sh))
     y = y.reshape(B, T, d)
     out = (_group_norm(y, p["gn_scale"], H) * g) @ p["wo"].float()
     return out, {"shift": x[:, -1], "wkv": s_new}

@@ -311,6 +311,11 @@ class SNNServeEngine(SlotEngine):
         self._staged_used = 0             # staged blocks dispatched
         self._staged_rebuilt = 0          # staged blocks dropped and rebuilt
 
+    @property
+    def state(self) -> pipeline.StreamState:
+        """Page 0's state (the single-page engine's handle)."""
+        return self.states[0]
+
     # -- request intake ------------------------------------------------------
     def submit(self, req: SNNRequest) -> None:
         """Enqueue ``req`` (its ``frames`` a (T, *in_shape) current block)

@@ -3,7 +3,9 @@ JAX package's (`repro.launch.dryrun`).
 
 Importing the JAX dry-run sets ``XLA_FLAGS`` to 512 host devices, so its
 tables are read in a subprocess. The port's fake process group (256 ranks)
-also lives in a subprocess, so no pytest worker keeps a global group. In
+also lives in a subprocess (one for the decode cell, one for the score
+products of a full-width prefill layer), so no pytest worker keeps a
+global group. In
 this process the counter runs with no mesh: fake tensors against the same
 counter over the real CPU step, and the count's growth with depth. Counts
 are integers held exactly.
@@ -62,6 +64,36 @@ d.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--mesh",
 print(json.dumps(d.check_counter(d.mesh_for("single"))))
 """
 
+#: one layer of llama3.2-1b at full width (32 query heads, 8 groups), a
+#: prefill of 32 sequences of 256 tokens: rank 0's score products on the
+#: fake (16, 16) group, and the same products traced on one device
+FAKE_HEADS = r"""
+import dataclasses, json
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as d
+from repro_torch.models import layers
+run = d.make_run("llama3.2-1b", "prefill_32k")
+run = dataclasses.replace(
+    run, model=dataclasses.replace(run.model, n_layers=1),
+    shape=ShapeConfig("heads", 256, 32, "prefill"))
+calls, sdpa = [], layers._sdpa
+
+def counted(*args, **kwargs):
+    counter = d.CostCounter()
+    with counter:
+        out = sdpa(*args, **kwargs)
+    calls.append({"flops": counter.flops, "q": list(args[0].shape),
+                  "k": list(args[1].shape)})
+    return out
+
+layers._sdpa = counted
+d.trace_cell(run, None)
+one = calls[:]
+del calls[:]
+d.trace_cell(run, d.mesh_for("single"))
+print(json.dumps({"one": one, "rank0": calls}))
+"""
+
 
 def _env():
     env = dict(os.environ)
@@ -92,6 +124,28 @@ def fake_world(tmp_path_factory):
     cell = json.loads((out_dir / "single" /
                        "llama3.2-1b__decode_32k.json").read_text())
     return cell, json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def fake_heads():
+    out = subprocess.run([sys.executable, "-c", FAKE_HEADS], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_rank0_score_flops_split_by_batch_and_heads(fake_heads):
+    """`layers.attention` under the dry-run's (16, 16) rules runs rank 0
+    on its own heads (`head_local`'s grouped branch: 32 query heads over
+    16 model ranks, each reading one of 8 groups): its score products
+    count the one-device flops divided by the data extent of 16 that
+    splits the 32 sequences and the model extent of 16 that splits the
+    heads, exactly."""
+    (one,), (rank0,) = fake_heads["one"], fake_heads["rank0"]
+    assert one["q"] == [32, 256, 32, 64] and one["k"] == [32, 256, 8, 64]
+    assert rank0["q"] == [2, 256, 2, 64] and rank0["k"] == [2, 256, 1, 64]
+    assert one["flops"] == 2 * 2 * 32 * 32 * 256 * 256 * 64
+    assert rank0["flops"] * 16 * 16 == one["flops"]
 
 
 def _cells():
@@ -279,6 +333,26 @@ def test_wkv6_operator_fake_gives_the_kernel_shapes():
     flops, moved = dryrun.wkv6_cost(args[0], args[2])
     assert flops == 4 * BH * T * K * V
     assert (counter.flops, counter.bytes) == (flops, moved)
+
+
+def test_counter_leaves_meta_tensors_out():
+    """A ``meta`` tensor holds no memory and does no work: a sharded
+    cache's layout is computed on one (`sharding.cache_zeros`), and its
+    expanded copy once counted 151 GB of peak in `llama3-8b`
+    `prefill_32k`. The counter counts none of it, and still counts the
+    same operation on a fake tensor."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    meta = torch.empty((1024, 1024), device="meta")
+    counter = dryrun.CostCounter()
+    with counter:
+        meta[None].expand(8, 1024, 1024).contiguous()
+    assert (counter.ops, counter.bytes, counter.peak) == (0, 0, 0)
+    with FakeTensorMode():
+        fake = torch.empty((1024, 1024))
+        with counter:
+            fake[None].expand(8, 1024, 1024).contiguous()
+    # the copy, and the fake base its view first showed the counter
+    assert counter.ops == 1 and counter.peak == (8 + 1) * 1024 * 1024 * 4
 
 
 def test_wkv6_operator_refuses_what_the_binding_refused():

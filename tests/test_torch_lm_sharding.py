@@ -13,7 +13,10 @@ changing them.
   sharded train step, the elastic checkpoint restore, the MoE and Mamba
   blocks and the experts' products with their gradients under
   `activation_rules`, the serving models' prefill and decode steps on
-  (2, 2) and (1, 4) with their caches, `compressed_psum_mean` and GPipe.
+  (2, 2) and (1, 4) with their caches, the head-local blocks (attention,
+  MLA and RWKV's time mix, each model rank on its own heads) with their
+  gradients and the flops of their score products, `compressed_psum_mean`
+  and GPipe.
 * The JAX oracles of the world's cases (the sharded train step of
   `tests/test_distribution.py` on (2, 2), `compressed_psum_mean` on 4
   shards, `make_pipeline_fn` on 4 stages) run in one subprocess with 4
@@ -25,6 +28,7 @@ tests: losses and gradient norms within 1e-5 relative, every parameter
 within 1e-5 where the clipped |g| is at least 1e-7 at both steps and
 within 2 lr a step elsewhere, the first kind at least 85 % of all.
 """
+import dataclasses
 import logging
 import os
 import subprocess
@@ -45,6 +49,7 @@ from repro_torch.models import io_spec, layers, lm, mamba
 from repro_torch.optim import make_optimizer
 from repro_torch.train.train_state import TrainState, make_train_step
 from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+from torch_lm_sharding_worker import HEAD_BLOCKS, run_head_block
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
@@ -257,6 +262,22 @@ def test_constrain_is_the_identity_outside_the_rules():
     assert sharding._RULES.mesh is None
 
 
+def test_head_local_is_the_call_outside_the_rules():
+    """`head_local` returns ``fn``'s own result without active rules, and
+    on plain tensors inside them: the one-device path runs the same
+    code."""
+    q, k = torch.randn(2, 4, 4, 8), torch.randn(2, 4, 2, 8)
+    marker = object()
+    axes = (("batch", None, "heads", None), ("batch", None, "kv_heads", None))
+
+    def fn(a, b):
+        assert a is q and b is k
+        return marker
+    assert sharding.head_local(fn, (q, k), axes, axes[0]) is marker
+    with sharding.activation_rules(MESH22, PARALLEL):
+        assert sharding.head_local(fn, (q, k), axes, axes[0]) is marker
+
+
 def test_meshless_mesh_has_no_device_mesh():
     """A mesh of extent 1 built without a process group has no DeviceMesh,
     and the LM placements refuse it by name; the production mesh needs
@@ -349,6 +370,37 @@ np.savez(sys.argv[2], **out)
 """
 
 
+def head_blocks(rng, gen) -> dict:
+    """The inputs of the worker's `HEAD_BLOCKS`, float32: each block's
+    config, parameters and input x (B = 4, T = 16); ``rwkv_state`` also a
+    carried token shift and wkv state."""
+    from repro_torch.models import rwkv
+    llama = reduced_config(get_config("llama3.2-1b"))
+    mla = reduced_config(get_config("deepseek-v2-lite-16b"))
+    rw = reduced_config(get_config("rwkv6-7b"))
+    h6 = dataclasses.replace(llama, n_heads=6)
+    tm = rwkv.init_rwkv_block(gen, rw, torch.float32)["tm"]
+
+    def x(cfg):
+        return torch.from_numpy(rng.standard_normal(
+            (4, 16, cfg.d_model)).astype(np.float32))
+    K = rw.rwkv.head_size
+    return {
+        "attention": {"cfg": llama, "x": x(llama),
+                      "p": layers.init_attention(gen, llama, dtype=torch.float32)},
+        "attention_h6": {"cfg": h6, "x": x(h6),
+                         "p": layers.init_attention(gen, h6, dtype=torch.float32)},
+        "mla": {"cfg": mla, "x": x(mla),
+                "p": layers.init_mla(gen, mla, torch.float32)},
+        "rwkv": {"cfg": rw, "x": x(rw), "p": tm},
+        "rwkv_state": {
+            "cfg": rw, "x": x(rw), "p": tm,
+            "shift": torch.from_numpy(rng.standard_normal(
+                (4, rw.d_model)).astype(np.float32)),
+            "wkv": torch.from_numpy(rng.standard_normal(
+                (4, rw.n_heads, K, K)).astype(np.float32))}}
+
+
 class _Setup:
     """The inputs of every world case, built once for the file: the
     reduced llama3.2-1b's JAX parameters (float32) as numpy, the MoE and
@@ -388,6 +440,7 @@ class _Setup:
                 "params": lm.init_params(0, cfg, dtype=torch.float32,
                                          device="cpu"),
                 "prompt": tokens[0], "steps": tokens[1:]}
+        self.heads = head_blocks(rng, gen)
         # tests/test_distribution.py's inputs, on 4 shards
         self.compress_g = np.random.default_rng(0).standard_normal(
             (WORLD, 64)).astype(np.float32)
@@ -404,6 +457,7 @@ class _Setup:
                 "mamba_p": self.mamba_p, "mamba_x": self.mamba_x,
                 "experts_x": self.experts_x, "experts_w": self.experts_w,
                 "serve": self.serve, "serve_parallel": SERVE_PARALLEL,
+                "heads": self.heads,
                 "compress_g": torch.from_numpy(self.compress_g),
                 "pipe_ws": torch.from_numpy(self.pipe_ws),
                 "pipe_xs": torch.from_numpy(self.pipe_xs)}
@@ -711,6 +765,85 @@ def test_mamba_constraints_equal_the_plain_call(world, setup):
         assert _rel(m["ssm"], st["ssm"].detach().numpy()) <= BLOCK_RTOL
         for got, want in zip(m["grads"], grads):
             assert _rel(got, want.numpy()) <= 10 * BLOCK_RTOL
+
+
+#: (block, mesh) of the head-local cases the world runs
+HEAD_CASES = [(name, mesh) for name, on in HEAD_BLOCKS for mesh in on]
+HEAD_EXTENTS = {"2x2": (2, 2), "1x4": (1, 4)}
+
+
+@pytest.fixture(scope="module")
+def heads_single(setup):
+    """Each head-local block in one process on plain tensors."""
+    return {name: run_head_block(name, setup.heads[name])
+            for name, _ in HEAD_BLOCKS}
+
+
+def _head_split(setup, name, mesh) -> tuple:
+    """(data, model) extents that split a block's batch and query heads
+    under `head_local`: the batch of 4 over data, the heads over model
+    unless `head_branch` gathers them."""
+    cfg = setup.heads[name]["cfg"]
+    data, model = HEAD_EXTENTS[mesh]
+    kv = cfg.n_kv_heads if name.startswith("attention") else cfg.n_heads
+    branch = sharding.head_branch(cfg.n_heads, kv, model)
+    return data, (1 if branch == "gathered" else model)
+
+
+@pytest.mark.parametrize("name,mesh", HEAD_CASES)
+def test_head_local_blocks_equal_one_process(world, heads_single, name,
+                                             mesh):
+    """Attention (GQA: 2 groups on (1, 4), fewer than the model ranks),
+    MLA, RWKV's time mix (the chunked route with gradients, the kernel
+    route from a carried state) and 6 heads that 4 ranks do not split,
+    each rank on its own heads under `activation_rules` (fsdp, sequence
+    parallel): outputs within float32 rounding of one process, and the
+    gradients of a scalar loss for the input and every parameter within
+    the Mamba block's rule."""
+    want = heads_single[name]
+    for r in world.ranks:
+        got = r["heads"][name, mesh]
+        assert len(got["outs"]) == len(want["outs"]) >= 1
+        for g, w in zip(got["outs"], want["outs"]):
+            assert g.shape == w.shape and _rel(g, w) <= BLOCK_RTOL
+        assert len(got["grads"]) == len(want["grads"])
+        for g, w in zip(got["grads"], want["grads"]):
+            assert _rel(g, w) <= 10 * BLOCK_RTOL
+
+
+@pytest.mark.parametrize("name,mesh", HEAD_CASES)
+def test_head_local_score_flops_split_by_batch_and_heads(
+        world, heads_single, setup, name, mesh):
+    """Rank 0's counted flops of the score products (`_sdpa`) or of the
+    recurrence (`wkv6`) are one process's divided by the data extent that
+    splits the batch and the model extent that splits the heads, exactly;
+    so is the local input's rows (batch x heads)."""
+    data, model = _head_split(setup, name, mesh)
+    got, want = world.ranks[0]["heads"][name, mesh], heads_single[name]
+    assert want["flops"] > 0 and got["flops"] * data * model == want["flops"]
+    for g, w in zip(got["shapes"], want["shapes"]):
+        assert (g[0] * data, g[2] * model) == (w[0], w[2])
+    assert len(got["shapes"]) == len(want["shapes"]) >= 1
+
+
+def test_head_local_logs_only_the_gathered_branch(world):
+    """6 query heads on 4 model ranks take `head_local`'s gathered branch,
+    logged once a call with the shape; every other case logs nothing
+    (`head_branch` decides from the shapes alone)."""
+    assert sharding.head_branch(6, 2, 4) == "gathered"
+    assert sharding.head_branch(4, 2, 4) == "grouped"
+    assert sharding.head_branch(4, 2, 2) == "local"
+    assert sharding.head_branch(32, 8, 16) == "grouped"
+    assert sharding.head_branch(40, 8, 16) == "gathered"
+    for r in world.ranks:
+        for (name, mesh), got in r["heads"].items():
+            if name == "attention_h6":
+                assert got["head_lines"] == [
+                    "sharding.head_local: 6 query heads of 2 groups (shape "
+                    "(4, 16, 6, 32)) do not split over model extent 4; "
+                    "gathering every head onto each model rank"]
+            else:
+                assert got["head_lines"] == [], (name, mesh)
 
 
 def test_mamba_chunk_remat_is_bit_identical():

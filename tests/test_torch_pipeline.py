@@ -139,6 +139,53 @@ def test_stream_megastep_matches_jax(backend, variant):
         assert_equal(g, w)
 
 
+def _method_drive(prog, xs, backend, chunks, as_array):
+    """`tests/test_megastep.py`'s method forms: T ticks of
+    ``program.step`` from ``program.init_state``, then the same currents
+    through ``program.megastep`` in ``chunks``. Returns the per-tick
+    v_out and logits of both and both final states' V."""
+    state = prog.init_state(xs.shape[1], backend)
+    ticks = []
+    for t in range(xs.shape[0]):
+        state, out = prog.step(state, as_array(xs[t]), backend)
+        ticks.append((out.v_out, out.logits))
+    mstate, t, blocks = prog.init_state(xs.shape[1], backend), 0, []
+    for k in chunks:
+        mstate, out = prog.megastep(mstate, as_array(xs[t:t + k]), backend)
+        blocks.append((out.v_out_traj, out.logits_traj))
+        t += k
+    return ticks, blocks, state.vs, mstate.vs
+
+
+@pytest.mark.parametrize("backend", ["int_ref", "cuda"])
+def test_program_methods_match_jax(backend):
+    """``SNNProgram.init_state``/``step``/``megastep`` (JAX's method forms
+    of the stream functions) on the port == JAX's methods on its
+    ``int_ref`` backend, bit for bit: 12 ticks one at a time and in
+    megasteps of 4, 3 and 5; `LayerSpec.tiling` is JAX's for every layer
+    and `SNNServeEngine.state` is page 0's state."""
+    from repro.serve import SNNServeEngine as JaxEngine
+    from repro_torch.serve import SNNServeEngine
+    jprog, prog = programs(VARIANTS[0])
+    xs = currents(12, 3, seed=5)
+    got = _method_drive(prog, xs, backend, (4, 3, 5), torch.from_numpy)
+    want = _method_drive(jprog, xs, "int_ref", (4, 3, 5), jnp.asarray)
+    for (gv, gl), (wv, wl) in zip(got[0] + got[1], want[0] + want[1]):
+        assert_equal(gv, wv)
+        assert_equal(gl, wl)
+    for g, w in zip(got[2] + got[3], want[2] + want[3]):
+        assert_equal(g, w)
+    assert len(got[0]) == 12 and len(got[1]) == 3
+    for ly, jly in zip(prog.layers, jprog.layers):
+        assert dataclasses.astuple(ly.tiling) == dataclasses.astuple(jly.tiling)
+    eng = SNNServeEngine(prog, batch_slots=4, backend=backend,
+                         device="cpu")
+    jeng = JaxEngine(jprog, batch_slots=4, backend="int_ref")
+    assert eng.state is eng.states[0]
+    for g, w in zip(eng.state.vs, jeng.state.vs):
+        assert_equal(g, w)
+
+
 @pytest.mark.parametrize("clamp_mode", ["saturate", "wrap"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_compile_network_matches_jax(clamp_mode, seed):

@@ -32,11 +32,17 @@ Cases, in the order every rank runs them:
             stacked layer axis is sharded (`cache_specs`' placement);
   mamba     `mamba_forward(constraints=True)` on DTensors on (2, 2), with
             the gradient of a scalar loss;
+  heads     the head-local blocks (`HEAD_BLOCKS`: attention with GQA, MLA,
+            RWKV's time mix by the chunked and the kernel route, and 6
+            heads that 4 ranks do not split) on (2, 2) and (1, 4), with
+            gradients, the flops and shapes of their score products or
+            recurrence, and the log lines of `head_local`;
   compress  six steps of `compressed_psum_mean` over the 4 ranks of (4, 1)
             on this rank's gradient row, and what crossed the wire;
   pipe      `make_pipeline_fn` on ("pipe",) x 4 with each ring, and the
             sequential composition computed here.
 """
+import contextlib
 import sys
 import time
 
@@ -271,6 +277,119 @@ def case_mamba(spec, mesh):
             "grads": [_np(g.full_tensor()) for g in grads]}
 
 
+#: the head-local blocks: (block, mesh names it runs on); ``attention_h6``
+#: has 6 query heads of 2 groups, which split over 2 model ranks but not 4
+HEAD_BLOCKS = (("attention", ("2x2", "1x4")), ("mla", ("2x2", "1x4")),
+               ("rwkv", ("2x2", "1x4")), ("rwkv_state", ("2x2", "1x4")),
+               ("attention_h6", ("1x4",)))
+
+
+@contextlib.contextmanager
+def counted_scores():
+    """Count what each call of the score products (`layers._sdpa`) and of
+    the RWKV recurrence (`rwkv.wkv6`) runs, on the tensors it is given
+    (a rank's local ones under `head_local`): forward flops by the
+    dry-run's `CostCounter`, and the shape of the first argument."""
+    from repro_torch.launch.dryrun import CostCounter
+    from repro_torch.models import layers, rwkv
+    rec = {"flops": 0.0, "shapes": []}
+
+    def counting(fn):
+        def counted(*args, **kwargs):
+            counter = CostCounter()
+            with counter:
+                out = fn(*args, **kwargs)
+            rec["flops"] += counter.flops
+            rec["shapes"].append(tuple(args[0].shape))
+            return out
+        return counted
+    saved = layers._sdpa, rwkv.wkv6
+    layers._sdpa, rwkv.wkv6 = counting(layers._sdpa), counting(rwkv.wkv6)
+    try:
+        yield rec
+    finally:
+        layers._sdpa, rwkv.wkv6 = saved
+
+
+def head_block(name, block):
+    """``block``'s prefill from its inputs: the outputs (one tensor, or the
+    output and the new recurrent state)."""
+    from repro_torch.models import layers, rwkv
+    cfg, p, x = block["cfg"], block["p"], block["x"]
+    pos = torch.arange(x.shape[1])[None]
+    if name.startswith("attention"):
+        return layers.attention(x, p, cfg, pos)
+    if name == "mla":
+        return layers.mla_attention(x, p, cfg, pos)[0]
+    if name == "rwkv":
+        return rwkv.time_mix(x, p, cfg, use_kernel=False, chunk=16)[0]
+    out, state = rwkv.time_mix(x, p, cfg, {"shift": block["shift"],
+                                           "wkv": block["wkv"]})
+    return out, state["wkv"]
+
+
+def run_head_block(name, block, mesh=None, parallel=None) -> dict:
+    """One head-local block, on one process (``mesh`` None) or on DTensors
+    placed by `param_specs` and, for the input, ("batch", "seq", None)
+    under `activation_rules`: the outputs, the gradients of a scalar loss
+    for the input and every parameter (``rwkv_state`` takes the kernel
+    route, which has none), what `counted_scores` saw, and `head_local`'s
+    log lines."""
+    import logging
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import sharding
+    from repro_torch.tree import tree_unflatten_like
+    grad = name != "rwkv_state"
+    p = block["p"]
+    ins = {k: block[k] for k in ("x", "shift", "wkv") if k in block}
+    rules = contextlib.nullcontext()
+    if mesh is not None:
+        p = sharding.place_tree(p, mesh, sharding.param_specs(p, mesh,
+                                                              parallel))
+        ins = {k: sharding.place_tree(v, mesh, sharding.logical_spec(
+            mesh, ("batch", "seq", None)[:v.dim()], tuple(v.shape)))
+            for k, v in ins.items()}
+        rules = sharding.activation_rules(mesh, parallel)
+    leaves = [ins["x"]] + _leaves(p)
+    if grad:
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda r: lines.append(r.getMessage())
+    log = logging.getLogger("repro_torch.dist.sharding")
+    log.addHandler(handler)
+    try:
+        with rules, implicit_replication(), counted_scores() as rec, \
+                torch.set_grad_enabled(grad):
+            outs = head_block(name, {
+                **block, **ins, "x": leaves[0],
+                "p": tree_unflatten_like(p, leaves[1:])})
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            grads = torch.autograd.grad(
+                sum((o.float() ** 2).sum() for o in outs), leaves) \
+                if grad else []
+    finally:
+        log.removeHandler(handler)
+    return {"outs": [_np(sharding.gather_tree(o)) for o in outs],
+            "grads": [_np(sharding.gather_tree(g)) for g in grads],
+            "flops": rec["flops"], "shapes": rec["shapes"],
+            "head_lines": [m for m in lines if "head_local" in m]}
+
+
+def case_heads(spec, meshes):
+    out = {}
+    for name, on in HEAD_BLOCKS:
+        for mesh_name in on:
+            t0 = time.perf_counter()
+            out[name, mesh_name] = run_head_block(
+                name, spec["heads"][name], meshes[mesh_name],
+                spec["parallel"])
+            out[name, mesh_name]["s"] = time.perf_counter() - t0
+    return out
+
+
 def case_compress(spec, mesh, rank):
     from repro_torch.dist.compress import compressed_psum_mean
     g = {"w": spec["compress_g"][rank].clone()}
@@ -344,6 +463,7 @@ def main(argv) -> int:
     results["serve"] = {name: case_serve(spec, meshes[name])
                         for name in ("2x2", "1x4")}
     results["mamba"] = case_mamba(spec, meshes["2x2"])
+    results["heads"] = case_heads(spec, meshes)
     results["compress"] = case_compress(spec, meshes["4x1"], rank)
     results["pipe"] = case_pipe(spec, meshes["pipe"])
     results["seconds"] = time.perf_counter() - t0
