@@ -5640,7 +5640,8 @@ DRYRUN_JAX = "artifacts/dryrun/single/llama3.2-1b__decode_32k.json"
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_PEAK_RTOL = 0.10           # counted peak against the card's
 #: phase 24(c): a train cell cut to DRYRUN_DEPTH layers, traced on fake
-#: CUDA tensors and on the CPU path a torch without CUDA takes
+#: CUDA tensors (with the dry-run's attribution: rank 0's flops and
+#: collectives by site) and on the CPU path a torch without CUDA takes
 DRYRUN_TRAIN_CELL = ("llama3.2-1b", "train_4k", "single")
 DRYRUN_DEPTH = 2
 DRYRUN_DEVICES = r"""
@@ -5652,9 +5653,11 @@ run = dataclasses.replace(run, model=dataclasses.replace(
     run.model, n_layers=int(depth)))
 out = {}
 for dev in ("cuda", "cpu"):
-    r = d.trace_cell(run, d.mesh_for(mesh_kind, dev), dev)
+    r = d.trace_cell(run, d.mesh_for(mesh_kind, dev), dev,
+                     attribute=dev == "cuda")
     out[dev] = {k: r[k] for k in ("flops", "bytes", "coll", "memory",
                                   "peak", "ops")}
+    out["sites"] = r.get("sites", out.get("sites"))
 print(json.dumps(out))
 """
 
@@ -5699,7 +5702,8 @@ def dryrun_devices() -> dict:
     over a "cpu" mesh, the path a torch built without CUDA takes for a
     train cell (`dryrun.trace_device`). Flops, bytes, collectives by kind,
     operators and memory must be equal: the CPU-traced train cells then
-    count what the card's path would."""
+    count what the card's path would. Then `dryrun_rows` holds rank 0's
+    rows (fault 3.3) on the CUDA trace's attribution."""
     arch, shape, mesh = DRYRUN_TRAIN_CELL
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
@@ -5718,7 +5722,70 @@ def dryrun_devices() -> dict:
         raise AssertionError(f"phase 24(c): the train cell counts "
                              f"otherwise on fake CUDA tensors {got['cuda']}"
                              f" than on the CPU path {got['cpu']}")
-    return {"counts": got["cuda"], "s": seconds}
+    return {"counts": got["cuda"], "s": seconds,
+            **dryrun_rows(got["sites"])}
+
+
+def dryrun_rows(sites: dict) -> dict:
+    """Phase 24(c)'s check of fault 3.3 on rank 0's attribution of
+    DRYRUN_TRAIN_CELL: the logits head's backward is one device's divided
+    by the 256 ranks (its products span this rank's 8,016 vocabulary
+    columns), and no collective at the head, the cross entropy, the FFN or
+    attention moves an activation of the global batch: no operand has its
+    rows on the leading axis, and the one activation reduce-scattered
+    there is attention's K and V gradient (grouped heads), of this rank's
+    rows alone (DTensor folds a reduce-scatter's scatter axis onto the
+    leading one, so its elements are counted)."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers, lm
+    arch, shape, _ = DRYRUN_TRAIN_CELL
+    chunks = dryrun.make_run(arch, shape).parallel.vocab_chunking
+    cfg, sh = get_config(arch), SHAPES[shape]
+    B, T, V, d = sh.global_batch, sh.seq_len, cfg.vocab_size, cfg.d_model
+    data = model = 16
+    head = sites[f"{dryrun.line_of(lm._logits, 'x.float() @ head')} "
+                 f"(backward)"]
+    one = 2 * 2 * B * T * V * d                # dx and dW, one device
+    if head["flops"] * data * model != one:
+        raise AssertionError(f"phase 24(c): the head's backward counts "
+                             f"{head['flops']:.6e} flops on rank 0, not "
+                             f"{one:.6e} / 256")
+    chunk_rows = B // data * T // chunks
+    for product in head["shapes"]["flops"]:
+        dims = {n for _, s in product[1:] for n in s}
+        if dims != {chunk_rows, V // model, d}:
+            raise AssertionError(f"phase 24(c): the head's backward "
+                                 f"product {product} is not this rank's "
+                                 f"{chunk_rows} rows by {V // model} "
+                                 f"vocabulary columns by the whole {d}")
+    kv = [dryrun.line_of(layers.attention, f'src @ p["{w}"]')
+          for w in ("wk", "wv")]
+    rows, kv_rs, kv_width = B // data, 0, cfg.n_kv_heads * cfg.head_dim
+    for site, row in dryrun.sites_in(sites, (
+            lm._logits, lm.loss_fn, lm._token_nll, layers.ffn,
+            layers.attention)).items():
+        for kind, ops_ in row["shapes"].items():
+            for operands in ops_ if kind != "flops" else ():
+                for _, s in operands:
+                    if kind != "reduce-scatter":
+                        bad = s[0] == B
+                    elif len(s) > 2:
+                        bad = (not any(k in site for k in kv)
+                               or math.prod(s) != rows * T * kv_width)
+                        kv_rs += not bad
+                    else:
+                        bad = False
+                    if bad:
+                        raise AssertionError(f"phase 24(c): {kind} of "
+                                             f"{s} at {site}")
+    return {"head_backward_flops": head["flops"],
+            "head_backward_one_device": one,
+            "head_products": head["shapes"]["flops"],
+            "reduce_scatter_bytes": sum(
+                r["collectives"].get("reduce-scatter", 0)
+                for r in sites.values()),
+            "kv_gradient_reduce_scatters": kv_rs}
 
 
 def dryrun_vs_card(dev, cfg, lm_train: dict) -> dict:
@@ -5788,6 +5855,14 @@ def print_dryrun(a: dict, b: dict, c: dict, card: str) -> None:
           f"{k['bytes']:.6e}, {k['ops']} ops, collectives "
           f"{json.dumps(k['coll'])}, memory {json.dumps(k['memory'])}; "
           f"subprocess {c['s']:.1f} s")
+    print(f"[phase 24] (c) rank 0: the head's backward "
+          f"{c['head_backward_flops']:.6e} flops (x 256 = one device's "
+          f"{c['head_backward_one_device']:.6e}), products "
+          f"{json.dumps(c['head_products'])}; reduce-scatter "
+          f"{c['reduce_scatter_bytes']:.6e} bytes; no operand of the global "
+          f"batch at the head, the cross entropy, the FFN or attention "
+          f"({c['kv_gradient_reduce_scatters']} K/V gradient "
+          f"reduce-scatters of rank 0's rows)")
     print(f"[phase 24] {json.dumps({'a': a['cell'], 'b': b, 'c': c})}")
 
 

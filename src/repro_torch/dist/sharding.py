@@ -322,6 +322,33 @@ def replicated_call(fn, *args):
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
+def local_lookup(table: DTensor, idx: torch.Tensor) -> DTensor:
+    """``table[idx]`` with each rank on its own rows of ``idx``: the table
+    is gathered (replicated, as `replicated_call` gathers it), ``idx``
+    keeps its placements (a plain tensor acts as replicated) and each rank
+    looks up its local shard, so the output is placed as ``idx`` (a batch
+    over data stays there: no rank holds the global batch's
+    embeddings). The lookup and its backward run on local tensors (the
+    accumulating ``index_put`` has no sound DTensor rule in every torch);
+    the table's gradient is partial over the mesh axes that split
+    ``idx``."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, rep, run_check=False)
+    rows = list(idx.placements)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+    return local_map(_index, rows, in_placements=(rep, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(table, idx)
+
+
+def _index(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table[idx]
+
+
 def snn_state_specs(state: Any, mesh) -> Any:
     """Placements of a streaming state (`core.pipeline.StreamState`): every
     tensor leaf's leading axis is the serving lane and shards over the
@@ -454,18 +481,9 @@ def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
-    """Pin an activation's logical axes onto the active mesh. ``x`` itself
-    when no rules are active or when ``x`` is a plain tensor; a DTensor is
-    redistributed to `_fit`'s placements of the resolved axes (a value
-    moves between ranks, never changes). Entries of ``logical_axes`` are
-    logical names ("batch", "seq", "vocab", "experts", "ffn", "heads"), a
-    mesh axis name, tuples of names, or None; "seq" resolves to nothing
-    unless ``parallel.seq_parallel``."""
-    mesh, parallel = _RULES.mesh, _RULES.parallel
-    if mesh is None or not isinstance(x, DTensor):
-        return x
-    sizes = mesh_extents(mesh)
+def _resolved(logical_axes: tuple) -> tuple:
+    """``logical_axes`` as mesh axis names under the active rules."""
+    parallel, sizes = _RULES.parallel, mesh_extents(_RULES.mesh)
 
     def to_mesh(name):
         if name is None:
@@ -478,15 +496,112 @@ def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
                 and not parallel.seq_parallel):
             return None
         return _LOGICAL_TO_MESH.get(name, name if name in sizes else None)
+    return tuple(to_mesh(n) for n in logical_axes)
 
-    prop = tuple(to_mesh(n) for n in logical_axes)
-    placements = _fit(prop, tuple(x.shape), mesh)
+
+def shards_all(logical_axes: tuple, shape: tuple) -> bool:
+    """Whether `constrain` would shard every axis that ``logical_axes``
+    names on a tensor of ``shape``: under active rules, each named axis
+    resolves to a mesh axis whose extent divides it. False without
+    rules."""
+    mesh = _RULES.mesh
+    if mesh is None:
+        return False
+    prop = _resolved(logical_axes)
+    placements = _fit(prop, tuple(shape), mesh)
+    named = {i for i, a in enumerate(prop) if a is not None}
+    return named <= {p.dim for p in placements if isinstance(p, Shard)}
+
+
+def constrain(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    """Pin an activation's logical axes onto the active mesh. ``x`` itself
+    when no rules are active or when ``x`` is a plain tensor; a DTensor is
+    redistributed to `_fit`'s placements of the resolved axes (a value
+    moves between ranks, never changes). Entries of ``logical_axes`` are
+    logical names ("batch", "seq", "vocab", "experts", "ffn", "heads"), a
+    mesh axis name, tuples of names, or None; "seq" resolves to nothing
+    unless ``parallel.seq_parallel``."""
+    mesh = _RULES.mesh
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    placements = _fit(_resolved(logical_axes), tuple(x.shape), mesh)
     if tuple(x.placements) == placements:
         return x
     out = x.redistribute(device_mesh_of(mesh), placements)
     # a permuted global layout (an einsum's output) with freshly cut local
     # shards trips DTensor's view rules in the next op: lay it out anew
     return out if out.is_contiguous() else out.contiguous()
+
+
+def contracted_as(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An output projection's weight ``w`` (in, out) that takes a
+    gradient, placed for ``x @ w``: under active rules, its input axis as
+    ``x``'s last axis (over model where that is) and its output axis
+    whole, which the parameter rule puts on model. DTensor moves the
+    weight so inside the forward product anyway, but autograd keeps the
+    stored weight for the backward, which then contracts the output's
+    gradient over its model shard and makes every input column in partial
+    sums (a reduce-scatter of a (rows, hidden) tensor a layer); placed
+    here, each rank's backward makes its own columns. ``w`` itself
+    without active rules, without DTensors, for a weight without a
+    gradient (serving: the forward is DTensor's own either way), or where
+    no mesh axis splits ``x``'s last axis (heads gathered onto every rank:
+    the product is then DTensor's column-parallel one, and gathering
+    ``w`` whole would only move more)."""
+    if _RULES.mesh is None or not (isinstance(w, DTensor)
+                                   and splits_last(x) and w.requires_grad):
+        return w
+    last = x.dim() - 1
+    placements = tuple(Shard(0) if isinstance(p, Shard) and p.dim == last
+                       else Replicate() for p in x.placements)
+    if tuple(w.placements) == placements:
+        return w
+    return w.redistribute(w.device_mesh, placements)
+
+
+def splits_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor whose last axis a mesh axis of more than
+    one rank splits."""
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim == x.dim() - 1
+        and x.device_mesh.size(i) > 1 for i, p in enumerate(x.placements))
+
+
+def pick_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x.gather(-1, idx[..., None])[..., 0]``. For ``x`` sharded on its
+    last axis (`splits_last`) each rank picks the indices that fall in its
+    shard (0 elsewhere), so the result is a partial sum over those mesh
+    axes, reduced where it is used, and no rank gathers the axis; ``idx``
+    is placed as ``x``'s leading axes. The gradient reaches the owner's
+    element alone (a replicated gradient of a partial output is not
+    divided in the backward). The plain gather otherwise."""
+    if not splits_last(x):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = x.device_mesh, x.dim() - 1
+    coord = mesh.get_coordinate()
+    offset, width = 0, x.shape[last]
+    for i, p in enumerate(x.placements):       # torch.chunk's split
+        if isinstance(p, Shard) and p.dim == last:
+            width = -(-width // mesh.size(i))
+            offset += coord[i] * width
+    rows = [Replicate() if isinstance(p, Shard) and p.dim == last else p
+            for p in x.placements]
+    out = [Partial() if isinstance(p, Shard) and p.dim == last else p
+           for p in x.placements]
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+
+    def pick(x, idx):
+        local = idx - offset
+        inside = (local >= 0) & (local < x.shape[-1])
+        got = torch.gather(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])
+        return torch.where(inside, got[..., 0], torch.zeros_like(got[..., 0]))
+    return local_map(pick, out, in_placements=(list(x.placements), rows),
+                     in_grad_placements=(list(x.placements), rows),
+                     device_mesh=mesh, redistribute_inputs=True)(x, idx)
 
 
 def split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:

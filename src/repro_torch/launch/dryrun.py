@@ -77,6 +77,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import sys
 import threading
 import time
@@ -434,15 +435,123 @@ def wkv6_cost(r, v) -> tuple:
     return 4 * BH * T * K * V, moved
 
 
+_PACKAGE = Path(__file__).resolve().parents[1]
+_RELATIVE: dict = {}                 # a code object's file -> package path
+_FRAME_LINE = re.compile(r'File "([^"]+)", line (\d+)')
+#: distinct operand shapes kept a site and kind
+ATTRIBUTE_SHAPES = 8
+
+
+def _package_path(filename: str):
+    """``filename`` relative to the port's package ("models/lm.py"), or
+    None outside it."""
+    rel = _RELATIVE.get(filename, False)
+    if rel is False:
+        try:
+            rel = Path(filename).resolve().relative_to(_PACKAGE).as_posix()
+        except ValueError:
+            rel = None
+        _RELATIVE[filename] = rel
+    return rel
+
+
+def _site_of(frames) -> str | None:
+    """The site of ``frames`` ((package path or None, line, function),
+    innermost first): the first frame of the package outside this module,
+    as "path:line"; a frame under ``dist/`` names, after " < ", the first
+    frame outside ``dist/`` that called it. The walk stops at autograd's
+    engine: what a backward node runs has no forward caller."""
+    inner = None
+    for rel, line, name in frames:
+        if rel is None:
+            if name == "_engine_run_backward":
+                break
+            continue
+        if rel == "launch/dryrun.py":
+            continue
+        if inner is None:
+            inner = f"{rel}:{line}"
+            if not rel.startswith("dist/"):
+                return inner
+        elif not rel.startswith("dist/"):
+            return f"{inner} < {rel}:{line}"
+    return inner
+
+
+def call_site() -> str | None:
+    """`_site_of` the calling thread's stack."""
+    frames, f = [], sys._getframe(1)
+    while f is not None:
+        frames.append((_package_path(f.f_code.co_filename), f.f_lineno,
+                       f.f_code.co_name))
+        f = f.f_back
+    return _site_of(frames)
+
+
+_NODE_SITES: dict = {}               # a forward stack (text) -> its site
+
+
+def _node_site(node) -> str | None:
+    """The site that made autograd ``node`` in the forward pass, from the
+    stack anomaly mode stored on it (outermost frame first)."""
+    stack = node.metadata.get("traceback_") if node is not None else None
+    if not stack:
+        return None
+    text = stack if isinstance(stack, str) else "".join(stack)
+    if text not in _NODE_SITES:
+        frames = [(_package_path(f), int(line), "")
+                  for f, line in _FRAME_LINE.findall(text)]
+        _NODE_SITES[text] = _site_of(reversed(frames))
+    return _NODE_SITES[text]
+
+
+def site_lines(fn) -> tuple:
+    """(package path, first line, last line) of function ``fn``, in the
+    terms of `call_site`'s keys."""
+    import inspect
+    src, start = inspect.getsourcelines(fn)
+    return (_package_path(inspect.getsourcefile(fn)), start,
+            start + len(src) - 1)
+
+
+def line_of(fn, text: str) -> str:
+    """The site key (``path:line``) of ``fn``'s first line holding
+    ``text``."""
+    import inspect
+    src, start = inspect.getsourcelines(fn)
+    i = next(i for i, line in enumerate(src) if text in line)
+    return f"{site_lines(fn)[0]}:{start + i}"
+
+
+def sites_in(sites: dict, fns) -> dict:
+    """The rows of an ``attribution`` whose key names a line of one of
+    the functions ``fns`` anywhere in its chain (``path:line < path:line
+    (backward)``)."""
+    ranges = [site_lines(f) for f in fns]
+
+    def inside(key):
+        return any(path == p and a <= int(line) <= b
+                   for path, line in re.findall(r"([\w/]+\.py):(\d+)", key)
+                   for p, a, b in ranges)
+    return {k: v for k, v in sites.items() if inside(k)}
+
+
+def _shape_of(t: torch.Tensor) -> list:
+    return [str(t.dtype).removeprefix("torch."), list(t.shape)]
+
+
 class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
     """What one rank runs, operator by operator, on its local tensors:
     ``flops``, ``bytes``, ``collectives`` (operand bytes by JAX's kind)
     and live storage bytes (``live``, ``peak``). An operator on a DTensor
     is left to DTensor, whose local operators come back here; the
     operators of DTensor's sharding propagation are not counted.
-    `register` adds storages that exist before the step (the arguments)."""
+    `register` adds storages that exist before the step (the arguments).
+    With ``attribute``, ``sites`` holds the flops and collective bytes by
+    `call_site` (run it under `attributing`, so that a backward node
+    knows its forward site)."""
 
-    def __init__(self):
+    def __init__(self, attribute: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         _mark_dtensor_internals()
@@ -454,6 +563,7 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._seen: dict = {}            # id(storage) -> bytes
+        self.sites: dict | None = {} if attribute else None
 
     def register(self, t: torch.Tensor) -> bool:
         """Track ``t``'s storage as live until it is freed; False when it
@@ -497,7 +607,9 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         if ns in ("_c10d_functional", "c10d", "_dtensor"):
             kind = _COLLECTIVE_OF.get(name)
             if kind is not None:
-                self.collectives[kind] += sum(_nbytes(t) for t in ins)
+                moved = sum(_nbytes(t) for t in ins)
+                self.collectives[kind] += moved
+                self._attribute(kind, moved, ins)
             return
         if func.is_view or name in ("detach", "alias", "lift_fresh",
                                     "empty", "empty_strided", "empty_like"):
@@ -507,14 +619,55 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
             flops, moved = wkv6_cost(args[0], args[2])
             self.flops += flops
             self.bytes += moved
+            self._attribute("flops", flops, ins, name)
             return
         fn = self._flop.get(func._overloadpacket)
         if fn is not None:
-            self.flops += fn(*args, **kwargs, out_val=out)
+            flops = fn(*args, **kwargs, out_val=out)
+            self.flops += flops
+            self._attribute("flops", flops, ins, name)
         written = {id(t.untyped_storage()) for t in outs}
         self.bytes += sum(_nbytes(t) for t in outs)
         self.bytes += sum(_nbytes(t) for t in ins
                           if id(t.untyped_storage()) not in written)
+
+    def _attribute(self, kind: str, amount: float, ins: list,
+                   name: str = "") -> None:
+        """Add ``amount`` (flops, or a collective kind's operand bytes) to
+        the calling site in `sites`, with its operands' shapes."""
+        if self.sites is None or not amount:
+            return
+        site = call_site()
+        if site is None:
+            node = _node_site(torch._C._current_autograd_node())
+            site = f"{node} (backward)" if node else "(no site)"
+        row = self.sites.setdefault(site, {"flops": 0.0, "collectives": {},
+                                           "shapes": {}})
+        if kind == "flops":
+            row["flops"] += amount
+        else:
+            row["collectives"][kind] = row["collectives"].get(kind, 0) + \
+                amount
+        shapes = row["shapes"].setdefault(kind, [])
+        entry = [name] + [_shape_of(t) for t in ins] if name else \
+            [_shape_of(t) for t in ins]
+        if entry not in shapes and len(shapes) < ATTRIBUTE_SHAPES:
+            shapes.append(entry)
+
+
+@contextlib.contextmanager
+def attributing(on: bool = True):
+    """Autograd's anomaly mode (no NaN check: fake tensors have no values)
+    when ``on``: every node keeps the stack that made it, which
+    `CostCounter` reads to key a backward node's operators."""
+    if not on:
+        yield
+        return
+    import warnings
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Anomaly Detection")
+        with torch.autograd.detect_anomaly(check_nan=False):
+            yield
 
 
 def _local(t):
@@ -522,18 +675,20 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def measure(fn, args: tuple, alias_of, device: torch.device) -> dict:
+def measure(fn, args: tuple, alias_of, device: torch.device,
+            attribute: bool = False) -> dict:
     """Run ``fn(*args)`` (fake tensors, the mesh's rules active) under a
     `CostCounter`: flops, bytes and collectives of the run, and the memory
     of one rank (``argument_bytes`` of ``args``' local storages,
     ``output_bytes``, ``alias_bytes`` = ``alias_of(args, out)``'s local
-    bytes, ``temp_bytes``, ``peak``)."""
-    counter = CostCounter()
+    bytes, ``temp_bytes``, ``peak``); with ``attribute``, ``sites`` too
+    (`CostCounter.sites`)."""
+    counter = CostCounter(attribute)
     arg_leaves = [_local(t) for t in _tensors(args)]
     for t in arg_leaves:
         counter.register(t)
     argument_bytes = counter.live
-    with _indexing_mode(device), counter:
+    with _indexing_mode(device), attributing(attribute), counter:
         out = fn(*args)
     out_leaves = [_local(t) for t in _tensors(out)]
     seen, output_bytes = set(), 0
@@ -548,13 +703,16 @@ def measure(fn, args: tuple, alias_of, device: torch.device) -> dict:
                       for t in _tensors(alias_of(args, out)))
     peak = counter.peak
     temp = max(peak - argument_bytes - output_bytes + alias_bytes, 0)
-    return {"flops": counter.flops, "bytes": counter.bytes,
-            "coll": dict(counter.collectives), "ops": counter.ops,
-            "memory": {"argument_bytes": int(argument_bytes),
-                       "output_bytes": int(output_bytes),
-                       "temp_bytes": int(temp),
-                       "alias_bytes": int(alias_bytes)},
-            "peak": int(argument_bytes + temp + output_bytes - alias_bytes)}
+    res = {"flops": counter.flops, "bytes": counter.bytes,
+           "coll": dict(counter.collectives), "ops": counter.ops,
+           "memory": {"argument_bytes": int(argument_bytes),
+                      "output_bytes": int(output_bytes),
+                      "temp_bytes": int(temp),
+                      "alias_bytes": int(alias_bytes)},
+           "peak": int(argument_bytes + temp + output_bytes - alias_bytes)}
+    if attribute:
+        res["sites"] = counter.sites
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -648,10 +806,12 @@ _BUILDERS = {"train": build_train, "prefill": build_prefill,
              "decode": build_decode}
 
 
-def trace_cell(run: RunConfig, mesh, device=None) -> dict:
+def trace_cell(run: RunConfig, mesh, device=None,
+               attribute: bool = False) -> dict:
     """`measure` of ``run``'s step on fake tensors of ``device`` (the first
     CUDA device by default) placed on ``mesh`` (None: one device, plain
-    tensors), under the mesh's activation rules."""
+    tensors), under the mesh's activation rules; ``attribute`` adds
+    ``sites``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.dist import sharding as shd
@@ -663,11 +823,11 @@ def trace_cell(run: RunConfig, mesh, device=None) -> dict:
             _cuda_all_to_all(mesh):
         fn, args, alias_of = _BUILDERS[run.shape.kind](run, mesh, device)
         if run.shape.kind == "train":
-            return measure(fn, args, alias_of, device)
+            return measure(fn, args, alias_of, device, attribute)
         # a serving step on DTensors: the plain tensors it makes (RoPE
         # tables, positions, masks) act as replicated, as in the train step
         with torch.no_grad(), _replicating(mesh):
-            return measure(fn, args, alias_of, device)
+            return measure(fn, args, alias_of, device, attribute)
 
 
 def _replicating(mesh):
@@ -690,15 +850,16 @@ def roofline(flops: float, bytes_: float, coll_bytes: float) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, tag: str = "",
-             device=None) -> dict:
+             device=None, attribute: bool = False) -> dict:
     run = make_run(arch, shape_name, tag)
     device = (trace_device(run.shape.kind) if device is None
               else torch.device(device))
     mesh = mesh_for(mesh_kind, device.type)
     n_chips = math.prod(mesh.shape)
     t0 = time.time()
-    raw = trace_cell(run, mesh, device)                    # the PROOF trace
+    raw = trace_cell(run, mesh, device, attribute)         # the PROOF trace
     t_trace = time.time() - t0
+    sites = raw.pop("sites", None)
     mem = raw.pop("memory")
     peak = raw.pop("peak")
     raw.pop("ops")
@@ -712,7 +873,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, tag: str = "",
     mf = model_flops(run.model, run.shape)
     hlo_global = flops_dev * n_chips
     hbm = mesh_lib.hbm_bytes()
-    return {
+    cell = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": n_chips,
         "kind": run.shape.kind,
         "flops_per_device": flops_dev,
@@ -734,6 +895,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, tag: str = "",
         "optimizer": run.optimizer,
         "device": device.type,
     }
+    if sites is not None:
+        cell["attribution"] = sites
+    return cell
 
 
 #: (flops, all-gather bytes) of one GPU's share of a 4096^3 bf16 product,
@@ -779,6 +943,9 @@ def main(argv=None):
     ap.add_argument("--tag", default="", help="suffix for artifact files (perf iterations)")
     ap.add_argument("--resume", action="store_true",
                     help="skip cells whose artifact already exists")
+    ap.add_argument("--attribute", action="store_true",
+                    help="add rank 0's flops and collective bytes by the "
+                         "code line that ran them ('attribution')")
     args = ap.parse_args(argv)
 
     archs = ASSIGNED_ARCHS if (args.all or not args.arch) else [args.arch]
@@ -803,7 +970,8 @@ def main(argv=None):
                 print(f"[skip] {mesh_kind} {arch} {shape}: {skip}")
                 continue
             try:
-                res = run_cell(arch, shape, mesh_kind, args.tag)
+                res = run_cell(arch, shape, mesh_kind, args.tag,
+                               attribute=args.attribute)
                 fp.write_text(json.dumps(res, indent=1))
                 t = res["roofline_terms_s"]
                 print(f"[ok]   {mesh_kind} {arch} {shape}: dominant={res['dominant']}"

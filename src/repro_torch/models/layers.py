@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.dist.sharding import (constrain, contiguous_grad,
-                                      head_local, put_rows, replicated_call,
-                                      split_heads)
+                                      contracted_as, head_local, put_rows,
+                                      replicated_call, split_heads)
 
 #: `head_local` layouts: (B, T, H, D) queries, (B, S, KV, D) keys/values
 _QH = ("batch", None, "heads", None)
@@ -146,12 +146,14 @@ def init_ffn(gen, d_model: int, d_ff: int, ffn_type: str,
 
 
 def ffn(x: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
-    """swiglu, or gelu in its tanh form (``jax.nn.gelu``'s default)."""
+    """swiglu, or gelu in its tanh form (``jax.nn.gelu``'s default).
+    Under a mesh the down projection reads its weight placed as the hidden
+    axis (`sharding.contracted_as`)."""
     if ffn_type == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     else:
         h = F.gelu(x @ p["up"], approximate="tanh")
-    return h @ p["down"]
+    return h @ contracted_as(p["down"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +277,8 @@ def attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     # under a mesh each model rank runs its own heads, as the
     # tensor-parallel projections left them (`fn(q, k, v)` without rules)
     out = head_local(scores, (q, k, v), (_QH, _KVH, _KVH), _QH)
-    return out.reshape(B, T, -1) @ p["wo"]
+    out = out.reshape(B, T, -1)
+    return out @ contracted_as(p["wo"], out)
 
 
 def attention_decode(x: torch.Tensor, p: dict, cfg, cache: dict,

@@ -69,9 +69,10 @@ from torch.distributed.tensor import DTensor
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.dist.sharding import (cache_zeros, check_layer_sliceable,
-                                      constrain, placed_as, put_prefix,
-                                      recomputed, replicated_call,
-                                      split_heads, whole_axis)
+                                      constrain, local_lookup, pick_last,
+                                      placed_as, put_prefix, recomputed,
+                                      shards_all, split_heads, splits_last,
+                                      whole_axis)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
@@ -342,7 +343,8 @@ def _apply_rwkv(x, p, cfg: ModelConfig, cache: Optional[dict], decode: bool,
         h, st = R.time_mix(h_in, p["rwkv"]["tm"], cfg, st)
     x = _residual(x, h)
     h, shift_cm = R.channel_mix(_norm(x, p["norm2"], cfg), p["rwkv"]["cm"],
-                                None if cache is None else cache["shift_cm"])
+                                None if cache is None else cache["shift_cm"],
+                                decode=decode)
     x = _residual(x, h)
     return x, {"shift_tm": st["shift"], "wkv": st["wkv"], "shift_cm": shift_cm}
 
@@ -566,9 +568,8 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
     check_family(cfg)
     embed, tokens = params["embed"], batch["tokens"]
     if isinstance(embed, DTensor):
-        # the lookup's backward (an accumulating index_put) has no sound
-        # DTensor rule in every torch: look up in the replicated table
-        x = replicated_call(_lookup, embed, tokens)
+        # each rank looks up its own rows in the gathered table
+        x = local_lookup(embed, tokens)
     else:
         x = embed[tokens]
     if cfg.is_encoder_decoder:
@@ -582,13 +583,46 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig):
     return x, positions, None
 
 
-def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
+def _head(params, cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(params, x, cfg: ModelConfig):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _placed_head(params, cfg: ModelConfig):
+    """The loss's head under a mesh whose model axis splits the
+    vocabulary: gathered to its whole ``d`` with the vocabulary over
+    model (XLA's FSDP gathers it so), once a step, so each rank's product
+    is its own batch rows by its own vocabulary columns, with no partial
+    sums, and its backward computes only those columns. None without
+    active rules, or where the vocabulary does not split (a whole head on
+    every rank would multiply its flops): the loss then reads the head as
+    `_logits` does."""
+    head = _head(params, cfg)
+    if not shards_all((None, "vocab"), tuple(head.shape)):
+        return None
+    return constrain(head, (None, "vocab"))
+
+
+def _logits(params, x, cfg: ModelConfig, head=None):
+    """``x`` times the float32 head (``head``, else the params' own)."""
+    head = _head(params, cfg) if head is None else head
     return x.float() @ head.float()
+
+
+def _token_nll(lg, targets):
+    """``-log_softmax(lg)`` at each target. Under a mesh whose model axis
+    splits the vocabulary (`sharding.splits_last`), the log-sum-exp
+    reduces over it (a max and a sum a token, all-reduced) and each rank
+    picks the targets in its own columns (`sharding.pick_last`), as XLA
+    partitions the reductions: no rank gathers the (rows, vocab) logits,
+    and their gradient comes back on each rank's own columns. Otherwise
+    torch's ``log_softmax`` and ``gather``."""
+    if not splits_last(lg):
+        lp = torch.log_softmax(lg, dim=-1)
+        return -torch.gather(lp, -1, targets[..., None])[..., 0]
+    z = lg - lg.amax(-1, keepdim=True).detach()
+    rows = ("batch", None)
+    return (torch.log(constrain(torch.exp(z).sum(-1), rows))
+            - constrain(pick_last(z, targets), rows))
 
 
 # ---------------------------------------------------------------------------
@@ -631,10 +665,12 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
         raise ValueError(f"vocab_chunking={n_chunks} must divide the "
                          f"sequence length, got T={T}")
 
+    head = _placed_head(params, cfg)
+
     def ce(xc, tc):
-        lg = constrain(_logits(params, xc, cfg), ("batch", None, "vocab"))
-        lp = torch.log_softmax(lg, dim=-1)
-        return -torch.gather(lp, -1, tc[..., None])[..., 0]
+        lg = constrain(_logits(params, xc, cfg, head),
+                       ("batch", None, "vocab"))
+        return _token_nll(lg, tc)
 
     if n_chunks == 1:
         losses = ce(x, targets)

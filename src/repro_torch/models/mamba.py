@@ -190,6 +190,10 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
                                 None if state is None else state["conv"])
     xs = F.silu(xs)
     dt_r, b_mat, c_mat = _split_proj(xs @ p["x_proj"], s)
+    # the (B, T, dt_rank) low-rank input gathered over model (the identity
+    # without active rules): dt then comes out on each rank's own
+    # channels, not in partial sums over all of d_in
+    dt_r = constrain(dt_r, ("batch", None, None))
     dt = softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])                                # (d_in, N)
     la = dt[..., None] * a                                    # (B, T, d_in, N)

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import constrain, head_local, split_heads
+from repro_torch.dist.sharding import (constrain, contracted_as, head_local,
+                                      split_heads)
 from repro_torch.kernels.wkv6.ops import wkv6, wkv6_decode_step
 from repro_torch.models.layers import dense_init, gen_device, normal
 
@@ -75,12 +76,34 @@ def init_rwkv_block(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
+def _whole(v: torch.Tensor) -> torch.Tensor:
+    """A mixing parameter whole on every rank under a mesh: its ``d``,
+    which the parameter rule puts on model, gathered (8 KB a vector at
+    d = 4,096). A mix of a (batch, ...)-placed activation then keeps its
+    contraction axis whole, and each data rank's next product runs on its
+    own rows (DTensor otherwise computes it over partial sums and
+    reduce-scatters them). The identity without active rules."""
+    return constrain(v, (None,) * v.dim())
+
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor],
+                 whole: bool = True) -> torch.Tensor:
     """x: (B, T, d) -> previous-token tensor; `last` is the carry from the
-    preceding segment ((B, d)) or None for zeros."""
+    preceding segment ((B, d)) or None for zeros. ``whole``: under a mesh
+    the carry's ``d``, which the cache's rule puts on model, is gathered
+    first, for the reason `_whole` gives."""
+    if last is not None and whole:
+        last = constrain(last, ("batch", None))
     first = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
     return torch.cat([first.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _carry(x: torch.Tensor) -> torch.Tensor:
+    """The last token of (B, T, d) ``x``, the next segment's token-shift
+    carry, as a copy: a view would keep all of ``x`` alive in the cache
+    until the stack is restacked (two (B, T, d) tensors a layer in a
+    prefill)."""
+    return x[:, -1].clone()
 
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, n_heads: int,
@@ -93,18 +116,30 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, n_heads: int,
     return (yh.reshape(B, T, d) * scale).to(y.dtype)
 
 
-def _mix_inputs(x: torch.Tensor, xx: torch.Tensor, p: dict) -> tuple:
-    """ddlerp: the five token-shift mixes (r, k, v, g, w) of (B, T, d) x."""
-    base = x + xx * p["mu"][0]
+def _mix_inputs(x: torch.Tensor, xx: torch.Tensor, p: dict,
+                whole: bool = True) -> tuple:
+    """ddlerp: the five token-shift mixes (r, k, v, g, w) of (B, T, d) x;
+    ``whole``: ``mu`` and the LoRA's ``ddlerp_w2`` are `_whole` under a
+    mesh."""
+    mu, w2 = p["mu"], p["ddlerp_w2"]
+    if whole:
+        mu, w2 = _whole(mu), _whole(w2)
+    base = x + xx * mu[0]
     a = split_heads(torch.tanh(base @ p["ddlerp_w1"]), LORA_R)
-    mix = torch.einsum("btnr,nrd->btnd", a, p["ddlerp_w2"]) + p["mu"][None, None]
+    mix = torch.einsum("btnr,nrd->btnd", a, w2) + mu[None, None]
     xs = x[:, :, None, :] + xx[:, :, None, :] * mix           # (B, T, 5, d)
     return xs.unbind(2)
 
 
-def _decay(xw: torch.Tensor, p: dict) -> torch.Tensor:
-    """Data-dependent decay in (0, 1), float32."""
-    dlora = torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
+def _decay(xw: torch.Tensor, p: dict, whole: bool = True) -> torch.Tensor:
+    """Data-dependent decay in (0, 1), float32. ``whole``: under a mesh the
+    LoRA's (B, T, 64) hidden is gathered over model before its
+    up-projection, so the decay comes out on each rank's own channels with
+    no partial sums to reduce (the identity without active rules)."""
+    h = torch.tanh(xw @ p["decay_w1"])
+    if whole:
+        h = constrain(h, ("batch", None, None))
+    dlora = h @ p["decay_w2"]
     return torch.exp(-torch.exp(torch.clamp(p["decay_base"] + dlora.float(),
                                             -8.0, 1.0)))
 
@@ -136,8 +171,9 @@ def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
                      None if state is None else state["wkv"]),
         (th, th, th, th, ("heads", None), sh), (th, sh))
     y = y.reshape(B, T, d)
-    out = (_group_norm(y, p["gn_scale"], H) * g) @ p["wo"].float()
-    return out, {"shift": x[:, -1], "wkv": s_new}
+    y = _group_norm(y, p["gn_scale"], H) * g
+    out = y @ contracted_as(p["wo"], y).float()
+    return out, {"shift": _carry(x), "wkv": s_new}
 
 
 def time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -147,12 +183,13 @@ def time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
     B, _, d = x.shape
     H, K = cfg.n_heads, cfg.rwkv.head_size
     prev = state["shift"][:, None].to(x.dtype)
-    xr, xk, xv, xg, xw = (m[:, 0] for m in _mix_inputs(x, prev - x, p))
+    xr, xk, xv, xg, xw = (m[:, 0] for m in _mix_inputs(x, prev - x, p,
+                                                       whole=False))
     r = split_heads(xr @ p["wr"], K)
     k = split_heads(xk @ p["wk"], K)
     v = split_heads(xv @ p["wv"], K)
     g = F.silu(xg @ p["wg"])
-    w = split_heads(_decay(xw, p), K)
+    w = split_heads(_decay(xw, p, whole=False), K)
     # the step's products flatten (lanes, heads) into one batch axis, which
     # DTensor cannot do with both sharded: gather the heads (the identity
     # without active rules)
@@ -167,14 +204,27 @@ def time_mix_decode(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 
 def channel_mix(x: torch.Tensor, p: dict,
-                state: Optional[torch.Tensor] = None):
-    """ReLU^2 channel mix with receptance gate. state: (B, d) last token."""
-    prev = _token_shift(x, state)
-    xk = x + (prev - x) * p["mu_k"]
-    xr = x + (prev - x) * p["mu_r"]
+                state: Optional[torch.Tensor] = None, *,
+                decode: bool = False):
+    """ReLU^2 channel mix with receptance gate. state: (B, d) last token.
+    Under a mesh the carry and the mixing vectors are `_whole`, except in
+    ``decode`` (the one-token step keeps DTensor's placement, as
+    `time_mix_decode` does)."""
+    prev = _token_shift(x, state, whole=not decode)
+    mu_k, mu_r = p["mu_k"], p["mu_r"]
+    if not decode:
+        mu_k, mu_r = _whole(mu_k), _whole(mu_r)
+    xk = x + (prev - x) * mu_k
+    xr = x + (prev - x) * mu_r
     k = torch.square(torch.relu(xk @ p["wk"]))
     r = torch.sigmoid(xr @ p["wr"])
-    return r * (k @ p["wv"]), x[:, -1]
+    if decode:
+        return r * (k @ p["wv"]), x[:, -1]
+    # the projection's partial sums reduced onto r's channels in the
+    # forward as an autograd step, so its backward gathers the gradient
+    # and the product's backward runs on this rank's hidden columns
+    h = constrain(k @ contracted_as(p["wv"], k), ("batch", None, "embed"))
+    return r * h, _carry(x)
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int,

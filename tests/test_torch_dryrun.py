@@ -95,6 +95,32 @@ print(json.dumps({"one": one, "rank0": calls}))
 """
 
 
+#: the repaired sites of fault 3.3 at full width, one layer and 64
+#: tokens, on the fake (16, 16) group with ``--attribute``'s sites: the
+#: llama3.2-1b train step (vocab chunking 4) on rank 0 and on one device,
+#: and an rwkv6-7b prefill on rank 0
+FAKE_SITES = r"""
+import dataclasses, json
+from repro_torch.launch import dryrun as d
+
+def cut(arch, shape):
+    run = d.make_run(arch, shape)
+    return dataclasses.replace(
+        run, model=dataclasses.replace(run.model, n_layers=1),
+        shape=dataclasses.replace(run.shape, seq_len=64))
+
+train, prefill = cut("llama3.2-1b", "train_4k"), cut("rwkv6-7b", "prefill_32k")
+assert train.parallel.vocab_chunking == 4
+out = {"one": d.trace_cell(train, None, attribute=True)["sites"]}
+for name, run in (("rank0", train), ("rwkv", prefill)):
+    kind = d.trace_device(run.shape.kind).type
+    r = d.trace_cell(run, d.mesh_for("single", kind), attribute=True)
+    out[name] = r.pop("sites")
+    out[name + "_totals"] = r
+print(json.dumps(out))
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -132,6 +158,99 @@ def fake_heads():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def fake_sites():
+    out = subprocess.run([sys.executable, "-c", FAKE_SITES], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("cell", ["rank0", "rwkv"])
+def test_attribution_adds_up_to_the_counts(fake_sites, cell):
+    """``--attribute``'s sites share out the cell's counts: their flops
+    and their operand bytes of each collective kind add up to the totals
+    of the same trace."""
+    sites, totals = fake_sites[cell], fake_sites[cell + "_totals"]
+    assert sum(row["flops"] for row in sites.values()) == totals["flops"]
+    for kind, total in totals["coll"].items():
+        assert sum(row["collectives"].get(kind, 0)
+                   for row in sites.values()) == total, kind
+    assert totals["coll"]["reduce-scatter"] > 0 or cell == "rwkv"
+
+
+def test_rank0_head_backward_is_its_share(fake_sites):
+    """The logits head's backward on rank 0 of the (16, 16) group is one
+    device's divided by the data extent that splits the 256 sequences and
+    the model extent that splits the 128,256 vocabulary columns, exactly:
+    the head is gathered to (whole d, vocabulary over model) before its
+    product, so no rank computes every column in partial sums. Each of
+    rank 0's products spans its own rows, its own 8,016 columns and the
+    whole width (the same flops over the global batch's rows by a 128-wide
+    slice of d would not do)."""
+    from repro_torch.models import lm
+    key = f"{dryrun.line_of(lm._logits, 'x.float() @ head')} (backward)"
+    one, rank0 = fake_sites["one"][key], fake_sites["rank0"][key]
+    assert one["flops"] == 2 * 2 * 256 * 64 * 128_256 * 2048
+    assert rank0["flops"] * 16 * 16 == one["flops"]
+    rows = 16 * 64 // 4          # 16 sequences by a chunk of 16 tokens
+    for product in rank0["shapes"]["flops"]:
+        dims = {n for _, shape in product[1:] for n in shape}
+        assert dims == {rows, 8016, 2048}, product
+
+
+def test_rank0_keeps_its_batch_rows_at_the_repaired_sites(fake_sites):
+    """At the logits head, the cross entropy, the FFN and attention, rank
+    0 (16 of the 256 sequences) moves no activation of the global batch:
+    no collective operand there has 256 rows on its leading axis, and the
+    one activation reduce-scattered is attention's K and V gradient
+    (grouped heads: K and V whole on each model rank, a partial gradient
+    over model), of rank 0's rows alone. DTensor lays a reduce-scatter's
+    operand out with its scatter axis folded onto the leading one, so that
+    (16, 64, 512) gradient reads (256, 64, 32): its elements are counted.
+    The faults were the chunk's float32 logits and the FFN's hidden
+    gradient, each computed in partial sums over model and
+    reduce-scattered."""
+    import math
+
+    from repro_torch.models import layers, lm
+    sites = dryrun.sites_in(fake_sites["rank0"], (
+        lm._logits, lm.loss_fn, lm._token_nll, layers.ffn, layers.attention))
+    assert any("(backward)" in s for s in sites)
+    kv = [dryrun.line_of(layers.attention, f'src @ p["{w}"]')
+          for w in ("wk", "wv")]
+    for site, row in sites.items():
+        for kind, rows in row["shapes"].items():
+            for operands in rows if kind != "flops" else ():
+                for _, shape in operands:
+                    if kind != "reduce-scatter":
+                        assert shape[0] != 256, (site, kind, shape)
+                    elif len(shape) > 2:             # an activation
+                        assert any(k in site for k in kv), (site, shape)
+                        assert math.prod(shape) == 16 * 64 * 512, shape
+
+
+def test_rwkv_prefill_mixes_reduce_nothing(fake_sites):
+    """An rwkv6-7b prefill (32 sequences, 2 a data rank) on rank 0: the
+    token-shift mixes keep their contraction axis whole, so no product of
+    `time_mix` or `channel_mix` and no input of the wkv6 recurrence
+    (`head_local`) is reduce-scattered. The one reduction left is the
+    channel mix's output projection, whose hidden axis is over model
+    (tensor parallelism): at most one (2, 64, 4,096) bf16 tensor of rank
+    0's own rows (at 64 tokens DTensor gathers the weight instead; at
+    32,768 it reduce-scatters that tensor)."""
+    from repro_torch.models import rwkv
+    sites = dryrun.sites_in(fake_sites["rwkv"], (
+        rwkv.time_mix, rwkv.channel_mix, rwkv._mix_inputs, rwkv._decay,
+        rwkv._token_shift))
+    assert dryrun.sites_in(sites, (rwkv.time_mix,))
+    out = dryrun.line_of(rwkv.channel_mix, "h = constrain(k @")
+    rs = {s: row["collectives"].get("reduce-scatter", 0)
+          for s, row in sites.items()}
+    assert sum(rs.pop(s) for s in list(rs) if out in s) <= 2 * 64 * 4096 * 2
+    assert not any(rs.values()), rs
 
 
 def test_rank0_score_flops_split_by_batch_and_heads(fake_heads):
