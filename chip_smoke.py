@@ -5005,7 +5005,7 @@ LM_MESH_COMPRESS_STEPS = 6
 PIPE_D = 2048                     # GPipe stage: tanh(x @ w), w (d, d)
 PIPE_MICRO = 8
 PIPE_B = 4
-LM_MESH_TIMEOUT_S = 300           # the four ranks together
+LM_MESH_TIMEOUT_S = 420           # the four ranks together
 LM_MESH_LOSS_RTOL = 1e-5          # the CPU tests' rule (ROADMAP, AdamW)
 LM_MESH_ATOL = 1e-5
 LM_MESH_G_MIN = 1e-7
@@ -5017,6 +5017,12 @@ LM_MESH_RWKV_ARCH = "rwkv6-7b"
 LM_MESH_RWKV_LAYERS = 2           # of 32
 LM_MESH_RWKV_B = 2
 LM_MESH_RWKV_SEQ = 256
+#: 23(f): deepseek-v2-lite-16b's MoE FFN at every published width on (2,
+#: 2) with constraints, each data rank routing its own 2 of the 4 groups
+LM_MESH_MOE_ARCH = "deepseek-v2-lite-16b"
+LM_MESH_MOE_B = 4
+LM_MESH_MOE_SEQ = 128
+LM_MESH_MOE_RL2 = 1e-5            # output, aux and every gradient
 
 
 def lm_mesh_setup(dev):
@@ -5357,6 +5363,128 @@ def lm_mesh_rank_rwkv(rank: int, dev, m14, row: dict) -> None:
     row["rwkv"] = out
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """What `layers.moe_ffn`'s routing computes while the context is open:
+    each call's top-k expert indices (`layers._topk_first`, moved to the
+    host) and the bytes of its buckets (`layers._route`)."""
+    from repro_torch.models import layers
+    seen = {"experts": [], "bucket_bytes": []}
+    topk, route = layers._topk_first, layers._route
+
+    def topk_recorded(*args):
+        vals, idx = topk(*args)
+        seen["experts"].append(idx.detach().cpu())
+        return vals, idx
+
+    def route_recorded(*args):
+        out = route(*args)
+        seen["bucket_bytes"].append(out[0].numel() * out[0].element_size())
+        return out
+    layers._topk_first, layers._route = topk_recorded, route_recorded
+    try:
+        yield seen
+    finally:
+        layers._topk_first, layers._route = topk, route
+
+
+def lm_mesh_rank_moe(rank: int, dev, m22, row: dict) -> None:
+    """Phase 23(f) on one rank: `moe_ffn(constraints=True)` of
+    LM_MESH_MOE_ARCH at every published width (float32 weights and input
+    drawn on the card from the seed, B = LM_MESH_MOE_B, T =
+    LM_MESH_MOE_SEQ, the input's sequence over model) on DTensors of (2,
+    2) under `activation_rules`, with the gradients of a scalar loss and
+    the aux: each data rank routes its own groups (`sharding.group_local`)
+    and every model rank of a data row the same. Rank 0 also makes the
+    plain call and holds the sharded one to it: every rank's expert
+    choices equal its groups' (gathered to rank 0 over the world), the
+    output, the aux and every gradient within LM_MESH_MOE_RL2 relative
+    L2."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ParallelConfig, get_config
+    from repro_torch.dist import sharding
+    from repro_torch.models import layers
+    from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
+                                  tree_unflatten_like)
+    cfg = get_config(LM_MESH_MOE_ARCH)
+    parallel = ParallelConfig(moe_constraints=True)
+    B, T = LM_MESH_MOE_B, LM_MESH_MOE_SEQ
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = layers.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+
+    def loss_grads(x, p, mesh=None):
+        leaves = [x] + tree_leaves(p)
+        if mesh is not None:
+            leaves = [sharding.place_tree(x, mesh, sharding.logical_spec(
+                mesh, ("batch", "seq", None), tuple(x.shape)))] + \
+                tree_leaves(sharding.place_tree(p, mesh, sharding.param_specs(
+                    p, mesh, parallel)))
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        with recorded_routes() as seen:
+            out, lb = layers.moe_ffn(
+                leaves[0], tree_unflatten_like(p, leaves[1:]), cfg,
+                constraints=True)
+            # a sum, not a mean: torch 2.11's DTensor cannot add a mean's
+            # partial average to the aux's partial sum
+            loss = (out.float() ** 2).sum() / out.numel() + lb
+            grads = torch.autograd.grad(loss, leaves)
+        return out, lb, grads, seen
+    out = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        want = loss_grads(x, p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["plain_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with sharding.activation_rules(m22, parallel), implicit_replication():
+        got = loss_grads(x, p, m22)
+        tensors = [got[0].full_tensor(), got[1].full_tensor()] + [
+            g.full_tensor() for g in got[2]]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    m = cfg.moe
+    out["width"] = {"d": cfg.d_model, "experts": m.n_experts,
+                    "d_ff": m.d_ff, "top_k": m.top_k,
+                    "shared": m.n_shared_experts}
+    out["aux_placements"] = str(got[1].placements)
+    out["bucket_bytes"] = got[3]["bucket_bytes"]
+    mine = torch.cat(got[3]["experts"])
+    every = [torch.empty_like(mine) for _ in range(LM_MESH_WORLD)]
+    dist.all_gather(every, mine)              # gloo, on the host
+    coords = [None] * LM_MESH_WORLD
+    dist.all_gather_object(coords, m22.coords)
+    if rank == 0:
+        choices = torch.cat(want[3]["experts"])
+        rows = B // m22.shape[0]
+        same = [bool(torch.equal(e, choices[c["data"] * rows:
+                                            (c["data"] + 1) * rows]))
+                for e, c in zip(every, coords)]
+        if not all(same):
+            raise AssertionError(f"phase 23(f): the ranks' expert choices "
+                                 f"differ from the plain call's {same}")
+        names = ["out", "aux", "grad x"] + [
+            "grad " + ".".join(map(str, path))
+            for path, _ in tree_flatten_with_paths(p)]
+        rel = {n: rel_l2(a, b) for n, a, b in zip(
+            names, tensors, [want[0], want[1]] + list(want[2]))}
+        bad = {n: r for n, r in rel.items() if not r <= LM_MESH_MOE_RL2}
+        if bad:
+            raise AssertionError(f"phase 23(f): sharded != plain {bad} "
+                                 f"(tol {LM_MESH_MOE_RL2})")
+        out.update(rel_l2=rel, same_experts=same,
+                   plain_bucket_bytes=want[3]["bucket_bytes"])
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if dev.type == "cuda" else None)
+    row["moe"] = out
+
+
 def lm_mesh_rank_compress(rank: int, dev, m41, row: dict) -> None:
     """Phase 23(c) on one rank: `compressed_psum_mean` over the 4 data
     ranks of (4, 1) on this rank's gradient tree (the loss of its quarter
@@ -5429,9 +5557,10 @@ def lm_mesh_rank(argv) -> int:
     `compressed_psum_mean` over (4, 1) (`lm_mesh_rank_compress`), waits
     for DIR/go (written when 23(a) has freed the card's memory), runs (b)
     the sharded step on (2, 2) (`lm_mesh_rank_step`), (d) an rwkv6-7b
-    prefill on (1, 4) (`lm_mesh_rank_rwkv`) and (e) GPipe on ("pipe",) x
-    4 (rank 0 also the sequential composition); writes
-    DIR/rank<RANK>.json; a mismatch raises."""
+    prefill on (1, 4) (`lm_mesh_rank_rwkv`), (e) GPipe on ("pipe",) x
+    4 (rank 0 also the sequential composition) and (f) deepseek's MoE FFN
+    on (2, 2) (`lm_mesh_rank_moe`); writes DIR/rank<RANK>.json; a mismatch
+    raises."""
     rank, out = int(argv[0]), Path(argv[1])
     device_type = argv[2] if len(argv) > 2 else "cuda"
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -5506,6 +5635,9 @@ def lm_mesh_rank(argv) -> int:
                                  f"composition ({row['gpipe']})")
     row["peak_bytes"] = (torch.cuda.max_memory_allocated()
                          if device_type == "cuda" else None)
+    del Ws, xs, got
+    free_cuda()
+    lm_mesh_rank_moe(rank, dev, m22, row)
     row["s"] = time.perf_counter() - t0
     (out / f"rank{rank}.json").write_text(json.dumps(row))
     dist.barrier()
@@ -5623,6 +5755,21 @@ def print_lm_mesh(res: dict, card: str) -> None:
           f"({PIPE_D}, {PIPE_D}) float32, {PIPE_MICRO} microbatches of "
           f"{PIPE_B}: == the sequential composition bit for bit "
           f"{json.dumps(r0['gpipe'])}")
+    moe = r0["moe"]
+    print(f"[phase 23] (f) {LM_MESH_MOE_ARCH}'s MoE FFN at full width "
+          f"{json.dumps(moe['width'])}, float32, B = {LM_MESH_MOE_B}, "
+          f"T = {LM_MESH_MOE_SEQ} on 4 gloo ranks, mesh 2x2, constraints on, with the gradients of a "
+          f"scalar loss: each data rank routes its own "
+          f"{LM_MESH_MOE_B // 2} groups (`group_local`, aux "
+          f"{moe['aux_placements']}); expert choices == the plain call's "
+          f"on every rank {moe['same_experts']}; rel L2 to the plain call "
+          f"(tol {LM_MESH_MOE_RL2}) {json.dumps(moe['rel_l2'])}; seconds "
+          f"(forward, backward, gathers) a rank "
+          f"{[round(r['moe']['s'], 2) for r in four['ranks']]} (plain "
+          f"{moe['plain_s']:.2f} s on rank 0); bucket bytes a rank routes "
+          f"{[r['moe']['bucket_bytes'] for r in four['ranks']]} (plain "
+          f"{moe['plain_bucket_bytes']}); peak bytes a rank in (f) "
+          f"{[r['moe']['peak_bytes'] for r in four['ranks']]} ({card})")
     print(f"[phase 23] world of one {one['s']:.1f} s; four ranks "
           f"{four['s']:.1f} s from their spawn (their start-up and (c) "
           f"overlap (a); the go after {r0['go_s']:.1f} s); "
@@ -5644,10 +5791,16 @@ DRYRUN_PEAK_RTOL = 0.10           # counted peak against the card's
 #: collectives by site) and on the CPU path a torch without CUDA takes
 DRYRUN_TRAIN_CELL = ("llama3.2-1b", "train_4k", "single")
 DRYRUN_DEPTH = 2
+#: phase 24(d): the MoE train cell cut to the dense prelude and one MoE
+#: layer and DRYRUN_MOE_SEQ tokens, traced in 24(c)'s subprocess on fake
+#: CUDA tensors with the attribution (fault 3.5's sites)
+DRYRUN_MOE_CELL = ("deepseek-v2-lite-16b", "train_4k", "single")
+DRYRUN_MOE_DEPTH = 2
+DRYRUN_MOE_SEQ = 256
 DRYRUN_DEVICES = r"""
 import dataclasses, json, sys
 from repro_torch.launch import dryrun as d
-arch, shape, mesh_kind, depth = sys.argv[1:5]
+arch, shape, mesh_kind, depth, moe_arch, moe_depth, moe_seq = sys.argv[1:8]
 run = d.make_run(arch, shape)
 run = dataclasses.replace(run, model=dataclasses.replace(
     run.model, n_layers=int(depth)))
@@ -5658,6 +5811,14 @@ for dev in ("cuda", "cpu"):
     out[dev] = {k: r[k] for k in ("flops", "bytes", "coll", "memory",
                                   "peak", "ops")}
     out["sites"] = r.get("sites", out.get("sites"))
+moe = d.make_run(moe_arch, shape)
+moe = dataclasses.replace(
+    moe, model=dataclasses.replace(moe.model, n_layers=int(moe_depth)),
+    shape=dataclasses.replace(moe.shape, seq_len=int(moe_seq)))
+r = d.trace_cell(moe, d.mesh_for(mesh_kind, "cuda"), "cuda", attribute=True)
+out["moe_sites"] = r.pop("sites")
+out["moe"] = {k: r[k] for k in ("flops", "bytes", "coll", "memory", "peak",
+                                "ops")}
 print(json.dumps(out))
 """
 
@@ -5710,7 +5871,8 @@ def dryrun_devices() -> dict:
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-c", DRYRUN_DEVICES, arch, shape, mesh,
-         str(DRYRUN_DEPTH)], env=env, cwd=root, capture_output=True,
+         str(DRYRUN_DEPTH), DRYRUN_MOE_CELL[0], str(DRYRUN_MOE_DEPTH),
+         str(DRYRUN_MOE_SEQ)], env=env, cwd=root, capture_output=True,
         text=True, timeout=DRYRUN_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     if out.returncode != 0:
@@ -5723,7 +5885,69 @@ def dryrun_devices() -> dict:
                              f"otherwise on fake CUDA tensors {got['cuda']}"
                              f" than on the CPU path {got['cpu']}")
     return {"counts": got["cuda"], "s": seconds,
-            **dryrun_rows(got["sites"])}
+            **dryrun_rows(got["sites"]),
+            "moe": dryrun_moe_rows(got["moe_sites"], got["moe"])}
+
+
+def dryrun_moe_rows(sites: dict, totals: dict) -> dict:
+    """Phase 24(d): fault 3.5's checks on rank 0's attribution of
+    DRYRUN_MOE_CELL (the sandbox test's, at DRYRUN_MOE_SEQ tokens): at the
+    MoE's sites (`moe_ffn`, its routing, combine and expert products),
+    forward and backward, no operand holds the global batch (no leading
+    axis of its groups, no axis of all their tokens), and the one
+    activation reduce-scattered is the experts' hidden gradient of rank
+    0's own groups (its elements counted: DTensor folds the scatter axis
+    onto the leading one); the router product is one device's divided by
+    the data extent, exactly, and spans rank 0's own tokens; the sites
+    add up to the trace's totals."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+    arch, shape, _ = DRYRUN_MOE_CELL
+    cfg, m = get_config(arch), get_config(arch).moe
+    G, n, d, E = (SHAPES[shape].global_batch, DRYRUN_MOE_SEQ, cfg.d_model,
+                  m.n_experts)
+    cap = max(int(np.ceil(n * m.top_k / E * 1.25)), 4)
+    data = 16
+    if sum(r["flops"] for r in sites.values()) != totals["flops"] or any(
+            sum(r["collectives"].get(k, 0) for r in sites.values()) != v
+            for k, v in totals["coll"].items()):
+        raise AssertionError("phase 24(d): the sites do not add up to the "
+                             "trace's totals")
+    moe = dryrun.sites_in(sites, (layers.moe_ffn, layers._route,
+                                  layers._gather_combine, layers._combine,
+                                  layers._experts))
+    # rank 0's groups' bucket (d wide) or hidden (d_ff wide) gradient
+    own = {G // data * E * cap * w for w in (d, m.d_ff)}
+    for site, row in moe.items():
+        for kind, rows in row["shapes"].items():
+            for operands in rows:
+                for _, shape_ in operands[1:] if kind == "flops" \
+                        else operands:
+                    if G * n in shape_ or (
+                            kind == "reduce-scatter" and len(shape_) > 2
+                            and math.prod(shape_) not in own) or (
+                            kind != "reduce-scatter" and shape_[0] == G):
+                        raise AssertionError(f"phase 24(d): {kind} of "
+                                             f"{shape_} at {site}")
+    key = dryrun.line_of(layers._route, 'torch.einsum("gnd,de->gne"')
+    one = 2 * G * n * d * E
+    router = {"forward": sites[key], "backward": sites[f"{key} (backward)"]}
+    for part, row in router.items():
+        if row["flops"] * data != 2 * one:
+            raise AssertionError(f"phase 24(d): the router's {part} counts "
+                                 f"{row['flops']:.6e} flops on rank 0, not "
+                                 f"2 x {one:.6e} / {data}")
+        for product in row["shapes"]["flops"]:
+            if {k for _, sh in product[1:] for k in sh} != {
+                    1, G // data * n, d, E}:
+                raise AssertionError(f"phase 24(d): the router's {part} "
+                                     f"product {product} is not rank 0's "
+                                     f"{G // data * n} tokens")
+    return {"counts": totals, "router_flops": {
+        k: r["flops"] for k, r in router.items()}, "router_one_device": one,
+        "sites": {k: {"flops": r["flops"], "collectives": r["collectives"],
+                      "shapes": r["shapes"]} for k, r in moe.items()}}
 
 
 def dryrun_rows(sites: dict) -> dict:
@@ -5863,6 +6087,19 @@ def print_dryrun(a: dict, b: dict, c: dict, card: str) -> None:
           f"batch at the head, the cross entropy, the FFN or attention "
           f"({c['kv_gradient_reduce_scatters']} K/V gradient "
           f"reduce-scatters of rank 0's rows)")
+    moe = c["moe"]
+    k = moe["counts"]
+    arch, shape, mesh = DRYRUN_MOE_CELL
+    print(f"[phase 24] (d) {arch} {shape} on {mesh} at {DRYRUN_MOE_DEPTH} "
+          f"layers (the dense prelude and one MoE layer) and "
+          f"{DRYRUN_MOE_SEQ} tokens, fake CUDA: flops {k['flops']:.6e}, "
+          f"collectives {json.dumps(k['coll'])}, peak {k['peak']}; rank 0's "
+          f"router product {json.dumps(moe['router_flops'])} flops (x 16 = "
+          f"2 x one device's {moe['router_one_device']:.6e}: forward and "
+          f"its recompute, the two gradients); no MoE operand of the global "
+          f"batch")
+    for site, row in moe["sites"].items():
+        print(f"[phase 24] (d) {site}: {json.dumps(row)}")
     print(f"[phase 24] {json.dumps({'a': a['cell'], 'b': b, 'c': c})}")
 
 

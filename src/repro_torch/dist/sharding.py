@@ -31,7 +31,8 @@ JAX ``PartitionSpec``; with the mesh's `DeviceMesh` it is a
      `head_local(fn, args, ...)` runs attention's score products and the
      RWKV recurrence with each model rank on its own heads (JAX's
      placement: XLA keeps the heads where the projections shard them),
-     `fn` itself outside the rules.
+     `fn` itself outside the rules; `group_local` runs the MoE routing
+     and combine with each data rank on its own batch rows.
 
 The logical axes: ``batch``, ``lane`` and ``bank`` (serving lanes, frame
 banks) partition over data; ``vocab``, ``experts``, ``ffn``, ``heads``,
@@ -559,6 +560,18 @@ def contracted_as(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.redistribute(w.device_mesh, placements)
 
 
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums reduced: a DTensor partial over some
+    mesh axes is all-reduced there (replicated), its shards kept; any
+    other tensor as it is."""
+    from torch.distributed.tensor import Partial
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in x.placements])
+
+
 def splits_last(x: torch.Tensor) -> bool:
     """Whether ``x`` is a DTensor whose last axis a mesh axis of more than
     one rank splits."""
@@ -719,6 +732,70 @@ def head_local(fn, args: tuple, axes: tuple, out_axes: tuple):
     # one placement list per output
     out_pl = out_pl if layouts is out_axes else list(out_pl[0])
     return local_map(local, out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=dm,
+                     redistribute_inputs=True)(*ins)
+
+
+def splits_batch(*sizes: int) -> bool:
+    """Whether, under active rules, the data extent divides each of
+    ``sizes`` (a batch and its routing groups): every data rank can then
+    hold whole groups of its own (`group_local`). False without rules;
+    a size it does not divide is logged at debug level (a decode tick's
+    single group, every tick)."""
+    mesh = _RULES.mesh
+    if mesh is None:
+        return False
+    data = mesh_extents(mesh).get(_LOGICAL_TO_MESH["batch"], 1)
+    if any(s % data for s in sizes):
+        logger.debug("sharding.splits_batch: sizes %s do not divide the "
+                     "data extent %d", sizes, data)
+        return False
+    return True
+
+
+def group_local(fn, args: tuple, axes: tuple, out_axes: tuple):
+    """``fn(*args)`` with each data rank on its own batch rows and every
+    model rank of a data row on all of that row's, as JAX's MoE routing
+    runs (its groups are batch rows, and XLA keeps them on data).
+
+    ``args``: tensors; ``axes``: one layout per argument, naming its batch
+    dimension ``"batch"`` and every other None; an argument whose layout
+    names no batch (the router) is gathered whole. The first argument
+    carries the batch. ``out_axes``: one layout per output of ``fn``, or
+    ``"sum"`` for an output that is each rank's share of a sum over the
+    batch (`Partial` over data, its sum the whole value).
+
+    Outside the rules, or with no DTensor argument, this is ``fn(*args)``.
+    Under them every argument is placed with its batch over data where
+    `_fit` says the extents divide and whole over model (a sequence-
+    sharded input is gathered over model; a plain tensor acts as
+    replicated), ``fn`` runs on the local tensors, and its outputs come
+    back as DTensors with the batch so placed. Differentiable: an input
+    without a batch takes a gradient that is partial over data."""
+    mesh = _RULES.mesh
+    if mesh is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    dm = device_mesh_of(mesh)
+    data = _LOGICAL_TO_MESH["batch"]
+    ins = [a if isinstance(a, DTensor) else DTensor.from_local(
+        a, dm, [Replicate()] * dm.ndim, run_check=False) for a in args]
+    in_pl = [_fit(tuple(data if n == "batch" else None for n in ax),
+                  tuple(a.shape), mesh) for a, ax in zip(args, axes)]
+    work = in_pl[0]
+    grad_pl = [tuple(p if isinstance(p, Shard) else
+                     Partial() if isinstance(w, Shard) else Replicate()
+                     for p, w in zip(pl, work)) for pl in in_pl]
+    out_pl = [[(Partial() if layout == "sum" else
+                Shard(layout.index("batch"))) if isinstance(w, Shard)
+               else Replicate() for w in work] for layout in out_axes]
+
+    def local(*xs):
+        # a product's gradient comes back permuted (`contiguous_grad`)
+        return fn(*(_ContiguousGrad.apply(x) if x.requires_grad else x
+                    for x in xs))
+    return local_map(local, tuple(out_pl), in_placements=tuple(in_pl),
                      in_grad_placements=tuple(grad_pl), device_mesh=dm,
                      redistribute_inputs=True)(*ins)
 

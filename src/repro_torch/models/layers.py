@@ -21,12 +21,18 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.dist.sharding import (constrain, contiguous_grad,
-                                      contracted_as, head_local, put_rows,
-                                      replicated_call, split_heads)
+                                      contracted_as, group_local, head_local,
+                                      put_rows, reduced, replicated_call,
+                                      split_heads, splits_batch)
 
 #: `head_local` layouts: (B, T, H, D) queries, (B, S, KV, D) keys/values
 _QH = ("batch", None, "heads", None)
 _KVH = ("batch", None, "kv_heads", None)
+#: `group_local` layouts: (B, T, d) rows, (G, n * k) routing tensors,
+#: (G, E, cap, d) buckets
+_ROWS = ("batch", None, None)
+_GROUPS = ("batch", None)
+_BUCKETS = ("batch", None, None, None)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -459,9 +465,17 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
     (x.shape, cfg, capacity_factor): no host sync, so a decode tick can be
     a CUDA graph. ``constraints`` pins the bucket tensors ``be`` and ``h``
     to (batch groups, experts) under `dist.sharding.activation_rules`
-    (expert parallelism; the identity otherwise); on a DTensor ``x`` the
-    dispatch (`_route`) and the combine run replicated
-    (`dist.sharding.replicated_call`) and the expert products sharded.
+    (expert parallelism; the identity otherwise). On a DTensor ``x`` under
+    the rules, where the data extent divides the batch and the groups
+    (`dist.sharding.splits_batch`), the dispatch (`_route`) and the
+    combine run group-local (`dist.sharding.group_local`): each data rank
+    routes its own groups (every model rank of the row the same) and
+    combines them from the expert outputs gathered over model, in the
+    one-device order of adds, and the aux is each rank's share of the
+    mean (a partial sum over data). Otherwise (a decode tick's single
+    group, or outside the rules) a DTensor's dispatch and combine run
+    replicated (`dist.sharding.replicated_call`). The expert products are
+    DTensor's either way.
     ``gather_dispatch`` is taken for the JAX signature and gives the same
     result: the JAX package's gather form only works round an XLA lowering
     of wide scatters under a mesh, which PyTorch does not have, so the
@@ -472,26 +486,48 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, capacity_factor: float = 1.25,
     G = groups if groups else (B if T > 1 else 1)
     n = B * T // G
     cap = max(int(np.ceil(n * k / E * capacity_factor)), 4)
-    route, combine = _route, _gather_combine
-    if isinstance(x, DTensor):
-        # the sort-based dispatch and the ordered combine have no DTensor
-        # sharding rules: run them on the global values, replicated
-        route, combine = (partial(replicated_call, _route),
-                          partial(replicated_call, _gather_combine))
-    buckets, dest, keep, gate_sorted, order, lb_loss = route(
-        x.reshape(G, n, d), p["router"], k, cap)
-    be = buckets.reshape(G, E, cap, d)
+    grouped = isinstance(x, DTensor) and splits_batch(B, G)
+    if grouped:
+        # each data rank on its own groups (batch rows), its aux a share;
+        # a sequence-sharded input is gathered once, for the shared
+        # experts too (torch 2.11's DTensor cannot flatten it into rows)
+        x = constrain(x, _ROWS)
+        be, dest, keep, gate_sorted, order, lb_loss = group_local(
+            partial(_route_rows, n=n, k=k, cap=cap, groups=G),
+            (x, p["router"]), (_ROWS, (None, None)),
+            (_BUCKETS,) + (_GROUPS,) * 4 + ("sum",))
+    else:
+        route, combine = _route, _gather_combine
+        if isinstance(x, DTensor):
+            # the sort-based dispatch and the ordered combine have no
+            # DTensor sharding rules: run them on the global values
+            route, combine = (partial(replicated_call, _route),
+                              partial(replicated_call, _gather_combine))
+        buckets, dest, keep, gate_sorted, order, lb_loss = route(
+            x.reshape(G, n, d), p["router"], k, cap)
+        be = buckets.reshape(G, E, cap, d)
     if constraints:
         be = constrain(be, ("batch", "experts", None, None))
     ex = p["experts"]
     h = (F.silu(_experts(be, ex["gate"])) * _experts(be, ex["up"]))
     if constraints:
         h = constrain(h, ("batch", "experts", None, None))
-    ye = _experts(h, ex["down"]).reshape(G, E * cap, d)
-    out = combine(ye, dest, keep, gate_sorted, order, k, x.dtype
-                  ).reshape(B, T, d)
+    ye = _experts(h, ex["down"])
+    if grouped:
+        out = group_local(partial(_combine_rows, k=k, T=T, dtype=x.dtype),
+                          (ye, dest, keep, gate_sorted, order),
+                          (_BUCKETS,) + (_GROUPS,) * 4, (_ROWS,))
+    else:
+        out = combine(ye.reshape(G, E * cap, d), dest, keep, gate_sorted,
+                      order, k, x.dtype).reshape(B, T, d)
     if "shared" in p:
-        out = out + ffn(x, p["shared"], "swiglu")
+        shared = ffn(x, p["shared"], "swiglu")
+        if grouped:
+            # the sum on the routed rows' placement: left to DTensor, torch
+            # 2.11 scatters it over the sequence, and the shared experts'
+            # backward cannot flatten that gradient into rows
+            shared = constrain(shared, _ROWS)
+        out = out + shared
     return out, lb_loss.float()
 
 
@@ -501,13 +537,18 @@ def _experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     layout that the einsum takes inside is made explicitly, with a copy:
     the einsum's backward views a permuted gradient whose local shard is
     laid out otherwise than DTensor's global strides say, and fails; the
-    gradient of ``x`` comes back laid out (`contiguous_grad`)."""
+    gradient of ``x`` comes back laid out (`contiguous_grad`). A product
+    over an input axis that a mesh axis splits (the down projection's
+    d_ff, over model) is reduced where it is made (`reduced`): left in
+    partial sums, the reshape scatters it onto the groups, and the
+    backward then makes the weight's gradient in partial sums over every
+    mesh axis, the whole (E, d_ff, d) on every rank."""
     if not isinstance(x, DTensor):
         return torch.einsum("gecd,edf->gecf", x, w)
     G, E, C, a = x.shape
     xe = contiguous_grad(x).permute(1, 0, 2, 3).contiguous().reshape(
         E, G * C, a)
-    y = torch.bmm(xe, w)
+    y = reduced(torch.bmm(xe, w))
     return y.reshape(E, G, C, -1).permute(1, 0, 2, 3).contiguous()
 
 
@@ -551,6 +592,30 @@ def _route(xg: torch.Tensor, router: torch.Tensor, k: int, cap: int):
                           device=xg.device).scatter_(
         1, dest[..., None].expand(-1, -1, d), gathered)[:, :-1]
     return buckets, dest, keep, gate_sorted, order, lb_loss
+
+
+def _route_rows(x: torch.Tensor, router: torch.Tensor, n: int, k: int,
+                cap: int, groups: int):
+    """`_route` of the rows ``x`` (b, T, d), a data rank's share of the
+    batch, as their groups of ``n`` tokens, for `group_local`: the buckets
+    as (g, E, cap, d) and the load-balance aux as this rank's share of the
+    mean over all ``groups`` groups (its g / ``groups`` of its own mean)."""
+    d, E = x.shape[-1], router.shape[1]
+    buckets, dest, keep, gate_sorted, order, lb_loss = _route(
+        x.reshape(-1, n, d), router, k, cap)
+    g = buckets.shape[0]
+    return (buckets.reshape(g, E, cap, d), dest, keep, gate_sorted, order,
+            lb_loss * (g / groups))
+
+
+def _combine_rows(ye: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+                  gate_sorted: torch.Tensor, order: torch.Tensor, k: int,
+                  T: int, dtype: torch.dtype) -> torch.Tensor:
+    """`_gather_combine` of a data rank's groups from their expert outputs
+    ``ye`` (g, E, cap, d), for `group_local`: the rank's rows (b, T, d)."""
+    g, E, cap, d = ye.shape
+    return _gather_combine(ye.reshape(g, E * cap, d), dest, keep,
+                           gate_sorted, order, k, dtype).reshape(-1, T, d)
 
 
 def _gather_combine(ye: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,

@@ -95,24 +95,27 @@ print(json.dumps({"one": one, "rank0": calls}))
 """
 
 
-#: the repaired sites of fault 3.3 at full width, one layer and 64
+#: the repaired sites of faults 3.3 and 3.5 at full width and 64
 #: tokens, on the fake (16, 16) group with ``--attribute``'s sites: the
-#: llama3.2-1b train step (vocab chunking 4) on rank 0 and on one device,
-#: and an rwkv6-7b prefill on rank 0
+#: llama3.2-1b train step (one layer, vocab chunking 4) on rank 0 and on
+#: one device, an rwkv6-7b prefill (one layer) on rank 0, and the
+#: deepseek-v2-lite-16b train step at 2 layers (the dense prelude and one
+#: MoE layer) on rank 0
 FAKE_SITES = r"""
 import dataclasses, json
 from repro_torch.launch import dryrun as d
 
-def cut(arch, shape):
+def cut(arch, shape, n_layers=1):
     run = d.make_run(arch, shape)
     return dataclasses.replace(
-        run, model=dataclasses.replace(run.model, n_layers=1),
+        run, model=dataclasses.replace(run.model, n_layers=n_layers),
         shape=dataclasses.replace(run.shape, seq_len=64))
 
 train, prefill = cut("llama3.2-1b", "train_4k"), cut("rwkv6-7b", "prefill_32k")
+moe = cut("deepseek-v2-lite-16b", "train_4k", 2)
 assert train.parallel.vocab_chunking == 4
 out = {"one": d.trace_cell(train, None, attribute=True)["sites"]}
-for name, run in (("rank0", train), ("rwkv", prefill)):
+for name, run in (("rank0", train), ("rwkv", prefill), ("moe", moe)):
     kind = d.trace_device(run.shape.kind).type
     r = d.trace_cell(run, d.mesh_for("single", kind), attribute=True)
     out[name] = r.pop("sites")
@@ -168,7 +171,7 @@ def fake_sites():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("cell", ["rank0", "rwkv"])
+@pytest.mark.parametrize("cell", ["rank0", "rwkv", "moe"])
 def test_attribution_adds_up_to_the_counts(fake_sites, cell):
     """``--attribute``'s sites share out the cell's counts: their flops
     and their operand bytes of each collective kind add up to the totals
@@ -251,6 +254,67 @@ def test_rwkv_prefill_mixes_reduce_nothing(fake_sites):
           for s, row in sites.items()}
     assert sum(rs.pop(s) for s in list(rs) if out in s) <= 2 * 64 * 4096 * 2
     assert not any(rs.values()), rs
+
+
+#: the deepseek-v2-lite-16b cut of FAKE_SITES: 256 sequences (routing
+#: groups) of 64 tokens, 16 a data rank, d 2,048, 64 routed experts at
+#: top-6 of d_ff 1,408, capacity 8
+MOE_G, MOE_N, MOE_D, MOE_E, MOE_F, MOE_CAP = 256, 64, 2048, 64, 1408, 8
+
+
+def _moe_sites(fake_sites) -> dict:
+    from repro_torch.models import layers
+    return dryrun.sites_in(fake_sites["moe"], (
+        layers.moe_ffn, layers._route, layers._gather_combine,
+        layers._combine, layers._experts))
+
+
+def test_rank0_routes_only_its_own_groups(fake_sites):
+    """Fault 3.5: on rank 0 of the (16, 16) group no MoE operand, forward
+    or backward, holds the global batch: none has the 256 groups on its
+    leading axis or the 16,384 tokens of all of them on any axis. What is
+    reduce-scattered is the buckets' (d wide) or the experts' hidden
+    (d_ff wide) gradient of rank 0's 16 groups alone, a tensor-parallel
+    partial sum over model; DTensor folds a reduce-scatter's scatter axis
+    onto the leading one, so the (16, 64, 8, 1,408) hidden gradient reads
+    (256, 64, 8, 88): its elements are counted. The fault was the routing
+    and combine of all 256 groups on every rank (`replicated_call`)."""
+    import math
+
+    from repro_torch.models import layers
+    sites = _moe_sites(fake_sites)
+    assert any("(backward)" in s for s in sites)
+    assert dryrun.sites_in(sites, (layers._route,))
+    own = {MOE_G // 16 * MOE_E * MOE_CAP * w for w in (MOE_D, MOE_F)}
+    for site, row in sites.items():
+        for kind, rows in row["shapes"].items():
+            for operands in rows:
+                if kind == "flops":                 # [op name, operands]
+                    operands = operands[1:]
+                for shape in (s for _, s in operands):
+                    assert MOE_G * MOE_N not in shape, (site, kind, shape)
+                    if kind == "reduce-scatter" and len(shape) > 2:
+                        assert math.prod(shape) in own, (site, shape)
+                    else:
+                        assert shape[0] != MOE_G, (site, kind, shape)
+
+
+def test_rank0_router_flops_are_its_share(fake_sites):
+    """The router product on rank 0 is one device's divided by the data
+    extent of 16 that splits the 256 groups, exactly: 2 · 256 · 64 · 2,048
+    · 64 flops a pass on one device, counted twice forward (the block is
+    recomputed in the backward pass) and twice backward (the input's and
+    the router's gradients); each of rank 0's products spans its own
+    1,024 tokens (16 groups of 64), the whole width and every expert."""
+    from repro_torch.models import layers
+    key = dryrun.line_of(layers._route, 'torch.einsum("gnd,de->gne"')
+    one = 2 * MOE_G * MOE_N * MOE_D * MOE_E
+    fwd, bwd = fake_sites["moe"][key], fake_sites["moe"][f"{key} (backward)"]
+    assert fwd["flops"] * 16 == 2 * one
+    assert bwd["flops"] * 16 == 2 * one
+    for product in fwd["shapes"]["flops"] + bwd["shapes"]["flops"]:
+        dims = {n for _, shape in product[1:] for n in shape}
+        assert dims == {1, MOE_G // 16 * MOE_N, MOE_D, MOE_E}, product
 
 
 def test_rank0_score_flops_split_by_batch_and_heads(fake_heads):

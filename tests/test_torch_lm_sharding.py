@@ -420,6 +420,7 @@ class _Setup:
         self.moe_p = layers.init_moe(gen, self.moe_cfg, torch.float32)
         self.moe_x = torch.from_numpy(rng.standard_normal(
             (4, 8, self.moe_cfg.d_model)).astype(np.float32))
+        self.moe_x1 = self.moe_x[:, :1].clone()       # one decode tick
         self.mamba_cfg = reduced_config(get_config("jamba-v0.1-52b"))
         self.mamba_p = mamba.init_mamba_block(gen, self.mamba_cfg,
                                               torch.float32)
@@ -453,7 +454,8 @@ class _Setup:
         return {"params": self.jparams_np, "cfg": self.cfg, "shape": SHAPE,
                 "parallel": PARALLEL, "block_parallel": BLOCK_PARALLEL,
                 "moe_cfg": self.moe_cfg, "moe_p": self.moe_p,
-                "moe_x": self.moe_x, "mamba_cfg": self.mamba_cfg,
+                "moe_x": self.moe_x, "moe_x1": self.moe_x1,
+                "mamba_cfg": self.mamba_cfg,
                 "mamba_p": self.mamba_p, "mamba_x": self.mamba_x,
                 "experts_x": self.experts_x, "experts_w": self.experts_w,
                 "serve": self.serve, "serve_parallel": SERVE_PARALLEL,
@@ -658,17 +660,80 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def test_moe_constraints_equal_the_plain_call(world, setup):
-    """`moe_ffn(constraints=True)` on DTensors under `activation_rules`
-    (the dispatch replicated, the buckets pinned to (batch, experts)) ==
-    the plain call within float32 rounding: output and load-balance
-    loss."""
-    want, want_lb = layers.moe_ffn(setup.moe_x, setup.moe_p, setup.moe_cfg)
+def _moe_plain(setup, x):
+    """The plain `moe_ffn` of ``x`` with the gradients of the world's
+    scalar loss, (out ** 2).mean() + aux, for the input and every
+    parameter (the router, the experts, the shared experts)."""
+    leaves = [x.clone().requires_grad_(True)] + [
+        t.detach().clone().requires_grad_(True)
+        for t in tree_leaves(setup.moe_p)]
+    from repro_torch.tree import tree_unflatten_like
+    out, lb = layers.moe_ffn(
+        leaves[0], tree_unflatten_like(setup.moe_p, leaves[1:]),
+        setup.moe_cfg)
+    grads = torch.autograd.grad((out.float() ** 2).mean() + lb, leaves)
+    return out.detach(), lb.detach(), grads
+
+
+@pytest.fixture(scope="module")
+def moe_plain(setup):
+    return {name: _moe_plain(setup, getattr(setup, name))
+            for name in ("moe_x", "moe_x1")}
+
+
+def _moe_equal(world, moe_plain, name):
+    want, want_lb, grads = moe_plain[name]
     for r in world.ranks:
-        m = r["moe"]
+        m = r["moe"][name]
         assert _rel(m["out"], want.numpy()) <= BLOCK_RTOL
         assert float(m["lb"]) == pytest.approx(float(want_lb),
                                                rel=BLOCK_RTOL)
+        assert len(m["grads"]) == len(grads)
+        for got, g in zip(m["grads"], grads):
+            assert _rel(got, g.numpy()) <= BLOCK_RTOL
+
+
+def test_moe_constraints_equal_the_plain_call(world, moe_plain):
+    """`moe_ffn(constraints=True)` on DTensors under `activation_rules`
+    (4 rows on (2, 2): each data rank routes and combines its own groups,
+    `group_local`; the buckets pinned to (batch, experts)) == the plain
+    call within float32 rounding: output, load-balance loss, and the
+    gradients of a scalar loss of both for the input, the router, the
+    experts and the shared experts."""
+    _moe_equal(world, moe_plain, "moe_x")
+
+
+def test_moe_decode_tick_equals_the_plain_call(world, moe_plain):
+    """One decode tick (T = 1, so a single routing group, which the data
+    extent does not divide) keeps the replicated dispatch and combine
+    (`replicated_call`) and == the plain call within float32 rounding,
+    with the same gradients; its output and aux are replicated."""
+    _moe_equal(world, moe_plain, "moe_x1")
+    for r in world.ranks:
+        m = r["moe"]["moe_x1"]
+        assert m["routes"] == {"group_local": 0, "replicated_call": 2}
+        assert m["lb_placements"] == "(Replicate(), Replicate())"
+
+
+def test_moe_aux_is_a_partial_sum_over_data(world, moe_plain):
+    """With 4 rows on (2, 2) the dispatch and the combine run group-local
+    (one `group_local` call each, no `replicated_call`) and the aux is a
+    partial sum over data: each data rank holds its share of the mean,
+    the same on both model ranks of its row, and the shares sum to the
+    plain value."""
+    want_lb = float(moe_plain["moe_x"][1])
+    shares: dict = {}
+    for r in world.ranks:
+        m = r["moe"]["moe_x"]
+        assert m["routes"] == {"group_local": 2, "replicated_call": 0}
+        assert m["lb_placements"] == "(Partial(sum), Replicate())"
+        shares.setdefault(r["moe"]["coords"]["data"], set()).add(
+            float(m["lb_local"]))
+    assert sorted(shares) == [0, 1]
+    assert all(len(v) == 1 for v in shares.values()), shares
+    parts = [v.pop() for v in shares.values()]
+    assert all(0 < part < want_lb for part in parts), parts
+    assert sum(parts) == pytest.approx(want_lb, rel=BLOCK_RTOL)
 
 
 def test_experts_equal_the_plain_einsum_with_gradients(world, setup):

@@ -21,7 +21,10 @@ Cases, in the order every rank runs them:
             gathered, and the placements of parameters and moments;
   ckpt      the step-2 parameters saved from (2, 2) (rank 0 writes),
             restored onto (4, 1) with ``shardings=``;
-  moe       `moe_ffn(constraints=True)` on DTensors on (2, 2);
+  moe       `moe_ffn(constraints=True)` on DTensors on (2, 2), with the
+            gradients of a scalar loss and its aux: a batch of 4 rows
+            (each data rank routes its own groups) and one decode tick
+            (a single group, routed replicated);
   experts   `layers._experts` on DTensors on (2, 2) (experts over model)
             and the gradients of a scalar loss;
   serve     for each serving model (GQA attention, MLA with its prelude
@@ -160,21 +163,61 @@ def case_ckpt(spec, state, m22, m41, ckpt_dir):
 
 
 def case_moe(spec, mesh):
-    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.dist import sharding
     from repro_torch.models import layers
-    cfg, p, x = spec["moe_cfg"], spec["moe_p"], spec["moe_x"]
+    from repro_torch.tree import tree_unflatten_like
+    cfg, p = spec["moe_cfg"], spec["moe_p"]
     parallel = spec["block_parallel"]
     dp = sharding.place_tree(p, mesh, sharding.param_specs(p, mesh,
                                                            parallel))
-    dx = sharding.place_tree(x, mesh, sharding.logical_spec(
-        mesh, ("batch", "seq", None), tuple(x.shape)))
-    with sharding.activation_rules(mesh, parallel), implicit_replication():
-        out, lb = layers.moe_ffn(dx, dp, cfg, constraints=True)
-    return {"out": _np(out.full_tensor()), "placements": str(out.placements),
-            "lb": _np(lb.full_tensor() if isinstance(lb, DTensor) else lb)}
+    out = {}
+    for name in ("moe_x", "moe_x1"):
+        t0 = time.perf_counter()
+        x = spec[name]
+        dx = sharding.place_tree(x, mesh, sharding.logical_spec(
+            mesh, ("batch", "seq", None), tuple(x.shape)))
+        leaves = [dx.detach().requires_grad_(True)] + [
+            t.detach().requires_grad_(True) for t in _leaves(dp)]
+        with sharding.activation_rules(mesh, parallel), \
+                implicit_replication(), counted_routes() as routes:
+            y, lb = layers.moe_ffn(
+                leaves[0], tree_unflatten_like(dp, leaves[1:]), cfg,
+                constraints=True)
+            grads = torch.autograd.grad((y.float() ** 2).mean() + lb,
+                                        leaves)
+        out[name] = {"out": _np(y.full_tensor()),
+                     "lb": _np(lb.full_tensor()),
+                     "lb_local": _np(lb.to_local()),
+                     "lb_placements": str(lb.placements),
+                     "routes": routes,
+                     "grads": [_np(g.full_tensor()) for g in grads],
+                     "s": time.perf_counter() - t0}
+    out["coords"] = mesh.coords
+    return out
+
+
+@contextlib.contextmanager
+def counted_routes():
+    """Count the calls `layers.moe_ffn` makes of `sharding.group_local`
+    and `sharding.replicated_call` while the context is open."""
+    from repro_torch.models import layers
+    counts = {"group_local": 0, "replicated_call": 0}
+    saved = {name: getattr(layers, name) for name in counts}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+    try:
+        for name in counts:
+            setattr(layers, name, counting(name))
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
 
 
 def case_experts(spec, mesh):
